@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card: build, check, drive.
 
-    python3 chip_smoke.py [--batches 1 8] [--out details.json]
+    python3 chip_smoke.py [--batches 1 8] [--train-batch 4]
+                          [--train-steps 3] [--out details.json]
+                          [--profile table.txt]
 
 Phases (any failure exits non-zero and prints no result line):
   1. device — the card's name and power limit, torch/CUDA versions, and the
@@ -21,7 +23,23 @@ Phases (any failure exits non-zero and prints no result line):
      memory;
   4. reference — a narrow model on a cropped scene, on the card and on the
      CPU (plain versions, f32): same actives, outputs within bf16 error;
-  5. a `kernels` JSON line, then the result line
+  5. training path — the same yaml at full width in training mode, batch 4
+     (BATCH_SIZE_PER_GPU) of training scenes with their 40 boxes, adam at
+     lr 1e-4 with clip 10 (bench.py's optimizer): one warm-up step whose K2
+     (forward and backward), K3 (windowed conv, forward and transposed) and
+     K4 (weight gradient) launches are recorded, then timed steps at
+     accum_steps=1 and one at accum_steps=2: finite loss and gradient norm,
+     sparse_window_overflow == 0, matched ground truths > 0, parameters
+     changed, and per step 3 K1, 13 + 12 K2, 3 + 3 K3 and 16 K4 launches;
+     ms/step, scans/s, the host time of the Hungarian matching, peak
+     memory;
+  6. training kernels — every recorded K2, K3 and K4 call is re-run through
+     the kernel and through its plain PyTorch version (sample by sample) on
+     the card, within the stated tolerance; times as in phase 2;
+  7. pallas-mode forward — a batch-1 eval forward with SUBM_IMPL: pallas
+     (every sparse conv through K3 with the fused epilogue) against the
+     posgather forward on the same weights, within bf16 error;
+  8. a `kernels` JSON line, then the result line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Imports nothing of jax. Without CUDA, or without the port beside it, it
@@ -49,9 +67,27 @@ CFG_FILE = "tools/cfgs/nuscenes_models/transfusion_lidar.yaml"
 # rounding; only the f32 summation order differs, so the error stays far
 # below one bf16 step (2^-8 relative): allow 1e-3 of the output's scale.
 K2_RTOL = 1e-3
+# K3 is held the same way (bf16 operands equal on both sides, f32 sums of
+# 27*Cin products in another order). K4 sums up to 4 x 131072 targets per
+# output in f32, in chunks of 1024 and then over the chunks, where the plain
+# version sums sample by sample: allow 2e-3 of the output's scale.
+K3_RTOL = 1e-3
+K4_RTOL = 2e-3
+TRAIN_OPT = {"OPTIMIZER": "adam", "LR": 1e-4, "WEIGHT_DECAY": 0.0,
+             "GRAD_NORM_CLIP": 10.0}
+TRAIN_LAUNCHES = {"positions": 3, "posgather_conv": 25, "windowed_conv": 6,
+                  "windowed_dw": 16}
+SOURCES = {
+    "positions": "findnpropagate_torch/ops/csrc/posgather.cu",
+    "posgather_conv": "findnpropagate_torch/ops/csrc/posgather.cu",
+    "windowed_conv": "findnpropagate_torch/ops/csrc/windowed_sparse.cu",
+    "windowed_dw": "findnpropagate_torch/ops/csrc/windowed_sparse.cu",
+}
 REPLACES = {
     "positions": "findnpropagate_tpu/ops/pallas_posgather.py:75",
     "posgather_conv": "findnpropagate_tpu/ops/pallas_posgather.py:194",
+    "windowed_conv": "findnpropagate_tpu/ops/pallas_sparse.py:39",
+    "windowed_dw": "findnpropagate_tpu/ops/pallas_sparse.py:285",
 }
 
 
@@ -91,8 +127,11 @@ def data_cfg(num_scenes, cfg, pcr=None, voxel=None, max_voxels=None,
             "encoding_type": "absolute_coordinates_encoding",
             "used_feature_list": ["x", "y", "z", "intensity"],
             "src_feature_list": ["x", "y", "z", "intensity"]},
-        "DATA_PROCESSOR": [{"NAME": "transform_points_to_voxels",
-                            "VOXEL_SIZE": voxel or [0.075, 0.075, 0.2]}],
+        "DATA_PROCESSOR": [
+            {"NAME": "mask_points_and_boxes_outside_range",
+             "REMOVE_OUTSIDE_BOXES": True},
+            {"NAME": "transform_points_to_voxels",
+             "VOXEL_SIZE": voxel or [0.075, 0.075, 0.2]}],
     }
 
 
@@ -299,15 +338,325 @@ def reference_phase(torch, cfg_mod, synth, models_mod, weights):
     return errs
 
 
+# ------------------------------------------------------------- training path
+
+
+def per_sample(fn, args, kw, batched, reduce):
+    """Run a plain version one sample at a time (its gather buffers are
+    (K, Vt, Cin) floats per sample) and join the results."""
+    b = args[batched[0]].shape[0]
+    outs = []
+    for i in range(b):
+        a = [x[i:i + 1] if j in batched else x for j, x in enumerate(args)]
+        outs.append(fn(*a, **kw))
+    return reduce(outs)
+
+
+def windowed_hits(torch, ws, src, tgt, lo, deltas, block, window):
+    return sum(int(ws.neighbour_rows(src[i:i + 1], tgt[i:i + 1],
+                                     lo[i:i + 1], deltas, block,
+                                     window)[1].sum())
+               for i in range(src.shape[0]))
+
+
+def check_train_kernels(torch, tp, ws, k2_calls, k3_calls, k4_calls):
+    """Every K2 / K3 / K4 launch of one training step against its plain
+    version at the recorded arguments; returns per-call rows."""
+    rows = []
+    cat = lambda outs: torch.cat(outs, dim=0)          # noqa: E731
+    for i, (args, kw) in enumerate(k2_calls):
+        out = tp.gather_conv(*args, **kw)
+        plain = lambda: per_sample(                     # noqa: E731
+            tp.posgather_conv_plain, args, kw, (0, 1, 2, 3, 4, 5), cat)
+        ref = plain()
+        err = float((out - ref).abs().max())
+        tol = K2_RTOL * max(float(ref.abs().max()), 1e-3)
+        if not (err <= tol and bool(torch.isfinite(out).all())):
+            raise AssertionError(f"train K2 call {i}: err {err} > {tol}")
+        t_b, t_o, hits = conv_bound(tp, args, kw)
+        bound_ms, bound_by = bound_entry(t_b, t_o)
+        rows.append({
+            "name": "posgather_conv", "call": i,
+            "direction": "forward" if i < 13 else "backward",
+            "vt": args[2].shape[1], "vs": args[0].shape[1],
+            "cin": args[1].shape[2], "cout": args[7].shape[1],
+            "hits": hits, "max_abs_err": err, "tolerance": tol,
+            "ms": cuda_ms(torch, lambda: tp.gather_conv(*args, **kw), 5),
+            "plain_ms": cuda_ms(torch, plain, 1),
+            "bound_ms": bound_ms, "bound_by": bound_by})
+        del out, ref
+    for i, (args, kw) in enumerate(k3_calls):
+        src, feats, tgt, lo, deltas, w_flat, block, window = args
+        out = ws.conv_kernel(*args, **kw)
+        plain = lambda: per_sample(                     # noqa: E731
+            ws.windowed_conv_plain, args, kw, (0, 1, 2, 3), cat)
+        ref = plain()
+        err = float((out - ref).abs().max())
+        tol = K3_RTOL * max(float(ref.abs().max()), 1e-3)
+        if not (err <= tol and bool(torch.isfinite(out).all())):
+            raise AssertionError(f"K3 call {i}: err {err} > {tol}")
+        hits = windowed_hits(torch, ws, src, tgt, lo, deltas, block, window)
+        cin, cout = feats.shape[2], w_flat.shape[1]
+        nbytes = (4 * (src.numel() + tgt.numel() + lo.numel()
+                       + deltas.numel() + feats.numel())
+                  + 2 * w_flat.numel() + 4 * tgt.numel() * cout)
+        bound_ms, bound_by = bound_entry(nbytes / HBM_BYTES_PER_S,
+                                         2 * cin * cout * hits / BF16_FLOPS)
+        rows.append({
+            "name": "windowed_conv", "call": i,
+            "direction": "forward" if i < 3 else "transposed",
+            "vt": tgt.shape[1], "vs": src.shape[1], "cin": cin,
+            "cout": cout, "window": window, "hits": hits,
+            "max_abs_err": err, "tolerance": tol,
+            "ms": cuda_ms(torch, lambda: ws.conv_kernel(*args, **kw), 5),
+            "plain_ms": cuda_ms(torch, plain, 1),
+            "bound_ms": bound_ms, "bound_by": bound_by})
+        del out, ref
+    for i, (args, kw) in enumerate(k4_calls):
+        src, feats, tgt, g, lo, deltas, block, window = args
+        out = ws.dw_kernel(*args, **kw)
+        plain = lambda: per_sample(                     # noqa: E731
+            ws.windowed_dw_plain, args, kw, (0, 1, 2, 3, 4),
+            lambda outs: torch.stack(outs).sum(dim=0))
+        ref = plain()
+        err = float((out - ref).abs().max())
+        tol = K4_RTOL * max(float(ref.abs().max()), 1e-3)
+        if not (err <= tol and bool(torch.isfinite(out).all())):
+            raise AssertionError(f"K4 call {i}: err {err} > {tol}")
+        if not torch.equal(out, ws.dw_kernel(*args, **kw)):
+            raise AssertionError(f"K4 call {i}: two runs differ")
+        hits = windowed_hits(torch, ws, src, tgt, lo, deltas, block, window)
+        cin, cout = feats.shape[2], g.shape[2]
+        nbytes = 4 * (src.numel() + tgt.numel() + lo.numel()
+                      + deltas.numel() + feats.numel() + g.numel()
+                      + deltas.numel() * cin * cout)
+        bound_ms, bound_by = bound_entry(nbytes / HBM_BYTES_PER_S,
+                                         2 * cin * cout * hits / BF16_FLOPS)
+        rows.append({
+            "name": "windowed_dw", "call": i, "vt": tgt.shape[1],
+            "vs": src.shape[1], "cin": cin, "cout": cout, "window": window,
+            "hits": hits, "max_abs_err": err, "tolerance": tol,
+            "ms": cuda_ms(torch, lambda: ws.dw_kernel(*args, **kw), 5),
+            "plain_ms": cuda_ms(torch, plain, 1),
+            "bound_ms": bound_ms, "bound_by": bound_by})
+        del out, ref
+    return rows
+
+
+class HostTimer:
+    """Adds up the host seconds spent inside module.name."""
+
+    def __init__(self, module, name):
+        self.module, self.name = module, name
+        self.orig = getattr(module, name)
+        self.seconds = 0.0
+
+    def __enter__(self):
+        def timed(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return self.orig(*a, **kw)
+            finally:
+                self.seconds += time.perf_counter() - t0
+        setattr(self.module, self.name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
+def launches_now(tp, ws):
+    return {**tp.LAUNCHES, **ws.LAUNCHES}
+
+
+def run_train_step(torch, step, batch, tp, ws, lap, accum):
+    """One optimizer step with the launch counts set to 0 just before and
+    read just after; checks what a healthy step must show."""
+    tp.reset_launches()
+    ws.reset_launches()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    with HostTimer(lap, "_solve_one") as match:
+        t0.record()
+        metrics = step(batch)
+        t1.record()
+        torch.cuda.synchronize()
+    launches = launches_now(tp, ws)
+    want = {k: v * accum for k, v in TRAIN_LAUNCHES.items()}
+    if launches != want:
+        raise AssertionError(f"train step: launches {launches}, want {want}")
+    m = {k: float(v) for k, v in metrics.items()}
+    if not (math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
+            and m["grad_norm"] > 0):
+        raise AssertionError(f"train step: loss {m['loss']} grad_norm "
+                             f"{m['grad_norm']}")
+    if m["sparse_window_overflow"] != 0:
+        raise AssertionError("train step: sparse_window_overflow "
+                             f"{m['sparse_window_overflow']}")
+    matched = sum(v for k, v in m.items() if k.endswith("_matches"))
+    if not matched > 0:
+        raise AssertionError("train step: no ground truth was matched")
+    return {"ms": t0.elapsed_time(t1), "loss": m["loss"],
+            "grad_norm": m["grad_norm"], "matched": matched,
+            "matching_host_ms": match.seconds * 1e3, "launches": launches}
+
+
+def profile_train(torch, step, batch, path):
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.key_averages()
+              if e.device_type.name == "CUDA" or "cuda" in str(
+                  e.device_type).lower()]
+    kernel_ms = sum(e.self_device_time_total for e in events) / 1e3
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    Path(path).write_text(prof.key_averages().table(
+        sort_by="self_cuda_time_total", row_limit=60))
+    return {"wall_ms": wall * 1e3, "kernel_ms": kernel_ms,
+            "busy_share": kernel_ms / (wall * 1e3)}
+
+
+def training_phase(torch, mods, cfg, args, report):
+    """Phases 5 and 6; returns the per-call rows of the training kernels."""
+    cfg_mod, models_mod, synth, tp, ws, lap, weights, optimization, \
+        trainer = mods
+    b = args.train_batch
+    ds = synth.SyntheticDataset(cfg_mod.EDict(data_cfg(max(b, 2), cfg)),
+                                cfg.CLASS_NAMES, training=True)
+    det = models_mod.build_network(copy.deepcopy(cfg.MODEL), 10, ds)
+    weights.init_random_(det, seed=0)
+    det.train()
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in ds.batch(range(b)).items()}
+    n_gt = [int(c) for c in (batch["gt_boxes"][..., -1] > 0).sum(dim=1)]
+    tx, _ = optimization.build_optimizer(det.parameters(), TRAIN_OPT, 1000)
+    step1 = trainer.make_train_step(det, tx, accum_steps=1)
+    before = [p.detach().clone() for p in det.parameters()]
+
+    torch.cuda.reset_peak_memory_stats()
+    with Recorder(tp, "gather_conv", torch) as k2_rec, \
+            Recorder(ws, "conv_kernel", torch) as k3_rec, \
+            Recorder(ws, "dw_kernel", torch) as k4_rec:
+        warm = run_train_step(torch, step1, batch, tp, ws, lap, 1)
+    log(f"train warm-up step: {warm['ms']:.1f} ms, loss {warm['loss']:.4f}, "
+        f"grad norm {warm['grad_norm']:.4f}, matched {warm['matched']:.0f} "
+        f"of {sum(n_gt)} boxes, launches {warm['launches']}")
+    changed = sum(bool((p.detach() != q).any())
+                  for p, q in zip(det.parameters(), before))
+    if changed < 0.9 * len(before):
+        raise AssertionError(f"train step: only {changed} of {len(before)} "
+                             "parameter tensors changed")
+    del before
+
+    steps = [run_train_step(torch, step1, batch, tp, ws, lap, 1)
+             for _ in range(args.train_steps)]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    med = sorted(s["ms"] for s in steps)[len(steps) // 2]
+    step2 = trainer.make_train_step(det, tx, accum_steps=2)
+    run_train_step(torch, step2, batch, tp, ws, lap, 2)      # warm shapes
+    acc = run_train_step(torch, step2, batch, tp, ws, lap, 2)
+    report["train"] = {
+        "batch": b, "gt_boxes_per_scene": n_gt, "warm_up": warm,
+        "steps": steps, "ms_per_step": med, "scans_per_s": 1e3 * b / med,
+        "matching_host_ms": sorted(s["matching_host_ms"]
+                                   for s in steps)[len(steps) // 2],
+        "peak_mem_gb": peak, "accum2": acc, "updates": tx.count}
+    log(f"train batch {b}: {med:.1f} ms/step, {1e3 * b / med:.2f} scans/s, "
+        f"steps {[round(s['ms'], 1) for s in steps]}, loss "
+        f"{[round(s['loss'], 4) for s in steps]}, matching on the host "
+        f"{report['train']['matching_host_ms']:.1f} ms/step, peak "
+        f"{peak:.2f} GiB; accum_steps=2: {acc['ms']:.1f} ms/step, launches "
+        f"{acc['launches']}")
+    if args.profile:
+        report["train_profile"] = profile_train(
+            torch, step1, batch, str(args.profile) + ".train.txt")
+        log(f"profile train step: {report['train_profile']}")
+
+    del det, tx, step1, step2
+    torch.cuda.empty_cache()
+    rows = check_train_kernels(torch, tp, ws, k2_rec.calls, k3_rec.calls,
+                               k4_rec.calls)
+    for r in rows:
+        log(f"{r['name']:15s} call {r['call']:2d} "
+            f"{r.get('direction', ''):10s} vt={r['vt']} "
+            f"{r['cin']}->{r['cout']} hits {r['hits']} err "
+            f"{r['max_abs_err']:.3g}  ms {r['ms']:.4f}  plain "
+            f"{r['plain_ms']:.3f}  bound {r['bound_ms']:.4f} "
+            f"({r['bound_by']})")
+    return rows
+
+
+def pallas_phase(torch, models_mod, cfg, ds, det, batch, tp, ws):
+    """Phase 7: SUBM_IMPL pallas (K3 + fused epilogue everywhere) against
+    the posgather forward, same weights, batch 1."""
+    pcfg = copy.deepcopy(cfg.MODEL)
+    pcfg.BACKBONE_3D["SUBM_IMPL"] = "pallas"
+    pdet = models_mod.build_network(pcfg, 10, ds)
+    pdet.load_state_dict(det.state_dict())
+    # every sparse conv's output, in call order, of both modes
+    backbone_cls = type(det.backbone_3d)
+    orig, convs = backbone_cls._sparse_conv, {}
+
+    def keep(self, *a, **kw):
+        y = orig(self, *a, **kw)
+        convs.setdefault(self.impl, []).append(y)
+        return y
+
+    backbone_cls._sparse_conv = keep
+    try:
+        ref = det(batch)
+        ws.reset_launches()
+        tp.reset_launches()
+        out = pdet(batch)
+        torch.cuda.synchronize()
+    finally:
+        backbone_cls._sparse_conv = orig
+    launches = launches_now(tp, ws)
+    if launches != {"positions": 0, "posgather_conv": 0,
+                    "windowed_conv": 16, "windowed_dw": 0}:
+        raise AssertionError(f"pallas mode: launches {launches}")
+    if int(out["sparse_window_overflow"]) != 0:
+        raise AssertionError("pallas mode: overflow")
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(convs["pallas"], convs["posgather"])):
+        rel = float((a - b).abs().max() / b.abs().max().clamp_min(1e-12))
+        worst = max(worst, rel)
+        # same bf16 products, f32 sums in another tap order
+        if not rel < 1e-3:
+            raise AssertionError(f"pallas mode: conv {i} rel err {rel}")
+    errs = {"sparse_convs_worst_max_rel": worst, "sparse_convs": len(
+        convs["pallas"])}
+    for key, a, b in (
+            ("encoded_spconv_tensor", out["encoded_spconv_tensor"],
+             ref["encoded_spconv_tensor"]),
+            ("dense_heatmap", out["transfusion_preds"]["dense_heatmap"],
+             ref["transfusion_preds"]["dense_heatmap"])):
+        rel = float((a - b).norm() / b.norm().clamp_min(1e-12))
+        errs[key] = rel
+        # after the bf16 dense tail the two mostly round to the same values
+        if not rel < 1e-2:
+            raise AssertionError(f"pallas mode: {key} rel err {rel}")
+    return errs
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--batches", type=int, nargs="+", default=[1, 8])
     ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--train-batch", type=int, default=4)
+    ap.add_argument("--train-steps", type=int, default=3,
+                    help="timed optimizer steps after the warm-up")
     ap.add_argument("--out", default=None,
                     help="write every measurement to this JSON file")
     ap.add_argument("--profile", default=None,
                     help="write a torch.profiler kernel table of one "
-                    "forward at the largest batch to this file")
+                    "forward at the largest batch to this file, and of "
+                    "one training step to <file>.train.txt")
     args = ap.parse_args()
 
     import torch
@@ -320,9 +669,11 @@ def main():
         from findnpropagate_torch import config as cfg_mod
         from findnpropagate_torch import models as models_mod
         from findnpropagate_torch.datasets import synthetic as synth
-        from findnpropagate_torch.ops import _build
+        from findnpropagate_torch.ops import _build, lap
         from findnpropagate_torch.ops import posgather as tp
         from findnpropagate_torch.ops import sparse_ops
+        from findnpropagate_torch.ops import windowed_sparse as ws
+        from findnpropagate_torch.runtime import optimization, trainer
         from findnpropagate_torch.utils import weights
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script ({e})",
@@ -341,14 +692,18 @@ def main():
         f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
     t0 = time.perf_counter()
-    _build.build_all(["posgather"])
-    _build.load("posgather")
+    sources = ["posgather", "windowed_sparse"]
+    _build.build_all(sources)
+    for name in sources:
+        _build.load(name)
     report["build_s"] = time.perf_counter() - t0
-    log(f"build: {report['build_s']:.1f} s (nvcc "
-        f"{_build.BUILD_SECONDS.get('posgather', 0.0):.1f} s)")
-    for line in _build.PTXAS_LOG.get("posgather", "").splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            log("  ptxas:", line.strip())
+    log(f"build: {report['build_s']:.1f} s (nvcc, in parallel: "
+        + ", ".join(f"{n} {_build.BUILD_SECONDS.get(n, 0.0):.1f} s"
+                    for n in sources) + ")")
+    for name in sources:
+        for line in _build.PTXAS_LOG.get(name, "").splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                log("  ptxas:", line.strip())
 
     cfg = cfg_mod.cfg_from_yaml_file(str(ROOT / CFG_FILE))
     nmax = max(max(args.batches), 2)
@@ -408,7 +763,19 @@ def main():
     log(f"reference (card vs CPU, narrow model): "
         f"{report['reference_rel_err']}")
 
-    # ---- 5. result lines
+    # ---- 5, 6. training path and its kernels
+    mods = (cfg_mod, models_mod, synth, tp, ws, lap, weights, optimization,
+            trainer)
+    train_rows = training_phase(torch, mods, cfg, args, report)
+    report["train_kernel_calls"] = train_rows
+
+    # ---- 7. pallas-mode forward
+    report["pallas_mode_rel_err"] = pallas_phase(
+        torch, models_mod, cfg, ds, det, batches[min(args.batches)], tp, ws)
+    log(f"pallas-mode forward vs posgather forward (batch "
+        f"{min(args.batches)}): {report['pallas_mode_rel_err']}")
+
+    # ---- 8. result lines
     first_batch = report["main_path"][0]["launches_per_forward"]
     pick = {
         # K1 at L0 (first call); K2 at the L0 16->16 subm conv with the
@@ -417,12 +784,37 @@ def main():
         "posgather_conv": [r for r in rows
                            if r["name"] == "posgather_conv"][1],
     }
+    # K3 at the L1->L2 strided conv 32->64 (second forward call), K4 at an
+    # L1 32->32 submanifold conv (the largest target list)
+    pick["windowed_conv"] = [r for r in train_rows
+                             if r["name"] == "windowed_conv"][1]
+    pick["windowed_dw"] = next(
+        r for r in train_rows if r["name"] == "windowed_dw"
+        and r["cin"] == 32 and r["cout"] == 32)
+    train_launches = report["train"]["steps"][0]["launches"]
+    totals = {}
+    for r in train_rows:
+        key = (r["name"], r.get("direction", ""))
+        tot = totals.setdefault(key, {"ms": 0.0, "plain_ms": 0.0,
+                                      "bound_ms": 0.0, "calls": 0})
+        for k in ("ms", "plain_ms", "bound_ms"):
+            tot[k] += r[k]
+        tot["calls"] += 1
+    report["train_kernel_totals"] = {" ".join(k).strip(): v
+                                     for k, v in totals.items()}
+    log("training kernels, summed over one step's calls: "
+        + json.dumps(report["train_kernel_totals"]))
     kernels = []
     for name, r in pick.items():
+        # launches: the inference forward's for K1 and K2 (as before), one
+        # training step's for K3 and K4; launches_train_step for all four.
+        # library_ms: no single PyTorch call computes a window rank, a
+        # rank-gather or union-window sparse conv, or its weight gradient
         kernels.append({
-            "name": name, "route": "cuda",
-            "source": "findnpropagate_torch/ops/csrc/posgather.cu",
-            "replaces": REPLACES[name], "launches": first_batch[name],
+            "name": name, "route": "cuda", "source": SOURCES[name],
+            "replaces": REPLACES[name],
+            "launches": first_batch.get(name, train_launches[name]),
+            "launches_train_step": train_launches[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None,

@@ -4,9 +4,13 @@ The port's own copy of findnpropagate_tpu/datasets/synthetic.py:26-200
 (`_lidar_ring_points`, scene and box generation) and of the fixed-capacity
 collation of findnpropagate_tpu/datasets/dataset.py. Scenes are
 deterministic per (seed, index), so the same index gives the same points in
-both packages. Only the `lidar_ring` pattern and the inference-time data
-pipeline are carried over: point-range mask (geometry_np.mask_points_by_range),
-the configured point features, and padding to MAX_POINTS with a mask.
+both packages. Only the `lidar_ring` pattern and the data pipeline of the
+TransFusion configs are carried over: point-range mask
+(geometry_np.mask_points_by_range), the configured point features, padding
+to MAX_POINTS with a mask, and the ground truth as (MAX_GT, 8) rows of
+7 box values + the 1-indexed class, boxes whose centre is out of range
+removed in training (REMOVE_OUTSIDE_BOXES), zero rows as padding. No
+augmentation and no point shuffling are ported.
 """
 
 from __future__ import annotations
@@ -95,7 +99,7 @@ def lidar_ring_points(rng, boxes, budget):
 
 
 class SyntheticDataset:
-    """Geometry + scenes + collation for the inference path.
+    """Geometry + scenes + collation.
 
     dataset_cfg keys: POINT_CLOUD_RANGE, SYNTHETIC {NUM_OBJECTS,
     NUM_RAW_POINTS, PATTERN='lidar_ring', SEED}, CAPACITIES, DATA_PROCESSOR
@@ -109,6 +113,7 @@ class SyntheticDataset:
         self.point_cloud_range = np.array(dataset_cfg["POINT_CLOUD_RANGE"],
                                           dtype=np.float32)
         syn = dataset_cfg.get("SYNTHETIC", {})
+        self.num_scenes = int(syn.get("NUM_SCENES", 64))
         self.num_objects = int(syn.get("NUM_OBJECTS", 24))
         self.num_raw_points = int(syn.get("NUM_RAW_POINTS", 20000))
         self.base_seed = int(syn.get("SEED", 0)) + (0 if training else 10_000)
@@ -131,12 +136,20 @@ class SyntheticDataset:
 
         caps = dataset_cfg.get("CAPACITIES", {})
         self.max_points = int(caps.get("MAX_POINTS", 60000))
+        self.max_gt = int(caps.get("MAX_GT", 128))
+        self.remove_outside_boxes = training and any(
+            proc["NAME"] == "mask_points_and_boxes_outside_range"
+            and proc.get("REMOVE_OUTSIDE_BOXES", False)
+            for proc in dataset_cfg["DATA_PROCESSOR"])
         self.max_voxels = int(caps.get("MAX_VOXELS", 40000))
         self.max_points_per_voxel = int(caps.get("MAX_POINTS_PER_VOXEL", 32))
 
     @property
     def num_point_features(self):
         return len(self.used_feature_list)
+
+    def __len__(self):
+        return self.num_scenes
 
     def generate_scene(self, index):
         rng = np.random.RandomState(self.base_seed + index)
@@ -170,19 +183,66 @@ class SyntheticDataset:
         keep = ((pts[:, 0] >= r[0]) & (pts[:, 0] <= r[3])
                 & (pts[:, 1] >= r[1]) & (pts[:, 1] <= r[4]))
         d["points"] = pts[keep]
+        known = np.array([n in self.class_names for n in d["gt_names"]],
+                         dtype=bool)
+        names = d["gt_names"][known]
+        classes = np.array([self.class_names.index(n) + 1 for n in names],
+                           dtype=np.float32)
+        boxes = np.concatenate([d["gt_boxes"][known][:, :7],
+                                classes.reshape(-1, 1)], axis=1)
+        if self.remove_outside_boxes:
+            c = boxes[:, 0:3]
+            inside = ((c >= r[0:3]).all(axis=-1) & (c <= r[3:6]).all(axis=-1))
+            boxes, names = boxes[inside], names[inside]
+        d["gt_boxes"], d["gt_names"] = boxes, names
         return d
 
     def collate_batch(self, samples):
-        """Pad to (B, MAX_POINTS, F) float32 + (B, MAX_POINTS) bool mask."""
+        """Pad to (B, MAX_POINTS, F) float32 + (B, MAX_POINTS) bool mask
+        and (B, MAX_GT, 8) float32 ground truth."""
         b = len(samples)
         f = samples[0]["points"].shape[-1]
         points = np.zeros((b, self.max_points, f), np.float32)
         mask = np.zeros((b, self.max_points), bool)
+        gt_boxes = np.zeros((b, self.max_gt, 8), np.float32)
         for i, s in enumerate(samples):
             p = s["points"][: self.max_points]
             points[i, : len(p)] = p
             mask[i, : len(p)] = True
-        return {"points": points, "points_mask": mask}
+            g = s["gt_boxes"][: self.max_gt]
+            gt_boxes[i, : len(g)] = g
+        return {"points": points, "points_mask": mask, "gt_boxes": gt_boxes}
 
     def batch(self, indices):
         return self.collate_batch([self[int(i)] for i in indices])
+
+
+class DataLoader:
+    """Deterministic epoch-based loader over fixed-shape collated batches,
+    the reference's datasets.DataLoader without sharding: the order of
+    epoch e is ``RandomState(seed + e).permutation`` when shuffling, and
+    the last short batch is dropped when `drop_last`."""
+
+    def __init__(self, dataset, batch_size, shuffle=True, seed=0,
+                 drop_last=True):
+        self.dataset, self.batch_size = dataset, int(batch_size)
+        self.shuffle, self.seed, self.drop_last = shuffle, seed, drop_last
+        self.epoch = 0
+
+    def set_epoch(self, epoch):
+        self.epoch = epoch
+
+    def __len__(self):
+        n = len(self.dataset)
+        if self.drop_last:
+            return n // self.batch_size
+        return (n + self.batch_size - 1) // self.batch_size
+
+    def __iter__(self):
+        order = np.arange(len(self.dataset))
+        if self.shuffle:
+            order = np.random.RandomState(self.seed + self.epoch
+                                          ).permutation(len(self.dataset))
+        for b in range(len(self)):
+            idxs = order[b * self.batch_size:(b + 1) * self.batch_size]
+            yield self.dataset.batch(idxs)

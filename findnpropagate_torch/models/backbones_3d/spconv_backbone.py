@@ -1,20 +1,27 @@
-"""VoxelResBackBone8x, eval forward — port of
+"""VoxelResBackBone8x, eval and training forward — port of
 findnpropagate_tpu/models/backbones_3d/spconv_backbone.py (:84-323,
-:373-782) on its position-gather branch (``SUBM_MODE: windowed``,
-``SUBM_IMPL: posgather``).
+:373-782) on its windowed branches (``SUBM_MODE: windowed`` with
+``SUBM_IMPL: posgather`` or ``pallas``).
 
 A level is either
   ("win", (ids, coords, valid, feats), shape) — the active list of each
       sample sorted by guard-banded (y, x, z) id, padded to a block
       multiple with ids in sentinel space; feats (B, V, C) float32; or
   ("dense", x (B, C, nz, ny, nx), mask (B, nz, ny, nx)) — from
-      DENSE_FROM_LEVEL on, in DENSE_DTYPE (bf16 at eval).
+      DENSE_FROM_LEVEL on, in DENSE_DTYPE (bf16 at eval only).
 
-Sparse levels run the two posgather kernels (ops/posgather.py): one
-positions computation per level shared by its submanifold convs
-(`_level_ctx`), one per strided conv, and every conv with bias + BN (+ReLU)
-fused into the kernel's epilogue. Dense levels use F.conv3d, as the
-reference left them to XLA. Outputs keep the reference's telemetry:
+Eval, ``posgather``: sparse levels run the two posgather kernels
+(ops/posgather.py): one positions computation per level shared by its
+submanifold convs (`_level_ctx`), one per strided conv, and every conv with
+bias + BN (+ReLU) fused into the kernel's epilogue. Eval, ``pallas``: every
+sparse conv runs the union-window kernel (ops/windowed_sparse.py) with the
+same fused epilogue. Training (``self.training``): submanifold convs run
+the differentiable posgather conv (`posgather_subm_diff`; the windowed one
+under ``pallas``), strided convs the differentiable windowed conv
+(`windowed_conv_diff`), each followed by bias, padding mask, batch-statistic
+BN and ReLU unfused, and the dense tail stays float32. Dense levels use
+F.conv3d, as the reference left them to XLA. Outputs keep the reference's
+telemetry:
 ``sparse_active_counts`` (actives per level over the batch) and
 ``sparse_window_overflow`` (dropped-neighbour conditions; 0 = exact).
 
@@ -35,7 +42,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ...ops.posgather import compute_positions, posgather_conv
+from ...ops.posgather import (
+    compute_positions,
+    posgather_conv,
+    posgather_subm_diff,
+)
 from ...ops.sparse_ops import (
     coords_to_dense,
     strided_base_ids,
@@ -47,6 +58,7 @@ from ...ops.sparse_ops import (
     yxz_offset_deltas,
     yxz_sentinel_start,
 )
+from ...ops.windowed_sparse import windowed_conv, windowed_conv_diff
 from ..blocks import MaskedBatchNorm
 
 
@@ -79,11 +91,13 @@ class VoxelResBackBone8x(nn.Module):
         super().__init__()
         cfg = model_cfg
         self.model_cfg = cfg
-        if str(cfg.get("SUBM_MODE", "gather")) != "windowed" or str(
-                cfg.get("SUBM_IMPL", "xla")).lower() != "posgather":
+        self.impl = str(cfg.get("SUBM_IMPL", "xla")).lower()
+        if str(cfg.get("SUBM_MODE", "gather")) != "windowed" \
+                or self.impl not in ("posgather", "pallas"):
             raise NotImplementedError(
-                "the port runs the SUBM_MODE: windowed, SUBM_IMPL: posgather "
-                "backbone only (ROADMAP queue 1 item 13 for the others)")
+                "the port runs the SUBM_MODE: windowed backbone with "
+                "SUBM_IMPL: posgather or pallas only (ROADMAP queue 1 item "
+                "13 for the others)")
         nx, ny, nz = (int(g) for g in grid_size)
         s1 = (nz + 1, ny, nx)
         s2 = tuple(conv_out_dim(n, 3, 2, 1) for n in s1)
@@ -151,8 +165,9 @@ class VoxelResBackBone8x(nn.Module):
 
     def _dense_dtype(self):
         name = str(self.model_cfg.get("DENSE_DTYPE", "f32")).lower()
-        return torch.bfloat16 if name in ("bf16", "bfloat16") \
-            else torch.float32
+        if name in ("bf16", "bfloat16") and not self.training:
+            return torch.bfloat16
+        return torch.float32
 
     # ---- levels ----------------------------------------------------------
 
@@ -197,26 +212,54 @@ class VoxelResBackBone8x(nn.Module):
             ctx_cache[key] = (ctx, ids)
         return ctx_cache[key][0]
 
-    @staticmethod
-    def _sparse_conv(src_ids, feats, tgt_ids, wmod, bnmod, ctx, sent, relu):
-        """posgather conv with bias + BN (+ReLU) fused into the kernel's
-        epilogue (eval BN is an affine map)."""
-        scale, shift = bnmod.affine()
+    def _sparse_conv(self, src_ids, feats, tgt_ids, wmod, bnmod, ctx, deltas,
+                     window, sent, relu, tgt_valid, ovf_acc):
+        """One sparse conv + bias + BN (+ReLU) over a (source, target) id
+        pair. Eval: fused into the kernel's epilogue (eval BN is an affine
+        map) — the posgather kernel over `ctx`, or the windowed kernel when
+        ctx is None. Training: the differentiable conv, then the unfused
+        tail with batch statistics."""
+        block = self._win_cfg()[0]
+        if not self.training:
+            scale, shift = bnmod.affine()
+            if wmod.bias is not None:
+                shift = shift + scale * wmod.bias
+            if ctx is not None:
+                return posgather_conv(src_ids, feats, tgt_ids, wmod.kernel,
+                                      ctx, scale=scale, shift=shift,
+                                      relu=relu, sentinel_start=sent)
+            out, ovf = windowed_conv(src_ids, feats, tgt_ids, wmod.kernel,
+                                     deltas, block=block, window=window,
+                                     sentinel_start=sent, scale=scale,
+                                     shift=shift, relu=relu)
+            ovf_acc.append(ovf.sum())
+            return out
+        if ctx is not None:
+            out = posgather_subm_diff(src_ids, feats, wmod.kernel, deltas,
+                                      ctx, dw_block=block, dw_window=window)
+        else:
+            out, ovf = windowed_conv_diff(src_ids, feats, tgt_ids,
+                                          wmod.kernel, deltas, block=block,
+                                          window=window, sentinel_start=sent)
+            ovf_acc.append(ovf.sum())
         if wmod.bias is not None:
-            shift = shift + scale * wmod.bias
-        return posgather_conv(src_ids, feats, tgt_ids, wmod.kernel, ctx,
-                              scale=scale, shift=shift, relu=relu,
-                              sentinel_start=sent)
+            out = out + wmod.bias
+        out = torch.where(tgt_valid[..., None], out, torch.zeros_like(out))
+        out = bnmod(out, tgt_valid, channels_last=True)
+        return torch.relu(out) if relu else out
 
     def _subm(self, level, wmod, bnmod, ovf_acc, ctx_cache, relu=True):
         kind, a, m = level
         if kind == "win":
             ids, coords, valid, feats = a
             kernel = wmod.kernel_size
-            ctx = self._level_ctx(ctx_cache, ids, m, self._level_index(m),
-                                  kernel, ovf_acc)
-            out = self._sparse_conv(ids, feats, ids, wmod, bnmod, ctx,
-                                    yxz_sentinel_start(m), relu)
+            lvl_i = self._level_index(m)
+            ctx = self._level_ctx(ctx_cache, ids, m, lvl_i, kernel, ovf_acc) \
+                if self.impl == "posgather" else None
+            out = self._sparse_conv(
+                ids, feats, ids, wmod, bnmod, ctx,
+                yxz_offset_deltas(kernel, m), self._win_cfg(lvl_i)[1],
+                yxz_sentinel_start(m), relu, valid, ovf_acc)
             return ("win", (ids, coords, valid, out), m)
         w = wmod.dense_weight(a.dtype)
         b = wmod.bias.to(a.dtype) if wmod.bias is not None else None
@@ -240,18 +283,20 @@ class VoxelResBackBone8x(nn.Module):
             # a grid per sample; the sort scales with the actives
             ds_fn = win_downsample_dense if coords.shape[0] <= 2 \
                 else win_downsample
-            oi, oc, ov = ds_fn(coords, valid, in_shape, out_shape, cap,
-                               kernel_size=kernel, stride=stride,
-                               padding=padding)
-            base = strided_base_ids(oc, ov, stride, in_shape, out_shape)
+            with torch.no_grad():
+                oi, oc, ov = ds_fn(coords, valid, in_shape, out_shape, cap,
+                                   kernel_size=kernel, stride=stride,
+                                   padding=padding)
+                base = strided_base_ids(oc, ov, stride, in_shape, out_shape)
             sent = strided_sentinel_start(in_shape)
-            ctx = compute_positions(
-                ids, base, strided_deltas(kernel, stride, padding, in_shape),
-                block=block, window=swindow,
-                sentinel_start=sent)
-            ovf_acc.append(ctx.overflow.sum())
+            deltas = strided_deltas(kernel, stride, padding, in_shape)
+            ctx = None
+            if self.impl == "posgather" and not self.training:
+                ctx = compute_positions(ids, base, deltas, block=block,
+                                        window=swindow, sentinel_start=sent)
+                ovf_acc.append(ctx.overflow.sum())
             out = self._sparse_conv(ids, feats, base, wmod, bnmod, ctx,
-                                    sent, relu=True)
+                                    deltas, swindow, sent, True, ov, ovf_acc)
             level = ("win", (oi, oc, ov, out), out_shape)
             return self._to_dense(level, self._dense_dtype()) \
                 if dense_out else level

@@ -1,12 +1,16 @@
-"""Detector assembly, TransFusion-LiDAR inference — port of
-findnpropagate_tpu/models/detectors/detector3d.py (`DetectorModule`
-:79-280 with `_voxelize`, `post_process` :321-360, the TransFusion branch
-:434-460).
+"""Detector assembly, TransFusion-LiDAR inference and training loss — port
+of findnpropagate_tpu/models/detectors/detector3d.py (`DetectorModule`
+:79-280 with `_voxelize`, `loss` :305-319, `post_process` :321-360, the
+TransFusion branch :434-460).
 
 The fixed topology voxelize (MeanVFE folded into `voxelize_mean`) ->
 VoxelResBackBone8x -> HeightCompression -> BaseBEVBackbone ->
 TransFusionHead runs over a dict batch; `post_process` decodes the head's
-queries into fixed-size Detections. Eval only. Other topologies raise
+queries into fixed-size Detections. The forward keeps gradients when the
+module is in training mode (`.train()`), where every BN uses and records
+batch statistics; `loss(batch, generator)` runs it so and returns the
+head's loss and its `tb` dictionary with the backbone's
+``sparse_window_overflow`` added. Other topologies raise
 NotImplementedError (ROADMAP.md, queue 1 item 13).
 """
 
@@ -57,7 +61,8 @@ class DetectorModule(nn.Module):
             cfg["BACKBONE_2D"], self.map_to_bev.num_bev_features)
         self.dense_head = TransFusionHead(
             cfg["DENSE_HEAD"], self.backbone_2d.num_bev_features, num_class,
-            class_names, self.point_cloud_range, self.voxel_size)
+            class_names, self.point_cloud_range, self.voxel_size,
+            self.grid_size)
 
     def _voxelize(self, batch):
         out = voxelize_mean(batch["points"], batch["points_mask"],
@@ -70,13 +75,26 @@ class DetectorModule(nn.Module):
         batch["voxel_mask"] = out.voxel_mask
         return batch
 
-    @torch.no_grad()
-    def forward(self, batch):
-        batch = self._voxelize(dict(batch))
-        for mod in (self.backbone_3d, self.map_to_bev, self.backbone_2d,
-                    self.dense_head):
-            batch = mod(batch)
-        return batch
+    def forward(self, batch, generator=None):
+        """Gradients are kept in training mode only. generator: the
+        torch.Generator of the head's dropout masks (training)."""
+        with torch.set_grad_enabled(self.training):
+            with torch.no_grad():
+                batch = self._voxelize(dict(batch))
+            for mod in (self.backbone_3d, self.map_to_bev, self.backbone_2d):
+                batch = mod(batch)
+            return self.dense_head(batch, generator)
+
+    def loss(self, batch, generator=None):
+        """Training forward + head loss: (loss, tb). The module must be in
+        training mode. tb carries ``sparse_window_overflow``: nonzero means
+        a window truncated a neighbour span and the activations are wrong."""
+        if not self.training:
+            raise RuntimeError("loss() needs the module in training mode")
+        out = self(batch, generator)
+        loss, tb = self.dense_head.compute_loss(out)
+        tb["sparse_window_overflow"] = out["sparse_window_overflow"]
+        return loss, tb
 
     @torch.no_grad()
     def post_process(self, out_batch, max_det: int = 256):

@@ -1,7 +1,8 @@
 """Position-gather sparse convolution — port of
 findnpropagate_tpu/ops/pallas_posgather.py (`group_center_deltas` :50,
 `reorder_weights_groups` :67, `LevelPositions` :503, `compute_positions`
-:523, `posgather_conv` :635).
+:523, `posgather_conv` :635, `flip_transpose_weights` :697,
+`posgather_subm_diff` :706).
 
 Two kernels carry it (ops/csrc/posgather.cu):
   * K1 `positions` — per target and tap group (dy, dx), the left-insertion
@@ -23,6 +24,11 @@ fallback flags (``starts``/``flags``, and overflow term (c)) exist only for
 the TPU kernel's 128-lane bands: the CUDA kernel probes global memory
 directly, so they are left out and ``band`` is not a knob here. All
 functions take a leading batch axis (the reference vmaps them).
+
+`posgather_subm_diff` is the differentiable submanifold conv of the
+training step: forward K2, backward K2 again with the flipped-transposed
+weights over the same LevelPositions for ``d_feats``, and the windowed
+weight-gradient kernel (ops/windowed_sparse.py) for ``dW``.
 """
 
 from __future__ import annotations
@@ -412,3 +418,49 @@ def posgather_conv(src_ids, src_feats, tgt_ids, weights, lp: LevelPositions,
         scale=scale, shift=shift, relu=relu,
         sentinel=sentinel_start if scale is not None else None,
         compute_dtype=compute_dtype)
+
+
+# ----------------------------------------------------------------- grads
+
+
+def flip_transpose_weights(weights):
+    """W (K, Cin, Cout) -> the transposed conv's kernel W~[k] = W[K-1-k]^T.
+    Negating every tap offset reverses the C-ordered enumeration of the
+    symmetric offset ranges, so the transposed submanifold conv has the
+    forward's deltas and the same LevelPositions serve both directions."""
+    return weights.flip(0).transpose(1, 2)
+
+
+class PosgatherSubm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, feats, weights, ids, lp, deltas27, dw_block, dw_window):
+        ctx.save_for_backward(feats, weights, ids)
+        ctx.cfg = (lp, deltas27, dw_block, dw_window)
+        return posgather_conv(ids, feats, ids, weights, lp)
+
+    @staticmethod
+    def backward(ctx, g):
+        from .windowed_sparse import windowed_dw
+
+        feats, weights, ids = ctx.saved_tensors
+        lp, deltas27, dw_block, dw_window = ctx.cfg
+        g = g.contiguous()
+        d_feats = d_w = None
+        if ctx.needs_input_grad[0]:
+            d_feats = posgather_conv(ids, g, ids,
+                                     flip_transpose_weights(weights), lp)
+        if ctx.needs_input_grad[1]:
+            d_w = windowed_dw(ids, feats, ids, g, deltas27, block=dw_block,
+                              window=dw_window)
+        return d_feats, d_w, None, None, None, None, None
+
+
+def posgather_subm_diff(src_ids, src_feats, weights, deltas27,
+                        lp: LevelPositions, dw_block: int = 512,
+                        dw_window: int = 1536):
+    """Differentiable submanifold posgather conv (training path), the
+    reference's function of the same name: src_ids (B, V) is source and
+    target list at once. d_feats is skipped when src_feats needs no
+    gradient. Exactness: callers gate on lp.overflow."""
+    return PosgatherSubm.apply(src_feats, weights, src_ids, lp, deltas27,
+                                  dw_block, dw_window)

@@ -16,6 +16,11 @@ what differs is the layout, converted here:
   * BatchNorm: scale/bias/mean/var -> weight/bias/running_mean/running_var;
     LayerNorm: scale/bias -> weight/bias.
 
+`to_jax_tree(model, what)` is the inverse map: the port's parameters,
+their gradients or its BN statistics as a nested dict of numpy arrays under
+the flax names and in the flax layouts, so the two packages compare leaf by
+leaf.
+
 `init_random_(model, seed)` gives the port the values that
 bench.py:_random_variables gives the JAX model: every leaf of the flax
 tree, in the tree's flattening order (sorted keys), drawn from
@@ -35,12 +40,14 @@ from ..models.model_utils.transformer import MultiHeadAttention
 
 
 def _leaves(model):
-    """[(collection, flax path tuple, flax shape, to_torch, tensor)]: every
-    flax leaf of the model with its converter onto a torch tensor."""
+    """[(collection, flax path tuple, flax shape, to_torch, tensor,
+    to_flax)]: every flax leaf of the model with its converters onto a
+    torch tensor and back (numpy arrays both ways)."""
     out = []
 
-    def add(coll, path, shape, fn, tensor):
-        out.append((coll, tuple(path), tuple(shape), fn, tensor))
+    def add(coll, path, shape, fn, tensor, inv=None):
+        out.append((coll, tuple(path), tuple(shape), fn, tensor,
+                    inv or fn))
 
     same = lambda a: a  # noqa: E731
     mha_children = set()
@@ -52,14 +59,17 @@ def _leaves(model):
                 lin = getattr(mod, child)
                 d = lin.in_features
                 add("params", path + [child, "kernel"], (d, h, dh),
-                    lambda a, d=d: a.reshape(d, -1).T, lin.weight)
+                    lambda a, d=d: a.reshape(d, -1).T, lin.weight,
+                    lambda a, d=d, h=h, dh=dh: a.T.reshape(d, h, dh))
                 add("params", path + [child, "bias"], (h, dh),
-                    lambda a: a.reshape(-1), lin.bias)
+                    lambda a: a.reshape(-1), lin.bias,
+                    lambda a, h=h, dh=dh: a.reshape(h, dh))
                 mha_children.add(lin)
             d_out = mod.out.out_features
             add("params", path + ["out", "kernel"], (h, dh, d_out),
                 lambda a, d_out=d_out: a.reshape(-1, d_out).T,
-                mod.out.weight)
+                mod.out.weight,
+                lambda a, h=h, dh=dh, d_out=d_out: a.T.reshape(h, dh, d_out))
             add("params", path + ["out", "bias"], (d_out,), same,
                 mod.out.bias)
             mha_children.add(mod.out)
@@ -78,13 +88,15 @@ def _leaves(model):
         elif isinstance(mod, nn.Conv2d):
             o, i, kh, kw = mod.weight.shape
             add("params", path + ["kernel"], (kh, kw, i, o),
-                lambda a: a.transpose(3, 2, 0, 1), mod.weight)
+                lambda a: a.transpose(3, 2, 0, 1), mod.weight,
+                lambda a: a.transpose(2, 3, 1, 0))
             if mod.bias is not None:
                 add("params", path + ["bias"], (o,), same, mod.bias)
         elif isinstance(mod, nn.ConvTranspose2d):
             i, o, kh, kw = mod.weight.shape
             add("params", path + ["kernel"], (kh, kw, i, o),
-                lambda a: a[::-1, ::-1].transpose(2, 3, 0, 1), mod.weight)
+                lambda a: a[::-1, ::-1].transpose(2, 3, 0, 1), mod.weight,
+                lambda a: a.transpose(2, 3, 0, 1)[::-1, ::-1])
         elif isinstance(mod, nn.Linear) and mod not in mha_children:
             o, i = mod.weight.shape
             add("params", path + ["kernel"], (i, o), lambda a: a.T,
@@ -123,7 +135,7 @@ def from_jax_variables(variables, model):
         for path, val in _flat(variables.get(coll, {})):
             given[(coll, path)] = np.asarray(val)
     used = set()
-    for coll, path, shape, fn, tensor in _leaves(model):
+    for coll, path, shape, fn, tensor, _ in _leaves(model):
         key = (coll, path)
         if key not in given:
             raise KeyError(f"flax leaf {coll}/{'/'.join(path)} missing")
@@ -140,12 +152,37 @@ def from_jax_variables(variables, model):
     return model
 
 
+def to_jax_tree(model, what: str = "param"):
+    """The port's state under the flax names: ``what`` is "param" (the
+    ``params`` collection), "grad" (the parameters' .grad, zeros where a
+    parameter has none) or "batch_stats" (BN means and variances). Nested
+    dict of float32 numpy arrays in the flax layouts."""
+    if what not in ("param", "grad", "batch_stats"):
+        raise ValueError(f"what={what!r}")
+    coll_want = "batch_stats" if what == "batch_stats" else "params"
+    tree: dict = {}
+    for coll, path, shape, _, tensor, inv in _leaves(model):
+        if coll != coll_want:
+            continue
+        t = tensor
+        if what == "grad":
+            t = tensor.grad if tensor.grad is not None \
+                else torch.zeros_like(tensor)
+        val = np.ascontiguousarray(inv(t.detach().cpu().float().numpy()))
+        assert val.shape == shape, (path, val.shape, shape)
+        node = tree
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = val
+    return tree
+
+
 def init_random_(model, seed: int = 0):
     """bench.py:_random_variables for the port: N(0, 0.05^2) float32 leaves
     in flax flattening order, BN mean 0 and variance 1."""
     rng = np.random.RandomState(seed)
     tree: dict = {}
-    for coll, path, shape, _, _ in sorted(_leaves(model),
+    for coll, path, shape, _, _, _ in sorted(_leaves(model),
                                           key=lambda e: (e[0], e[1])):
         val = rng.standard_normal(shape).astype(np.float32) * 0.05
         if coll == "batch_stats":

@@ -188,3 +188,59 @@ def test_cuda_wrappers_validate_and_pack_arguments(monkeypatch):
     with pytest.raises(ValueError):
         TP.positions(src_t, src_t, lp.lo, lp.lo, lp.has_real, lp.gdeltas,
                      512, 1024, True)
+
+
+@pytest.mark.parametrize("name", ["subm", "dense_band1"])
+def test_subm_diff_matches_interpret(name):
+    """posgather_subm_diff (forward K2, d_feats K2 with flipped-transposed
+    weights over the same positions, dW by the windowed weight-gradient
+    kernel) against the JAX function of the same name, interpret mode at
+    f32. Output rtol/atol 1e-5 as the forward test above; gradients 2e-3,
+    the JAX package's own gradient tolerance (tests/test_pallas_sparse.py)."""
+    import jax
+
+    case = subm_case(name)
+    src, feats, _, valid, deltas, sent, window, _ = case
+    lj, lt = both_positions(case)
+    w = _weights(5, 8)[0]
+    cosw = np.cos(np.arange(src.shape[0] * 8).reshape(-1, 8) * 0.01).astype(
+        np.float32) * valid[:, None]
+
+    def loss_jax(f, ww):
+        out = JP.posgather_subm_diff(
+            jnp.asarray(src), f, ww, jnp.asarray(deltas), lj, dw_block=512,
+            dw_window=window, sentinel_start=sent,
+            compute_dtype=jnp.float32, interpret=True)
+        return jnp.sum(out * cosw), out
+
+    (_, out_j), (gf_j, gw_j) = jax.value_and_grad(
+        loss_jax, (0, 1), has_aux=True)(jnp.asarray(feats), jnp.asarray(w))
+
+    f = torch.from_numpy(feats)[None].requires_grad_()
+    wt = torch.from_numpy(w).requires_grad_()
+    out = TP.posgather_subm_diff(torch.from_numpy(src)[None], f, wt, deltas,
+                                 lt, dw_block=512, dw_window=window)
+    (out[0] * torch.from_numpy(cosw)).sum().backward()
+    np.testing.assert_allclose(out[0].detach().numpy(), np.asarray(out_j),
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(f.grad[0].numpy(), np.asarray(gf_j),
+                               rtol=2e-3, atol=2e-3)
+    np.testing.assert_allclose(wt.grad.numpy(), np.asarray(gw_j),
+                               rtol=2e-3, atol=2e-3)
+    assert np.abs(np.asarray(gf_j)).max() > 0.05
+    assert np.abs(np.asarray(gw_j)).max() > 0.05
+
+    # an input that needs no gradient gets none; dW is unchanged
+    w2 = torch.from_numpy(w).requires_grad_()
+    out2 = TP.posgather_subm_diff(torch.from_numpy(src)[None],
+                                  torch.from_numpy(feats)[None], w2, deltas,
+                                  lt, dw_block=512, dw_window=window)
+    (out2[0] * torch.from_numpy(cosw)).sum().backward()
+    np.testing.assert_array_equal(w2.grad.numpy(), wt.grad.numpy())
+
+
+def test_flip_transpose_weights_matches_jax():
+    w = _weights(5, 8)[0]
+    np.testing.assert_array_equal(
+        TP.flip_transpose_weights(torch.from_numpy(w)).numpy(),
+        np.asarray(JP.flip_transpose_weights(jnp.asarray(w))))
