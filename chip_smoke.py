@@ -25,20 +25,24 @@ Phases (any failure exits non-zero and prints no result line):
      CPU (plain versions, f32): same actives, outputs within bf16 error;
   5. training path — the same yaml at full width in training mode, batch 4
      (BATCH_SIZE_PER_GPU) of training scenes with their 40 boxes, adam at
-     lr 1e-4 with clip 10 (bench.py's optimizer): one warm-up step whose K2
+     lr 1e-4 with clip 10 (bench.py's optimizer): one warm-up step, then
+     timed steps at accum_steps=1 and one at accum_steps=2: finite loss and
+     gradient norm, sparse_window_overflow == 0, matched ground truths > 0,
+     parameters changed, and per step 3 K1, 13 + 12 K2, 3 + 3 K3 and 16 K4
+     launches; ms/step, scans/s, the host time of the Hungarian matching,
+     and the peak memory of the timed steps alone (counted from after the
+     warm-up). One more step, untimed, has the arguments of its K1, K2
      (forward and backward), K3 (windowed conv, forward and transposed) and
-     K4 (weight gradient) launches are recorded, then timed steps at
-     accum_steps=1 and one at accum_steps=2: finite loss and gradient norm,
-     sparse_window_overflow == 0, matched ground truths > 0, parameters
-     changed, and per step 3 K1, 13 + 12 K2, 3 + 3 K3 and 16 K4 launches;
-     ms/step, scans/s, the host time of the Hungarian matching, peak
-     memory;
-  6. training kernels — every recorded K2, K3 and K4 call is re-run through
-     the kernel and through its plain PyTorch version (sample by sample) on
-     the card, within the stated tolerance; times as in phase 2;
+     K4 (weight gradient) launches recorded;
+  6. training kernels — every recorded call is re-run through the kernel
+     and through its plain PyTorch version on the card (K2, K3, K4 sample
+     by sample): K1 at batch 4 bit-equal, the others within the stated
+     tolerance; times as in phase 2;
   7. pallas-mode forward — a batch-1 eval forward with SUBM_IMPL: pallas
-     (every sparse conv through K3 with the fused epilogue) against the
-     posgather forward on the same weights, within bf16 error;
+     (every sparse conv through K3 with the fused scale/shift/ReLU/sentinel
+     epilogue): each of its 16 K3 launches against the plain version with
+     the same epilogue, and the forward against the posgather forward on
+     the same weights, within bf16 error;
   8. a `kernels` JSON line, then the result line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -188,8 +192,8 @@ def bound_entry(t_bytes, t_ops):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def check_kernels(torch, tp, pos_calls, conv_calls):
-    """Kernel vs plain on every recorded call; returns per-call rows."""
+def check_positions(torch, tp, pos_calls, label=""):
+    """K1 vs plain, bit for bit, on every recorded call; per-call rows."""
     rows = []
     for i, (args, kw) in enumerate(pos_calls):
         out = tp.positions(*args, **kw)
@@ -197,17 +201,25 @@ def check_kernels(torch, tp, pos_calls, conv_calls):
         torch.cuda.synchronize()
         err = int((out.long() - ref.long()).abs().max())
         if not torch.equal(out, ref):
-            raise AssertionError(f"K1 call {i}: kernel != plain (max {err})")
+            raise AssertionError(f"{label}K1 call {i}: kernel != plain "
+                                 f"(max {err})")
         t_b, t_o = positions_bound(args)
         bound_ms, bound_by = bound_entry(t_b, t_o)
         rows.append({
-            "name": "positions", "call": i, "vt": args[1].shape[1],
-            "vs": args[0].shape[1], "span": args[7], "tap": args[8],
-            "max_abs_err": err,
+            "name": "positions", "call": i, "batch": args[1].shape[0],
+            "vt": args[1].shape[1], "vs": args[0].shape[1], "span": args[7],
+            "tap": args[8], "max_abs_err": err,
             "ms": cuda_ms(torch, lambda: tp.positions(*args, **kw), 20),
             "plain_ms": cuda_ms(torch, lambda: tp.positions_plain(
                 *args, **kw), 3),
             "bound_ms": bound_ms, "bound_by": bound_by})
+        del out, ref
+    return rows
+
+
+def check_kernels(torch, tp, pos_calls, conv_calls):
+    """Kernel vs plain on every recorded call; returns per-call rows."""
+    rows = check_positions(torch, tp, pos_calls)
     for i, (args, kw) in enumerate(conv_calls):
         out = tp.gather_conv(*args, **kw)
         ref = tp.posgather_conv_plain(*args, **kw)
@@ -359,6 +371,43 @@ def windowed_hits(torch, ws, src, tgt, lo, deltas, block, window):
                for i in range(src.shape[0]))
 
 
+def check_windowed_conv(torch, ws, k3_calls, direction, label=""):
+    """K3 vs plain (sample by sample, with the call's own epilogue
+    arguments) on every recorded call; per-call rows."""
+    rows = []
+    cat = lambda outs: torch.cat(outs, dim=0)          # noqa: E731
+    for i, (args, kw) in enumerate(k3_calls):
+        src, feats, tgt, lo, deltas, w_flat, block, window = args
+        out = ws.conv_kernel(*args, **kw)
+        plain = lambda: per_sample(                     # noqa: E731
+            ws.windowed_conv_plain, args, kw, (0, 1, 2, 3), cat)
+        ref = plain()
+        err = float((out - ref).abs().max())
+        tol = K3_RTOL * max(float(ref.abs().max()), 1e-3)
+        if not (err <= tol and bool(torch.isfinite(out).all())):
+            raise AssertionError(f"{label}K3 call {i}: err {err} > {tol}")
+        hits = windowed_hits(torch, ws, src, tgt, lo, deltas, block, window)
+        cin, cout = feats.shape[2], w_flat.shape[1]
+        epilogue = kw.get("scale") is not None
+        nbytes = (4 * (src.numel() + tgt.numel() + lo.numel()
+                       + deltas.numel() + feats.numel())
+                  + 2 * w_flat.numel() + 4 * tgt.numel() * cout
+                  + (8 * cout if epilogue else 0))
+        bound_ms, bound_by = bound_entry(nbytes / HBM_BYTES_PER_S,
+                                         2 * cin * cout * hits / BF16_FLOPS)
+        rows.append({
+            "name": "windowed_conv", "call": i, "direction": direction(i),
+            "batch": tgt.shape[0], "vt": tgt.shape[1], "vs": src.shape[1],
+            "cin": cin, "cout": cout, "window": window,
+            "epilogue": epilogue, "relu": bool(kw.get("relu")), "hits": hits,
+            "max_abs_err": err, "tolerance": tol,
+            "ms": cuda_ms(torch, lambda: ws.conv_kernel(*args, **kw), 5),
+            "plain_ms": cuda_ms(torch, plain, 1),
+            "bound_ms": bound_ms, "bound_by": bound_by})
+        del out, ref
+    return rows
+
+
 def check_train_kernels(torch, tp, ws, k2_calls, k3_calls, k4_calls):
     """Every K2 / K3 / K4 launch of one training step against its plain
     version at the recorded arguments; returns per-call rows."""
@@ -385,33 +434,9 @@ def check_train_kernels(torch, tp, ws, k2_calls, k3_calls, k4_calls):
             "plain_ms": cuda_ms(torch, plain, 1),
             "bound_ms": bound_ms, "bound_by": bound_by})
         del out, ref
-    for i, (args, kw) in enumerate(k3_calls):
-        src, feats, tgt, lo, deltas, w_flat, block, window = args
-        out = ws.conv_kernel(*args, **kw)
-        plain = lambda: per_sample(                     # noqa: E731
-            ws.windowed_conv_plain, args, kw, (0, 1, 2, 3), cat)
-        ref = plain()
-        err = float((out - ref).abs().max())
-        tol = K3_RTOL * max(float(ref.abs().max()), 1e-3)
-        if not (err <= tol and bool(torch.isfinite(out).all())):
-            raise AssertionError(f"K3 call {i}: err {err} > {tol}")
-        hits = windowed_hits(torch, ws, src, tgt, lo, deltas, block, window)
-        cin, cout = feats.shape[2], w_flat.shape[1]
-        nbytes = (4 * (src.numel() + tgt.numel() + lo.numel()
-                       + deltas.numel() + feats.numel())
-                  + 2 * w_flat.numel() + 4 * tgt.numel() * cout)
-        bound_ms, bound_by = bound_entry(nbytes / HBM_BYTES_PER_S,
-                                         2 * cin * cout * hits / BF16_FLOPS)
-        rows.append({
-            "name": "windowed_conv", "call": i,
-            "direction": "forward" if i < 3 else "transposed",
-            "vt": tgt.shape[1], "vs": src.shape[1], "cin": cin,
-            "cout": cout, "window": window, "hits": hits,
-            "max_abs_err": err, "tolerance": tol,
-            "ms": cuda_ms(torch, lambda: ws.conv_kernel(*args, **kw), 5),
-            "plain_ms": cuda_ms(torch, plain, 1),
-            "bound_ms": bound_ms, "bound_by": bound_by})
-        del out, ref
+    rows += check_windowed_conv(
+        torch, ws, k3_calls,
+        lambda i: "forward" if i < 3 else "transposed", "train ")
     for i, (args, kw) in enumerate(k4_calls):
         src, feats, tgt, g, lo, deltas, block, window = args
         out = ws.dw_kernel(*args, **kw)
@@ -538,11 +563,7 @@ def training_phase(torch, mods, cfg, args, report):
     step1 = trainer.make_train_step(det, tx, accum_steps=1)
     before = [p.detach().clone() for p in det.parameters()]
 
-    torch.cuda.reset_peak_memory_stats()
-    with Recorder(tp, "gather_conv", torch) as k2_rec, \
-            Recorder(ws, "conv_kernel", torch) as k3_rec, \
-            Recorder(ws, "dw_kernel", torch) as k4_rec:
-        warm = run_train_step(torch, step1, batch, tp, ws, lap, 1)
+    warm = run_train_step(torch, step1, batch, tp, ws, lap, 1)
     log(f"train warm-up step: {warm['ms']:.1f} ms, loss {warm['loss']:.4f}, "
         f"grad norm {warm['grad_norm']:.4f}, matched {warm['matched']:.0f} "
         f"of {sum(n_gt)} boxes, launches {warm['launches']}")
@@ -553,6 +574,10 @@ def training_phase(torch, mods, cfg, args, report):
                              "parameter tensors changed")
     del before
 
+    # the peak of the timed steps alone: model, Adam state, batch and one
+    # step's activations; nothing of the kernel checks is alive yet
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     steps = [run_train_step(torch, step1, batch, tp, ws, lap, 1)
              for _ in range(args.train_steps)]
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -577,10 +602,29 @@ def training_phase(torch, mods, cfg, args, report):
             torch, step1, batch, str(args.profile) + ".train.txt")
         log(f"profile train step: {report['train_profile']}")
 
+    # one last step, untimed and after the profiled one, whose kernel
+    # arguments are kept for phase 6
+    with Recorder(tp, "positions", torch) as k1_rec, \
+            Recorder(tp, "gather_conv", torch) as k2_rec, \
+            Recorder(ws, "conv_kernel", torch) as k3_rec, \
+            Recorder(ws, "dw_kernel", torch) as k4_rec:
+        run_train_step(torch, step1, batch, tp, ws, lap, 1)
+
     del det, tx, step1, step2
     torch.cuda.empty_cache()
-    rows = check_train_kernels(torch, tp, ws, k2_rec.calls, k3_rec.calls,
-                               k4_rec.calls)
+    rows = check_positions(torch, tp, k1_rec.calls, "train ")
+    for r in rows:
+        log(f"positions       call {r['call']:2d} batch {r['batch']} "
+            f"vt={r['vt']} span={r['span']} err {r['max_abs_err']}  ms "
+            f"{r['ms']:.4f}  plain {r['plain_ms']:.3f}  bound "
+            f"{r['bound_ms']:.4f} ({r['bound_by']})")
+    conv_rows = check_train_kernels(torch, tp, ws, k2_rec.calls,
+                                    k3_rec.calls, k4_rec.calls)
+    log_conv_rows(conv_rows)
+    return rows + conv_rows
+
+
+def log_conv_rows(rows):
     for r in rows:
         log(f"{r['name']:15s} call {r['call']:2d} "
             f"{r.get('direction', ''):10s} vt={r['vt']} "
@@ -588,12 +632,13 @@ def training_phase(torch, mods, cfg, args, report):
             f"{r['max_abs_err']:.3g}  ms {r['ms']:.4f}  plain "
             f"{r['plain_ms']:.3f}  bound {r['bound_ms']:.4f} "
             f"({r['bound_by']})")
-    return rows
 
 
 def pallas_phase(torch, models_mod, cfg, ds, det, batch, tp, ws):
-    """Phase 7: SUBM_IMPL pallas (K3 + fused epilogue everywhere) against
-    the posgather forward, same weights, batch 1."""
+    """Phase 7: SUBM_IMPL pallas (K3 + fused epilogue everywhere), batch 1:
+    every K3 launch against its plain version with the same epilogue, and
+    the forward against the posgather forward on the same weights. Returns
+    (errors, per-call rows)."""
     pcfg = copy.deepcopy(cfg.MODEL)
     pcfg.BACKBONE_3D["SUBM_IMPL"] = "pallas"
     pdet = models_mod.build_network(pcfg, 10, ds)
@@ -612,7 +657,8 @@ def pallas_phase(torch, models_mod, cfg, ds, det, batch, tp, ws):
         ref = det(batch)
         ws.reset_launches()
         tp.reset_launches()
-        out = pdet(batch)
+        with Recorder(ws, "conv_kernel", torch) as k3_rec:
+            out = pdet(batch)
         torch.cuda.synchronize()
     finally:
         backbone_cls._sparse_conv = orig
@@ -622,6 +668,11 @@ def pallas_phase(torch, models_mod, cfg, ds, det, batch, tp, ws):
         raise AssertionError(f"pallas mode: launches {launches}")
     if int(out["sparse_window_overflow"]) != 0:
         raise AssertionError("pallas mode: overflow")
+    if not all(kw.get("scale") is not None and kw.get("sentinel") is not None
+               for _, kw in k3_rec.calls):
+        raise AssertionError("pallas mode: a K3 launch had no epilogue")
+    rows = check_windowed_conv(torch, ws, k3_rec.calls,
+                               lambda i: "eval epilogue", "pallas mode ")
     worst = 0.0
     for i, (a, b) in enumerate(zip(convs["pallas"], convs["posgather"])):
         rel = float((a - b).abs().max() / b.abs().max().clamp_min(1e-12))
@@ -641,7 +692,7 @@ def pallas_phase(torch, models_mod, cfg, ds, det, batch, tp, ws):
         # after the bf16 dense tail the two mostly round to the same values
         if not rel < 1e-2:
             raise AssertionError(f"pallas mode: {key} rel err {rel}")
-    return errs
+    return errs, rows
 
 
 def main():
@@ -770,8 +821,10 @@ def main():
     report["train_kernel_calls"] = train_rows
 
     # ---- 7. pallas-mode forward
-    report["pallas_mode_rel_err"] = pallas_phase(
-        torch, models_mod, cfg, ds, det, batches[min(args.batches)], tp, ws)
+    report["pallas_mode_rel_err"], report["pallas_kernel_calls"] = \
+        pallas_phase(torch, models_mod, cfg, ds, det,
+                     batches[min(args.batches)], tp, ws)
+    log_conv_rows(report["pallas_kernel_calls"])
     log(f"pallas-mode forward vs posgather forward (batch "
         f"{min(args.batches)}): {report['pallas_mode_rel_err']}")
 

@@ -55,11 +55,9 @@ class MaskedBatchNorm(nn.Module):
     epilogue instead. Training: mean and biased variance over the valid
     cells of the batch, and the running averages updated with them."""
 
-    def __init__(self, features: int, eps: float = BN_EPS,
-                 momentum: float = BN_MOMENTUM):
+    def __init__(self, features: int, eps: float = BN_EPS):
         super().__init__()
         self.eps = eps
-        self.momentum = momentum
         self.scale = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("mean", torch.zeros(features))
@@ -84,10 +82,8 @@ class MaskedBatchNorm(nn.Module):
             mean = (x * mf).sum(axes) / n
             var = (((x - mean.view(shape)) ** 2) * mf).sum(axes) / n
             with torch.no_grad():
-                self.mean.mul_(self.momentum).add_(
-                    mean, alpha=1 - self.momentum)
-                self.var.mul_(self.momentum).add_(
-                    var, alpha=1 - self.momentum)
+                self.mean.mul_(BN_MOMENTUM).add_(mean, alpha=1 - BN_MOMENTUM)
+                self.var.mul_(BN_MOMENTUM).add_(var, alpha=1 - BN_MOMENTUM)
             y = (x - mean.view(shape)) * (
                 torch.rsqrt(var + self.eps) * self.scale).view(shape) \
                 + self.bias.view(shape)

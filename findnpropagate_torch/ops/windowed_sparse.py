@@ -97,10 +97,14 @@ def window_starts(src_ids, tgt_ids, deltas, block: int, window: int):
     return lo.to(torch.int32).contiguous()
 
 
-def _block_span(src_ids, tgt_ids, deltas, block, sentinel_start):
-    """Per target block: id of its last real target, the end of its
-    neighbour span in the source list, and whether it has a real target."""
+def _union_overflow(src_ids, tgt_ids, deltas, lo, block, window,
+                    sentinel_start, tap_window=None):
+    """The overflow rule, given the window starts `lo` (B, nb) of a
+    `window`-wide window: (B,) int64 blocks with a real target whose
+    neighbour span ends beyond the window, plus the tap term."""
     b, vt = tgt_ids.shape
+    lo = lo.long()
+    src_l = src_ids.long()
     tgt_b = tgt_ids.reshape(b, vt // block, block).long()
     if sentinel_start is not None:
         real_b = tgt_b < sentinel_start
@@ -110,29 +114,12 @@ def _block_span(src_ids, tgt_ids, deltas, block, sentinel_start):
     else:
         block_last = tgt_b[:, :, -1]
         has_real = torch.ones_like(block_last, dtype=torch.bool)
-    hi = torch.searchsorted(src_ids.long(),
-                            (block_last + int(deltas.max())).contiguous(),
-                            right=True)
-    return block_last, hi, has_real
-
-
-def windowed_overflow(src_ids, tgt_ids, deltas, block: int, window: int,
-                      sentinel_start=None, tap_window=None):
-    """(B,) int64: target blocks whose true neighbour span exceeds
-    `window`, plus — when `tap_window` is given and smaller — (block, tap)
-    pairs whose span exceeds the reference's per-tap sub-window. src_ids
-    (B, Vs) / tgt_ids (B, Vt) ascending int32; deltas (K,) int."""
-    deltas = torch.as_tensor(deltas, device=tgt_ids.device).long()
-    vs = src_ids.shape[1]
-    window = min(window, vs)
-    lo = window_starts(src_ids, tgt_ids, deltas, block, window).long()
-    block_last, hi, has_real = _block_span(src_ids, tgt_ids, deltas, block,
-                                           sentinel_start)
+    hi = torch.searchsorted(
+        src_l, (block_last + int(deltas.max())).contiguous(), right=True)
     total = (((hi - lo) > window) & has_real).sum(dim=1)
     if tap_window is not None and tap_window < window:
-        b, nb = lo.shape
-        src_l = src_ids.long()
-        first = tgt_ids[:, ::block].long()
+        nb = lo.shape[1]
+        first = tgt_b[:, :, 0]
         lo_tap = torch.searchsorted(
             src_l, (first[..., None] + deltas).reshape(b, -1)
         ).reshape(b, nb, -1)
@@ -145,6 +132,19 @@ def windowed_overflow(src_ids, tgt_ids, deltas, block: int, window: int,
         total = total + (((hi_tap - (lo[..., None] + rel)) > tap_window)
                          & has_real[..., None]).sum(dim=(1, 2))
     return total
+
+
+def windowed_overflow(src_ids, tgt_ids, deltas, block: int, window: int,
+                      sentinel_start=None, tap_window=None):
+    """(B,) int64: target blocks whose true neighbour span exceeds
+    `window`, plus — when `tap_window` is given and smaller — (block, tap)
+    pairs whose span exceeds the reference's per-tap sub-window. src_ids
+    (B, Vs) / tgt_ids (B, Vt) ascending int32; deltas (K,) int."""
+    deltas = torch.as_tensor(deltas, device=tgt_ids.device).long()
+    window = min(window, src_ids.shape[1])
+    lo = window_starts(src_ids, tgt_ids, deltas, block, window)
+    return _union_overflow(src_ids, tgt_ids, deltas, lo, block, window,
+                           sentinel_start, tap_window)
 
 
 # ----------------------------------------------------------------- K3
@@ -275,6 +275,20 @@ def _prepare(src_ids, feats, tgt_ids, deltas, block, window):
         window
 
 
+def _conv(src_ids, src_feats, tgt_ids, weights, deltas, block, window,
+          compute_dtype=None, **epilogue):
+    """K3 on unprepared lists; returns (out, (src_ids, tgt_ids, deltas, lo,
+    window) as the kernel saw them)."""
+    k, cin, cout = weights.shape
+    src_ids, feats, tgt_ids, deltas, lo, window = _prepare(
+        src_ids, src_feats, tgt_ids, deltas, block, window)
+    out = conv_kernel(
+        src_ids, feats, tgt_ids, lo, deltas,
+        weights.float().reshape(k * cin, cout), block, window,
+        compute_dtype=compute_dtype or _compute_dtype(feats), **epilogue)
+    return out, (src_ids, tgt_ids, deltas, lo, window)
+
+
 def windowed_conv(src_ids, src_feats, tgt_ids, weights, deltas,
                   block: int = 512, window: int = 1536, sentinel_start=None,
                   scale=None, shift=None, relu=False, compute_dtype=None):
@@ -284,22 +298,15 @@ def windowed_conv(src_ids, src_feats, tgt_ids, weights, deltas,
     scale/shift (Cout,) turn on the epilogue and need an int
     `sentinel_start`. Operands are bf16 on CUDA, f32 on the CPU unless
     `compute_dtype` says otherwise. Returns (out (B, Vt, Cout) f32,
-    overflow (B,) int64)."""
-    k, cin, cout = weights.shape
-    src_ids, feats, tgt_ids, deltas, lo, window = _prepare(
-        src_ids, src_feats, tgt_ids, deltas, block, window)
-    _, hi, has_real = _block_span(src_ids, tgt_ids, deltas, block,
-                                  sentinel_start)
-    overflow = (((hi - lo.long()) > window) & has_real).sum(dim=1)
+    overflow (B,) int64 against the window the kernel used)."""
     if scale is not None and sentinel_start is None:
         raise ValueError("the epilogue needs sentinel_start")
-    out = conv_kernel(
-        src_ids, feats, tgt_ids, lo, deltas,
-        weights.float().reshape(k * cin, cout), block, window, scale=scale,
-        shift=shift, relu=relu,
-        sentinel=sentinel_start if scale is not None else None,
-        compute_dtype=compute_dtype or _compute_dtype(feats))
-    return out, overflow
+    out, (src_ids, tgt_ids, deltas, lo, window) = _conv(
+        src_ids, src_feats, tgt_ids, weights, deltas, block, window,
+        compute_dtype, scale=scale, shift=shift, relu=relu,
+        sentinel=sentinel_start if scale is not None else None)
+    return out, _union_overflow(src_ids, tgt_ids, deltas.long(), lo, block,
+                                window, sentinel_start)
 
 
 # ----------------------------------------------------------------- K4
@@ -376,9 +383,8 @@ class WindowedConv(torch.autograd.Function):
     @staticmethod
     def forward(ctx, feats, weights, src_ids, tgt_ids, deltas, block,
                 window, compute_dtype):
-        out, _ = windowed_conv(src_ids, feats, tgt_ids, weights, deltas,
-                               block=block, window=window,
-                               compute_dtype=compute_dtype)
+        out, _ = _conv(src_ids, feats, tgt_ids, weights, deltas, block,
+                       window, compute_dtype)
         ctx.save_for_backward(feats, weights, src_ids, tgt_ids)
         ctx.cfg = (deltas, block, window, compute_dtype)
         return out
@@ -390,9 +396,9 @@ class WindowedConv(torch.autograd.Function):
         g = g.contiguous()
         d_feats = d_w = None
         if ctx.needs_input_grad[0]:
-            d_feats, _ = windowed_conv(
-                tgt_ids, g, src_ids, weights.transpose(1, 2), -deltas,
-                block=block, window=window, compute_dtype=cd)
+            d_feats, _ = _conv(tgt_ids, g, src_ids,
+                               weights.transpose(1, 2), -deltas, block,
+                               window, cd)
         if ctx.needs_input_grad[1]:
             d_w = windowed_dw(src_ids, feats, tgt_ids, g, deltas,
                               block=block, window=window, compute_dtype=cd)

@@ -15,7 +15,8 @@ batch-statistic BNs per block); BN statistics rtol 1e-4 / atol 1e-6;
 parameters after one Adam step atol 2e-6 at lr 1e-4 (Adam's update is
 ~lr * sign(g), so a parameter moves by at most ~1e-4: 2e-6 is 2 % of the
 move; the gradients themselves are held leaf by leaf above; entries
-whose gradient is rounding noise are only held to within two steps).
+whose gradient is rounding noise, below 1e-8, are only held to within two
+steps, and at most 40 entries may need that).
 """
 
 import copy
@@ -223,19 +224,20 @@ def test_one_train_step_matches_jax(both):
     got = flat(to_jax_tree(det, "param"))
     start = flat(variables["params"])
     jgrads = flat(jref["grads"])
-    n_noise = n_all = 0
+    n_off = 0
     for path, w in want.items():
-        # an entry whose gradient is at rounding-noise level (|g| < 3e-7;
-        # a true zero, as ahead of a batch-statistic BN, holds ~1e-9 of
-        # noise) is normalised by Adam to a step of arbitrary size and
-        # sign: it is only held to within two steps
-        noise = np.abs(jgrads[path]) < 3e-7
+        # an entry whose gradient is at rounding-noise level (|g| < 1e-8: a
+        # true zero, as the whole of dense_head/decoder/norm3/bias here,
+        # holds ~1e-9 of noise on both sides) is
+        # normalised by Adam to a step of arbitrary size and sign: it is
+        # only held to within two steps
+        noise = np.abs(jgrads[path]) < 1e-8
         err = np.abs(got[path] - w)
         assert (err <= np.where(noise, 2.1e-4, 2e-6)).all(), \
             ("/".join(path), float(err.max()))
-        n_noise += int((noise & (jgrads[path] != 0)).sum())
-        n_all += noise.size
-    assert n_noise < 0.25 * n_all
+        n_off += int((err > 2e-6).sum())
+    # 30 of the 209182 entries took the allowance when this was written
+    assert n_off <= 40, n_off
     assert sum(np.abs(got[p] - start[p]).max() > 1e-5 for p in got) \
         > 0.9 * len(got)
 
