@@ -8,12 +8,17 @@
 Phases (any failure exits non-zero and prints no result line):
   1. device — the card's name and power limit, torch/CUDA versions, and the
      nvcc build of the kernels from findnpropagate_torch/ops/csrc/ into
-     build/kernels/ (with ptxas' register / shared-memory report);
-  2. kernels — a batch-1 forward of the main path records the arguments of
-     every launch of K1 (positions) and K2 (posgather conv); each recorded
-     call is re-run through the kernel and through its plain PyTorch
-     version on the card: K1 must be bit-equal, K2 within its bf16
-     tolerance. Times are CUDA events after a warm-up;
+     build/kernels/ (with ptxas' register / shared-memory report; a
+     register spill in the K2 or K4 kernel fails the run);
+  2. kernels — synthetic corner cases of K2 and K4 at full channel widths
+     (a dense cube where all 27 neighbours hit, a window too small, blocks
+     of sentinels at the end, a dead block in the middle, Cout 10 and 3,
+     Cin 4, batch 1 and 4) against their plain versions; then a batch-1
+     forward of the main path records the arguments of every launch of K1
+     (positions) and K2 (posgather conv); each recorded call is re-run
+     through the kernel and through its plain PyTorch version on the card:
+     K1 must be bit-equal, K2 within its tolerance. Times are CUDA events
+     after a warm-up;
   3. main path — TransFusion-LiDAR from
      tools/cfgs/nuscenes_models/transfusion_lidar.yaml at full width,
      random weights (init_random_, seed 0), 200k-point lidar_ring scenes,
@@ -33,7 +38,10 @@ Phases (any failure exits non-zero and prints no result line):
      and the peak memory of the timed steps alone (counted from after the
      warm-up). One more step, untimed, has the arguments of its K1, K2
      (forward and backward), K3 (windowed conv, forward and transposed) and
-     K4 (weight gradient) launches recorded;
+     K4 (weight gradient) launches recorded. Last, one step at batch 1
+     with SUBM_IMPL: pallas (every sparse conv through K3 and K4) against a
+     posgather-mode step on the same scene and weights: loss within 1e-3,
+     overflow 0, 0 K1, 0 K2, 16 + 15 K3 and 16 K4 launches;
   6. training kernels — every recorded call is re-run through the kernel
      and through its plain PyTorch version on the card (K2, K3, K4 sample
      by sample): K1 at batch 4 bit-equal, the others within the stated
@@ -54,6 +62,7 @@ from __future__ import annotations
 
 import argparse
 import copy
+import dataclasses
 import json
 import math
 import subprocess
@@ -62,21 +71,32 @@ import time
 import traceback
 from pathlib import Path
 
+import numpy as np
+
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 BF16_FLOPS = 989e12              # dense tensor-core bf16
 CUDA_CORE_OPS = 67e12            # f32 / int32 outside the tensor cores
 CFG_FILE = "tools/cfgs/nuscenes_models/transfusion_lidar.yaml"
 # K2 compares the kernel with its plain version at the same bf16 operand
-# rounding; only the f32 summation order differs, so the error stays far
-# below one bf16 step (2^-8 relative): allow 1e-3 of the output's scale.
+# rounding. The tensor cores add the 27*Cin f32 products of an output in
+# another order (16 at a time, group by group) than the plain matmul, so
+# the two are no longer bit-equal, but the error stays far below one bf16
+# step (2^-8 relative): allow 1e-3 of the output's scale.
 K2_RTOL = 1e-3
 # K3 is held the same way (bf16 operands equal on both sides, f32 sums of
 # 27*Cin products in another order). K4 sums up to 4 x 131072 targets per
-# output in f32, in chunks of 1024 and then over the chunks, where the plain
-# version sums sample by sample: allow 2e-3 of the output's scale.
+# output in f32, 16 at a time on the tensor cores, per chunk of targets and
+# then over the chunks, where the plain version sums sample by sample: allow
+# 2e-3 of the output's scale.
 K3_RTOL = 1e-3
 K4_RTOL = 2e-3
+# One training step in SUBM_IMPL: pallas mode against posgather mode: the
+# same bf16 products, f32 sums in another tap order through 13 submanifold
+# convs, batch-statistic BN and the head: the losses agree to 1e-3.
+PALLAS_TRAIN_RTOL = 1e-3
+PALLAS_TRAIN_LAUNCHES = {"positions": 0, "posgather_conv": 0,
+                         "windowed_conv": 31, "windowed_dw": 16}
 TRAIN_OPT = {"OPTIMIZER": "adam", "LR": 1e-4, "WEIGHT_DECAY": 0.0,
              "GRAD_NORM_CLIP": 10.0}
 TRAIN_LAUNCHES = {"positions": 3, "posgather_conv": 25, "windowed_conv": 6,
@@ -190,6 +210,115 @@ def conv_bound(tp, args, kw):
 def bound_entry(t_bytes, t_ops):
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def corner_scene(torch, so, rng, shape, n_active, cap, batch, cin):
+    """`batch` samples of n_active random cells of a small grid (all of
+    them: a dense cube), sorted by id and padded to `cap` rows with
+    sentinels; features are zero on the padding."""
+    nz, ny, nx = shape
+    coords = np.full((batch, cap, 3), -1, np.int32)
+    for i in range(batch):
+        lin = rng.choice(nz * ny * nx, n_active, replace=False)
+        coords[i, :n_active] = np.stack(
+            [lin % nz, (lin // nz) % ny, lin // (nz * ny)], 1)
+    coords = torch.from_numpy(coords).cuda()
+    valid = torch.arange(cap, device="cuda")[None, :].expand(batch, -1) \
+        < n_active
+    ids, order = torch.sort(so.yxz_linear_ids(coords, valid, shape), dim=1)
+    feats = torch.from_numpy(rng.standard_normal(
+        (batch, cap, cin)).astype("float32")).cuda()
+    feats = feats * (ids < so.yxz_sentinel_start(shape))[..., None]
+    return ids.contiguous(), feats
+
+
+CORNERS = [
+    # name, grid, actives, rows, batch, Cin, Cout, window, epilogue
+    ("dense cube, 27 hits", (8, 16, 16), 2048, 2048, 1, 64, 128, 4096, True),
+    ("window too small", (9, 24, 24), 2000, 2048, 1, 16, 16, 512, True),
+    ("sentinel blocks at the end", (9, 40, 40), 1500, 4096, 4, 32, 64, 4096,
+     True),
+    ("dead block in the middle", (9, 40, 40), 3000, 4096, 1, 32, 32, 4096,
+     False),
+    ("Cout 10", (9, 40, 40), 1800, 2048, 1, 16, 10, 4096, False),
+    ("Cout 3, batch 4", (9, 40, 40), 1800, 2048, 4, 64, 3, 4096, True),
+    ("Cin 4", (9, 40, 40), 1800, 2048, 1, 4, 16, 4096, False),
+]
+
+
+def corner_phase(torch, tp, ws, so, block=1024):
+    """K2 and K4 against their plain versions on synthetic cases (numpy
+    seed 0) that the recorded launches of the paths do not reach."""
+    rng = np.random.RandomState(0)
+    rows = []
+    for name, shape, n, cap, b, cin, cout, window, epi in CORNERS:
+        ids, feats = corner_scene(torch, so, rng, shape, n, cap, b, cin)
+        deltas = so.yxz_offset_deltas((3, 3, 3), shape)
+        sent = so.yxz_sentinel_start(shape)
+        w = torch.from_numpy(rng.standard_normal(
+            (27, cin, cout)).astype("float32") * 0.1).cuda()
+        kw = {}
+        if epi:
+            kw = dict(scale=torch.from_numpy(rng.uniform(
+                0.5, 1.5, cout).astype("float32")).cuda(),
+                shift=torch.from_numpy(rng.standard_normal(
+                    cout).astype("float32")).cuda(), relu=True)
+        lp = tp.compute_positions(ids, ids, deltas, block=block,
+                                  window=window, sentinel_start=sent)
+        if name == "dead block in the middle":
+            hr = lp.has_real.clone()
+            hr[:, 1] = 0
+            lp = dataclasses.replace(lp, has_real=hr)
+        with Recorder(tp, "gather_conv", torch) as rec:
+            out = tp.posgather_conv(ids, feats, ids, w, lp,
+                                    sentinel_start=sent, **kw)
+        (args, ckw), = rec.calls
+        ref = tp.posgather_conv_plain(*args, **ckw)[..., :cout]
+        torch.cuda.synchronize()
+        err2 = float((out - ref).abs().max())
+        tol2 = K2_RTOL * max(float(ref.abs().max()), 1e-3)
+        hits = torch.stack([f for _, f in tp.neighbour_probes(
+            args[0], *args[2:7], *args[8:10])]).sum(dim=0).sum(dim=1)
+        ovf = int(lp.overflow.sum())
+        dead = int((lp.has_real == 0).sum())
+        if not (err2 <= tol2 and bool(torch.isfinite(out).all())):
+            raise AssertionError(f"corner {name}: K2 err {err2} > {tol2}")
+        if name.startswith("dense cube") and int(hits.max()) != 27:
+            raise AssertionError(f"corner {name}: at most {int(hits.max())} "
+                                 "of 27 neighbours hit")
+        if (name == "window too small") != (ovf > 0):
+            raise AssertionError(f"corner {name}: overflow {ovf}")
+        if name in ("sentinel blocks at the end",
+                    "dead block in the middle") and not (
+                dead > 0 and bool((out.reshape(
+                    b, -1, block, cout)[lp.has_real == 0] == 0).all())):
+            raise AssertionError(f"corner {name}: {dead} dead blocks, or "
+                                 "their rows are not zero")
+
+        g = torch.from_numpy(rng.standard_normal(
+            (b, cap, cout)).astype("float32")).cuda()
+        with Recorder(ws, "dw_kernel", torch) as rec:
+            dw = ws.windowed_dw(ids, feats, ids, g, deltas, block=block,
+                                window=window)
+        (args, ckw), = rec.calls
+        ref = ws.windowed_dw_plain(*args, **ckw)
+        torch.cuda.synchronize()
+        err4 = float((dw - ref).abs().max())
+        tol4 = K4_RTOL * max(float(ref.abs().max()), 1e-3)
+        if not (tuple(dw.shape) == (27, cin, cout) and err4 <= tol4
+                and bool(torch.isfinite(dw).all())):
+            raise AssertionError(f"corner {name}: K4 err {err4} > {tol4}")
+        if not torch.equal(dw, ws.dw_kernel(*args, **ckw)):
+            raise AssertionError(f"corner {name}: K4 differs between runs")
+        rows.append({"case": name, "batch": b, "cin": cin, "cout": cout,
+                     "overflow": ovf, "dead_blocks": dead,
+                     "max_hits": int(hits.max()), "k2_err": err2,
+                     "k2_tol": tol2, "k4_err": err4, "k4_tol": tol4})
+        log(f"corner {name:28s} batch {b} {cin}->{cout} overflow {ovf} "
+            f"dead blocks {dead} max hits {int(hits.max())}: K2 err "
+            f"{err2:.3g} (tol {tol2:.3g}), K4 err {err4:.3g} (tol "
+            f"{tol4:.3g})")
+    return rows
 
 
 def check_positions(torch, tp, pos_calls, label=""):
@@ -494,9 +623,10 @@ def launches_now(tp, ws):
     return {**tp.LAUNCHES, **ws.LAUNCHES}
 
 
-def run_train_step(torch, step, batch, tp, ws, lap, accum):
+def run_train_step(torch, step, batch, tp, ws, lap, accum, want=None):
     """One optimizer step with the launch counts set to 0 just before and
-    read just after; checks what a healthy step must show."""
+    read just after; checks what a healthy step must show (`want`: the
+    launch counts of one pass, the posgather mode's by default)."""
     tp.reset_launches()
     ws.reset_launches()
     t0 = torch.cuda.Event(enable_timing=True)
@@ -507,7 +637,7 @@ def run_train_step(torch, step, batch, tp, ws, lap, accum):
         t1.record()
         torch.cuda.synchronize()
     launches = launches_now(tp, ws)
-    want = {k: v * accum for k, v in TRAIN_LAUNCHES.items()}
+    want = {k: v * accum for k, v in (want or TRAIN_LAUNCHES).items()}
     if launches != want:
         raise AssertionError(f"train step: launches {launches}, want {want}")
     m = {k: float(v) for k, v in metrics.items()}
@@ -612,6 +742,8 @@ def training_phase(torch, mods, cfg, args, report):
 
     del det, tx, step1, step2
     torch.cuda.empty_cache()
+    pallas_train_phase(torch, mods, cfg, report)
+    torch.cuda.empty_cache()
     rows = check_positions(torch, tp, k1_rec.calls, "train ")
     for r in rows:
         log(f"positions       call {r['call']:2d} batch {r['batch']} "
@@ -622,6 +754,46 @@ def training_phase(torch, mods, cfg, args, report):
                                     k3_rec.calls, k4_rec.calls)
     log_conv_rows(conv_rows)
     return rows + conv_rows
+
+
+def pallas_train_phase(torch, mods, cfg, report):
+    """One training step at batch 1 in SUBM_IMPL: pallas mode (13
+    submanifold and 3 strided convs forward through K3, 12 + 3 transposed,
+    16 weight gradients through K4) beside a posgather-mode step on the same
+    scene and weights: its own launch counts, overflow 0, and the same loss
+    within PALLAS_TRAIN_RTOL."""
+    cfg_mod, models_mod, synth, tp, ws, lap, weights, optimization, \
+        trainer = mods
+    ds = synth.SyntheticDataset(cfg_mod.EDict(data_cfg(2, cfg)),
+                                cfg.CLASS_NAMES, training=True)
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in ds.batch(range(1)).items()}
+    res = {}
+    for impl in ("posgather", "pallas"):
+        mcfg = copy.deepcopy(cfg.MODEL)
+        mcfg.BACKBONE_3D["SUBM_IMPL"] = impl
+        det = models_mod.build_network(mcfg, 10, ds)
+        weights.init_random_(det, seed=0)
+        det.train()
+        tx, _ = optimization.build_optimizer(det.parameters(), TRAIN_OPT,
+                                             1000)
+        step = trainer.make_train_step(det, tx, accum_steps=1)
+        res[impl] = run_train_step(
+            torch, step, batch, tp, ws, lap, 1,
+            want=PALLAS_TRAIN_LAUNCHES if impl == "pallas" else None)
+        del det, tx, step
+    a, b = res["pallas"]["loss"], res["posgather"]["loss"]
+    rel = abs(a - b) / max(abs(b), 1e-12)
+    report["pallas_train"] = {"batch": 1, "pallas": res["pallas"],
+                              "posgather": res["posgather"],
+                              "loss_rel_diff": rel}
+    log(f"train step, SUBM_IMPL pallas, batch 1: loss {a:.4f} (posgather "
+        f"{b:.4f}, rel diff {rel:.3g}), {res['pallas']['ms']:.1f} ms "
+        f"(posgather {res['posgather']['ms']:.1f} ms, both first steps), "
+        f"launches {res['pallas']['launches']}")
+    if not rel <= PALLAS_TRAIN_RTOL:
+        raise AssertionError(f"pallas-mode training loss {a} vs posgather "
+                             f"{b}: rel diff {rel}")
 
 
 def log_conv_rows(rows):
@@ -755,6 +927,13 @@ def main():
         for line in _build.PTXAS_LOG.get(name, "").splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 log("  ptxas:", line.strip())
+        # posgather.cu's conv_kernel is K2, windowed_dw_kernel is K4
+        spilled = {fn: n for fn, n in _build.spills(
+            _build.PTXAS_LOG.get(name, "")).items()
+            if n and ("windowed_dw_kernel" in fn or (
+                name == "posgather" and "conv_kernel" in fn))}
+        if spilled:
+            raise AssertionError(f"register spills in {name}: {spilled}")
 
     cfg = cfg_mod.cfg_from_yaml_file(str(ROOT / CFG_FILE))
     nmax = max(max(args.batches), 2)
@@ -766,7 +945,9 @@ def main():
                    for k, v in ds.batch(range(b)).items()}
                for b in args.batches}
 
-    # ---- 2. kernels vs plain, at the main path's own arguments
+    # ---- 2. kernels vs plain: corner cases, then the main path's own
+    # arguments
+    report["corner_cases"] = corner_phase(torch, tp, ws, sparse_ops)
     with Recorder(tp, "positions", torch) as pos_rec, \
             Recorder(tp, "gather_conv", torch) as conv_rec:
         det.post_process(det(batches[min(args.batches)]))

@@ -3,8 +3,9 @@ a plain C interface, loaded with ctypes.
 
 Each ``csrc/<name>.cu`` is compiled at first use for ``sm_90a`` into
 ``build/kernels/lib<name>_<source hash>.so`` at the root of the checkout
-(listed in .gitignore), so a changed source is rebuilt and an unchanged one
-is reused. `build_all` starts one nvcc per source at once and waits for
+(listed in .gitignore); the hash covers the source and every header under
+``csrc/`` that it includes, so a change to any of them is rebuilt and
+unchanged sources are reused. `build_all` starts one nvcc per source at once and waits for
 all. Nothing here runs at import time: this module imports on machines
 without nvcc or a GPU.
 """
@@ -14,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -41,10 +43,47 @@ def _nvcc():
                        "the port's kernels")
 
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def source_files(src):
+    """The source and, recursively, the files under csrc/ that it includes
+    with quotes, in the order met."""
+    files, todo = [], [Path(src)]
+    while todo:
+        f = todo.pop(0)
+        if f in files:
+            continue
+        files.append(f)
+        for inc in _INCLUDE.findall(f.read_text()):
+            if (f.parent / inc).exists():
+                todo.append(f.parent / inc)
+    return files
+
+
 def _target(name):
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    return src, BUILD_DIR / f"lib{name}_{digest}.so"
+    h = hashlib.sha256()
+    for f in source_files(src):
+        h.update(f.read_bytes())
+    return src, BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
+
+
+def spills(ptxas_log):
+    """{mangled kernel name: bytes of register spills (stores + loads)}
+    from the report that ``-Xptxas -v`` writes."""
+    out, fn = {}, None
+    for line in ptxas_log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            fn = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and fn is not None:
+            out[fn] = int(m.group(1)) + int(m.group(2))
+            fn = None
+    return out
 
 
 def build_all(names):

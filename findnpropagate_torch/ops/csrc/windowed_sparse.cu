@@ -30,35 +30,42 @@
 //    :345, pallas_call :380).
 //    dW[k] = sum over samples and targets of gathered_k^T . g, (K, Cin,
 //    Cout) f32 from bf16 operands.
-//    Bound: operations (2*Cin*Cout flop per neighbour found against
-//    Cin*4 + Cout*4 bytes read). Design: the TPU keeps the whole (K*Cin,
-//    Cout) block resident across a sequential grid; here blocks run in any
-//    order and the whole dW does not fit one, so the grid splits over
-//    (tap) x (chunk of targets) x (sample). A block holds its tap's
-//    Cin x Cout partial sum in registers (up to 32 per thread), walks its
-//    chunk 32 targets at a time (search, gather the found rows and the g
-//    rows into shared memory as bf16, rank-32 update; targets whose tap
-//    misses are skipped), and writes one partial. A second kernel sums the
-//    partials in chunk order, so the result is the same from run to run —
-//    no atomics.
+//    Bound: operations at 64 channels (2*Cin*Cout flop per neighbour found
+//    against Cin*2 + Cout*2 bytes read), bytes and search latency at 16 and
+//    32. Design: the K taps are K/3 (dy, dx) groups of three consecutive
+//    ids (z-1, z, z+1), so one search of the group's centre id in the
+//    target block's window gives all three rows (the probes of K2, with the
+//    same exact-id checks and window edges, so the neighbours kept and
+//    dropped are those of a per-tap search). The grid is (group) x (chunk
+//    of targets) x (sample), chunks sized for about three blocks per SM. A
+//    256-thread block keeps its group's 3Cin x Cout f32 sum in tensor-core
+//    accumulators (3 x WN m16n8k16 tiles per warp, up to 96 registers per
+//    thread) and walks its chunk in tiles of 64 targets with the target
+//    axis as the product's depth: dW_g += A^T (3Cin x 64) . G (64 x Cout),
+//    both read with ldmatrix.trans from [target][channel] tiles. The tiles
+//    (gathered rows, zero on a miss, and the g rows once for all three
+//    taps) arrive by 16-byte cp.async from bf16 copies that the wrapper
+//    makes, in a two-stage ring: tile i+1 is searched and in flight while
+//    tile i multiplies. A tile without any neighbour is skipped. The TPU
+//    keeps dW resident across a sequential grid; here each block writes one
+//    partial (samples x chunks x K*Cin*Cout floats of scratch: 1 to 25 MB
+//    on the training step, chosen by the wrapper) and a second kernel sums
+//    the partials in a fixed order into the (K, Cin, Cout) tap order: the
+//    same result from run to run, no atomics.
 //
 // Every entry launches on the stream it is given, allocates nothing, and
-// returns cudaGetLastError().
+// returns the launch's error code.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "gather_mma.cuh"
 
 namespace {
 
 constexpr int kTile = 32;        // targets per pass
 constexpr int kThreads = 256;
 constexpr int kTaps = 3;         // taps per pass of the conv kernel
-constexpr int kMaxCin = 128;
 constexpr int kMaxCout = 128;
 constexpr int kMaxRows = kTile * kMaxCout / kThreads;  // conv accumulators
-constexpr int kMaxDwCout = 256;
-constexpr int kMaxDwAcc = 32;    // dW accumulators per thread
+constexpr int kDwTile = 64;      // targets per weight-gradient tile
 
 // Row of `want` in the ascending window a[0:n), or -1.
 __device__ __forceinline__ int find_row(const int* __restrict__ a, int n,
@@ -152,92 +159,185 @@ windowed_conv_kernel(const int* __restrict__ src,
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+// Shared memory: two stages of [gather tile: kDwTile x (3Cin + 8) bf16]
+// [g tile: kDwTile x (Cout + 8) bf16], then rows: 2 x 3 x kDwTile int.
+// Warps: cin/16 along the 3Cin axis (3 m-tiles each) x cout/(8 WN) along
+// Cout (WN n-tiles each); warps beyond that product only gather.
+template <int WN>
+__global__ void __launch_bounds__(kThreads, WN >= 8 ? 1 : 2)
 windowed_dw_kernel(const int* __restrict__ src,
-                   const float* __restrict__ feats,
-                   const int* __restrict__ tgt, const float* __restrict__ g,
-                   const int* __restrict__ lo, const int* __restrict__ deltas,
+                   const __nv_bfloat16* __restrict__ feats,
+                   const int* __restrict__ tgt,
+                   const __nv_bfloat16* __restrict__ g,
+                   const int* __restrict__ lo,
+                   const int* __restrict__ centres,
                    float* __restrict__ partial, int vs, int vt, int nb,
-                   int k_n, int block, int window, int cin, int cout,
-                   int chunk) {
-  __shared__ __nv_bfloat16 fsm[kTile * kMaxCin];
-  __shared__ __nv_bfloat16 gsm[kTile * kMaxDwCout];
-  __shared__ int rows[kTile];
-  __shared__ int any_hit;
-
-  const int k = blockIdx.x;
-  const int ch = blockIdx.y;
-  const int b = blockIdx.z;
-  const int n_chunks = vt / chunk;
-  const int tid = threadIdx.x;
-  const int co = tid % cout;
-  const int c0 = tid / cout;
-  const int cstep = kThreads / cout;
-  const int n_acc = (cin + cstep - 1) / cstep;
-  const int delta = deltas[k];
+                   int block, int window, int cin, int cout,
+                   int tiles_per_chunk) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int grp = blockIdx.x, ch = blockIdx.y, b = blockIdx.z;
+  const int g_n = gridDim.x, n_chunks = gridDim.y;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int a_stride = fp::tile_stride(cin);
+  const int g_stride = cout * 2 + 16;
+  const int a_bytes = kDwTile * a_stride, g_bytes = kDwTile * g_stride;
+  const uint32_t sa = fp::smem_addr(smem);
+  int* rows = reinterpret_cast<int*>(smem + 2 * (a_bytes + g_bytes));
+  const int wm = cin / 16;
+  const int wn = cout / (8 * WN);
+  const bool active = warp < wm * wn;
+  const int wmi = warp % wm, wni = warp / wm;
+  const int centre_d = centres[grp];
   const int* srcb = src + (size_t)b * vs;
   const int* tgtb = tgt + (size_t)b * vt;
-  const float* fb = feats + (size_t)b * vs * cin;
-  const float* gb = g + (size_t)b * vt * cout;
+  const __nv_bfloat16* fb = feats + (size_t)b * vs * cin;
+  const __nv_bfloat16* gb = g + (size_t)b * vt * cout;
+  const int n_tiles = vt / kDwTile;
+  const int tile_lo = ch * tiles_per_chunk;
+  const int tile_hi = min(n_tiles, tile_lo + tiles_per_chunk);
 
-  float acc[kMaxDwAcc];
+  float acc[3][WN][4];
 #pragma unroll
-  for (int j = 0; j < kMaxDwAcc; ++j) acc[j] = 0.f;
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < WN; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
 
-  for (int t0 = ch * chunk; t0 < (ch + 1) * chunk; t0 += kTile) {
-    if (tid == 0) any_hit = 0;
-    __syncthreads();
-    if (tid < kTile) {
-      const int t = t0 + tid;
+  // search one tile's targets, resolve their three probes into rows[st];
+  // true (for every thread) if any neighbour was found
+  auto resolve = [&](int tile, int st) {
+    int found = 0;
+    if (tid < kDwTile) {
+      const int t = tile * kDwTile + tid;
       const int lo_b = lo[b * nb + t / block];
-      const int r = find_row(srcb + lo_b, window, tgtb[t] + delta);
-      rows[tid] = r >= 0 ? lo_b + r : -1;
-      if (r >= 0) any_hit = 1;
+      const int* win = srcb + lo_b;
+      const int centre = tgtb[t] + centre_d;
+      const int r = fp::lower_bound(win, window, centre);
+      const int hit = r < window && win[r] == centre;
+      int* rw = rows + st * 3 * kDwTile;
+      fp::resolve_probes(win, window, lo_b, r, hit, centre, rw, kDwTile, tid);
+      found = (rw[tid] >= 0) | (rw[kDwTile + tid] >= 0)
+          | (rw[2 * kDwTile + tid] >= 0);
     }
+    return __syncthreads_or(found);
+  };
+  auto issue = [&](int tile, int st) {
+    const uint32_t a_sa = sa + st * (a_bytes + g_bytes);
+    fp::gather_tile<kDwTile>(a_sa, fb, rows + st * 3 * kDwTile, cin, tid,
+                             kThreads);
+    const int cpr = cout >> 3;
+    const __nv_bfloat16* gt = gb + (size_t)tile * kDwTile * cout;
+    for (int c = tid; c < kDwTile * cpr; c += kThreads) {
+      const int r = c / cpr, cc = c - r * cpr;
+      fp::cp_async16(a_sa + a_bytes + r * g_stride + cc * 16,
+                     gt + (size_t)r * cout + cc * 8, 16);
+    }
+  };
+
+  int live = 0;
+  if (tile_lo < tile_hi) {
+    live = resolve(tile_lo, 0);
+    if (live) issue(tile_lo, 0);
+  }
+  fp::cp_async_commit();
+  for (int tile = tile_lo; tile < tile_hi; ++tile) {
+    const int st = (tile - tile_lo) & 1;
+    int live_next = 0;
+    if (tile + 1 < tile_hi) {
+      live_next = resolve(tile + 1, st ^ 1);
+      if (live_next) issue(tile + 1, st ^ 1);
+    }
+    fp::cp_async_commit();          // possibly empty: keeps the count even
+    fp::cp_async_wait<1>();
     __syncthreads();
-    if (any_hit) {
-      for (int e = tid; e < kTile * cin; e += kThreads) {
-        const int row = e / cin, c = e - row * cin;
-        const int s = rows[row];
-        fsm[e] = __float2bfloat16(s >= 0 ? fb[(size_t)s * cin + c] : 0.f);
-      }
-      for (int e = tid; e < kTile * cout; e += kThreads)
-        gsm[e] = __float2bfloat16(gb[(size_t)t0 * cout + e]);
-      __syncthreads();
-      for (int t = 0; t < kTile; ++t) {
-        if (rows[t] < 0) continue;
-        const float gv = __bfloat162float(gsm[t * cout + co]);
+    if (live && active) {
+      const uint32_t a_sa = sa + st * (a_bytes + g_bytes);
+      const uint32_t g_sa = a_sa + a_bytes;
 #pragma unroll
-        for (int j = 0; j < kMaxDwAcc; ++j) {
-          if (j < n_acc) {
-            const int c = c0 + j * cstep;
-            if (c < cin) acc[j] += __bfloat162float(fsm[t * cin + c]) * gv;
+      for (int kt = 0; kt < kDwTile / 16; ++kt) {
+        uint32_t a[3][4];
+#pragma unroll
+        for (int i = 0; i < 3; ++i) {
+          const int c0 = (wmi * 3 + i) * 16;
+          fp::ldmatrix_x4_trans(
+              a[i], a_sa
+              + (kt * 16 + (lane & 7) + ((lane >> 4) << 3)) * a_stride
+              + (c0 + ((lane >> 3) & 1) * 8) * 2);
+        }
+#pragma unroll
+        for (int j = 0; j < WN; j += 2) {
+          const int n0 = (wni * WN + j) * 8;
+          uint32_t bq[4];
+          fp::ldmatrix_x4_trans(
+              bq, g_sa
+              + (kt * 16 + (lane & 7) + (((lane >> 3) & 1) << 3)) * g_stride
+              + (n0 + (lane >> 4) * 8) * 2);
+#pragma unroll
+          for (int i = 0; i < 3; ++i) {
+            fp::mma_bf16(acc[i][j], a[i], bq[0], bq[1]);
+            fp::mma_bf16(acc[i][j + 1], a[i], bq[2], bq[3]);
           }
         }
       }
     }
     __syncthreads();
+    live = live_next;
   }
 
-  float* p = partial
-      + (((size_t)b * n_chunks + ch) * k_n + k) * (size_t)cin * cout;
+  if (active) {
+    float* p = partial
+        + (((size_t)b * n_chunks + ch) * g_n + grp) * (size_t)(3 * cin) * cout;
 #pragma unroll
-  for (int j = 0; j < kMaxDwAcc; ++j) {
-    if (j < n_acc) {
-      const int c = c0 + j * cstep;
-      if (c < cin) p[(size_t)c * cout + co] = acc[j];
-    }
+    for (int i = 0; i < 3; ++i)
+#pragma unroll
+      for (int j = 0; j < WN; ++j)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int row = (wmi * 3 + i) * 16 + (lane >> 2) + half * 8;
+          const int col = (wni * WN + j) * 8 + (lane & 3) * 2;
+          *reinterpret_cast<float2*>(p + (size_t)row * cout + col) =
+              make_float2(acc[i][j][half * 2], acc[i][j][half * 2 + 1]);
+        }
   }
 }
 
+// dw[zi * g_n + grp][c][o] = sum over the partials, in their order, of
+// partial[.][grp][zi * cin + c][o].
 __global__ void dw_reduce_kernel(const float* __restrict__ partial,
                                  float* __restrict__ dw, int n_partials,
-                                 int n) {
+                                 int g_n, int cin, int cout) {
+  const int n = g_n * 3 * cin * cout;
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= n) return;
+  const int o = e % cout, c = (e / cout) % cin, k = e / (cout * cin);
+  const int zi = k / g_n, grp = k - zi * g_n;
+  const float* p = partial + ((size_t)grp * 3 * cin + zi * cin + c) * cout + o;
   float s = 0.f;
-  for (int i = 0; i < n_partials; ++i) s += partial[(size_t)i * n + e];
+  for (int i = 0; i < n_partials; ++i) s += p[(size_t)i * n];
   dw[e] = s;
+}
+
+template <int WN>
+int launch_dw(const int* src, const void* feats, const int* tgt,
+              const void* g, const int* lo, const int* centres,
+              float* partial, int batch, int vs, int vt, int nb, int g_n,
+              int block, int window, int cin, int cout, int n_chunks,
+              cudaStream_t stream) {
+  const int smem = 2 * kDwTile * ((3 * cin * 2 + 16) + (cout * 2 + 16))
+      + 2 * 3 * kDwTile * 4;
+  cudaError_t err = cudaFuncSetAttribute(
+      windowed_dw_kernel<WN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return (int)err;
+  const int n_tiles = vt / kDwTile;
+  const int tiles_per_chunk = (n_tiles + n_chunks - 1) / n_chunks;
+  dim3 grid(g_n, n_chunks, batch);
+  windowed_dw_kernel<WN><<<grid, kThreads, smem, stream>>>(
+      src, (const __nv_bfloat16*)feats, tgt, (const __nv_bfloat16*)g, lo,
+      centres, partial, vs, vt, nb, block, window, cin, cout,
+      tiles_per_chunk);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -268,25 +368,36 @@ int fp_windowed_conv(const int* src, const float* feats, const int* tgt,
   return (int)cudaGetLastError();
 }
 
-// dw (K, Cin, Cout) f32 from feats (B, Vs, Cin) f32 and g (B, Vt, Cout)
-// f32, through partial (B * Vt / chunk, K, Cin, Cout) f32 scratch.
-// Cout a power of two in [8, 256]; Cin <= 128 and Cin * Cout <= 8192;
-// chunk % 32 == 0, block % 32 == 0, Vt % chunk == 0.
-int fp_windowed_dw(const int* src, const float* feats, const int* tgt,
-                   const float* g, const int* lo, const int* deltas,
+// dw (3G, Cin, Cout) f32, tap k = zi * G + group, from feats (B, Vs, Cin)
+// bf16 and g (B, Vt, Cout) bf16, through partial (B * n_chunks, G, 3Cin,
+// Cout) f32 scratch; centres (G,) are the groups' dz = 0 deltas. Cin in
+// {16, 32, 64, 128}; Cout a power of two in [16, 256]; Cin * Cout <= 8192;
+// block % 64 == 0; Vt % block == 0 (checked by the caller).
+int fp_windowed_dw(const int* src, const void* feats, const int* tgt,
+                   const void* g, const int* lo, const int* centres,
                    float* partial, float* dw, int batch, int vs, int vt,
-                   int nb, int k_n, int block, int window, int cin, int cout,
-                   int chunk, void* stream) {
-  const int n_chunks = vt / chunk;
-  dim3 grid(k_n, n_chunks, batch);
-  windowed_dw_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      src, feats, tgt, g, lo, deltas, partial, vs, vt, nb, k_n, block,
-      window, cin, cout, chunk);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int n = k_n * cin * cout;
+                   int nb, int g_n, int block, int window, int cin, int cout,
+                   int n_chunks, void* stream) {
+  const int wm = cin / 16, nt = cout / 8;
+  int wn = 8 / wm < nt / 2 ? 8 / wm : nt / 2;
+  if (wm < 1 || wm > 8 || wn < 1) return (int)cudaErrorInvalidValue;
+  int status = (int)cudaErrorInvalidValue;
+#define FP_DW_CASE(WN)                                                       \
+  case WN:                                                                   \
+    status = launch_dw<WN>(src, feats, tgt, g, lo, centres, partial, batch,  \
+                           vs, vt, nb, g_n, block, window, cin, cout,        \
+                           n_chunks, (cudaStream_t)stream);                  \
+    break
+  switch (nt / wn) {
+    FP_DW_CASE(2);
+    FP_DW_CASE(4);
+    FP_DW_CASE(8);
+  }
+#undef FP_DW_CASE
+  if (status != 0) return status;
+  const int n = g_n * 3 * cin * cout;
   dw_reduce_kernel<<<(n + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
-      partial, dw, batch * n_chunks, n);
+      partial, dw, batch * n_chunks, g_n, cin, cout);
   return (int)cudaGetLastError();
 }
 

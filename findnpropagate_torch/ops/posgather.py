@@ -10,7 +10,10 @@ Two kernels carry it (ops/csrc/posgather.cu):
     a hit flag, as ``hit ? rank : ~rank``; -1 for dead blocks;
   * K2 `gather_conv` — the 27 neighbours fetched through those ranks (z-1
     at rank-1, z at rank, z+1 at rank+hit, each checked against the exact
-    id) times the weights, with the optional fused bias+BN(+ReLU) epilogue.
+    id) times the weights on the tensor cores, with the optional fused
+    bias+BN(+ReLU) epilogue. The wrapper hands the kernel one bf16 copy of
+    the features and the weights packed in mma fragment order
+    (`pack_weights_mma`).
 
 Each has a plain PyTorch version beside it (`positions_plain`,
 `posgather_conv_plain`). A wrapper takes the plain version only for a
@@ -42,6 +45,7 @@ import torch
 from . import _build
 
 ALIGN = 512
+CONV_TILE = 128          # targets per tile of the K2 kernel
 LAUNCHES = {"positions": 0, "posgather_conv": 0}
 
 
@@ -51,14 +55,18 @@ def reset_launches():
 
 
 def group_center_deltas(deltas27):
-    """K zyx-C-order tap deltas -> the K/3 group-centre (dz=0) deltas,
-    checking that each group's z-taps are consecutive ids."""
+    """K zyx-C-order tap deltas -> the K/3 group-centre (dz=0) deltas: tap
+    zi * K/3 + g is the centre of group g plus zi - 1. Raises ValueError
+    where the taps are not such groups of three consecutive ids."""
     d = np.asarray(deltas27)
-    assert d.shape[0] % 3 == 0
     g = d.shape[0] // 3
     centers = d[g:2 * g]
-    assert np.all(d[0:g] == centers - 1) and np.all(d[2 * g:] == centers + 1), \
-        "tap deltas are not z-consecutive; posgather needs a k3 z axis"
+    if d.ndim != 1 or d.shape[0] != 3 * g or g == 0 \
+            or not (np.all(d[0:g] == centers - 1)
+                    and np.all(d[2 * g:] == centers + 1)):
+        raise ValueError("tap deltas are not groups of three consecutive "
+                         "ids (z-1, z, z+1): a kernel size of 3 along z, "
+                         "taps in zyx C-order, is needed")
     return centers.astype(np.int32)
 
 
@@ -257,11 +265,29 @@ def posgather_conv_plain(src_ids, feats, tgt_ids, pos, lo, has_real,
     return out * live[..., None]
 
 
+MMA_K, MMA_N = 16, 8     # depth and width of one mma.sync m16n8k16 B tile
+
+
+def pack_weights_mma(w_flat):
+    """(R, Cout) weights, R % 16 == 0 and Cout % 8 == 0 -> (R/16, Cout/8,
+    32, 4) in the order the tensor-core kernel reads its B fragments: for
+    each 16-row slab and 8-column tile, lane l holds rows 2(l%4), 2(l%4)+1,
+    2(l%4)+8, 2(l%4)+9 of column l // 4."""
+    r, cout = w_flat.shape
+    if r % MMA_K or cout % MMA_N:
+        raise ValueError(f"cannot pack a ({r}, {cout}) weight matrix")
+    # row = 16 ks + 8 h + 2 t + p, column = 8 nt + n; lane = 4 n + t and
+    # the lane's four values are (h, p) in C order
+    w = w_flat.reshape(r // MMA_K, 2, 4, 2, cout // MMA_N, MMA_N)
+    return w.permute(0, 4, 5, 2, 1, 3).reshape(
+        r // MMA_K, cout // MMA_N, 32, 4).contiguous()
+
+
 def gather_conv(src_ids, feats, tgt_ids, pos, lo, has_real, gdeltas,
                 w_flat, block: int, window: int, scale=None, shift=None,
                 relu=False, sentinel=None, compute_dtype=torch.float32):
-    """K2 wrapper: the CUDA kernel (bf16 operands, f32 sums) for CUDA
-    tensors, the plain version for CPU tensors."""
+    """K2 wrapper: the CUDA kernel (bf16 operands, f32 sums on the tensor
+    cores) for CUDA tensors, the plain version for CPU tensors."""
     if not _check_device(src_ids, feats, tgt_ids, pos, lo, has_real,
                          gdeltas, w_flat):
         return posgather_conv_plain(
@@ -273,8 +299,8 @@ def gather_conv(src_ids, feats, tgt_ids, pos, lo, has_real, gdeltas,
     g_n, cin = gdeltas.shape[0], feats.shape[2]
     cout = w_flat.shape[1]
     cout_p = max(8, 1 << (cout - 1).bit_length())
-    if cin % 16 or cin > 128 or cout_p > 128 or block % 32 or vt % block \
-            or window > src_ids.shape[1]:
+    if cin % 16 or cin > 128 or cout_p > 128 or block % CONV_TILE \
+            or vt % block or window > src_ids.shape[1]:
         raise ValueError(f"unsupported posgather conv shape cin={cin} "
                          f"cout={cout} block={block} vt={vt} window={window}")
     _check_ids(src_ids=src_ids, tgt_ids=tgt_ids, pos=pos, lo=lo,
@@ -289,7 +315,7 @@ def gather_conv(src_ids, feats, tgt_ids, pos, lo, has_real, gdeltas,
     if scale is not None:
         _check_shape("scale", scale, (cout,))
         _check_shape("shift", shift, (cout,))
-    feats = feats.float().contiguous()
+    feats = feats.to(torch.bfloat16).contiguous()
     w = w_flat.to(torch.bfloat16)
     epilogue = scale is not None
     if epilogue:
@@ -300,7 +326,8 @@ def gather_conv(src_ids, feats, tgt_ids, pos, lo, has_real, gdeltas,
         w = torch.nn.functional.pad(w, (0, cout_p - cout))
         scale = torch.nn.functional.pad(scale, (0, cout_p - cout))
         shift = torch.nn.functional.pad(shift, (0, cout_p - cout))
-    w, scale, shift = w.contiguous(), scale.contiguous(), shift.contiguous()
+    w = pack_weights_mma(w)
+    scale, shift = scale.contiguous(), shift.contiguous()
     out = torch.empty(b, vt, cout_p, dtype=torch.float32, device=feats.device)
     _build.check(_lib().fp_posgather_conv(
         _ptr(src_ids), _ptr(feats), _ptr(tgt_ids), _ptr(pos), _ptr(lo),

@@ -10,7 +10,12 @@ Two kernels carry it (ops/csrc/windowed_sparse.cu):
     with the optional scale/shift(+ReLU) epilogue that also zeroes rows whose
     target id is >= ``sentinel``;
   * K4 `windowed_dw` — ``dW[k] = sum_targets gathered_k^T . g`` over the
-    whole batch, (K, Cin, Cout) float32.
+    whole batch, (K, Cin, Cout) float32, on the tensor cores. The kernel
+    searches once per (target, (dy, dx) tap group) and takes the group's
+    three z-taps from that one rank (`group_probe_rows` is the same route
+    in plain PyTorch), so the taps must be groups of three consecutive ids
+    (`posgather.group_center_deltas`); the wrapper raises where they are
+    not.
 
 Each has a plain PyTorch version beside it (`windowed_conv_plain`,
 `windowed_dw_plain`). A wrapper takes the plain version only for a tensor
@@ -40,12 +45,20 @@ import ctypes
 import torch
 
 from . import _build
-from .posgather import _check_device, _check_ids, _check_shape, _ptr, _stream
+from .posgather import (
+    _check_device,
+    _check_ids,
+    _check_shape,
+    _ptr,
+    _stream,
+    group_center_deltas,
+)
 
 ALIGN = 512
 LAUNCHES = {"windowed_conv": 0, "windowed_dw": 0}
-DW_CHUNK = 1024          # targets per partial sum of the K4 kernel
-MAX_DW_ACC = 8192        # Cin * Cout the K4 kernel holds in registers
+DW_TILE = 64             # targets per tile of the K4 kernel
+DW_BLOCKS = 3 * 132      # blocks its grid aims at: three per SM of an H100
+MAX_DW_ACC = 8192        # Cin * Cout: 3x that many f32 sums in registers
 
 
 def reset_launches():
@@ -173,14 +186,53 @@ def neighbour_rows(src_ids, tgt_ids, lo, deltas, block: int, window: int):
     return rows, found
 
 
-def _gathered(src_ids, feats, tgt_ids, lo, deltas, block, window):
-    """(B, K, Vt, Cin): each tap's neighbour features, zeros on a miss."""
+def group_probe_rows(src_ids, tgt_ids, lo, centres, block: int, window: int):
+    """`neighbour_rows` for taps that are G groups of three consecutive
+    ids, by the K4 kernel's route: one search per (target, group) for the
+    centre id ``tgt + centres[g]``, then z-1 at rank-1, z at rank (on a hit)
+    and z+1 at rank+hit, each kept only where the id there is exactly the
+    one wanted and the probe lies inside the window. Returns (rows, found),
+    each (B, 3G, Vt) with tap ``zi * G + g``; found is the same as
+    `neighbour_rows` gives for those taps, and rows agree where found."""
     b, vt = tgt_ids.shape
-    k, cin = deltas.shape[0], feats.shape[2]
-    rows, found = neighbour_rows(src_ids, tgt_ids, lo, deltas, block, window)
+    nb = vt // block
+    g_n = centres.shape[0]
+    lo_l = lo.long()[..., None]
+    idx = lo_l + torch.arange(window, device=tgt_ids.device)
+    win = torch.gather(src_ids.long()[:, None, :].expand(
+        b, nb, src_ids.shape[1]), 2, idx).contiguous()          # (B,nb,S)
+    want = (tgt_ids.long().reshape(b, nb, 1, block)
+            + centres.long()[None, None, :, None]).reshape(b, nb, -1)
+    r = torch.searchsorted(win, want)
+    hit = (r < window) & (
+        torch.gather(win, 2, torch.clamp(r, max=window - 1)) == want)
+    rows, found = [], []
+    for zi, j in ((0, r - 1), (1, r), (2, r + hit.long())):
+        jc = torch.clamp(j, 0, window - 1)
+        ok = (j >= 0) & (j < window) \
+            & (torch.gather(win, 2, jc) == want + (zi - 1))
+        rows.append(jc + lo_l)
+        found.append(ok & hit if zi == 1 else ok)
+
+    def taps(parts):
+        x = torch.stack(parts, dim=1).reshape(b, 3, nb, g_n, block)
+        return x.permute(0, 1, 3, 2, 4).reshape(b, 3 * g_n, vt)
+
+    return taps(rows), taps(found)
+
+
+def _gather_rows(feats, rows, found):
+    """(B, K, Vt, Cin): each tap's neighbour features, zeros on a miss."""
+    b, k, vt = rows.shape
+    cin = feats.shape[2]
     gat = torch.gather(feats, 1, rows.reshape(b, k * vt)[..., None].expand(
         -1, -1, cin)).reshape(b, k, vt, cin)
     return gat * found[..., None]
+
+
+def _gathered(src_ids, feats, tgt_ids, lo, deltas, block, window):
+    return _gather_rows(feats, *neighbour_rows(src_ids, tgt_ids, lo, deltas,
+                                               block, window))
 
 
 def windowed_conv_plain(src_ids, feats, tgt_ids, lo, deltas, w_flat,
@@ -322,11 +374,20 @@ def windowed_dw_plain(src_ids, feats, tgt_ids, g, lo, deltas, block: int,
     return torch.einsum("bktc,bto->kco", gat, gc)
 
 
+def dw_chunks(n_tiles: int, g_n: int, batch: int):
+    """Target chunks (partial sums) per sample and group: as many as make
+    the K4 grid about DW_BLOCKS blocks, at least 1, at most one per tile."""
+    return max(1, min(n_tiles, DW_BLOCKS // (g_n * batch)))
+
+
 def dw_kernel(src_ids, feats, tgt_ids, g, lo, deltas, block: int,
               window: int, compute_dtype=torch.float32):
-    """K4 wrapper: the CUDA kernel (bf16 operands, f32 sums; per-chunk
-    partial sums combined in a fixed order, so the result is the same from
-    run to run) for CUDA tensors, the plain version for CPU tensors."""
+    """K4 wrapper: the CUDA kernel (bf16 operands, f32 sums on the tensor
+    cores; per-chunk partial sums combined in a fixed order, so the result
+    is the same from run to run) for CUDA tensors, the plain version for CPU
+    tensors. The kernel wants taps in groups of three consecutive ids and
+    channel counts that are powers of two from 16 on: the wrapper pads the
+    channels with zeros and raises where the taps do not group."""
     if not _check_device(src_ids, feats, tgt_ids, g, lo, deltas):
         return windowed_dw_plain(src_ids, feats, tgt_ids, g, lo, deltas,
                                  block, window, compute_dtype)
@@ -334,11 +395,10 @@ def dw_kernel(src_ids, feats, tgt_ids, g, lo, deltas, block: int,
         raise ValueError("the CUDA windowed dW computes in bfloat16")
     b, vt = tgt_ids.shape
     k, cin, cout = deltas.shape[0], feats.shape[2], g.shape[2]
-    cout_p = max(8, 1 << (cout - 1).bit_length())
-    chunk = min(DW_CHUNK, block)
-    if cin * cout_p > MAX_DW_ACC or cin > 128 or cout_p > 256 \
-            or block % chunk or chunk % 32 or vt % block \
-            or window > src_ids.shape[1]:
+    cin_p = max(16, 1 << (cin - 1).bit_length())
+    cout_p = max(16, 1 << (cout - 1).bit_length())
+    if cin_p * cout_p > MAX_DW_ACC or cin_p > 128 or cout_p > 256 \
+            or block % DW_TILE or vt % block or window > src_ids.shape[1]:
         raise ValueError(f"unsupported windowed dW shape cin={cin} "
                          f"cout={cout} block={block} vt={vt} window={window}")
     _check_ids(src_ids=src_ids, tgt_ids=tgt_ids, lo=lo, deltas=deltas)
@@ -346,23 +406,25 @@ def dw_kernel(src_ids, feats, tgt_ids, g, lo, deltas, block: int,
                            ("lo", lo, (b, vt // block)),
                            ("g", g, (b, vt, cout))):
         _check_shape(name, t, shape)
-    feats = feats.float().contiguous()
-    g = g.float()
-    if cout_p != cout:
-        g = torch.nn.functional.pad(g, (0, cout_p - cout))
-    g = g.contiguous()
-    n_chunks = b * (vt // chunk)
-    partial = torch.empty(n_chunks, k, cin, cout_p, dtype=torch.float32,
-                          device=feats.device)
-    dw = torch.empty(k, cin, cout_p, dtype=torch.float32,
+    centres = torch.as_tensor(group_center_deltas(deltas.cpu().numpy()),
+                              device=feats.device)
+    g_n = centres.shape[0]
+    feats = torch.nn.functional.pad(feats.to(torch.bfloat16),
+                                    (0, cin_p - cin)).contiguous()
+    g = torch.nn.functional.pad(g.to(torch.bfloat16),
+                                (0, cout_p - cout)).contiguous()
+    n_chunks = dw_chunks(vt // DW_TILE, g_n, b)
+    partial = torch.empty(b * n_chunks, g_n, 3 * cin_p, cout_p,
+                          dtype=torch.float32, device=feats.device)
+    dw = torch.empty(k, cin_p, cout_p, dtype=torch.float32,
                      device=feats.device)
     _build.check(_lib().fp_windowed_dw(
         _ptr(src_ids), _ptr(feats), _ptr(tgt_ids), _ptr(g), _ptr(lo),
-        _ptr(deltas), _ptr(partial), _ptr(dw), b, src_ids.shape[1], vt,
-        vt // block, k, block, window, cin, cout_p, chunk, _stream()),
+        _ptr(centres), _ptr(partial), _ptr(dw), b, src_ids.shape[1], vt,
+        vt // block, g_n, block, window, cin_p, cout_p, n_chunks, _stream()),
         "fp_windowed_dw")
     LAUNCHES["windowed_dw"] += 1
-    return dw[..., :cout] if cout_p != cout else dw
+    return dw[:, :cin, :cout]
 
 
 def windowed_dw(src_ids, src_feats, tgt_ids, g, deltas, block: int = 512,
