@@ -18,7 +18,9 @@ Phases (any failure exits non-zero and prints no result line):
      (positions) and K2 (posgather conv); each recorded call is re-run
      through the kernel and through its plain PyTorch version on the card:
      K1 must be bit-equal, K2 within its tolerance. Times are CUDA events
-     after a warm-up;
+     after a warm-up, around a loop of eager wrapper calls (`ms`) and, for
+     K2, around replays of a CUDA graph of the same calls (`device_ms`: at
+     batch 1 the eager loop is bound by the host's launch work);
   3. main path — TransFusion-LiDAR from
      tools/cfgs/nuscenes_models/transfusion_lidar.yaml at full width,
      random weights (init_random_, seed 0), 200k-point lidar_ring scenes,
@@ -131,6 +133,25 @@ def cuda_ms(torch, fn, reps, warm=1):
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def graph_ms(torch, fn, reps):
+    """Device time of fn per call: fn captured once into a CUDA graph and
+    replayed, so the host's launch work (a few small PyTorch operations
+    around each kernel) does not bound the measurement as it does in a loop
+    of eager calls at small batch."""
+    fn()
+    torch.cuda.synchronize()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream):
+            for _ in range(reps):
+                fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    return cuda_ms(torch, graph.replay, 3) / reps
 
 
 def data_cfg(num_scenes, cfg, pcr=None, voxel=None, max_voxels=None,
@@ -301,7 +322,8 @@ def corner_phase(torch, tp, ws, so, block=1024):
             dw = ws.windowed_dw(ids, feats, ids, g, deltas, block=block,
                                 window=window)
         (args, ckw), = rec.calls
-        ref = ws.windowed_dw_plain(*args, **ckw)
+        ref = ws.windowed_dw_plain(*args,
+                                   compute_dtype=ckw["compute_dtype"])
         torch.cuda.synchronize()
         err4 = float((dw - ref).abs().max())
         tol4 = K4_RTOL * max(float(ref.abs().max()), 1e-3)
@@ -366,6 +388,8 @@ def check_kernels(torch, tp, pos_calls, conv_calls):
             "epilogue": kw.get("scale") is not None, "hits": hits,
             "max_abs_err": err, "tolerance": tol,
             "ms": cuda_ms(torch, lambda: tp.gather_conv(*args, **kw), 10),
+            "device_ms": graph_ms(
+                torch, lambda: tp.gather_conv(*args, **kw), 10),
             "plain_ms": cuda_ms(torch, lambda: tp.posgather_conv_plain(
                 *args, **kw), 3),
             "bound_ms": bound_ms, "bound_by": bound_by})
@@ -570,7 +594,8 @@ def check_train_kernels(torch, tp, ws, k2_calls, k3_calls, k4_calls):
         src, feats, tgt, g, lo, deltas, block, window = args
         out = ws.dw_kernel(*args, **kw)
         plain = lambda: per_sample(                     # noqa: E731
-            ws.windowed_dw_plain, args, kw, (0, 1, 2, 3, 4),
+            ws.windowed_dw_plain, args,
+            {"compute_dtype": kw["compute_dtype"]}, (0, 1, 2, 3, 4),
             lambda outs: torch.stack(outs).sum(dim=0))
         ref = plain()
         err = float((out - ref).abs().max())
@@ -968,8 +993,9 @@ def main():
         shape = (f"vt={r['vt']} span={r['span']}" if r["name"] == "positions"
                  else f"vt={r['vt']} {r['cin']}->{r['cout']} "
                  f"epi={int(r['epilogue'])}")
+        dev = f" (device {r['device_ms']:.4f})" if "device_ms" in r else ""
         log(f"{r['name']:15s} call {r['call']:2d} {shape:28s} "
-            f"err {r['max_abs_err']:.3g}  ms {r['ms']:.4f}  plain "
+            f"err {r['max_abs_err']:.3g}  ms {r['ms']:.4f}{dev}  plain "
             f"{r['plain_ms']:.3f}  bound {r['bound_ms']:.4f} "
             f"({r['bound_by']})")
 
@@ -1052,7 +1078,8 @@ def main():
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None,
-            "call": r["call"], "vt": r["vt"]})
+            "device_ms": r.get("device_ms"), "call": r["call"],
+            "vt": r["vt"]})
     report["kernels"] = kernels
     report["device"] = smi
     if args.out:

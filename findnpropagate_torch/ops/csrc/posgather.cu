@@ -98,7 +98,7 @@ __global__ void positions_kernel(const int* __restrict__ src,
 template <int NT>
 __global__ void __launch_bounds__(kThreads, 2)
 conv_kernel(const int* __restrict__ src,
-            const void* __restrict__ feats,
+            const __nv_bfloat16* __restrict__ feats,
             const int* __restrict__ tgt, const int* __restrict__ pos,
             const int* __restrict__ lo, const int* __restrict__ has_real,
             const int* __restrict__ gdeltas,
@@ -106,7 +106,7 @@ conv_kernel(const int* __restrict__ src,
             const float* __restrict__ scale, const float* __restrict__ shift,
             float* __restrict__ out, int batch, int vs, int vt, int nb,
             int g_n, int block, int window, int cin, int epilogue, int relu,
-            int sentinel, int resident, int stages, int f32in) {
+            int sentinel, int resident, int stages) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int cout = NT * 8;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -147,9 +147,7 @@ conv_kernel(const int* __restrict__ src,
 
     const int lo_b = lo[bi];
     const int* win = src + (size_t)b * vs + lo_b;
-    const __nv_bfloat16* fb =
-        (const __nv_bfloat16*)feats + (size_t)b * vs * cin;
-    const float* ff = (const float*)feats + (size_t)b * vs * cin;
+    const __nv_bfloat16* fb = feats + (size_t)b * vs * cin;
     for (int p = tid; p < g_n * kTile; p += kThreads) {
       const int g = p / kTile, r = p - g * kTile;
       const int pv = pos[((size_t)b * g_n + g) * vt + t0 + r];
@@ -168,54 +166,27 @@ conv_kernel(const int* __restrict__ src,
 
     // one cp.async group per tap group: its gather tile and, unless all
     // weights are resident, its weights
-    auto issue = [&](int g) {
+    auto start_group = [&](int g) {
       const int st = stages == 2 ? (g & 1) : 0;
-      if (f32in) {
-        unsigned char* tp = smem + w_bytes + st * a_bytes;
-        const int* rw = rows + g * 3 * kTile;
-        const int cpr = cin >> 3;
-        for (int c = tid; c < 3 * kTile * cpr; c += kThreads) {
-          const int cc = c % cpr, t = c / cpr;
-          const int r = t % kTile, zi = t / kTile;
-          const int sr = rw[zi * kTile + r];
-          uint4 v = make_uint4(0, 0, 0, 0);
-          if (sr >= 0) {
-            const float4* q = reinterpret_cast<const float4*>(
-                ff + (size_t)sr * cin + cc * 8);
-            const float4 x = q[0], y = q[1];
-            __nv_bfloat162 h0 = __floats2bfloat162_rn(x.x, x.y);
-            __nv_bfloat162 h1 = __floats2bfloat162_rn(x.z, x.w);
-            __nv_bfloat162 h2 = __floats2bfloat162_rn(y.x, y.y);
-            __nv_bfloat162 h3 = __floats2bfloat162_rn(y.z, y.w);
-            v.x = *reinterpret_cast<uint32_t*>(&h0);
-            v.y = *reinterpret_cast<uint32_t*>(&h1);
-            v.z = *reinterpret_cast<uint32_t*>(&h2);
-            v.w = *reinterpret_cast<uint32_t*>(&h3);
-          }
-          *reinterpret_cast<uint4*>(tp + r * a_stride
-                                    + (zi * cin + cc * 8) * 2) = v;
-        }
-      } else {
-        fp::gather_tile<kTile>(a_sa + st * a_bytes, fb, rows + g * 3 * kTile,
-                               cin, tid, kThreads);
-      }
+      fp::gather_tile<kTile>(a_sa + st * a_bytes, fb, rows + g * 3 * kTile,
+                             cin, tid, kThreads);
       if (!resident)
         fp::copy_async(w_sa + st * wg_bytes, w + (size_t)g * wg_bytes,
                        wg_bytes, tid, kThreads);
       fp::cp_async_commit();
     };
 
-    if (stages == 2) issue(0);
+    if (stages == 2) start_group(0);
     for (int g = 0; g < g_n; ++g) {
       if (stages == 2) {
         if (g + 1 < g_n) {
-          issue(g + 1);
+          start_group(g + 1);
           fp::cp_async_wait<1>();
         } else {
           fp::cp_async_wait<0>();
         }
       } else {
-        issue(g);
+        start_group(g);
         fp::cp_async_wait<0>();
       }
       __syncthreads();
@@ -268,7 +239,7 @@ int launch_conv(const int* src, const void* feats, const int* tgt,
                 const int* gdeltas, const void* w, const float* scale,
                 const float* shift, float* out, int batch, int vs, int vt,
                 int nb, int g_n, int block, int window, int cin, int epilogue,
-                int relu, int sentinel, int f32in, cudaStream_t stream) {
+                int relu, int sentinel, cudaStream_t stream) {
   const int wg_bytes = 3 * cin * NT * 8 * 2;
   const int a_bytes = kTile * (3 * cin * 2 + 16);
   const int rows_bytes = g_n * 3 * kTile * 4;
@@ -295,9 +266,9 @@ int launch_conv(const int* src, const void* feats, const int* tgt,
   const int n_tiles = batch * (vt / kTile);
   const int grid = n_tiles < per_sm * sms ? n_tiles : per_sm * sms;
   conv_kernel<NT><<<grid, kThreads, smem, stream>>>(
-      src, feats, tgt, pos, lo, has_real, gdeltas,
+      src, (const __nv_bfloat16*)feats, tgt, pos, lo, has_real, gdeltas,
       (const unsigned char*)w, scale, shift, out, batch, vs, vt, nb, g_n,
-      block, window, cin, epilogue, relu, sentinel, resident, stages, f32in);
+      block, window, cin, epilogue, relu, sentinel, resident, stages);
   return (int)cudaGetLastError();
 }
 
@@ -332,13 +303,13 @@ int fp_posgather_conv(const int* src, const void* feats, const int* tgt,
                       const float* shift, float* out, int batch, int vs,
                       int vt, int nb, int g_n, int block, int window,
                       int cin, int cout, int epilogue, int relu,
-                      int sentinel, int f32in, void* stream) {
+                      int sentinel, void* stream) {
 #define FP_CONV_CASE(NT)                                                    \
   case NT * 8:                                                              \
     return launch_conv<NT>(src, feats, tgt, pos, lo, has_real, gdeltas, w,  \
                            scale, shift, out, batch, vs, vt, nb, g_n,       \
                            block, window, cin, epilogue, relu, sentinel,    \
-                           f32in, (cudaStream_t)stream)
+                           (cudaStream_t)stream)
   switch (cout) {
     FP_CONV_CASE(1);
     FP_CONV_CASE(2);

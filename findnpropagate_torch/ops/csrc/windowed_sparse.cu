@@ -222,7 +222,7 @@ windowed_dw_kernel(const int* __restrict__ src,
     }
     return __syncthreads_or(found);
   };
-  auto issue = [&](int tile, int st) {
+  auto start_tile = [&](int tile, int st) {
     const uint32_t a_sa = sa + st * (a_bytes + g_bytes);
     fp::gather_tile<kDwTile>(a_sa, fb, rows + st * 3 * kDwTile, cin, tid,
                              kThreads);
@@ -238,7 +238,7 @@ windowed_dw_kernel(const int* __restrict__ src,
   int live = 0;
   if (tile_lo < tile_hi) {
     live = resolve(tile_lo, 0);
-    if (live) issue(tile_lo, 0);
+    if (live) start_tile(tile_lo, 0);
   }
   fp::cp_async_commit();
   for (int tile = tile_lo; tile < tile_hi; ++tile) {
@@ -246,7 +246,7 @@ windowed_dw_kernel(const int* __restrict__ src,
     int live_next = 0;
     if (tile + 1 < tile_hi) {
       live_next = resolve(tile + 1, st ^ 1);
-      if (live_next) issue(tile + 1, st ^ 1);
+      if (live_next) start_tile(tile + 1, st ^ 1);
     }
     fp::cp_async_commit();          // possibly empty: keeps the count even
     fp::cp_async_wait<1>();

@@ -45,7 +45,6 @@ import torch
 from . import _build
 
 ALIGN = 512
-FEED_F32 = False         # experiment: the kernel converts f32 rows itself
 CONV_TILE = 128          # targets per tile of the K2 kernel
 LAUNCHES = {"positions": 0, "posgather_conv": 0}
 
@@ -136,7 +135,7 @@ def _lib():
             + [ctypes.c_int] * 8 + [ctypes.c_void_p]
         lib.fp_positions.restype = ctypes.c_int
         lib.fp_posgather_conv.argtypes = [ctypes.c_void_p] * 11 \
-            + [ctypes.c_int] * 13 + [ctypes.c_void_p]
+            + [ctypes.c_int] * 12 + [ctypes.c_void_p]
         lib.fp_posgather_conv.restype = ctypes.c_int
     return lib
 
@@ -316,8 +315,7 @@ def gather_conv(src_ids, feats, tgt_ids, pos, lo, has_real, gdeltas,
     if scale is not None:
         _check_shape("scale", scale, (cout,))
         _check_shape("shift", shift, (cout,))
-    feats = (feats.float() if FEED_F32
-             else feats.to(torch.bfloat16)).contiguous()
+    feats = feats.to(torch.bfloat16).contiguous()
     w = w_flat.to(torch.bfloat16)
     epilogue = scale is not None
     if epilogue:
@@ -336,8 +334,7 @@ def gather_conv(src_ids, feats, tgt_ids, pos, lo, has_real, gdeltas,
         _ptr(has_real), _ptr(gdeltas), _ptr(w), _ptr(scale), _ptr(shift),
         _ptr(out), b, src_ids.shape[1], vt, nb, g_n, block, window,
         cin, cout_p, int(epilogue), int(relu),
-        int(sentinel) if epilogue else 0, int(FEED_F32), _stream()),
-        "fp_posgather_conv")
+        int(sentinel) if epilogue else 0, _stream()), "fp_posgather_conv")
     LAUNCHES["posgather_conv"] += 1
     return out[..., :cout] if cout_p != cout else out
 

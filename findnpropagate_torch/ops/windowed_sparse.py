@@ -42,6 +42,7 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from . import _build
@@ -57,7 +58,7 @@ from .posgather import (
 ALIGN = 512
 LAUNCHES = {"windowed_conv": 0, "windowed_dw": 0}
 DW_TILE = 64             # targets per tile of the K4 kernel
-DW_BLOCKS = 3 * 132      # blocks its grid aims at: three per SM of an H100
+DW_BLOCKS = 2 * 132      # blocks its grid aims at: two per SM of an H100
 MAX_DW_ACC = 8192        # Cin * Cout: 3x that many f32 sums in registers
 
 
@@ -381,13 +382,16 @@ def dw_chunks(n_tiles: int, g_n: int, batch: int):
 
 
 def dw_kernel(src_ids, feats, tgt_ids, g, lo, deltas, block: int,
-              window: int, compute_dtype=torch.float32):
+              window: int, compute_dtype=torch.float32, centres=None):
     """K4 wrapper: the CUDA kernel (bf16 operands, f32 sums on the tensor
     cores; per-chunk partial sums combined in a fixed order, so the result
     is the same from run to run) for CUDA tensors, the plain version for CPU
     tensors. The kernel wants taps in groups of three consecutive ids and
     channel counts that are powers of two from 16 on: the wrapper pads the
-    channels with zeros and raises where the taps do not group."""
+    channels with zeros and raises where the taps do not group. `centres`
+    are `group_center_deltas(deltas)` where the caller has them (it has the
+    deltas on the host); without them the deltas are copied back from the
+    device, which waits for the stream."""
     if not _check_device(src_ids, feats, tgt_ids, g, lo, deltas):
         return windowed_dw_plain(src_ids, feats, tgt_ids, g, lo, deltas,
                                  block, window, compute_dtype)
@@ -406,7 +410,9 @@ def dw_kernel(src_ids, feats, tgt_ids, g, lo, deltas, block: int,
                            ("lo", lo, (b, vt // block)),
                            ("g", g, (b, vt, cout))):
         _check_shape(name, t, shape)
-    centres = torch.as_tensor(group_center_deltas(deltas.cpu().numpy()),
+    if centres is None:
+        centres = group_center_deltas(deltas.cpu().numpy())
+    centres = torch.as_tensor(centres, dtype=torch.int32,
                               device=feats.device)
     g_n = centres.shape[0]
     feats = torch.nn.functional.pad(feats.to(torch.bfloat16),
@@ -432,10 +438,15 @@ def windowed_dw(src_ids, src_feats, tgt_ids, g, deltas, block: int = 512,
     """dW[k] = gathered_k(src -> tgt)^T @ g, same contract as the
     reference's `windowed_dw_pallas` with a batch axis summed out: g
     (B, Vt, Cout); returns (K, Cin, Cout) f32."""
+    centres = None
+    if src_feats.is_cuda and not (
+            isinstance(deltas, torch.Tensor) and deltas.is_cuda):
+        centres = group_center_deltas(np.asarray(deltas))
     src_ids, feats, tgt_ids, deltas, lo, window = _prepare(
         src_ids, src_feats, tgt_ids, deltas, block, window)
     return dw_kernel(src_ids, feats, tgt_ids, g, lo, deltas, block, window,
-                     compute_dtype=compute_dtype or _compute_dtype(feats))
+                     compute_dtype=compute_dtype or _compute_dtype(feats),
+                     centres=centres)
 
 
 # ----------------------------------------------------------------- grads
@@ -477,7 +488,9 @@ def windowed_conv_diff(src_ids, src_feats, tgt_ids, weights, deltas,
     overflow of both directions, outside the graph."""
     if src_ids.shape[1] % block or tgt_ids.shape[1] % block:
         raise ValueError("pad Vs and Vt to a block multiple")
-    deltas = torch.as_tensor(deltas, device=tgt_ids.device).to(torch.int32)
+    # kept on the host: the weight-gradient wrapper groups the taps there
+    deltas = np.asarray(deltas.cpu() if isinstance(deltas, torch.Tensor)
+                        else deltas).astype(np.int32)
     out = WindowedConv.apply(src_feats, weights, src_ids, tgt_ids, deltas,
                                 block, window, compute_dtype)
     with torch.no_grad():

@@ -201,3 +201,42 @@ def test_no_silent_cpu_fallback(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         build_network(cfg.MODEL, num_class=10, dataset=ds)
     assert findnpropagate_torch.resolve_device("cpu").type == "cpu"
+
+
+def test_build_target_follows_included_headers(tmp_path, monkeypatch):
+    """The library's name hashes the source and the headers it includes
+    (one including another too), so a changed header is rebuilt; a system
+    include or a missing file is not followed."""
+    from findnpropagate_torch.ops import _build
+
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    (tmp_path / "k.cu").write_text(
+        '#include <cuda_runtime.h>\n#include "a.cuh"\n  # include "gone.h"\n')
+    (tmp_path / "a.cuh").write_text('#pragma once\n#include "b.cuh"\n')
+    (tmp_path / "b.cuh").write_text("// one\n")
+    assert [f.name for f in _build.source_files(tmp_path / "k.cu")] == [
+        "k.cu", "a.cuh", "b.cuh"]
+    first = _build._target("k")[1]
+    assert _build._target("k")[1] == first
+    (tmp_path / "b.cuh").write_text("// two\n")
+    assert _build._target("k")[1] != first
+    # the port's own sources: both kernels' files include the shared header
+    monkeypatch.undo()
+    for name in ("posgather", "windowed_sparse"):
+        assert "gather_mma.cuh" in [
+            f.name for f in _build.source_files(_build.CSRC / f"{name}.cu")]
+
+
+def test_ptxas_spill_report_is_parsed():
+    from findnpropagate_torch.ops import _build
+
+    log = """ptxas info    : Compiling entry function '_Z1aILi2EEvPi' for 'sm_90a'
+ptxas info    : Function properties for _Z1aILi2EEvPi
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 64 registers, used 1 barriers
+ptxas info    : Function properties for _Z1bILi8EEvPf
+    40 bytes stack frame, 24 bytes spill stores, 16 bytes spill loads
+ptxas info    : Used 128 registers
+"""
+    assert _build.spills(log) == {"_Z1aILi2EEvPi": 0, "_Z1bILi8EEvPf": 40}
+    assert _build.spills("") == {}

@@ -244,3 +244,112 @@ def test_flip_transpose_weights_matches_jax():
     np.testing.assert_array_equal(
         TP.flip_transpose_weights(torch.from_numpy(w)).numpy(),
         np.asarray(JP.flip_transpose_weights(jnp.asarray(w))))
+
+
+def _unpack_fragments(packed):
+    """Undo pack_weights_mma with the mma.sync m16n8k16 B-fragment rule
+    written out: lane l of (slab ks, tile nt) holds rows 2(l%4), 2(l%4)+1,
+    2(l%4)+8, 2(l%4)+9 of column l//4."""
+    ks_n, nt_n = packed.shape[:2]
+    w = np.zeros((ks_n * 16, nt_n * 8), packed.dtype)
+    for ks in range(ks_n):
+        for nt in range(nt_n):
+            for lane in range(32):
+                for e, k in enumerate((0, 1, 8, 9)):
+                    w[ks * 16 + 2 * (lane % 4) + k, nt * 8 + lane // 4] = \
+                        packed[ks, nt, lane, e]
+    return w
+
+
+@pytest.mark.parametrize("rows,cout", [(16, 8), (9 * 48, 16), (96, 128)])
+def test_pack_weights_mma_is_the_fragment_order(rows, cout):
+    w = np.random.RandomState(rows + cout).standard_normal(
+        (rows, cout)).astype(np.float32)
+    packed = TP.pack_weights_mma(torch.from_numpy(w))
+    assert packed.shape == (rows // 16, cout // 8, 32, 4)
+    assert packed.is_contiguous()
+    np.testing.assert_array_equal(_unpack_fragments(packed.numpy()), w)
+    with pytest.raises(ValueError):
+        TP.pack_weights_mma(torch.zeros(rows + 8, cout))
+    with pytest.raises(ValueError):
+        TP.pack_weights_mma(torch.zeros(rows, cout + 4))
+
+
+@pytest.mark.parametrize("name", ["subm", "strided", "column"])
+def test_group_center_deltas_split_and_back(name):
+    """A K-tap delta list splits into K/3 centre groups; tap zi*G + g is
+    centre g plus zi - 1, the order reorder_weights_groups and the JAX
+    package's function of the same name use."""
+    shape = (9, 24, 24)
+    deltas = {
+        "subm": lambda: JS.yxz_offset_deltas((3, 3, 3), shape),
+        "strided": lambda: JS.strided_deltas((3, 3, 3), (2, 2, 2), (1, 1, 1),
+                                             shape),
+        "column": lambda: JS.yxz_offset_deltas((3, 1, 1), shape),
+    }[name]()
+    deltas = np.asarray(deltas)
+    centres = TP.group_center_deltas(deltas)
+    g_n = deltas.shape[0] // 3
+    np.testing.assert_array_equal(centres,
+                                  np.asarray(JP.group_center_deltas(deltas)))
+    back = np.concatenate([centres + zi - 1 for zi in range(3)])
+    np.testing.assert_array_equal(back, deltas)
+    w = torch.from_numpy(_weights(5, 7)[0][:3 * g_n])
+    grouped = TP.reorder_weights_groups(w)
+    assert grouped.shape == (g_n, 3, 5, 7)
+    for g in range(g_n):
+        for zi in range(3):
+            assert torch.equal(grouped[g, zi], w[zi * g_n + g])
+
+
+@pytest.mark.parametrize("bad", ["shuffled", "short", "flat_z", "empty"])
+def test_group_center_deltas_refuses_what_does_not_group(bad):
+    shape = (9, 24, 24)
+    d = np.asarray(JS.yxz_offset_deltas((3, 3, 3), shape))
+    deltas = {
+        "shuffled": d[np.random.RandomState(0).permutation(27)],
+        "short": d[:26],
+        "flat_z": np.asarray(JS.yxz_offset_deltas((1, 3, 3), shape)),
+        "empty": d[:0],
+    }[bad]
+    with pytest.raises(ValueError, match="consecutive"):
+        TP.group_center_deltas(deltas)
+
+
+def test_cuda_wrapper_hands_the_kernel_bf16_rows_and_packed_weights(
+        monkeypatch):
+    """The CUDA branch of the K2 wrapper on CPU tensors, with tensors in
+    place of pointers: the kernel gets one bf16 copy of the features, the
+    weights padded to Cout 8 and packed per group in fragment order, and a
+    block that is not a multiple of the kernel's tile is refused."""
+    fake = _FakeLib()
+    monkeypatch.setattr(TP, "_check_device", lambda *t: True)
+    monkeypatch.setattr(TP, "_lib", lambda: fake)
+    monkeypatch.setattr(TP, "_stream", lambda: None)
+    monkeypatch.setattr(TP, "_ptr", lambda t: t)
+    src, feats, _, _, deltas, sent, window, _ = subm_case("subm")
+    src_t = torch.from_numpy(src)[None]
+    lp = TP.compute_positions(src_t, src_t, deltas, block=512,
+                              window=window, sentinel_start=sent)
+    w = torch.from_numpy(_weights(5, 7)[0])
+    TP.reset_launches()
+    TP.posgather_conv(src_t, torch.from_numpy(feats)[None], src_t, w, lp)
+    (_, a), = [c for c in fake.calls if c[0] == "fp_posgather_conv"]
+    k_feats, k_w, k_out = a[1], a[7], a[10]
+    assert k_feats.dtype == torch.bfloat16 and k_feats.is_contiguous()
+    want = torch.nn.functional.pad(torch.from_numpy(feats)[None], (0, 11))
+    assert torch.equal(k_feats, want.to(torch.bfloat16))
+    assert k_w.dtype == torch.bfloat16
+    assert k_w.shape == (9 * 3, 1, 32, 4)         # 9 groups x 48 rows / 16
+    w_flat = torch.nn.functional.pad(
+        TP.reorder_weights_groups(w), (0, 1, 0, 11)).reshape(9 * 48, 8)
+    np.testing.assert_array_equal(
+        _unpack_fragments(k_w.float().numpy()),
+        w_flat.to(torch.bfloat16).float().numpy())
+    assert k_out.shape == (1, 1024, 8) and k_out.dtype == torch.float32
+    assert TP.LAUNCHES["posgather_conv"] == 1
+    with pytest.raises(ValueError, match="unsupported"):
+        TP.gather_conv(src_t.repeat(1, 1)[:, :960], torch.zeros(1, 960, 16),
+                       src_t[:, :960], lp.pos[:, :, :960], lp.lo,
+                       lp.has_real, lp.gdeltas, torch.zeros(27 * 16, 8),
+                       96, 960, compute_dtype=torch.bfloat16)

@@ -248,3 +248,127 @@ def test_wrappers_refuse_what_the_kernels_cannot_take():
                               t(c["tgt"]), torch.from_numpy(c["w"]),
                               c["deltas"], block=BLOCK)
     assert ws.LAUNCHES == {"windowed_conv": 0, "windowed_dw": 0}
+
+
+def _probe_case(name):
+    """(case, window): submanifold, strided, and a window too small for the
+    scene, where neighbours at the window's edges are dropped."""
+    if name == "overflow":
+        return make_case(seed=4, n_active=2000, shape=(9, 24, 24)), 512
+    return (make_case(seed=3, n_active=900) if name == "subm"
+            else strided_case()), 1536
+
+
+def _prepared(c, window):
+    return ws._prepare(t(c["src"]), t(c["feats"]), t(c["tgt"]), c["deltas"],
+                       BLOCK, window)
+
+
+@pytest.mark.parametrize("name", ["subm", "strided", "overflow"])
+def test_group_probe_rows_match_neighbour_rows(name):
+    """One search per (target, tap group) and three probes from its rank —
+    the K4 kernel's route — find exactly the rows that one search per tap
+    finds, window edges included."""
+    from findnpropagate_torch.ops.posgather import group_center_deltas
+
+    c, window = _probe_case(name)
+    src, feats, tgt, deltas, lo, window = _prepared(c, window)
+    centres = torch.from_numpy(group_center_deltas(c["deltas"]))
+    rows_k, found_k = ws.neighbour_rows(src, tgt, lo, deltas, BLOCK, window)
+    rows_g, found_g = ws.group_probe_rows(src, tgt, lo, centres, BLOCK,
+                                          window)
+    assert found_k.shape == found_g.shape == (1, 27, tgt.shape[1])
+    assert torch.equal(found_g, found_k) and int(found_k.sum()) > 1000
+    assert torch.equal(rows_g[found_k], rows_k[found_k])
+    if name == "overflow":
+        src, _, tgt, deltas, lo, window = _prepared(c, 4096)
+        full = ws.neighbour_rows(src, tgt, lo, deltas, BLOCK, window)[1]
+        assert int(full.sum()) > int(found_k.sum())    # some were dropped
+
+
+@pytest.mark.parametrize("name", ["subm", "strided", "overflow"])
+def test_dw_through_group_probes_matches_pallas(name):
+    """dW summed over the rows that the group probes find, in the
+    (K, Cin, Cout) tap order, against the plain version (same products,
+    another gather route: 1e-5) and the Pallas kernel in interpret mode at
+    f32 (the JAX package's gradient tolerance, 2e-3)."""
+    from findnpropagate_torch.ops.posgather import group_center_deltas
+
+    c, window = _probe_case(name)
+    g = np.random.RandomState(1).standard_normal(
+        (c["tgt"].shape[0], 16)).astype(np.float32)
+    src, feats, tgt, deltas, lo, win = _prepared(c, window)
+    centres = torch.from_numpy(group_center_deltas(c["deltas"]))
+    gat = ws._gather_rows(feats, *ws.group_probe_rows(src, tgt, lo, centres,
+                                                      BLOCK, win))
+    got = torch.einsum("bktc,bto->kco", gat, t(g)).numpy()
+    plain = ws.windowed_dw_plain(src, feats, tgt, t(g), lo, deltas, BLOCK,
+                                 win).numpy()
+    want = np.asarray(windowed_dw_pallas(
+        j(c["src"]), j(c["feats"]), j(c["tgt"]), j(g), j(c["deltas"]),
+        block=BLOCK, window=window, compute_dtype=jnp.float32,
+        interpret=True))
+    assert got.shape == (27, 8, 16) and np.abs(want).max() > 0.1
+    np.testing.assert_allclose(got, plain, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got, want, rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.parametrize("n_tiles,g_n,batch,want", [
+    (1888, 9, 4, 7), (2048, 9, 1, 29), (768, 9, 4, 7), (16, 9, 1, 16),
+    (2048, 1, 1, 264), (64, 9, 64, 1)])
+def test_dw_chunks(n_tiles, g_n, batch, want):
+    assert ws.dw_chunks(n_tiles, g_n, batch) == want
+
+
+class _FakeLib:
+    """Stands in for the CUDA library: keeps each C call's arguments."""
+
+    def __init__(self):
+        self.calls = []
+
+    def fp_windowed_dw(self, *args):
+        self.calls.append(args)
+        return 0
+
+
+def test_dw_cuda_wrapper_groups_pads_and_sizes_the_scratch(monkeypatch):
+    """The CUDA branch of the K4 wrapper on CPU tensors, with tensors in
+    place of pointers: bf16 copies padded to 16 channels, the nine group
+    centres, a scratch of one partial per (sample, chunk), the result cut
+    back to (27, Cin, Cout); taps that do not group are refused."""
+    from findnpropagate_torch.ops.posgather import group_center_deltas
+
+    fake = _FakeLib()
+    monkeypatch.setattr(ws, "_check_device", lambda *a: True)
+    monkeypatch.setattr(ws, "_lib", lambda: fake)
+    monkeypatch.setattr(ws, "_stream", lambda: None)
+    monkeypatch.setattr(ws, "_ptr", lambda x: x)
+    ws.reset_launches()
+    c = make_case(seed=3, n_active=900)
+    g = torch.zeros(2, c["tgt"].shape[0], 10)
+    src, feats, tgt, deltas, lo, window = ws._prepare(
+        torch.cat([t(c["src"])] * 2), torch.cat([t(c["feats"])] * 2),
+        torch.cat([t(c["tgt"])] * 2), c["deltas"], BLOCK, 1536)
+    dw = ws.dw_kernel(src, feats, tgt, g, lo, deltas, BLOCK, window,
+                      compute_dtype=torch.bfloat16)
+    a, = fake.calls
+    k_feats, k_g, k_centres, partial, k_dw = a[1], a[3], a[5], a[6], a[7]
+    assert k_feats.dtype == k_g.dtype == torch.bfloat16
+    assert k_feats.shape == (2, 1024, 16) and k_g.shape == (2, 1024, 16)
+    assert torch.equal(k_feats[..., :8], feats.to(torch.bfloat16))
+    assert not k_feats[..., 8:].any()
+    np.testing.assert_array_equal(k_centres.numpy(),
+                                  group_center_deltas(c["deltas"]))
+    n_chunks = ws.dw_chunks(1024 // ws.DW_TILE, 9, 2)
+    assert partial.shape == (2 * n_chunks, 9, 48, 16)
+    assert k_dw.shape == (27, 16, 16) and dw.shape == (27, 8, 10)
+    # (..., B, Vs, Vt, nb, G, block, window, cin, cout, n_chunks, stream)
+    assert a[8:18] == (2, 1024, 1024, 2, 9, BLOCK, window, 16, 16, n_chunks)
+    assert ws.LAUNCHES["windowed_dw"] == 1
+    with pytest.raises(ValueError, match="consecutive"):
+        ws.dw_kernel(src, feats, tgt, g, lo, deltas.flip(0)[:26].contiguous(),
+                     BLOCK, window, compute_dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="unsupported"):
+        ws.dw_kernel(src, feats.repeat(1, 1, 32), tgt, g, lo, deltas, BLOCK,
+                     window, compute_dtype=torch.bfloat16)
+    ws.reset_launches()
