@@ -3,24 +3,27 @@
 
     python3 chip_smoke.py [--batches 1 8] [--train-batch 4]
                           [--train-steps 3] [--out details.json]
-                          [--profile table.txt]
+                          [--profile table.txt] [--before DIR]
 
 Phases (any failure exits non-zero and prints no result line):
   1. device — the card's name and power limit, torch/CUDA versions, and the
      nvcc build of the kernels from findnpropagate_torch/ops/csrc/ into
      build/kernels/ (with ptxas' register / shared-memory report; a
-     register spill in the K2 or K4 kernel fails the run);
-  2. kernels — synthetic corner cases of K2 and K4 at full channel widths
-     (a dense cube where all 27 neighbours hit, a window too small, blocks
-     of sentinels at the end, a dead block in the middle, Cout 10 and 3,
-     Cin 4, batch 1 and 4) against their plain versions; then a batch-1
-     forward of the main path records the arguments of every launch of K1
-     (positions) and K2 (posgather conv); each recorded call is re-run
-     through the kernel and through its plain PyTorch version on the card:
-     K1 must be bit-equal, K2 within its tolerance. Times are CUDA events
-     after a warm-up, around a loop of eager wrapper calls (`ms`) and, for
-     K2, around replays of a CUDA graph of the same calls (`device_ms`: at
-     batch 1 the eager loop is bound by the host's launch work);
+     register spill in any kernel fails the run);
+  2. kernels — synthetic corner cases of K2, K3 and K4 at full channel
+     widths (a dense cube where all 27 neighbours hit, a window too small,
+     blocks of sentinels at the end, a dead block in the middle, Cout 10
+     and 3, Cin 4, batch 1 and 4; for K3 also a transposed 128->64 strided
+     conv under both of its plans at that width, and epilogue rows of real
+     targets without neighbours) against their plain versions; then a
+     batch-1 forward of the main path records the arguments of every
+     launch of K1 (positions) and K2 (posgather conv); each recorded call
+     is re-run through the kernel and through its plain PyTorch version on
+     the card: K1 must be bit-equal, K2 within its tolerance. Times are
+     CUDA events after a warm-up, around a loop of eager wrapper calls
+     (`ms`) and, for K1, K2 and K3, around replays of a CUDA graph of the
+     same calls (`device_ms`: at batch 1 the eager loop is bound by the
+     host's launch work);
   3. main path — TransFusion-LiDAR from
      tools/cfgs/nuscenes_models/transfusion_lidar.yaml at full width,
      random weights (init_random_, seed 0), 200k-point lidar_ring scenes,
@@ -47,14 +50,22 @@ Phases (any failure exits non-zero and prints no result line):
   6. training kernels — every recorded call is re-run through the kernel
      and through its plain PyTorch version on the card (K2, K3, K4 sample
      by sample): K1 at batch 4 bit-equal, the others within the stated
-     tolerance; times as in phase 2;
+     tolerance; times as in phase 2; K3's device time at its other plans
+     (64- or 128-row tiles at the 128->64 transposed call, the window
+     slice staged or searched in device memory at a strided call);
   7. pallas-mode forward — a batch-1 eval forward with SUBM_IMPL: pallas
      (every sparse conv through K3 with the fused scale/shift/ReLU/sentinel
      epilogue): each of its 16 K3 launches against the plain version with
-     the same epilogue, and the forward against the posgather forward on
-     the same weights, within bf16 error;
+     the same epilogue, the forward against the posgather forward on the
+     same weights, within bf16 error, and its ms/scan;
   8. a `kernels` JSON line, then the result line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+
+With --before DIR (a checkout of an earlier commit of this repo, e.g.
+`git archive` of the parent unpacked under build/), that checkout's K3
+wrapper is built and timed in the same process on every recorded K3 call
+(`before_device_ms`), and in place of this one's for the pallas-mode
+forward and for training steps (before, after, after, before).
 
 Imports nothing of jax. Without CUDA, or without the port beside it, it
 exits non-zero.
@@ -233,10 +244,33 @@ def bound_entry(t_bytes, t_ops):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def plain_kw(kw):
+    """A recorded K3 call's keywords without the kernel's own (host-side
+    group centres, plan), as the plain version takes them."""
+    return {k: v for k, v in kw.items() if k not in ("centres", "plan")}
+
+
+def check_k3(torch, ws, label, call):
+    """`call` (one windowed_conv) with its K3 launch recorded and held
+    against the plain version; returns (out, overflow, args, kw, err,
+    tol)."""
+    with Recorder(ws, "conv_kernel", torch) as rec:
+        out, ovf = call()
+    (args, kw), = rec.calls
+    ref = ws.windowed_conv_plain(*args, **plain_kw(kw))
+    torch.cuda.synchronize()
+    err = float((out - ref).abs().max())
+    tol = K3_RTOL * max(float(ref.abs().max()), 1e-3)
+    if not (err <= tol and bool(torch.isfinite(out).all())):
+        raise AssertionError(f"{label}: K3 err {err} > {tol}")
+    return out, int(ovf.sum()), args, kw, err, tol
+
+
 def corner_scene(torch, so, rng, shape, n_active, cap, batch, cin):
     """`batch` samples of n_active random cells of a small grid (all of
     them: a dense cube), sorted by id and padded to `cap` rows with
-    sentinels; features are zero on the padding."""
+    sentinels; features are zero on the padding. Returns (ids, feats,
+    coords, valid), coords and valid in the cells' drawn order."""
     nz, ny, nx = shape
     coords = np.full((batch, cap, 3), -1, np.int32)
     for i in range(batch):
@@ -250,7 +284,7 @@ def corner_scene(torch, so, rng, shape, n_active, cap, batch, cin):
     feats = torch.from_numpy(rng.standard_normal(
         (batch, cap, cin)).astype("float32")).cuda()
     feats = feats * (ids < so.yxz_sentinel_start(shape))[..., None]
-    return ids.contiguous(), feats
+    return ids.contiguous(), feats, coords, valid
 
 
 CORNERS = [
@@ -268,12 +302,13 @@ CORNERS = [
 
 
 def corner_phase(torch, tp, ws, so, block=1024):
-    """K2 and K4 against their plain versions on synthetic cases (numpy
+    """K2, K3 and K4 against their plain versions on synthetic cases (numpy
     seed 0) that the recorded launches of the paths do not reach."""
     rng = np.random.RandomState(0)
     rows = []
     for name, shape, n, cap, b, cin, cout, window, epi in CORNERS:
-        ids, feats = corner_scene(torch, so, rng, shape, n, cap, b, cin)
+        ids, feats, _, _ = corner_scene(torch, so, rng, shape, n, cap, b,
+                                        cin)
         deltas = so.yxz_offset_deltas((3, 3, 3), shape)
         sent = so.yxz_sentinel_start(shape)
         w = torch.from_numpy(rng.standard_normal(
@@ -332,14 +367,102 @@ def corner_phase(torch, tp, ws, so, block=1024):
             raise AssertionError(f"corner {name}: K4 err {err4} > {tol4}")
         if not torch.equal(dw, ws.dw_kernel(*args, **ckw)):
             raise AssertionError(f"corner {name}: K4 differs between runs")
+
+        out3, ovf3, args, _, err3, tol3 = check_k3(
+            torch, ws, f"corner {name}", lambda: ws.windowed_conv(
+                ids, feats, ids, w, deltas, block=block, window=window,
+                sentinel_start=sent, **kw))
+        if ovf3 != ovf:
+            raise AssertionError(f"corner {name}: K3 overflow {ovf3}")
+        if epi and not bool((out3[ids >= sent] == 0).all()):
+            raise AssertionError(f"corner {name}: K3 sentinel rows not 0")
         rows.append({"case": name, "batch": b, "cin": cin, "cout": cout,
                      "overflow": ovf, "dead_blocks": dead,
                      "max_hits": int(hits.max()), "k2_err": err2,
-                     "k2_tol": tol2, "k4_err": err4, "k4_tol": tol4})
+                     "k2_tol": tol2, "k3_err": err3, "k3_tol": tol3,
+                     "k4_err": err4, "k4_tol": tol4})
         log(f"corner {name:28s} batch {b} {cin}->{cout} overflow {ovf} "
             f"dead blocks {dead} max hits {int(hits.max())}: K2 err "
-            f"{err2:.3g} (tol {tol2:.3g}), K4 err {err4:.3g} (tol "
-            f"{tol4:.3g})")
+            f"{err2:.3g} (tol {tol2:.3g}), K3 err {err3:.3g} (tol "
+            f"{tol3:.3g}), K4 err {err4:.3g} (tol {tol4:.3g})")
+    return rows + k3_corners(torch, ws, so, rng, block)
+
+
+def k3_corners(torch, ws, so, rng, block):
+    """K3 alone: (1) the transposed direction of a stride-2 conv at 128 ->
+    64 channels (the 64->128 conv's d_feats, source list the coarse base
+    ids, the L2->L3 strided window) under both plans that fit that width;
+    (2) epilogue rows of real targets without any neighbour, which must
+    read relu(shift)."""
+    from findnpropagate_torch.ops.posgather import flip_transpose_weights
+
+    rows = []
+    shape, b = (9, 64, 64), 4
+    ids, _, coords, valid = corner_scene(torch, so, rng, shape, 6000, 8192,
+                                         b, 16)
+    out_shape = tuple((n + 2 - 3) // 2 + 1 for n in shape)
+    _, oc, ov = so.win_downsample(coords, valid, shape, out_shape, 8192)
+    base = so.strided_base_ids(oc, ov, (2, 2, 2), shape, out_shape)
+    deltas = so.strided_deltas((3, 3, 3), (2, 2, 2), (1, 1, 1), shape)
+    g = torch.from_numpy(rng.standard_normal(
+        (b, base.shape[1], 128)).astype("float32")).cuda()
+    w = torch.from_numpy(rng.standard_normal(
+        (27, 64, 128)).astype("float32") * 0.05).cuda()
+    wt = flip_transpose_weights(w)
+    tdeltas = np.ascontiguousarray(-deltas[::-1])
+    _, ovf, args, kw, _, _ = check_k3(
+        torch, ws, "transposed 128->64", lambda: ws.windowed_conv(
+            base, g, ids, wt, tdeltas, block=block, window=6144))
+    src, _, tgt, lo, dl, _, _, window = args
+    ref = ws.windowed_conv_plain(*args, **plain_kw(kw))
+    hits = windowed_hits(torch, ws, src, tgt, lo, dl, block, window)
+    # both plans that fit this width: 64-row tiles in two stages (the
+    # default), 128-row tiles in one
+    for plan in (ws.conv_plan(128, 64, window), (128, 1, False, True)):
+        out = ws.conv_kernel(*args, **{**kw, "plan": plan})
+        torch.cuda.synchronize()
+        err = float((out - ref).abs().max())
+        tol = K3_RTOL * max(float(ref.abs().max()), 1e-3)
+        if ovf or not (err <= tol and bool(torch.isfinite(out).all())):
+            raise AssertionError(f"transposed 128->64 plan {plan}: err {err}"
+                                 f" > {tol}, or overflow {ovf}")
+        rows.append({"case": "transposed 128->64", "plan": list(plan),
+                     "batch": b, "window": window, "hits": hits,
+                     "k3_err": err, "k3_tol": tol})
+        log(f"corner transposed 128->64 batch {b} window {window} plan "
+            f"{plan} hits {hits}: K3 err {err:.3g} (tol {tol:.3g})")
+
+    shape = (9, 40, 40)
+    sent = so.yxz_sentinel_start(shape)
+    ids, feats, _, _ = corner_scene(torch, so, rng, shape, 3000, 4096, 1, 32)
+    keep = ids < ids[:, :1500].max()       # sources: the lower half of ids
+    src = torch.cat([ids[keep], sent + torch.arange(
+        int((~keep).sum()), device="cuda", dtype=ids.dtype)])[None]
+    sfeats = torch.cat([feats[keep], feats.new_zeros(
+        int((~keep).sum()), 32)])[None]
+    w = torch.from_numpy(rng.standard_normal(
+        (27, 32, 32)).astype("float32") * 0.1).cuda()
+    scale = torch.from_numpy(rng.uniform(0.5, 1.5, 32).astype(
+        "float32")).cuda()
+    shift = torch.from_numpy(rng.standard_normal(32).astype(
+        "float32")).cuda()
+    deltas = so.yxz_offset_deltas((3, 3, 3), shape)
+    out, ovf, args, _, err, tol = check_k3(
+        torch, ws, "targets without neighbours", lambda: ws.windowed_conv(
+            src, sfeats, ids, w, deltas, block=block, window=4096,
+            sentinel_start=sent, scale=scale, shift=shift, relu=True))
+    src, _, tgt, lo, dl, _, _, window = args
+    lonely = (ws.neighbour_rows(src, tgt, lo, dl, block, window)[1].sum(
+        dim=1) == 0) & (ids < sent)
+    if ovf or int(lonely.sum()) < 100 or not torch.equal(
+            out[lonely], torch.relu(shift).expand(int(lonely.sum()), -1)):
+        raise AssertionError(f"targets without neighbours: {int(lonely.sum())}"
+                             " rows, not relu(shift), or overflow")
+    rows.append({"case": "epilogue, targets without neighbours",
+                 "lonely_rows": int(lonely.sum()), "k3_err": err,
+                 "k3_tol": tol})
+    log(f"corner epilogue rows without neighbours: {int(lonely.sum())} "
+        f"rows = relu(shift); K3 err {err:.3g} (tol {tol:.3g})")
     return rows
 
 
@@ -361,6 +484,8 @@ def check_positions(torch, tp, pos_calls, label=""):
             "vt": args[1].shape[1], "vs": args[0].shape[1], "span": args[7],
             "tap": args[8], "max_abs_err": err,
             "ms": cuda_ms(torch, lambda: tp.positions(*args, **kw), 20),
+            "device_ms": graph_ms(
+                torch, lambda: tp.positions(*args, **kw), 20),
             "plain_ms": cuda_ms(torch, lambda: tp.positions_plain(
                 *args, **kw), 3),
             "bound_ms": bound_ms, "bound_by": bound_by})
@@ -396,6 +521,22 @@ def check_kernels(torch, tp, pos_calls, conv_calls):
     return rows
 
 
+def forward_ms(torch, det, batch, reps):
+    """(median, all) ms of `reps` forward + post_process, after 2 warm-up
+    runs, each timed by CUDA events and synchronised."""
+    times = []
+    for i in range(reps + 2):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        det.post_process(det(batch))
+        t1.record()
+        torch.cuda.synchronize()
+        if i >= 2:
+            times.append(t0.elapsed_time(t1))
+    return sorted(times)[len(times) // 2], times
+
+
 def run_main_path(torch, det, tp, batch, b, reps):
     tp.reset_launches()
     out = det(batch)
@@ -415,17 +556,7 @@ def run_main_path(torch, det, tp, batch, b, reps):
         raise AssertionError(f"batch {b}: boxes {tuple(dets.boxes.shape)}")
     active = [int(c) // b for c in out["sparse_active_counts"]]
     torch.cuda.reset_peak_memory_stats()
-    times = []
-    for i in range(reps + 2):
-        t0 = torch.cuda.Event(enable_timing=True)
-        t1 = torch.cuda.Event(enable_timing=True)
-        t0.record()
-        det.post_process(det(batch))
-        t1.record()
-        torch.cuda.synchronize()
-        if i >= 2:
-            times.append(t0.elapsed_time(t1))
-    med = sorted(times)[len(times) // 2]
+    med, times = forward_ms(torch, det, batch, reps)
     return {"batch": b, "launches_per_forward": launches,
             "ms_per_batch": med, "ms_per_scan": med / b,
             "scans_per_s": 1e3 * b / med, "times_ms": times,
@@ -524,16 +655,18 @@ def windowed_hits(torch, ws, src, tgt, lo, deltas, block, window):
                for i in range(src.shape[0]))
 
 
-def check_windowed_conv(torch, ws, k3_calls, direction, label=""):
+def check_windowed_conv(torch, ws, k3_calls, direction, label="",
+                        before=None):
     """K3 vs plain (sample by sample, with the call's own epilogue
-    arguments) on every recorded call; per-call rows."""
+    arguments) on every recorded call; per-call rows. `before`: an earlier
+    checkout's K3 wrapper, timed on the same calls."""
     rows = []
     cat = lambda outs: torch.cat(outs, dim=0)          # noqa: E731
     for i, (args, kw) in enumerate(k3_calls):
         src, feats, tgt, lo, deltas, w_flat, block, window = args
         out = ws.conv_kernel(*args, **kw)
         plain = lambda: per_sample(                     # noqa: E731
-            ws.windowed_conv_plain, args, kw, (0, 1, 2, 3), cat)
+            ws.windowed_conv_plain, args, plain_kw(kw), (0, 1, 2, 3), cat)
         ref = plain()
         err = float((out - ref).abs().max())
         tol = K3_RTOL * max(float(ref.abs().max()), 1e-3)
@@ -555,13 +688,56 @@ def check_windowed_conv(torch, ws, k3_calls, direction, label=""):
             "epilogue": epilogue, "relu": bool(kw.get("relu")), "hits": hits,
             "max_abs_err": err, "tolerance": tol,
             "ms": cuda_ms(torch, lambda: ws.conv_kernel(*args, **kw), 5),
+            "device_ms": graph_ms(
+                torch, lambda: ws.conv_kernel(*args, **kw), 5),
             "plain_ms": cuda_ms(torch, plain, 1),
             "bound_ms": bound_ms, "bound_by": bound_by})
+        if before is not None:
+            rows[-1]["before_device_ms"] = graph_ms(
+                torch, lambda: before(*args, **kw), 2)
         del out, ref
     return rows
 
 
-def check_train_kernels(torch, tp, ws, k2_calls, k3_calls, k4_calls):
+def k3_plan_rows(torch, ws, k3_calls):
+    """K3's device time at the plans it did not pick, on two recorded
+    training calls: 128-row tiles in one stage against the 64-row two-stage
+    default at the transposed 128->64 call, and the window slice searched
+    in device memory against staged in shared memory at the first strided
+    forward call whose plan stages it."""
+    rows = []
+
+    def timed(what, args, kw, plan):
+        ms = graph_ms(torch, lambda: ws.conv_kernel(
+            *args, **{**kw, "plan": plan}), 5)
+        rows.append({"what": what, "cin": args[1].shape[2],
+                     "cout": args[5].shape[1], "window": args[7],
+                     "plan": list(plan), "device_ms": ms})
+        log(f"K3 plan {what}: {args[1].shape[2]}->{args[5].shape[1]} window "
+            f"{args[7]} plan {plan}: device {ms:.4f} ms")
+
+    for args, kw in k3_calls:
+        cin_p, cout = -(-args[1].shape[2] // 16) * 16, args[5].shape[1]
+        rows_, stages, resident, stage = ws.conv_plan(cin_p, cout, args[7])
+        if cin_p == 128 and rows_ == 64:
+            timed("tile", args, kw, (rows_, stages, resident, stage))
+            one = (128, 1, resident, ws.conv_smem(
+                cin_p, cout, args[7], 9, 128, 1, resident, True)
+                <= ws.SMEM_MAX)
+            timed("tile", args, kw, one)
+            break
+    for args, kw in sorted(k3_calls, key=lambda c: -c[0][7]):
+        plan = ws.conv_plan(-(-args[1].shape[2] // 16) * 16,
+                            args[5].shape[1], args[7])
+        if plan[3] and args[0].shape[1] != args[2].shape[1]:
+            timed("window", args, kw, plan)
+            timed("window", args, kw, plan[:3] + (False,))
+            break
+    return rows
+
+
+def check_train_kernels(torch, tp, ws, k2_calls, k3_calls, k4_calls,
+                        before=None):
     """Every K2 / K3 / K4 launch of one training step against its plain
     version at the recorded arguments; returns per-call rows."""
     rows = []
@@ -589,7 +765,7 @@ def check_train_kernels(torch, tp, ws, k2_calls, k3_calls, k4_calls):
         del out, ref
     rows += check_windowed_conv(
         torch, ws, k3_calls,
-        lambda i: "forward" if i < 3 else "transposed", "train ")
+        lambda i: "forward" if i < 3 else "transposed", "train ", before)
     for i, (args, kw) in enumerate(k4_calls):
         src, feats, tgt, g, lo, deltas, block, window = args
         out = ws.dw_kernel(*args, **kw)
@@ -620,6 +796,52 @@ def check_train_kernels(torch, tp, ws, k2_calls, k3_calls, k4_calls):
             "bound_ms": bound_ms, "bound_by": bound_by})
         del out, ref
     return rows
+
+
+def load_before(path):
+    """The K3 wrapper of an earlier checkout of this repo at `path`: its
+    package loaded under another name (its kernels built into its own
+    build/), taking this checkout's recorded arguments."""
+    import importlib
+    import importlib.util
+
+    pkg = Path(path).resolve() / "findnpropagate_torch"
+    spec = importlib.util.spec_from_file_location(
+        "before_port", pkg / "__init__.py",
+        submodule_search_locations=[str(pkg)])
+    sys.modules["before_port"] = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(sys.modules["before_port"])
+    bws = importlib.import_module("before_port.ops.windowed_sparse")
+    importlib.import_module("before_port.ops._build").build_all(
+        ["windowed_sparse"])
+
+    def conv_kernel(*args, centres=None, plan=None, **kw):
+        return bws.conv_kernel(*args, **kw)
+    return conv_kernel
+
+
+class Swap:
+    """module.name replaced by `fn` inside the block."""
+
+    def __init__(self, module, name, fn):
+        self.module, self.name, self.fn = module, name, fn
+        self.orig = getattr(module, name)
+
+    def __enter__(self):
+        setattr(self.module, self.name, self.fn)
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
+def step_ms(torch, step, batch):
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    step(batch)
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1)
 
 
 class HostTimer:
@@ -756,6 +978,16 @@ def training_phase(torch, mods, cfg, args, report):
         report["train_profile"] = profile_train(
             torch, step1, batch, str(args.profile) + ".train.txt")
         log(f"profile train step: {report['train_profile']}")
+    if args.before_fn is not None:
+        # the same steps with the earlier checkout's K3 in place of this
+        # one's, in turns: before, after, after, before
+        ab = {"before": [], "after": []}
+        for which in ("before", "after", "after", "before"):
+            fn = args.before_fn if which == "before" else ws.conv_kernel
+            with Swap(ws, "conv_kernel", fn):
+                ab[which].append(step_ms(torch, step1, batch))
+        report["train"]["k3_before_after_ms"] = ab
+        log(f"train step with the earlier K3 / this K3: {ab}")
 
     # one last step, untimed and after the profiled one, whose kernel
     # arguments are kept for phase 6
@@ -773,11 +1005,14 @@ def training_phase(torch, mods, cfg, args, report):
     for r in rows:
         log(f"positions       call {r['call']:2d} batch {r['batch']} "
             f"vt={r['vt']} span={r['span']} err {r['max_abs_err']}  ms "
-            f"{r['ms']:.4f}  plain {r['plain_ms']:.3f}  bound "
-            f"{r['bound_ms']:.4f} ({r['bound_by']})")
+            f"{r['ms']:.4f} (device {r['device_ms']:.4f})  plain "
+            f"{r['plain_ms']:.3f}  bound {r['bound_ms']:.4f} "
+            f"({r['bound_by']})")
     conv_rows = check_train_kernels(torch, tp, ws, k2_rec.calls,
-                                    k3_rec.calls, k4_rec.calls)
+                                    k3_rec.calls, k4_rec.calls,
+                                    args.before_fn)
     log_conv_rows(conv_rows)
+    report["k3_plans"] = k3_plan_rows(torch, ws, k3_rec.calls)
     return rows + conv_rows
 
 
@@ -823,19 +1058,25 @@ def pallas_train_phase(torch, mods, cfg, report):
 
 def log_conv_rows(rows):
     for r in rows:
+        dev = (f" (device {r['device_ms']:.4f}"
+               + (f", before {r['before_device_ms']:.4f}"
+                  if "before_device_ms" in r else "") + ")"
+               if "device_ms" in r else "")
         log(f"{r['name']:15s} call {r['call']:2d} "
             f"{r.get('direction', ''):10s} vt={r['vt']} "
             f"{r['cin']}->{r['cout']} hits {r['hits']} err "
-            f"{r['max_abs_err']:.3g}  ms {r['ms']:.4f}  plain "
+            f"{r['max_abs_err']:.3g}  ms {r['ms']:.4f}{dev}  plain "
             f"{r['plain_ms']:.3f}  bound {r['bound_ms']:.4f} "
             f"({r['bound_by']})")
 
 
-def pallas_phase(torch, models_mod, cfg, ds, det, batch, tp, ws):
+def pallas_phase(torch, models_mod, cfg, ds, det, batch, tp, ws, reps,
+                 before=None):
     """Phase 7: SUBM_IMPL pallas (K3 + fused epilogue everywhere), batch 1:
-    every K3 launch against its plain version with the same epilogue, and
-    the forward against the posgather forward on the same weights. Returns
-    (errors, per-call rows)."""
+    every K3 launch against its plain version with the same epilogue, the
+    forward against the posgather forward on the same weights, and its
+    ms/scan (with `before`, also with an earlier checkout's K3 in place of
+    this one's). Returns (errors, per-call rows, times)."""
     pcfg = copy.deepcopy(cfg.MODEL)
     pcfg.BACKBONE_3D["SUBM_IMPL"] = "pallas"
     pdet = models_mod.build_network(pcfg, 10, ds)
@@ -869,7 +1110,14 @@ def pallas_phase(torch, models_mod, cfg, ds, det, batch, tp, ws):
                for _, kw in k3_rec.calls):
         raise AssertionError("pallas mode: a K3 launch had no epilogue")
     rows = check_windowed_conv(torch, ws, k3_rec.calls,
-                               lambda i: "eval epilogue", "pallas mode ")
+                               lambda i: "eval epilogue", "pallas mode ",
+                               before)
+    times = {"ms_per_scan": forward_ms(torch, pdet, batch, reps)[0]}
+    if before is not None:
+        with Swap(ws, "conv_kernel", before):
+            times["before_ms_per_scan"] = forward_ms(torch, pdet, batch,
+                                                     reps)[0]
+    log(f"pallas-mode forward, batch 1: {times}")
     worst = 0.0
     for i, (a, b) in enumerate(zip(convs["pallas"], convs["posgather"])):
         rel = float((a - b).abs().max() / b.abs().max().clamp_min(1e-12))
@@ -889,7 +1137,7 @@ def pallas_phase(torch, models_mod, cfg, ds, det, batch, tp, ws):
         # after the bf16 dense tail the two mostly round to the same values
         if not rel < 1e-2:
             raise AssertionError(f"pallas mode: {key} rel err {rel}")
-    return errs, rows
+    return errs, rows, times
 
 
 def main():
@@ -905,6 +1153,9 @@ def main():
                     help="write a torch.profiler kernel table of one "
                     "forward at the largest batch to this file, and of "
                     "one training step to <file>.train.txt")
+    ap.add_argument("--before", default=None,
+                    help="a checkout of an earlier commit of this repo "
+                    "whose K3 is timed beside this one's")
     args = ap.parse_args()
 
     import torch
@@ -928,6 +1179,7 @@ def main():
               file=sys.stderr)
         return 3
 
+    args.before_fn = load_before(args.before) if args.before else None
     report = {}
     # ---- 1. device + build
     smi = subprocess.run(
@@ -952,11 +1204,8 @@ def main():
         for line in _build.PTXAS_LOG.get(name, "").splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 log("  ptxas:", line.strip())
-        # posgather.cu's conv_kernel is K2, windowed_dw_kernel is K4
         spilled = {fn: n for fn, n in _build.spills(
-            _build.PTXAS_LOG.get(name, "")).items()
-            if n and ("windowed_dw_kernel" in fn or (
-                name == "posgather" and "conv_kernel" in fn))}
+            _build.PTXAS_LOG.get(name, "")).items() if n}
         if spilled:
             raise AssertionError(f"register spills in {name}: {spilled}")
 
@@ -1028,9 +1277,10 @@ def main():
     report["train_kernel_calls"] = train_rows
 
     # ---- 7. pallas-mode forward
-    report["pallas_mode_rel_err"], report["pallas_kernel_calls"] = \
-        pallas_phase(torch, models_mod, cfg, ds, det,
-                     batches[min(args.batches)], tp, ws)
+    report["pallas_mode_rel_err"], report["pallas_kernel_calls"], \
+        report["pallas_forward"] = pallas_phase(
+            torch, models_mod, cfg, ds, det, batches[min(args.batches)], tp,
+            ws, args.reps, args.before_fn)
     log_conv_rows(report["pallas_kernel_calls"])
     log(f"pallas-mode forward vs posgather forward (batch "
         f"{min(args.batches)}): {report['pallas_mode_rel_err']}")

@@ -1,7 +1,9 @@
-// What the gather-and-multiply kernels share (K2 in posgather.cu, K4 in
-// windowed_sparse.cu): the search, the three z-probes of a tap group, the
+// What the gather-and-multiply kernels share (K2 in posgather.cu, K3 and K4
+// in windowed_sparse.cu): the search, the three z-probes of a tap group, the
 // asynchronous 16-byte gather of bf16 source rows into a shared-memory tile,
-// and the tensor-core primitives (ldmatrix, mma.sync m16n8k16 bf16 -> f32).
+// the tensor-core primitives (ldmatrix, mma.sync m16n8k16 bf16 -> f32), and
+// the body of the two convs (K2, K3): the ring of gathered group tiles times
+// the packed weights, and the fused epilogue.
 //
 // Tile layout. A gather tile holds, per target row, the 3*Cin bf16 channels
 // of one (dy, dx) tap group: [z-1 | z | z+1] x Cin, a row every
@@ -33,11 +35,13 @@ __device__ __forceinline__ int lower_bound(const int* __restrict__ a, int n,
 // group's centre id in the window win[0:window) (win = src + lo_b) and
 // whether the centre itself is there: z-1 sits at rank-1, z at rank (only on
 // a hit), z+1 at rank+hit. Each is accepted only if the id there is exactly
-// the one wanted; rows[zi * stride + r] gets the source row, or -1.
-__device__ __forceinline__ void resolve_probes(const int* __restrict__ win,
-                                               int window, int lo_b, int rank,
-                                               int hit, int centre, int* rows,
-                                               int stride, int r) {
+// the one wanted; rows[zi * stride + r] gets the source row, or -1. Returns
+// whether any of the three was found.
+__device__ __forceinline__ int resolve_probes(const int* __restrict__ win,
+                                              int window, int lo_b, int rank,
+                                              int hit, int centre, int* rows,
+                                              int stride, int r) {
+  int found = 0;
 #pragma unroll
   for (int zi = 0; zi < 3; ++zi) {
     const int j = zi == 0 ? rank - 1 : (zi == 1 ? rank : rank + hit);
@@ -46,7 +50,9 @@ __device__ __forceinline__ void resolve_probes(const int* __restrict__ win,
       if (win[j] == centre + (zi - 1)) s = lo_b + j;
     }
     rows[zi * stride + r] = s;
+    found |= s >= 0;
   }
+  return found;
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -129,6 +135,134 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+
+// ---- the conv of one tile of ROWS targets x all Cout (K2, K3)
+//
+// THREADS / 32 warps: ROWS / 16 slabs of 16 target rows, times the rest
+// along Cout, NTW n-tiles of 8 columns each per warp. The weights are
+// (G*3*Cin, Cout) bf16 packed in mma fragment order ([g][k-slab of 16]
+// [n-tile of 8][lane][4], lane l holding rows 2(l%4), 2(l%4)+1, 2(l%4)+8,
+// 2(l%4)+9 of column l/4): in shared memory at w_sm, all groups when
+// `resident`, else one group per stage streamed beside its rows.
+template <int NTW, int ROWS, int THREADS>
+struct TileShape {
+  static constexpr int kWarpsM = ROWS / 16;
+  static constexpr int kNt = NTW * (THREADS / 32) / kWarpsM;   // Cout / 8
+};
+
+// acc += sum over the tap groups g in `mask` (ascending) of the gathered
+// tile of rows[g] (ROWS x 3Cin) times W_g. With two stages, group g's
+// successor is in flight while g multiplies. Every thread of the block
+// calls it with the same mask; it leaves no copy pending.
+template <int NTW, int ROWS, int THREADS>
+__device__ __forceinline__ void conv_tile(
+    float (&acc)[NTW][4], unsigned mask, const unsigned char* __restrict__ w,
+    const unsigned char* w_sm, uint32_t a_sa,
+    const __nv_bfloat16* __restrict__ f, const int* rows, int cin,
+    int resident, int stages, int tid) {
+  using Shape = TileShape<NTW, ROWS, THREADS>;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int wr = warp % Shape::kWarpsM, wc = warp / Shape::kWarpsM;
+  const int ks_n = 3 * cin / 16;
+  const int wg_bytes = 3 * cin * Shape::kNt * 8 * 2;
+  const int a_stride = tile_stride(cin);
+  const int a_bytes = ROWS * a_stride;
+  const uint32_t w_sa = smem_addr(w_sm);
+
+  // one cp.async group per tap group: its gather tile and, unless all
+  // weights are resident, its weights
+  auto start_group = [&](int g, int st) {
+    gather_tile<ROWS>(a_sa + st * a_bytes, f, rows + g * 3 * ROWS, cin, tid,
+                      THREADS);
+    if (!resident)
+      copy_async(w_sa + st * wg_bytes, w + (size_t)g * wg_bytes, wg_bytes,
+                 tid, THREADS);
+    cp_async_commit();
+  };
+
+  int g = mask ? __ffs(mask) - 1 : -1;
+  if (stages == 2 && g >= 0) start_group(g, 0);
+  for (int i = 0; g >= 0; ++i) {
+    const unsigned rest = mask & ~((2u << g) - 1u);
+    const int next = rest ? __ffs(rest) - 1 : -1;
+    const int st = stages == 2 ? (i & 1) : 0;
+    if (stages == 2) {
+      if (next >= 0) {
+        start_group(next, st ^ 1);
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+    } else {
+      start_group(g, 0);
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const uint32_t a_addr = a_sa + st * a_bytes
+        + (wr * 16 + (lane & 15)) * a_stride + (lane >> 4) * 16;
+    const unsigned char* wg = w_sm + (resident ? g : st) * wg_bytes
+        + wc * NTW * 256 + lane * 8;
+    for (int ks = 0; ks < ks_n; ++ks) {
+      uint32_t a[4];
+      ldmatrix_x4(a, a_addr + ks * 32);
+#pragma unroll
+      for (int nt = 0; nt < NTW; ++nt) {
+        const uint2 bv = *reinterpret_cast<const uint2*>(
+            wg + (ks * Shape::kNt + nt) * 256);
+        mma_bf16(acc[nt], a, bv.x, bv.y);
+      }
+    }
+    __syncthreads();
+    g = next;
+  }
+}
+
+// The tile's outputs from acc: out and tgt point at its first row (Cout
+// floats a row); optionally *scale + shift, ReLU, and zero where the target
+// id is >= sentinel. 8 bytes per lane: a 32-byte sector per row and warp.
+template <int NTW, int ROWS, int THREADS>
+__device__ __forceinline__ void store_tile(
+    const float (&acc)[NTW][4], float* __restrict__ out,
+    const int* __restrict__ tgt, const float* __restrict__ scale,
+    const float* __restrict__ shift, int epilogue, int relu, int sentinel,
+    int tid) {
+  using Shape = TileShape<NTW, ROWS, THREADS>;
+  constexpr int cout = Shape::kNt * 8;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int wr = warp % Shape::kWarpsM, wc = warp / Shape::kWarpsM;
+  const int col0 = wc * NTW * 8 + (lane & 3) * 2;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = wr * 16 + (lane >> 2) + half * 8;
+    const bool masked = epilogue && tgt[r] >= sentinel;
+#pragma unroll
+    for (int nt = 0; nt < NTW; ++nt) {
+      const int col = col0 + nt * 8;
+      float v0 = acc[nt][half * 2], v1 = acc[nt][half * 2 + 1];
+      if (epilogue) {
+        v0 = v0 * scale[col] + shift[col];
+        v1 = v1 * scale[col + 1] + shift[col + 1];
+        if (relu) {
+          v0 = fmaxf(v0, 0.f);
+          v1 = fmaxf(v1, 0.f);
+        }
+        if (masked) v0 = v1 = 0.f;
+      }
+      *reinterpret_cast<float2*>(out + (size_t)r * cout + col) =
+          make_float2(v0, v1);
+    }
+  }
+}
+
+// Zeros over a tile's ROWS x cout outputs (cout % 4 == 0).
+template <int ROWS, int THREADS>
+__device__ __forceinline__ void zero_tile(float* __restrict__ out, int cout,
+                                          int tid) {
+  float4* o4 = reinterpret_cast<float4*>(out);
+  for (int e = tid; e < ROWS * cout / 4; e += THREADS)
+    o4[e] = make_float4(0.f, 0.f, 0.f, 0.f);
 }
 
 }  // namespace fp

@@ -48,6 +48,8 @@
 //    in the kernel. TMA is not used: it copies boxes of a tensor, and these
 //    are scattered rows. The epilogue is fused on the accumulator fragments
 //    and stores 8 bytes per lane (a full 32-byte sector per row and warp).
+//    The tile's body (the ring, the products, the epilogue) is conv_tile /
+//    store_tile of gather_mma.cuh, which K3 shares.
 //
 // Every entry launches on the stream it is given, allocates nothing, and
 // returns the launch's error code.
@@ -109,19 +111,15 @@ conv_kernel(const int* __restrict__ src,
             int sentinel, int resident, int stages) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int cout = NT * 8;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int ks_n = 3 * cin / 16;
+  const int tid = threadIdx.x;
   const int wg_bytes = 3 * cin * cout * 2;
-  const int a_stride = fp::tile_stride(cin);
-  const int a_bytes = kTile * a_stride;
+  const int a_bytes = kTile * fp::tile_stride(cin);
   const int w_bytes = (resident ? g_n : stages) * wg_bytes;
-  const unsigned char* w_sm = smem;
-  const uint32_t w_sa = fp::smem_addr(smem);
-  const uint32_t a_sa = w_sa + w_bytes;
+  const uint32_t a_sa = fp::smem_addr(smem) + w_bytes;
   int* rows = reinterpret_cast<int*>(smem + w_bytes + stages * a_bytes);
 
   if (resident) {
-    fp::copy_async(w_sa, w, g_n * wg_bytes, tid, kThreads);
+    fp::copy_async(fp::smem_addr(smem), w, g_n * wg_bytes, tid, kThreads);
     fp::cp_async_commit();
     fp::cp_async_wait<0>();
     __syncthreads();
@@ -139,15 +137,12 @@ conv_kernel(const int* __restrict__ src,
     // targets ascend, so a tile whose first id is a sentinel is all
     // sentinels; the condition is the same for the whole block
     if (has_real[bi] == 0 || (epilogue && tgtb[t0] >= sentinel)) {
-      float4* o4 = reinterpret_cast<float4*>(outb);
-      for (int e = tid; e < kTile * cout / 4; e += kThreads)
-        o4[e] = make_float4(0.f, 0.f, 0.f, 0.f);
+      fp::zero_tile<kTile, kThreads>(outb, cout, tid);
       continue;
     }
 
     const int lo_b = lo[bi];
     const int* win = src + (size_t)b * vs + lo_b;
-    const __nv_bfloat16* fb = feats + (size_t)b * vs * cin;
     for (int p = tid; p < g_n * kTile; p += kThreads) {
       const int g = p / kTile, r = p - g * kTile;
       const int pv = pos[((size_t)b * g_n + g) * vt + t0 + r];
@@ -163,73 +158,11 @@ conv_kernel(const int* __restrict__ src,
     for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
-
-    // one cp.async group per tap group: its gather tile and, unless all
-    // weights are resident, its weights
-    auto start_group = [&](int g) {
-      const int st = stages == 2 ? (g & 1) : 0;
-      fp::gather_tile<kTile>(a_sa + st * a_bytes, fb, rows + g * 3 * kTile,
-                             cin, tid, kThreads);
-      if (!resident)
-        fp::copy_async(w_sa + st * wg_bytes, w + (size_t)g * wg_bytes,
-                       wg_bytes, tid, kThreads);
-      fp::cp_async_commit();
-    };
-
-    if (stages == 2) start_group(0);
-    for (int g = 0; g < g_n; ++g) {
-      if (stages == 2) {
-        if (g + 1 < g_n) {
-          start_group(g + 1);
-          fp::cp_async_wait<1>();
-        } else {
-          fp::cp_async_wait<0>();
-        }
-      } else {
-        start_group(g);
-        fp::cp_async_wait<0>();
-      }
-      __syncthreads();
-      const int st = stages == 2 ? (g & 1) : 0;
-      const uint32_t a_addr = a_sa + st * a_bytes
-          + (warp * 16 + (lane & 15)) * a_stride + (lane >> 4) * 16;
-      const unsigned char* wg = w_sm + (resident ? g : st) * wg_bytes
-          + lane * 8;
-      for (int ks = 0; ks < ks_n; ++ks) {
-        uint32_t a[4];
-        fp::ldmatrix_x4(a, a_addr + ks * 32);
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-          const uint2 bv = *reinterpret_cast<const uint2*>(
-              wg + (ks * NT + nt) * 256);
-          fp::mma_bf16(acc[nt], a, bv.x, bv.y);
-        }
-      }
-      __syncthreads();
-    }
-
-    const int col0 = (lane & 3) * 2;
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int r = warp * 16 + (lane >> 2) + half * 8;
-      const bool masked = epilogue && tgtb[t0 + r] >= sentinel;
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const int col = nt * 8 + col0;
-        float v0 = acc[nt][half * 2], v1 = acc[nt][half * 2 + 1];
-        if (epilogue) {
-          v0 = v0 * scale[col] + shift[col];
-          v1 = v1 * scale[col + 1] + shift[col + 1];
-          if (relu) {
-            v0 = fmaxf(v0, 0.f);
-            v1 = fmaxf(v1, 0.f);
-          }
-          if (masked) v0 = v1 = 0.f;
-        }
-        *reinterpret_cast<float2*>(outb + (size_t)r * cout + col) =
-            make_float2(v0, v1);
-      }
-    }
+    fp::conv_tile<NT, kTile, kThreads>(
+        acc, (1u << g_n) - 1u, w, smem, a_sa, feats + (size_t)b * vs * cin,
+        rows, cin, resident, stages, tid);
+    fp::store_tile<NT, kTile, kThreads>(acc, outb, tgtb + t0, scale, shift,
+                                        epilogue, relu, sentinel, tid);
   }
 }
 

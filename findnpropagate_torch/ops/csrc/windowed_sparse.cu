@@ -9,22 +9,32 @@
 //    src[lo_b : lo_b + window), times W[k], summed over the taps in f32
 //    (bf16 operands), then optionally *scale + shift, ReLU, and zero where
 //    the target id >= sentinel. The transposed conv of the backward pass is
-//    the same kernel on swapped id lists, negated deltas and W[k]^T.
-//    Bound: 2*K*Cin*Cout flop per target against ~(K*Cin*4 gathered +
-//    Cout*4 written) bytes — below the card's ridge at 16 channels (bytes),
-//    above it from 64 channels on (operations). Design: the TPU kernel
-//    aligns ids by a one-hot compare of the whole window against the block
-//    (a (window, block) plane per tap, fed to the MXU); here each target
-//    binary-searches the same window slice, log2(window) ~ 13 steps, which
-//    finds the same row because the ids ascend strictly. One 256-thread
-//    block takes 32 targets x all Cout; per pass of 3 taps, 96 threads
-//    search, the block gathers the found rows (coalesced along C) into a
-//    32 x 3Cin bf16 tile and stages the 3 taps' weights in shared memory
-//    (dynamic, up to 3*Cin*Cout*2 bytes), and each thread accumulates its
-//    (rows, cout) outputs in f32 registers. The 512-aligned DMA windows,
-//    8-row channel padding, tap sub-windows, sub-blocks and tap unrolling
-//    of the TPU kernel shrink its compare plane only and are not carried
-//    over. Products run on the CUDA cores (FMA): simple first.
+//    the same kernel on swapped id lists with the taps reversed and negated
+//    and W[26-k]^T (the same (delta, weight) pairs in group order).
+//    Bound: 2*27*Cin*Cout flop per target against ~(27*Cin*2 gathered +
+//    Cout*4 written) bytes: bytes (and the latency of the search -> row
+//    loads) at 16 channels, operations from 64 on. Design: K2's body on the
+//    tensor cores (gather_mma.cuh conv_tile / store_tile) with the ranks
+//    searched in the kernel instead of read from K1. The 27 taps are 9
+//    (dy, dx) groups of three consecutive ids: one binary search of the
+//    group's centre in the block's window slice gives z-1 / z / z+1 with
+//    K2's exact-id probes (9 searches per target instead of 27; the TPU
+//    aligns ids by a one-hot compare of the whole window instead). Tiles of
+//    128 targets (one target block's window each) x all Cout; 8 warps of 16
+//    rows with mma.sync m16n8k16 accumulators; A fragments by ldmatrix from
+//    the gathered bf16 tile (16-byte cp.async, zero fill on a miss), B from
+//    weights the wrapper packs in fragment order, resident in shared memory
+//    up to 112 KB or streamed one group per stage. A two-stage ring keeps
+//    group g+1's rows in flight while g multiplies; at 128 input channels
+//    (transposed 128->64) the tile is 64 rows x 2 column halves so two
+//    stages still fit. The block stages its tile's window slice (up to 30
+//    KB of ids) in shared memory with cp.async where the budget allows, so
+//    the 9 x 128 searches of a tile read shared memory; persistent blocks
+//    walk contiguous runs of tiles, so the slice is staged once per target
+//    block. A group without any neighbour in the tile is neither gathered
+//    nor multiplied (most of the transposed direction's 27 taps miss); the
+//    epilogue still runs, so a real target without neighbours gets
+//    relu(shift). The wrapper picks tile, ring and staging (conv_plan).
 //
 // K4 fp_windowed_dw replaces pallas_sparse.py _dw_kernel (:285; _dw_call
 //    :345, pallas_call :380).
@@ -60,103 +70,145 @@
 
 namespace {
 
-constexpr int kTile = 32;        // targets per pass
 constexpr int kThreads = 256;
-constexpr int kTaps = 3;         // taps per pass of the conv kernel
-constexpr int kMaxCout = 128;
-constexpr int kMaxRows = kTile * kMaxCout / kThreads;  // conv accumulators
 constexpr int kDwTile = 64;      // targets per weight-gradient tile
+constexpr int kResidentMax = 112 * 1024;   // all groups' weights resident
+constexpr int kSmemMax = 227 * 1024;
 
-// Row of `want` in the ascending window a[0:n), or -1.
-__device__ __forceinline__ int find_row(const int* __restrict__ a, int n,
-                                        int want) {
-  int lo = 0, hi = n;
-  while (lo < hi) {
-    int mid = (lo + hi) >> 1;
-    if (a[mid] < want) lo = mid + 1; else hi = mid;
-  }
-  return (lo < n && a[lo] == want) ? lo : -1;
-}
-
-__global__ void __launch_bounds__(kThreads)
+// Shared memory of the conv: [weights: all groups, or `stages` of one
+// group][`stages` gather tiles of ROWS rows][rows: g_n x 3 x ROWS int]
+// [live-group mask, 16 bytes][window: `window` ids, when staged].
+template <int NTW, int ROWS>
+__global__ void __launch_bounds__(kThreads, 2)
 windowed_conv_kernel(const int* __restrict__ src,
-                     const float* __restrict__ feats,
+                     const __nv_bfloat16* __restrict__ feats,
                      const int* __restrict__ tgt, const int* __restrict__ lo,
-                     const int* __restrict__ deltas,
-                     const __nv_bfloat16* __restrict__ w,
+                     const int* __restrict__ centres,
+                     const unsigned char* __restrict__ w,
                      const float* __restrict__ scale,
                      const float* __restrict__ shift, float* __restrict__ out,
-                     int vs, int vt, int nb, int k_n, int block, int window,
-                     int cin, int cout, int epilogue, int relu,
-                     int sentinel) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* wsm = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* tile = wsm + (size_t)kTaps * cin * cout;
-  __shared__ int rows[kTile * kTaps];
-
-  const int b = blockIdx.y;
-  const int t0 = blockIdx.x * kTile;
+                     int vs, int vt, int nb, int g_n, int block, int window,
+                     int cin, int epilogue, int relu, int sentinel,
+                     int resident, int stages, int stage_window, int n_tiles,
+                     int tiles_per_block) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int cout = fp::TileShape<NTW, ROWS, kThreads>::kNt * 8;
   const int tid = threadIdx.x;
-  const int co = tid % cout;
-  const int r0 = tid / cout;
-  const int rstep = kThreads / cout;
-  const int n_rows = kTile / rstep;
-  const int lo_b = lo[b * nb + t0 / block];
-  const int* win = src + (size_t)b * vs + lo_b;
-  const int* tgtb = tgt + (size_t)b * vt;
-  const float* fb = feats + (size_t)b * vs * cin;
+  const int wg_bytes = 3 * cin * cout * 2;
+  const int a_bytes = ROWS * fp::tile_stride(cin);
+  const int w_bytes = (resident ? g_n : stages) * wg_bytes;
+  const uint32_t a_sa = fp::smem_addr(smem) + w_bytes;
+  int* rows = reinterpret_cast<int*>(smem + w_bytes + stages * a_bytes);
+  unsigned* live = reinterpret_cast<unsigned*>(rows + g_n * 3 * ROWS);
+  int* win_sm = reinterpret_cast<int*>(live + 4);
 
-  float acc[kMaxRows];
-#pragma unroll
-  for (int r = 0; r < kMaxRows; ++r) acc[r] = 0.f;
-
-  for (int k0 = 0; k0 < k_n; k0 += kTaps) {
-    const int nt = min(kTaps, k_n - k0);
-    const int kc = nt * cin;
-    if (tid < kTile * kTaps) {
-      const int row = tid / kTaps, j = tid % kTaps;
-      int s = -1;
-      if (j < nt) {
-        const int r = find_row(win, window, tgtb[t0 + row] + deltas[k0 + j]);
-        if (r >= 0) s = lo_b + r;
-      }
-      rows[tid] = s;
-    }
-    const __nv_bfloat16* wk = w + (size_t)k0 * cin * cout;
-    for (int e = tid; e < kc * cout; e += kThreads) wsm[e] = wk[e];
-    __syncthreads();
-    for (int e = tid; e < kTile * kc; e += kThreads) {
-      const int row = e / kc, rem = e - row * kc;
-      const int j = rem / cin, c = rem - j * cin;
-      const int s = rows[row * kTaps + j];
-      tile[e] = __float2bfloat16(s >= 0 ? fb[(size_t)s * cin + c] : 0.f);
-    }
-    __syncthreads();
-    for (int kk = 0; kk < kc; ++kk) {
-      const float wv = __bfloat162float(wsm[kk * cout + co]);
-#pragma unroll
-      for (int r = 0; r < kMaxRows; ++r) {
-        if (r < n_rows)
-          acc[r] += __bfloat162float(tile[(r0 + r * rstep) * kc + kk]) * wv;
-      }
-    }
-    __syncthreads();
+  if (resident) {     // published by the first tile's barrier
+    fp::copy_async(fp::smem_addr(smem), w, g_n * wg_bytes, tid, kThreads);
+    fp::cp_async_commit();
+    fp::cp_async_wait<0>();
   }
 
-  float* outb = out + (size_t)b * vt * cout;
-#pragma unroll
-  for (int r = 0; r < kMaxRows; ++r) {
-    if (r < n_rows) {
-      const int t = t0 + r0 + r * rstep;
-      float v = acc[r];
-      if (epilogue) {
-        v = v * scale[co] + shift[co];
-        if (relu) v = fmaxf(v, 0.f);
-        if (tgtb[t] >= sentinel) v = 0.f;
-      }
-      outb[(size_t)t * cout + co] = v;
+  const int tiles_per_sample = vt / ROWS;
+  const int tile_hi = min(n_tiles, (int)(blockIdx.x + 1) * tiles_per_block);
+  int staged = -1;                 // the target block whose slice is staged
+  for (int tile = blockIdx.x * tiles_per_block; tile < tile_hi; ++tile) {
+    const int b = tile / tiles_per_sample;
+    const int t0 = (tile - b * tiles_per_sample) * ROWS;
+    const int bi = b * nb + t0 / block;
+    const int* tgtb = tgt + (size_t)b * vt;
+    float* outb = out + ((size_t)b * vt + t0) * cout;
+
+    // targets ascend, so a tile whose first id is a sentinel is all
+    // sentinels; the condition is the same for the whole block
+    if (epilogue && tgtb[t0] >= sentinel) {
+      fp::zero_tile<ROWS, kThreads>(outb, cout, tid);
+      continue;
     }
+
+    const int lo_b = lo[bi];
+    const int* win = src + (size_t)b * vs + lo_b;
+    if (tid == 0) *live = 0u;
+    if (stage_window) {
+      if (bi != staged) {
+        fp::copy_async(fp::smem_addr(win_sm), win, window * 4, tid,
+                       kThreads);
+        fp::cp_async_commit();
+        fp::cp_async_wait<0>();
+        staged = bi;
+      }
+      win = win_sm;
+    }
+    __syncthreads();
+
+    // one search per (target, group); a warp's 32 targets share a group
+    for (int p = tid; p < g_n * ROWS; p += kThreads) {
+      const int g = p / ROWS, r = p - g * ROWS;
+      const int centre = tgtb[t0 + r] + centres[g];
+      const int rank = fp::lower_bound(win, window, centre);
+      const int hit = rank < window && win[rank] == centre;
+      const int found = fp::resolve_probes(win, window, lo_b, rank, hit,
+                                           centre, rows + g * 3 * ROWS, ROWS,
+                                           r);
+      if (__any_sync(0xffffffffu, found) && (tid & 31) == 0)
+        atomicOr(live, 1u << g);
+    }
+    __syncthreads();
+    const unsigned mask = *live;
+
+    float acc[NTW][4];
+#pragma unroll
+    for (int nt = 0; nt < NTW; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+    fp::conv_tile<NTW, ROWS, kThreads>(
+        acc, mask, w, smem, a_sa, feats + (size_t)b * vs * cin, rows, cin,
+        resident, stages, tid);
+    // conv_tile ends on a barrier unless no group was live; then this one
+    // keeps the next tile's reset of `live` behind every read of it
+    if (mask == 0u) __syncthreads();
+    fp::store_tile<NTW, ROWS, kThreads>(acc, outb, tgtb + t0, scale, shift,
+                                        epilogue, relu, sentinel, tid);
   }
+}
+
+template <int NTW, int ROWS>
+int launch_conv(const int* src, const void* feats, const int* tgt,
+                const int* lo, const int* centres, const void* w,
+                const float* scale, const float* shift, float* out,
+                int batch, int vs, int vt, int nb, int g_n, int block,
+                int window, int cin, int cout, int epilogue, int relu,
+                int sentinel, int resident, int stages, int stage_window,
+                cudaStream_t stream) {
+  const int wg_bytes = 3 * cin * cout * 2;
+  const int smem = (resident ? g_n : stages) * wg_bytes
+      + stages * ROWS * (3 * cin * 2 + 16) + g_n * 3 * ROWS * 4 + 16
+      + (stage_window ? window * 4 : 0);
+  if (smem > kSmemMax || (resident && g_n * wg_bytes > kResidentMax))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      windowed_conv_kernel<NTW, ROWS>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess) return (int)err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, windowed_conv_kernel<NTW, ROWS>, kThreads, smem))
+      != cudaSuccess) return (int)err;
+  if (per_sm < 1) return (int)cudaErrorLaunchOutOfResources;
+  // persistent blocks, each a contiguous run of tiles (so a run shares
+  // its target blocks' window slices)
+  const int n_tiles = batch * (vt / ROWS);
+  const int slots = per_sm * sms;
+  const int per_block = (n_tiles + slots - 1) / slots;
+  const int grid = (n_tiles + per_block - 1) / per_block;
+  windowed_conv_kernel<NTW, ROWS><<<grid, kThreads, smem, stream>>>(
+      src, (const __nv_bfloat16*)feats, tgt, lo, centres,
+      (const unsigned char*)w, scale, shift, out, vs, vt, nb, g_n, block,
+      window, cin, epilogue, relu, sentinel, resident, stages, stage_window,
+      n_tiles, per_block);
+  return (int)cudaGetLastError();
 }
 
 // Shared memory: two stages of [gather tile: kDwTile x (3Cin + 8) bf16]
@@ -215,10 +267,8 @@ windowed_dw_kernel(const int* __restrict__ src,
       const int centre = tgtb[t] + centre_d;
       const int r = fp::lower_bound(win, window, centre);
       const int hit = r < window && win[r] == centre;
-      int* rw = rows + st * 3 * kDwTile;
-      fp::resolve_probes(win, window, lo_b, r, hit, centre, rw, kDwTile, tid);
-      found = (rw[tid] >= 0) | (rw[kDwTile + tid] >= 0)
-          | (rw[2 * kDwTile + tid] >= 0);
+      found = fp::resolve_probes(win, window, lo_b, r, hit, centre,
+                                 rows + st * 3 * kDwTile, kDwTile, tid);
     }
     return __syncthreads_or(found);
   };
@@ -344,28 +394,42 @@ int launch_dw(const int* src, const void* feats, const int* tgt,
 
 extern "C" {
 
-// out (B, Vt, Cout) f32 from src ids (B, Vs), feats (B, Vs, Cin) f32, tgt
-// ids (B, Vt), lo (B, nb) window starts, deltas (K,), w (K*Cin, Cout) bf16
-// with row k*Cin + c. Cin <= 128; Cout a power of two in [8, 128];
-// block % 32 == 0; Vt % block == 0 (checked by the caller).
-int fp_windowed_conv(const int* src, const float* feats, const int* tgt,
-                     const int* lo, const int* deltas, const void* w,
+// out (B, Vt, Cout) f32 from src ids (B, Vs), feats (B, Vs, Cin) bf16, tgt
+// ids (B, Vt), lo (B, nb) window starts, centres (G,) the tap groups' dz = 0
+// deltas (tap zi * G + g is centres[g] + zi - 1), w the (G*3*Cin, Cout)
+// bf16 weights (row g*3Cin + zi*Cin + c) packed in mma fragment order as
+// for fp_posgather_conv. Tiles of `rows` (128, or 64 when Cout >= 16)
+// targets, a ring of `stages` (1 or 2), weights `resident` or streamed, the
+// window slice staged in shared memory or not (`stage_window`): the
+// caller's plan, refused here if it does not fit. Cin % 16 == 0 and <= 128;
+// Cout a power of two in [8, 128]; G <= 32; block % 128 == 0; Vt % block
+// == 0; window % 4 == 0 and Vs % 4 == 0 when staged (checked by the caller).
+int fp_windowed_conv(const int* src, const void* feats, const int* tgt,
+                     const int* lo, const int* centres, const void* w,
                      const float* scale, const float* shift, float* out,
-                     int batch, int vs, int vt, int nb, int k_n, int block,
+                     int batch, int vs, int vt, int nb, int g_n, int block,
                      int window, int cin, int cout, int epilogue, int relu,
-                     int sentinel, void* stream) {
-  const size_t smem = ((size_t)kTaps * cin * cout
-                       + (size_t)kTile * kTaps * cin) * sizeof(__nv_bfloat16);
-  cudaError_t err = cudaFuncSetAttribute(
-      windowed_conv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((unsigned)(vt / kTile), batch);
-  windowed_conv_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      src, feats, tgt, lo, deltas, (const __nv_bfloat16*)w, scale, shift,
-      out, vs, vt, nb, k_n, block, window, cin, cout, epilogue, relu,
-      sentinel);
-  return (int)cudaGetLastError();
+                     int sentinel, int rows, int stages, int resident,
+                     int stage_window, void* stream) {
+#define FP_K3_CASE(NTW, ROWS)                                                \
+  if (rows == ROWS && cout == NTW * 1024 / ROWS)                             \
+    return launch_conv<NTW, ROWS>(                                           \
+        src, feats, tgt, lo, centres, w, scale, shift, out, batch, vs, vt,   \
+        nb, g_n, block, window, cin, cout, epilogue, relu, sentinel,         \
+        resident, stages, stage_window, (cudaStream_t)stream)
+  if (g_n < 1 || g_n > 32 || (stages != 1 && stages != 2))
+    return (int)cudaErrorInvalidValue;
+  FP_K3_CASE(1, 128);
+  FP_K3_CASE(2, 128);
+  FP_K3_CASE(4, 128);
+  FP_K3_CASE(8, 128);
+  FP_K3_CASE(16, 128);
+  FP_K3_CASE(1, 64);
+  FP_K3_CASE(2, 64);
+  FP_K3_CASE(4, 64);
+  FP_K3_CASE(8, 64);
+#undef FP_K3_CASE
+  return (int)cudaErrorInvalidValue;
 }
 
 // dw (3G, Cin, Cout) f32, tap k = zi * G + group, from feats (B, Vs, Cin)

@@ -3,19 +3,21 @@ findnpropagate_tpu/ops/pallas_sparse.py (`windowed_conv_pallas` :532,
 `windowed_overflow` :240, `windowed_dw_pallas` :389,
 `windowed_conv_pallas_diff` :471).
 
-Two kernels carry it (ops/csrc/windowed_sparse.cu):
+Two kernels carry it (ops/csrc/windowed_sparse.cu), both on the tensor
+cores, and both search once per (target, (dy, dx) tap group) and take the
+group's three z-taps from that one rank (`group_probe_rows` is the same
+route in plain PyTorch), so the taps must be groups of three consecutive ids
+(`posgather.group_center_deltas`); the wrappers raise where they are not:
   * K3 `windowed_conv` — for each target and tap k, the source row whose id
     equals ``tgt + delta_k`` inside the target block's window
     ``src_ids[lo_b : lo_b + window)``, times ``W[k]``, summed over the taps,
     with the optional scale/shift(+ReLU) epilogue that also zeroes rows whose
-    target id is >= ``sentinel``;
+    target id is >= ``sentinel``. The wrapper hands the kernel one bf16 copy
+    of the features and the weights in group order packed for the mma
+    fragments (`posgather.pack_weights_mma`), and picks its tile, ring and
+    window staging (`conv_plan`);
   * K4 `windowed_dw` — ``dW[k] = sum_targets gathered_k^T . g`` over the
-    whole batch, (K, Cin, Cout) float32, on the tensor cores. The kernel
-    searches once per (target, (dy, dx) tap group) and takes the group's
-    three z-taps from that one rank (`group_probe_rows` is the same route
-    in plain PyTorch), so the taps must be groups of three consecutive ids
-    (`posgather.group_center_deltas`); the wrapper raises where they are
-    not.
+    whole batch, (K, Cin, Cout) float32.
 
 Each has a plain PyTorch version beside it (`windowed_conv_plain`,
 `windowed_dw_plain`). A wrapper takes the plain version only for a tensor
@@ -34,8 +36,9 @@ reference vmaps single-sample functions); the weight gradient is summed
 over the batch, as the vmapped reference's is.
 
 `WindowedConv` is the differentiable form: forward K3, backward K3 on the
-swapped id lists with negated deltas and transposed weights for ``d_feats``
-plus K4 for ``dW``.
+swapped id lists with the taps reversed and negated and the weights
+flipped and transposed (`posgather.flip_transpose_weights`: the same
+(delta, weight) pairs, in group order) for ``d_feats``, plus K4 for ``dW``.
 """
 
 from __future__ import annotations
@@ -52,7 +55,10 @@ from .posgather import (
     _check_shape,
     _ptr,
     _stream,
+    flip_transpose_weights,
     group_center_deltas,
+    pack_weights_mma,
+    reorder_weights_groups,
 )
 
 ALIGN = 512
@@ -60,6 +66,9 @@ LAUNCHES = {"windowed_conv": 0, "windowed_dw": 0}
 DW_TILE = 64             # targets per tile of the K4 kernel
 DW_BLOCKS = 2 * 132      # blocks its grid aims at: two per SM of an H100
 MAX_DW_ACC = 8192        # Cin * Cout: 3x that many f32 sums in registers
+CONV_TILE = 128          # targets per K3 tile (64 at the widest shapes)
+RESIDENT_MAX = 112 * 1024   # K3 keeps all groups' weights up to this
+SMEM_MAX = 227 * 1024       # shared memory of one block on an H100
 
 
 def reset_launches():
@@ -71,7 +80,7 @@ def _lib():
     lib = _build.load("windowed_sparse")
     if lib.fp_windowed_conv.argtypes is None:
         lib.fp_windowed_conv.argtypes = [ctypes.c_void_p] * 9 \
-            + [ctypes.c_int] * 12 + [ctypes.c_void_p]
+            + [ctypes.c_int] * 16 + [ctypes.c_void_p]
         lib.fp_windowed_conv.restype = ctypes.c_int
         lib.fp_windowed_dw.argtypes = [ctypes.c_void_p] * 8 \
             + [ctypes.c_int] * 10 + [ctypes.c_void_p]
@@ -256,11 +265,46 @@ def windowed_conv_plain(src_ids, feats, tgt_ids, lo, deltas, w_flat,
     return out
 
 
+def conv_smem(cin, cout, window, g_n, rows, stages, resident,
+              stage_window):
+    """Shared-memory bytes of one K3 block (the kernel's own layout)."""
+    return ((g_n if resident else stages) * 6 * cin * cout
+            + stages * rows * (6 * cin + 16) + g_n * 3 * rows * 4 + 16
+            + (4 * window if stage_window else 0))
+
+
+def conv_plan(cin, cout, window, g_n=9):
+    """K3's plan for padded widths: (rows, stages, resident, stage_window).
+    Two stages of 128-target tiles where they fit, else of 64-target tiles
+    (Cout split between two warp columns), else one stage; the weights of
+    all groups resident up to RESIDENT_MAX; the window slice in shared
+    memory where the rest leaves room for it."""
+    resident = g_n * 6 * cin * cout <= RESIDENT_MAX
+    for rows, stages in ((CONV_TILE, 2), (CONV_TILE // 2, 2),
+                         (CONV_TILE, 1)):
+        if rows * cout < 1024:          # a warp column holds >= 8 columns
+            continue
+        if conv_smem(cin, cout, window, g_n, rows, stages, resident,
+                     False) > SMEM_MAX:
+            continue
+        stage = conv_smem(cin, cout, window, g_n, rows, stages, resident,
+                          True) <= SMEM_MAX
+        return rows, stages, resident, stage
+    raise ValueError(f"no K3 plan fits cin={cin} cout={cout}")
+
+
 def conv_kernel(src_ids, feats, tgt_ids, lo, deltas, w_flat, block: int,
                 window: int, scale=None, shift=None, relu=False,
-                sentinel=None, compute_dtype=torch.float32):
-    """K3 wrapper: the CUDA kernel (bf16 operands, f32 sums) for CUDA
-    tensors, the plain version for CPU tensors."""
+                sentinel=None, compute_dtype=torch.float32, centres=None,
+                plan=None):
+    """K3 wrapper: the CUDA kernel (bf16 operands, f32 sums on the tensor
+    cores) for CUDA tensors, the plain version for CPU tensors. The kernel
+    wants taps in groups of three consecutive ids (it reads the centres as
+    ``deltas[G:2G]`` on the device); the wrapper raises where they are not,
+    checked on `centres` (``group_center_deltas(deltas)``) where the caller
+    has them on the host, else on a copy of the deltas, which waits for the
+    stream. It pads Cin to a multiple of 16 and Cout to a power of two from
+    8. `plan` overrides `conv_plan` (rows, stages, stage_window)."""
     if not _check_device(src_ids, feats, tgt_ids, lo, deltas, w_flat):
         return windowed_conv_plain(src_ids, feats, tgt_ids, lo, deltas,
                                    w_flat, block, window, scale, shift, relu,
@@ -268,19 +312,27 @@ def conv_kernel(src_ids, feats, tgt_ids, lo, deltas, w_flat, block: int,
     if compute_dtype != torch.bfloat16:
         raise ValueError("the CUDA windowed conv computes in bfloat16")
     b, vt = tgt_ids.shape
-    k, cin = deltas.shape[0], feats.shape[2]
+    k, cin, vs = deltas.shape[0], feats.shape[2], src_ids.shape[1]
     cout = w_flat.shape[1]
+    cin_p = -(-cin // 16) * 16
     cout_p = max(8, 1 << (cout - 1).bit_length())
-    if cin > 128 or cout_p > 128 or block % 32 or vt % block \
-            or window > src_ids.shape[1]:
+    if cin_p > 128 or cout_p > 128 or block % CONV_TILE or vt % block \
+            or window > vs or window % 4 or vs % 4:
         raise ValueError(f"unsupported windowed conv shape cin={cin} "
                          f"cout={cout} taps={k} block={block} vt={vt} "
                          f"window={window}")
     _check_ids(src_ids=src_ids, tgt_ids=tgt_ids, lo=lo, deltas=deltas)
-    for name, t, shape in (("src_ids", src_ids, (b, feats.shape[1])),
+    for name, t, shape in (("src_ids", src_ids, (b, vs)),
                            ("lo", lo, (b, vt // block)),
                            ("w_flat", w_flat, (k * cin, cout))):
         _check_shape(name, t, shape)
+    if centres is None:
+        centres = group_center_deltas(deltas.cpu().numpy())
+    g_n = len(centres)
+    if 3 * g_n != k:
+        raise ValueError(f"{g_n} tap group centres for {k} taps")
+    rows, stages, resident, stage_window = plan or conv_plan(
+        cin_p, cout_p, window, g_n)
     epilogue = scale is not None
     if epilogue:
         _check_shape("scale", scale, (cout,))
@@ -288,20 +340,24 @@ def conv_kernel(src_ids, feats, tgt_ids, lo, deltas, w_flat, block: int,
         scale, shift = scale.float(), shift.float()
     else:
         scale = shift = torch.zeros(cout, device=feats.device)
-    feats = feats.float().contiguous()
-    w = w_flat.to(torch.bfloat16)
-    if cout_p != cout:
-        pad = (0, cout_p - cout)
-        w = torch.nn.functional.pad(w, pad)
-        scale = torch.nn.functional.pad(scale, pad)
-        shift = torch.nn.functional.pad(shift, pad)
-    w, scale, shift = w.contiguous(), scale.contiguous(), shift.contiguous()
+    pad_c = (0, cout_p - cout)
+    feats = feats.to(torch.bfloat16)
+    if cin_p != cin:
+        feats = torch.nn.functional.pad(feats, (0, cin_p - cin))
+    w = reorder_weights_groups(w_flat.to(torch.bfloat16).reshape(
+        k, cin, cout))                                      # (G,3,Cin,Cout)
+    w = torch.nn.functional.pad(w, pad_c + (0, cin_p - cin))
+    w = pack_weights_mma(w.reshape(k * cin_p, cout_p))
+    scale = torch.nn.functional.pad(scale, pad_c).contiguous()
+    shift = torch.nn.functional.pad(shift, pad_c).contiguous()
+    feats = feats.contiguous()
     out = torch.empty(b, vt, cout_p, dtype=torch.float32, device=feats.device)
     _build.check(_lib().fp_windowed_conv(
-        _ptr(src_ids), _ptr(feats), _ptr(tgt_ids), _ptr(lo), _ptr(deltas),
-        _ptr(w), _ptr(scale), _ptr(shift), _ptr(out), b, src_ids.shape[1],
-        vt, vt // block, k, block, window, cin, cout_p, int(epilogue),
-        int(relu), int(sentinel) if epilogue else 0, _stream()),
+        _ptr(src_ids), _ptr(feats), _ptr(tgt_ids), _ptr(lo),
+        _ptr(deltas[g_n:2 * g_n]), _ptr(w), _ptr(scale), _ptr(shift),
+        _ptr(out), b, vs, vt, vt // block, g_n, block, window, cin_p, cout_p,
+        int(epilogue), int(relu), int(sentinel) if epilogue else 0, rows,
+        stages, int(resident), int(stage_window), _stream()),
         "fp_windowed_conv")
     LAUNCHES["windowed_conv"] += 1
     return out[..., :cout] if cout_p != cout else out
@@ -328,17 +384,28 @@ def _prepare(src_ids, feats, tgt_ids, deltas, block, window):
         window
 
 
+def _host_centres(deltas, feats):
+    """The tap groups' centres, taken on the host where the deltas are
+    there and the kernels will run (else None: the wrappers take them)."""
+    if feats.is_cuda and not (isinstance(deltas, torch.Tensor)
+                              and deltas.is_cuda):
+        return group_center_deltas(np.asarray(deltas))
+    return None
+
+
 def _conv(src_ids, src_feats, tgt_ids, weights, deltas, block, window,
           compute_dtype=None, **epilogue):
     """K3 on unprepared lists; returns (out, (src_ids, tgt_ids, deltas, lo,
     window) as the kernel saw them)."""
     k, cin, cout = weights.shape
+    centres = _host_centres(deltas, src_feats)
     src_ids, feats, tgt_ids, deltas, lo, window = _prepare(
         src_ids, src_feats, tgt_ids, deltas, block, window)
     out = conv_kernel(
         src_ids, feats, tgt_ids, lo, deltas,
         weights.float().reshape(k * cin, cout), block, window,
-        compute_dtype=compute_dtype or _compute_dtype(feats), **epilogue)
+        compute_dtype=compute_dtype or _compute_dtype(feats),
+        centres=centres, **epilogue)
     return out, (src_ids, tgt_ids, deltas, lo, window)
 
 
@@ -438,10 +505,7 @@ def windowed_dw(src_ids, src_feats, tgt_ids, g, deltas, block: int = 512,
     """dW[k] = gathered_k(src -> tgt)^T @ g, same contract as the
     reference's `windowed_dw_pallas` with a batch axis summed out: g
     (B, Vt, Cout); returns (K, Cin, Cout) f32."""
-    centres = None
-    if src_feats.is_cuda and not (
-            isinstance(deltas, torch.Tensor) and deltas.is_cuda):
-        centres = group_center_deltas(np.asarray(deltas))
+    centres = _host_centres(deltas, src_feats)
     src_ids, feats, tgt_ids, deltas, lo, window = _prepare(
         src_ids, src_feats, tgt_ids, deltas, block, window)
     return dw_kernel(src_ids, feats, tgt_ids, g, lo, deltas, block, window,
@@ -469,8 +533,11 @@ class WindowedConv(torch.autograd.Function):
         g = g.contiguous()
         d_feats = d_w = None
         if ctx.needs_input_grad[0]:
+            # tap k of the transposed conv is -delta_{K-1-k} with
+            # W[K-1-k]^T: the pairs of (-deltas, W^T), in group order
             d_feats, _ = _conv(tgt_ids, g, src_ids,
-                               weights.transpose(1, 2), -deltas, block,
+                               flip_transpose_weights(weights),
+                               np.ascontiguousarray(-deltas[::-1]), block,
                                window, cd)
         if ctx.needs_input_grad[1]:
             d_w = windowed_dw(src_ids, feats, tgt_ids, g, deltas,
@@ -488,7 +555,7 @@ def windowed_conv_diff(src_ids, src_feats, tgt_ids, weights, deltas,
     overflow of both directions, outside the graph."""
     if src_ids.shape[1] % block or tgt_ids.shape[1] % block:
         raise ValueError("pad Vs and Vt to a block multiple")
-    # kept on the host: the weight-gradient wrapper groups the taps there
+    # kept on the host: the kernels' wrappers group the taps there
     deltas = np.asarray(deltas.cpu() if isinstance(deltas, torch.Tensor)
                         else deltas).astype(np.int32)
     out = WindowedConv.apply(src_feats, weights, src_ids, tgt_ids, deltas,
