@@ -14,7 +14,7 @@ Phases (any failure exits non-zero and prints no result line):
      widths (a dense cube where all 27 neighbours hit, a window too small,
      blocks of sentinels at the end, a dead block in the middle, Cout 10
      and 3, Cin 4, batch 1 and 4; for K3 also a transposed 128->64 strided
-     conv under both of its plans at that width, and epilogue rows of real
+     conv with its window staged and not, and epilogue rows of real
      targets without neighbours) against their plain versions; then a
      batch-1 forward of the main path records the arguments of every
      launch of K1 (positions) and K2 (posgather conv); each recorded call
@@ -50,9 +50,9 @@ Phases (any failure exits non-zero and prints no result line):
   6. training kernels — every recorded call is re-run through the kernel
      and through its plain PyTorch version on the card (K2, K3, K4 sample
      by sample): K1 at batch 4 bit-equal, the others within the stated
-     tolerance; times as in phase 2; K3's device time at its other plans
-     (64- or 128-row tiles at the 128->64 transposed call, the window
-     slice staged or searched in device memory at a strided call);
+     tolerance; times as in phase 2; K3's device time with the window
+     slice staged in shared memory and searched in device memory at a
+     strided call;
   7. pallas-mode forward — a batch-1 eval forward with SUBM_IMPL: pallas
      (every sparse conv through K3 with the fused scale/shift/ReLU/sentinel
      epilogue): each of its 16 K3 launches against the plain version with
@@ -62,10 +62,11 @@ Phases (any failure exits non-zero and prints no result line):
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 With --before DIR (a checkout of an earlier commit of this repo, e.g.
-`git archive` of the parent unpacked under build/), that checkout's K3
-wrapper is built and timed in the same process on every recorded K3 call
-(`before_device_ms`), and in place of this one's for the pallas-mode
-forward and for training steps (before, after, after, before).
+`git archive` of the parent unpacked under build/), that checkout's K2 and
+K3 wrappers are built and timed in the same process on every recorded K3
+call and phase 2's K2 calls (`before_device_ms`), and its K3 in place of
+this one's for the pallas-mode forward and for training steps (before,
+after, after, before).
 
 Imports nothing of jax. Without CUDA, or without the port beside it, it
 exits non-zero.
@@ -82,6 +83,7 @@ import subprocess
 import sys
 import time
 import traceback
+import types
 from pathlib import Path
 
 import numpy as np
@@ -245,25 +247,39 @@ def bound_entry(t_bytes, t_ops):
 
 
 def plain_kw(kw):
-    """A recorded K3 call's keywords without the kernel's own (host-side
-    group centres, plan), as the plain version takes them."""
-    return {k: v for k, v in kw.items() if k not in ("centres", "plan")}
+    """A recorded K3 call's keywords without the kernel's own (the
+    host-side group centres), as the plain version takes them."""
+    return {k: v for k, v in kw.items() if k != "centres"}
 
 
-def check_k3(torch, ws, label, call):
-    """`call` (one windowed_conv) with its K3 launch recorded and held
-    against the plain version; returns (out, overflow, args, kw, err,
-    tol)."""
-    with Recorder(ws, "conv_kernel", torch) as rec:
-        out, ovf = call()
-    (args, kw), = rec.calls
-    ref = ws.windowed_conv_plain(*args, **plain_kw(kw))
+def with_plan(ws, plan, fn):
+    """fn() with K3's plan forced to `plan` (stages, resident, staging)."""
+    with Swap(ws, "conv_plan", lambda *a: plan):
+        return fn()
+
+
+def k3_err(torch, out, ref, label):
+    """(max abs error, tolerance) of a K3 output against plain; raises
+    beyond K3_RTOL of the output's scale or on a non-finite value."""
     torch.cuda.synchronize()
     err = float((out - ref).abs().max())
     tol = K3_RTOL * max(float(ref.abs().max()), 1e-3)
     if not (err <= tol and bool(torch.isfinite(out).all())):
         raise AssertionError(f"{label}: K3 err {err} > {tol}")
-    return out, int(ovf.sum()), args, kw, err, tol
+    return err, tol
+
+
+def check_k3(torch, ws, label, call):
+    """`call` (one windowed_conv) with its K3 launch recorded and held
+    against the plain version: out, ref, overflow, the recorded args and
+    kw, err, tol."""
+    with Recorder(ws, "conv_kernel", torch) as rec:
+        out, ovf = call()
+    (args, kw), = rec.calls
+    ref = ws.windowed_conv_plain(*args, **plain_kw(kw))
+    err, tol = k3_err(torch, out, ref, label)
+    return types.SimpleNamespace(out=out, ref=ref, ovf=int(ovf.sum()),
+                                 args=args, kw=kw, err=err, tol=tol)
 
 
 def corner_scene(torch, so, rng, shape, n_active, cap, batch, cin):
@@ -368,32 +384,31 @@ def corner_phase(torch, tp, ws, so, block=1024):
         if not torch.equal(dw, ws.dw_kernel(*args, **ckw)):
             raise AssertionError(f"corner {name}: K4 differs between runs")
 
-        out3, ovf3, args, _, err3, tol3 = check_k3(
-            torch, ws, f"corner {name}", lambda: ws.windowed_conv(
-                ids, feats, ids, w, deltas, block=block, window=window,
-                sentinel_start=sent, **kw))
-        if ovf3 != ovf:
-            raise AssertionError(f"corner {name}: K3 overflow {ovf3}")
-        if epi and not bool((out3[ids >= sent] == 0).all()):
+        k3 = check_k3(torch, ws, f"corner {name}", lambda: ws.windowed_conv(
+            ids, feats, ids, w, deltas, block=block, window=window,
+            sentinel_start=sent, **kw))
+        if k3.ovf != ovf:
+            raise AssertionError(f"corner {name}: K3 overflow {k3.ovf}")
+        if epi and not bool((k3.out[ids >= sent] == 0).all()):
             raise AssertionError(f"corner {name}: K3 sentinel rows not 0")
         rows.append({"case": name, "batch": b, "cin": cin, "cout": cout,
                      "overflow": ovf, "dead_blocks": dead,
                      "max_hits": int(hits.max()), "k2_err": err2,
-                     "k2_tol": tol2, "k3_err": err3, "k3_tol": tol3,
+                     "k2_tol": tol2, "k3_err": k3.err, "k3_tol": k3.tol,
                      "k4_err": err4, "k4_tol": tol4})
         log(f"corner {name:28s} batch {b} {cin}->{cout} overflow {ovf} "
             f"dead blocks {dead} max hits {int(hits.max())}: K2 err "
-            f"{err2:.3g} (tol {tol2:.3g}), K3 err {err3:.3g} (tol "
-            f"{tol3:.3g}), K4 err {err4:.3g} (tol {tol4:.3g})")
+            f"{err2:.3g} (tol {tol2:.3g}), K3 err {k3.err:.3g} (tol "
+            f"{k3.tol:.3g}), K4 err {err4:.3g} (tol {tol4:.3g})")
     return rows + k3_corners(torch, ws, so, rng, block)
 
 
 def k3_corners(torch, ws, so, rng, block):
     """K3 alone: (1) the transposed direction of a stride-2 conv at 128 ->
     64 channels (the 64->128 conv's d_feats, source list the coarse base
-    ids, the L2->L3 strided window) under both plans that fit that width;
-    (2) epilogue rows of real targets without any neighbour, which must
-    read relu(shift)."""
+    ids, the L2->L3 strided window: one stage, the window staged in shared
+    memory or searched in device memory); (2) epilogue rows of real
+    targets without any neighbour, which must read relu(shift)."""
     from findnpropagate_torch.ops.posgather import flip_transpose_weights
 
     rows = []
@@ -410,27 +425,22 @@ def k3_corners(torch, ws, so, rng, block):
         (27, 64, 128)).astype("float32") * 0.05).cuda()
     wt = flip_transpose_weights(w)
     tdeltas = np.ascontiguousarray(-deltas[::-1])
-    _, ovf, args, kw, _, _ = check_k3(
-        torch, ws, "transposed 128->64", lambda: ws.windowed_conv(
-            base, g, ids, wt, tdeltas, block=block, window=6144))
-    src, _, tgt, lo, dl, _, _, window = args
-    ref = ws.windowed_conv_plain(*args, **plain_kw(kw))
+    k3 = check_k3(torch, ws, "transposed 128->64", lambda: ws.windowed_conv(
+        base, g, ids, wt, tdeltas, block=block, window=6144))
+    if k3.ovf:
+        raise AssertionError(f"transposed 128->64: overflow {k3.ovf}")
+    src, _, tgt, lo, dl, _, _, window = k3.args
     hits = windowed_hits(torch, ws, src, tgt, lo, dl, block, window)
-    # both plans that fit this width: 64-row tiles in two stages (the
-    # default), 128-row tiles in one
-    for plan in (ws.conv_plan(128, 64, window), (128, 1, False, True)):
-        out = ws.conv_kernel(*args, **{**kw, "plan": plan})
-        torch.cuda.synchronize()
-        err = float((out - ref).abs().max())
-        tol = K3_RTOL * max(float(ref.abs().max()), 1e-3)
-        if ovf or not (err <= tol and bool(torch.isfinite(out).all())):
-            raise AssertionError(f"transposed 128->64 plan {plan}: err {err}"
-                                 f" > {tol}, or overflow {ovf}")
-        rows.append({"case": "transposed 128->64", "plan": list(plan),
+    plan = ws.conv_plan(128, 64, window)
+    other = plan[:2] + (not plan[2],)
+    err, tol = k3_err(torch, with_plan(ws, other, lambda: ws.conv_kernel(
+        *k3.args, **k3.kw)), k3.ref, f"transposed 128->64 plan {other}")
+    for p, e, t in ((plan, k3.err, k3.tol), (other, err, tol)):
+        rows.append({"case": "transposed 128->64", "plan": list(p),
                      "batch": b, "window": window, "hits": hits,
-                     "k3_err": err, "k3_tol": tol})
+                     "k3_err": e, "k3_tol": t})
         log(f"corner transposed 128->64 batch {b} window {window} plan "
-            f"{plan} hits {hits}: K3 err {err:.3g} (tol {tol:.3g})")
+            f"{p} hits {hits}: K3 err {e:.3g} (tol {t:.3g})")
 
     shape = (9, 40, 40)
     sent = so.yxz_sentinel_start(shape)
@@ -447,22 +457,22 @@ def k3_corners(torch, ws, so, rng, block):
     shift = torch.from_numpy(rng.standard_normal(32).astype(
         "float32")).cuda()
     deltas = so.yxz_offset_deltas((3, 3, 3), shape)
-    out, ovf, args, _, err, tol = check_k3(
+    k3 = check_k3(
         torch, ws, "targets without neighbours", lambda: ws.windowed_conv(
             src, sfeats, ids, w, deltas, block=block, window=4096,
             sentinel_start=sent, scale=scale, shift=shift, relu=True))
-    src, _, tgt, lo, dl, _, _, window = args
+    src, _, tgt, lo, dl, _, _, window = k3.args
     lonely = (ws.neighbour_rows(src, tgt, lo, dl, block, window)[1].sum(
         dim=1) == 0) & (ids < sent)
-    if ovf or int(lonely.sum()) < 100 or not torch.equal(
-            out[lonely], torch.relu(shift).expand(int(lonely.sum()), -1)):
-        raise AssertionError(f"targets without neighbours: {int(lonely.sum())}"
-                             " rows, not relu(shift), or overflow")
+    n = int(lonely.sum())
+    if k3.ovf or n < 100 or not torch.equal(
+            k3.out[lonely], torch.relu(shift).expand(n, -1)):
+        raise AssertionError(f"targets without neighbours: {n} rows, not "
+                             "relu(shift), or overflow")
     rows.append({"case": "epilogue, targets without neighbours",
-                 "lonely_rows": int(lonely.sum()), "k3_err": err,
-                 "k3_tol": tol})
-    log(f"corner epilogue rows without neighbours: {int(lonely.sum())} "
-        f"rows = relu(shift); K3 err {err:.3g} (tol {tol:.3g})")
+                 "lonely_rows": n, "k3_err": k3.err, "k3_tol": k3.tol})
+    log(f"corner epilogue rows without neighbours: {n} rows = relu(shift); "
+        f"K3 err {k3.err:.3g} (tol {k3.tol:.3g})")
     return rows
 
 
@@ -493,8 +503,9 @@ def check_positions(torch, tp, pos_calls, label=""):
     return rows
 
 
-def check_kernels(torch, tp, pos_calls, conv_calls):
-    """Kernel vs plain on every recorded call; returns per-call rows."""
+def check_kernels(torch, tp, pos_calls, conv_calls, before=None):
+    """Kernel vs plain on every recorded call; returns per-call rows
+    (with `before`, K2 also timed through the earlier checkout's)."""
     rows = check_positions(torch, tp, pos_calls)
     for i, (args, kw) in enumerate(conv_calls):
         out = tp.gather_conv(*args, **kw)
@@ -518,6 +529,9 @@ def check_kernels(torch, tp, pos_calls, conv_calls):
             "plain_ms": cuda_ms(torch, lambda: tp.posgather_conv_plain(
                 *args, **kw), 3),
             "bound_ms": bound_ms, "bound_by": bound_by})
+        if before is not None:
+            rows[-1]["before_device_ms"] = graph_ms(
+                torch, lambda: before.gather_conv(*args, **kw), 10)
     return rows
 
 
@@ -667,11 +681,7 @@ def check_windowed_conv(torch, ws, k3_calls, direction, label="",
         out = ws.conv_kernel(*args, **kw)
         plain = lambda: per_sample(                     # noqa: E731
             ws.windowed_conv_plain, args, plain_kw(kw), (0, 1, 2, 3), cat)
-        ref = plain()
-        err = float((out - ref).abs().max())
-        tol = K3_RTOL * max(float(ref.abs().max()), 1e-3)
-        if not (err <= tol and bool(torch.isfinite(out).all())):
-            raise AssertionError(f"{label}K3 call {i}: err {err} > {tol}")
+        err, tol = k3_err(torch, out, plain(), f"{label}K3 call {i}")
         hits = windowed_hits(torch, ws, src, tgt, lo, deltas, block, window)
         cin, cout = feats.shape[2], w_flat.shape[1]
         epilogue = kw.get("scale") is not None
@@ -694,45 +704,29 @@ def check_windowed_conv(torch, ws, k3_calls, direction, label="",
             "bound_ms": bound_ms, "bound_by": bound_by})
         if before is not None:
             rows[-1]["before_device_ms"] = graph_ms(
-                torch, lambda: before(*args, **kw), 2)
-        del out, ref
+                torch, lambda: before.conv_kernel(*args, **kw), 2)
+        del out
     return rows
 
 
-def k3_plan_rows(torch, ws, k3_calls):
-    """K3's device time at the plans it did not pick, on two recorded
-    training calls: 128-row tiles in one stage against the 64-row two-stage
-    default at the transposed 128->64 call, and the window slice searched
-    in device memory against staged in shared memory at the first strided
-    forward call whose plan stages it."""
-    rows = []
-
-    def timed(what, args, kw, plan):
-        ms = graph_ms(torch, lambda: ws.conv_kernel(
-            *args, **{**kw, "plan": plan}), 5)
-        rows.append({"what": what, "cin": args[1].shape[2],
-                     "cout": args[5].shape[1], "window": args[7],
-                     "plan": list(plan), "device_ms": ms})
-        log(f"K3 plan {what}: {args[1].shape[2]}->{args[5].shape[1]} window "
-            f"{args[7]} plan {plan}: device {ms:.4f} ms")
-
-    for args, kw in k3_calls:
-        cin_p, cout = -(-args[1].shape[2] // 16) * 16, args[5].shape[1]
-        rows_, stages, resident, stage = ws.conv_plan(cin_p, cout, args[7])
-        if cin_p == 128 and rows_ == 64:
-            timed("tile", args, kw, (rows_, stages, resident, stage))
-            one = (128, 1, resident, ws.conv_smem(
-                cin_p, cout, args[7], 9, 128, 1, resident, True)
-                <= ws.SMEM_MAX)
-            timed("tile", args, kw, one)
-            break
+def k3_window_rows(torch, ws, k3_calls):
+    """K3's device time with the window slice staged in shared memory (its
+    plan) and searched in device memory, at the recorded strided call with
+    the widest window whose plan stages it."""
     for args, kw in sorted(k3_calls, key=lambda c: -c[0][7]):
         plan = ws.conv_plan(-(-args[1].shape[2] // 16) * 16,
                             args[5].shape[1], args[7])
-        if plan[3] and args[0].shape[1] != args[2].shape[1]:
-            timed("window", args, kw, plan)
-            timed("window", args, kw, plan[:3] + (False,))
+        if plan[2] and args[0].shape[1] != args[2].shape[1]:
             break
+    rows = []
+    for p in (plan, plan[:2] + (False,)):
+        ms = with_plan(ws, p, lambda: graph_ms(
+            torch, lambda: ws.conv_kernel(*args, **kw), 5))
+        rows.append({"cin": args[1].shape[2], "cout": args[5].shape[1],
+                     "window": args[7], "plan": list(p), "device_ms": ms})
+        log(f"K3 window {'staged' if p[2] else 'in device memory'}: "
+            f"{args[1].shape[2]}->{args[5].shape[1]} window {args[7]}: "
+            f"device {ms:.4f} ms")
     return rows
 
 
@@ -799,9 +793,10 @@ def check_train_kernels(torch, tp, ws, k2_calls, k3_calls, k4_calls,
 
 
 def load_before(path):
-    """The K3 wrapper of an earlier checkout of this repo at `path`: its
-    package loaded under another name (its kernels built into its own
-    build/), taking this checkout's recorded arguments."""
+    """The K2 and K3 wrappers of an earlier checkout of this repo at `path`
+    (`gather_conv`, `conv_kernel`): its package loaded under another name,
+    its kernels built into its own build/, taking this checkout's recorded
+    arguments."""
     import importlib
     import importlib.util
 
@@ -812,12 +807,14 @@ def load_before(path):
     sys.modules["before_port"] = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(sys.modules["before_port"])
     bws = importlib.import_module("before_port.ops.windowed_sparse")
+    btp = importlib.import_module("before_port.ops.posgather")
     importlib.import_module("before_port.ops._build").build_all(
-        ["windowed_sparse"])
+        ["posgather", "windowed_sparse"])
 
-    def conv_kernel(*args, centres=None, plan=None, **kw):
+    def conv_kernel(*args, centres=None, **kw):
         return bws.conv_kernel(*args, **kw)
-    return conv_kernel
+    return types.SimpleNamespace(conv_kernel=conv_kernel,
+                                 gather_conv=btp.gather_conv)
 
 
 class Swap:
@@ -978,12 +975,13 @@ def training_phase(torch, mods, cfg, args, report):
         report["train_profile"] = profile_train(
             torch, step1, batch, str(args.profile) + ".train.txt")
         log(f"profile train step: {report['train_profile']}")
-    if args.before_fn is not None:
+    if args.before is not None:
         # the same steps with the earlier checkout's K3 in place of this
         # one's, in turns: before, after, after, before
         ab = {"before": [], "after": []}
         for which in ("before", "after", "after", "before"):
-            fn = args.before_fn if which == "before" else ws.conv_kernel
+            fn = (args.before.conv_kernel if which == "before"
+                  else ws.conv_kernel)
             with Swap(ws, "conv_kernel", fn):
                 ab[which].append(step_ms(torch, step1, batch))
         report["train"]["k3_before_after_ms"] = ab
@@ -1010,9 +1008,9 @@ def training_phase(torch, mods, cfg, args, report):
             f"({r['bound_by']})")
     conv_rows = check_train_kernels(torch, tp, ws, k2_rec.calls,
                                     k3_rec.calls, k4_rec.calls,
-                                    args.before_fn)
+                                    args.before)
     log_conv_rows(conv_rows)
-    report["k3_plans"] = k3_plan_rows(torch, ws, k3_rec.calls)
+    report["k3_window"] = k3_window_rows(torch, ws, k3_rec.calls)
     return rows + conv_rows
 
 
@@ -1114,7 +1112,7 @@ def pallas_phase(torch, models_mod, cfg, ds, det, batch, tp, ws, reps,
                                before)
     times = {"ms_per_scan": forward_ms(torch, pdet, batch, reps)[0]}
     if before is not None:
-        with Swap(ws, "conv_kernel", before):
+        with Swap(ws, "conv_kernel", before.conv_kernel):
             times["before_ms_per_scan"] = forward_ms(torch, pdet, batch,
                                                      reps)[0]
     log(f"pallas-mode forward, batch 1: {times}")
@@ -1155,7 +1153,7 @@ def main():
                     "one training step to <file>.train.txt")
     ap.add_argument("--before", default=None,
                     help="a checkout of an earlier commit of this repo "
-                    "whose K3 is timed beside this one's")
+                    "whose K2 and K3 are timed beside this one's")
     args = ap.parse_args()
 
     import torch
@@ -1179,7 +1177,8 @@ def main():
               file=sys.stderr)
         return 3
 
-    args.before_fn = load_before(args.before) if args.before else None
+    if args.before:
+        args.before = load_before(args.before)
     report = {}
     # ---- 1. device + build
     smi = subprocess.run(
@@ -1236,13 +1235,17 @@ def main():
             int(bb.WINDOWED_BLOCK), int(bb.WINDOWED_WINDOW[0]),
             tap_window=int(bb.TAP_WINDOW[0]),
             sentinel_start=sparse_ops.yxz_sentinel_start(s1))
-    rows = check_kernels(torch, tp, pos_rec.calls, conv_rec.calls)
+    rows = check_kernels(torch, tp, pos_rec.calls, conv_rec.calls,
+                         args.before)
     report["kernel_calls"] = rows
     for r in rows:
         shape = (f"vt={r['vt']} span={r['span']}" if r["name"] == "positions"
                  else f"vt={r['vt']} {r['cin']}->{r['cout']} "
                  f"epi={int(r['epilogue'])}")
-        dev = f" (device {r['device_ms']:.4f})" if "device_ms" in r else ""
+        dev = (f" (device {r['device_ms']:.4f}" + (
+            f", before {r['before_device_ms']:.4f}"
+            if "before_device_ms" in r else "") + ")"
+            if "device_ms" in r else "")
         log(f"{r['name']:15s} call {r['call']:2d} {shape:28s} "
             f"err {r['max_abs_err']:.3g}  ms {r['ms']:.4f}{dev}  plain "
             f"{r['plain_ms']:.3f}  bound {r['bound_ms']:.4f} "
@@ -1280,7 +1283,7 @@ def main():
     report["pallas_mode_rel_err"], report["pallas_kernel_calls"], \
         report["pallas_forward"] = pallas_phase(
             torch, models_mod, cfg, ds, det, batches[min(args.batches)], tp,
-            ws, args.reps, args.before_fn)
+            ws, args.reps, args.before)
     log_conv_rows(report["pallas_kernel_calls"])
     log(f"pallas-mode forward vs posgather forward (batch "
         f"{min(args.batches)}): {report['pallas_mode_rel_err']}")

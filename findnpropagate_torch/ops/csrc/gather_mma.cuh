@@ -77,7 +77,7 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
-__device__ __forceinline__ int tile_stride(int cin) {
+__host__ __device__ __forceinline__ int tile_stride(int cin) {
   return 3 * cin * 2 + 16;
 }
 
@@ -138,47 +138,42 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
 }
 
 
-// ---- the conv of one tile of ROWS targets x all Cout (K2, K3)
+// ---- the conv of one tile of kConvTile targets x all Cout (K2, K3)
 //
-// THREADS / 32 warps: ROWS / 16 slabs of 16 target rows, times the rest
-// along Cout, NTW n-tiles of 8 columns each per warp. The weights are
-// (G*3*Cin, Cout) bf16 packed in mma fragment order ([g][k-slab of 16]
-// [n-tile of 8][lane][4], lane l holding rows 2(l%4), 2(l%4)+1, 2(l%4)+8,
-// 2(l%4)+9 of column l/4): in shared memory at w_sm, all groups when
-// `resident`, else one group per stage streamed beside its rows.
-template <int NTW, int ROWS, int THREADS>
-struct TileShape {
-  static constexpr int kWarpsM = ROWS / 16;
-  static constexpr int kNt = NTW * (THREADS / 32) / kWarpsM;   // Cout / 8
-};
+// kConvThreads / 32 warps, one per 16 target rows, each with NT = Cout / 8
+// n-tiles of m16n8k16 accumulators. The weights are (G*3*Cin, Cout) bf16
+// packed in mma fragment order ([g][k-slab of 16][n-tile of 8][lane][4],
+// lane l holding rows 2(l%4), 2(l%4)+1, 2(l%4)+8, 2(l%4)+9 of column l/4):
+// in shared memory at w_sm, all groups when `resident`, else one group per
+// stage streamed beside its rows.
+constexpr int kConvTile = 128;
+constexpr int kConvThreads = kConvTile * 2;
 
 // acc += sum over the tap groups g in `mask` (ascending) of the gathered
-// tile of rows[g] (ROWS x 3Cin) times W_g. With two stages, group g's
+// tile of rows[g] (kConvTile x 3Cin) times W_g. With two stages, group g's
 // successor is in flight while g multiplies. Every thread of the block
 // calls it with the same mask; it leaves no copy pending.
-template <int NTW, int ROWS, int THREADS>
+template <int NT>
 __device__ __forceinline__ void conv_tile(
-    float (&acc)[NTW][4], unsigned mask, const unsigned char* __restrict__ w,
+    float (&acc)[NT][4], unsigned mask, const unsigned char* __restrict__ w,
     const unsigned char* w_sm, uint32_t a_sa,
     const __nv_bfloat16* __restrict__ f, const int* rows, int cin,
     int resident, int stages, int tid) {
-  using Shape = TileShape<NTW, ROWS, THREADS>;
   const int warp = tid >> 5, lane = tid & 31;
-  const int wr = warp % Shape::kWarpsM, wc = warp / Shape::kWarpsM;
   const int ks_n = 3 * cin / 16;
-  const int wg_bytes = 3 * cin * Shape::kNt * 8 * 2;
+  const int wg_bytes = 3 * cin * NT * 8 * 2;
   const int a_stride = tile_stride(cin);
-  const int a_bytes = ROWS * a_stride;
+  const int a_bytes = kConvTile * a_stride;
   const uint32_t w_sa = smem_addr(w_sm);
 
   // one cp.async group per tap group: its gather tile and, unless all
   // weights are resident, its weights
   auto start_group = [&](int g, int st) {
-    gather_tile<ROWS>(a_sa + st * a_bytes, f, rows + g * 3 * ROWS, cin, tid,
-                      THREADS);
+    gather_tile<kConvTile>(a_sa + st * a_bytes, f, rows + g * 3 * kConvTile,
+                           cin, tid, kConvThreads);
     if (!resident)
       copy_async(w_sa + st * wg_bytes, w + (size_t)g * wg_bytes, wg_bytes,
-                 tid, THREADS);
+                 tid, kConvThreads);
     cp_async_commit();
   };
 
@@ -201,16 +196,16 @@ __device__ __forceinline__ void conv_tile(
     }
     __syncthreads();
     const uint32_t a_addr = a_sa + st * a_bytes
-        + (wr * 16 + (lane & 15)) * a_stride + (lane >> 4) * 16;
+        + (warp * 16 + (lane & 15)) * a_stride + (lane >> 4) * 16;
     const unsigned char* wg = w_sm + (resident ? g : st) * wg_bytes
-        + wc * NTW * 256 + lane * 8;
+        + lane * 8;
     for (int ks = 0; ks < ks_n; ++ks) {
       uint32_t a[4];
       ldmatrix_x4(a, a_addr + ks * 32);
 #pragma unroll
-      for (int nt = 0; nt < NTW; ++nt) {
+      for (int nt = 0; nt < NT; ++nt) {
         const uint2 bv = *reinterpret_cast<const uint2*>(
-            wg + (ks * Shape::kNt + nt) * 256);
+            wg + (ks * NT + nt) * 256);
         mma_bf16(acc[nt], a, bv.x, bv.y);
       }
     }
@@ -222,24 +217,22 @@ __device__ __forceinline__ void conv_tile(
 // The tile's outputs from acc: out and tgt point at its first row (Cout
 // floats a row); optionally *scale + shift, ReLU, and zero where the target
 // id is >= sentinel. 8 bytes per lane: a 32-byte sector per row and warp.
-template <int NTW, int ROWS, int THREADS>
+template <int NT>
 __device__ __forceinline__ void store_tile(
-    const float (&acc)[NTW][4], float* __restrict__ out,
+    const float (&acc)[NT][4], float* __restrict__ out,
     const int* __restrict__ tgt, const float* __restrict__ scale,
     const float* __restrict__ shift, int epilogue, int relu, int sentinel,
     int tid) {
-  using Shape = TileShape<NTW, ROWS, THREADS>;
-  constexpr int cout = Shape::kNt * 8;
+  constexpr int cout = NT * 8;
   const int warp = tid >> 5, lane = tid & 31;
-  const int wr = warp % Shape::kWarpsM, wc = warp / Shape::kWarpsM;
-  const int col0 = wc * NTW * 8 + (lane & 3) * 2;
+  const int col0 = (lane & 3) * 2;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
-    const int r = wr * 16 + (lane >> 2) + half * 8;
+    const int r = warp * 16 + (lane >> 2) + half * 8;
     const bool masked = epilogue && tgt[r] >= sentinel;
 #pragma unroll
-    for (int nt = 0; nt < NTW; ++nt) {
-      const int col = col0 + nt * 8;
+    for (int nt = 0; nt < NT; ++nt) {
+      const int col = nt * 8 + col0;
       float v0 = acc[nt][half * 2], v1 = acc[nt][half * 2 + 1];
       if (epilogue) {
         v0 = v0 * scale[col] + shift[col];
@@ -256,12 +249,11 @@ __device__ __forceinline__ void store_tile(
   }
 }
 
-// Zeros over a tile's ROWS x cout outputs (cout % 4 == 0).
-template <int ROWS, int THREADS>
+// Zeros over a tile's kConvTile x cout outputs (cout % 4 == 0).
 __device__ __forceinline__ void zero_tile(float* __restrict__ out, int cout,
                                           int tid) {
   float4* o4 = reinterpret_cast<float4*>(out);
-  for (int e = tid; e < ROWS * cout / 4; e += THREADS)
+  for (int e = tid; e < kConvTile * cout / 4; e += kConvThreads)
     o4[e] = make_float4(0.f, 0.f, 0.f, 0.f);
 }
 

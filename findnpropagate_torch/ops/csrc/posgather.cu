@@ -59,8 +59,8 @@
 namespace {
 
 constexpr int kPosThreads = 256;
-constexpr int kTile = 128;       // targets per conv tile
-constexpr int kThreads = 256;    // threads per conv block: 8 warps x 16 rows
+constexpr int kTile = fp::kConvTile;        // targets per conv tile
+constexpr int kThreads = fp::kConvThreads;  // 8 warps x 16 rows
 constexpr int kResidentMax = 112 * 1024;   // all groups' weights resident
 constexpr int kSmemMax = 227 * 1024;
 
@@ -137,7 +137,7 @@ conv_kernel(const int* __restrict__ src,
     // targets ascend, so a tile whose first id is a sentinel is all
     // sentinels; the condition is the same for the whole block
     if (has_real[bi] == 0 || (epilogue && tgtb[t0] >= sentinel)) {
-      fp::zero_tile<kTile, kThreads>(outb, cout, tid);
+      fp::zero_tile(outb, cout, tid);
       continue;
     }
 
@@ -158,11 +158,11 @@ conv_kernel(const int* __restrict__ src,
     for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
-    fp::conv_tile<NT, kTile, kThreads>(
+    fp::conv_tile<NT>(
         acc, (1u << g_n) - 1u, w, smem, a_sa, feats + (size_t)b * vs * cin,
         rows, cin, resident, stages, tid);
-    fp::store_tile<NT, kTile, kThreads>(acc, outb, tgtb + t0, scale, shift,
-                                        epilogue, relu, sentinel, tid);
+    fp::store_tile<NT>(acc, outb, tgtb + t0, scale, shift, epilogue, relu,
+                       sentinel, tid);
   }
 }
 

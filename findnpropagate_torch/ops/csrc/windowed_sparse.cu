@@ -11,9 +11,12 @@
 //    the target id >= sentinel. The transposed conv of the backward pass is
 //    the same kernel on swapped id lists with the taps reversed and negated
 //    and W[26-k]^T (the same (delta, weight) pairs in group order).
-//    Bound: 2*27*Cin*Cout flop per target against ~(27*Cin*2 gathered +
-//    Cout*4 written) bytes: bytes (and the latency of the search -> row
-//    loads) at 16 channels, operations from 64 on. Design: K2's body on the
+//    Bound: bytes, at every width of the model, for the least work (each
+//    input read once, 2*Cin*Cout flop per neighbour found). The work done
+//    is 27 gathered bf16 rows per target (from L2) times dense 27-tap
+//    products, zeros on a miss: Cout flop per gathered byte, far below the
+//    card's ridge at 16 channels (bytes, and the latency of the search ->
+//    row loads), near it from 64 on (operations). Design: K2's body on the
 //    tensor cores (gather_mma.cuh conv_tile / store_tile) with the ranks
 //    searched in the kernel instead of read from K1. The 27 taps are 9
 //    (dy, dx) groups of three consecutive ids: one binary search of the
@@ -26,15 +29,19 @@
 //    weights the wrapper packs in fragment order, resident in shared memory
 //    up to 112 KB or streamed one group per stage. A two-stage ring keeps
 //    group g+1's rows in flight while g multiplies; at 128 input channels
-//    (transposed 128->64) the tile is 64 rows x 2 column halves so two
-//    stages still fit. The block stages its tile's window slice (up to 30
-//    KB of ids) in shared memory with cp.async where the budget allows, so
-//    the 9 x 128 searches of a tile read shared memory; persistent blocks
-//    walk contiguous runs of tiles, so the slice is staged once per target
-//    block. A group without any neighbour in the tile is neither gathered
-//    nor multiplied (most of the transposed direction's 27 taps miss); the
-//    epilogue still runs, so a real target without neighbours gets
-//    relu(shift). The wrapper picks tile, ring and staging (conv_plan).
+//    (transposed 128->64) two stages do not fit and the ring has one (64-row
+//    tiles in two stages measured 14 % slower there: twice the weight
+//    traffic per target). The block stages the window slice of its tile's
+//    target block (up to 30 KB of ids) in shared memory with cp.async where
+//    the budget allows, so the 9 x 128 searches of a tile read shared
+//    memory (10 % faster at a strided shape than searching device memory);
+//    persistent blocks walk contiguous runs of tiles, so a slice is staged
+//    once per target block. A group without any neighbour in the tile is
+//    neither gathered nor multiplied; the epilogue still runs, so a real
+//    target without neighbours gets relu(shift). The wrapper picks the ring
+//    and the staging (conv_plan). In the transposed direction a fine target
+//    hits at most 8 of the 27 taps, but the 128 targets of a tile mix all
+//    parities, so few groups are skipped: most products there are on zeros.
 //
 // K4 fp_windowed_dw replaces pallas_sparse.py _dw_kernel (:285; _dw_call
 //    :345, pallas_call :380).
@@ -70,15 +77,16 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kTile = fp::kConvTile;        // targets per conv tile
+constexpr int kThreads = fp::kConvThreads;  // both kernels: 8 warps
 constexpr int kDwTile = 64;      // targets per weight-gradient tile
 constexpr int kResidentMax = 112 * 1024;   // all groups' weights resident
 constexpr int kSmemMax = 227 * 1024;
 
 // Shared memory of the conv: [weights: all groups, or `stages` of one
-// group][`stages` gather tiles of ROWS rows][rows: g_n x 3 x ROWS int]
-// [live-group mask, 16 bytes][window: `window` ids, when staged].
-template <int NTW, int ROWS>
+// group][`stages` gather tiles][rows: g_n x 3 x kTile int][live-group
+// mask, 16 bytes][window: `window` ids, when staged].
+template <int NT>
 __global__ void __launch_bounds__(kThreads, 2)
 windowed_conv_kernel(const int* __restrict__ src,
                      const __nv_bfloat16* __restrict__ feats,
@@ -91,15 +99,15 @@ windowed_conv_kernel(const int* __restrict__ src,
                      int cin, int epilogue, int relu, int sentinel,
                      int resident, int stages, int stage_window, int n_tiles,
                      int tiles_per_block) {
+  constexpr int cout = NT * 8;
   extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int cout = fp::TileShape<NTW, ROWS, kThreads>::kNt * 8;
   const int tid = threadIdx.x;
   const int wg_bytes = 3 * cin * cout * 2;
-  const int a_bytes = ROWS * fp::tile_stride(cin);
+  const int a_bytes = kTile * fp::tile_stride(cin);
   const int w_bytes = (resident ? g_n : stages) * wg_bytes;
   const uint32_t a_sa = fp::smem_addr(smem) + w_bytes;
   int* rows = reinterpret_cast<int*>(smem + w_bytes + stages * a_bytes);
-  unsigned* live = reinterpret_cast<unsigned*>(rows + g_n * 3 * ROWS);
+  unsigned* live = reinterpret_cast<unsigned*>(rows + g_n * 3 * kTile);
   int* win_sm = reinterpret_cast<int*>(live + 4);
 
   if (resident) {     // published by the first tile's barrier
@@ -108,12 +116,12 @@ windowed_conv_kernel(const int* __restrict__ src,
     fp::cp_async_wait<0>();
   }
 
-  const int tiles_per_sample = vt / ROWS;
+  const int tiles_per_sample = vt / kTile;
   const int tile_hi = min(n_tiles, (int)(blockIdx.x + 1) * tiles_per_block);
   int staged = -1;                 // the target block whose slice is staged
   for (int tile = blockIdx.x * tiles_per_block; tile < tile_hi; ++tile) {
     const int b = tile / tiles_per_sample;
-    const int t0 = (tile - b * tiles_per_sample) * ROWS;
+    const int t0 = (tile - b * tiles_per_sample) * kTile;
     const int bi = b * nb + t0 / block;
     const int* tgtb = tgt + (size_t)b * vt;
     float* outb = out + ((size_t)b * vt + t0) * cout;
@@ -121,7 +129,7 @@ windowed_conv_kernel(const int* __restrict__ src,
     // targets ascend, so a tile whose first id is a sentinel is all
     // sentinels; the condition is the same for the whole block
     if (epilogue && tgtb[t0] >= sentinel) {
-      fp::zero_tile<ROWS, kThreads>(outb, cout, tid);
+      fp::zero_tile(outb, cout, tid);
       continue;
     }
 
@@ -130,8 +138,7 @@ windowed_conv_kernel(const int* __restrict__ src,
     if (tid == 0) *live = 0u;
     if (stage_window) {
       if (bi != staged) {
-        fp::copy_async(fp::smem_addr(win_sm), win, window * 4, tid,
-                       kThreads);
+        fp::copy_async(fp::smem_addr(win_sm), win, window * 4, tid, kThreads);
         fp::cp_async_commit();
         fp::cp_async_wait<0>();
         staged = bi;
@@ -141,69 +148,68 @@ windowed_conv_kernel(const int* __restrict__ src,
     __syncthreads();
 
     // one search per (target, group); a warp's 32 targets share a group
-    for (int p = tid; p < g_n * ROWS; p += kThreads) {
-      const int g = p / ROWS, r = p - g * ROWS;
+    for (int p = tid; p < g_n * kTile; p += kThreads) {
+      const int g = p / kTile, r = p - g * kTile;
       const int centre = tgtb[t0 + r] + centres[g];
       const int rank = fp::lower_bound(win, window, centre);
       const int hit = rank < window && win[rank] == centre;
       const int found = fp::resolve_probes(win, window, lo_b, rank, hit,
-                                           centre, rows + g * 3 * ROWS, ROWS,
-                                           r);
+                                           centre, rows + g * 3 * kTile,
+                                           kTile, r);
       if (__any_sync(0xffffffffu, found) && (tid & 31) == 0)
         atomicOr(live, 1u << g);
     }
     __syncthreads();
     const unsigned mask = *live;
 
-    float acc[NTW][4];
+    float acc[NT][4];
 #pragma unroll
-    for (int nt = 0; nt < NTW; ++nt)
+    for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
-    fp::conv_tile<NTW, ROWS, kThreads>(
-        acc, mask, w, smem, a_sa, feats + (size_t)b * vs * cin, rows, cin,
-        resident, stages, tid);
+    fp::conv_tile<NT>(acc, mask, w, smem, a_sa, feats + (size_t)b * vs * cin,
+                      rows, cin, resident, stages, tid);
     // conv_tile ends on a barrier unless no group was live; then this one
     // keeps the next tile's reset of `live` behind every read of it
     if (mask == 0u) __syncthreads();
-    fp::store_tile<NTW, ROWS, kThreads>(acc, outb, tgtb + t0, scale, shift,
-                                        epilogue, relu, sentinel, tid);
+    fp::store_tile<NT>(acc, outb, tgtb + t0, scale, shift, epilogue, relu,
+                       sentinel, tid);
   }
 }
 
-template <int NTW, int ROWS>
+template <int NT>
 int launch_conv(const int* src, const void* feats, const int* tgt,
                 const int* lo, const int* centres, const void* w,
                 const float* scale, const float* shift, float* out,
                 int batch, int vs, int vt, int nb, int g_n, int block,
-                int window, int cin, int cout, int epilogue, int relu,
-                int sentinel, int resident, int stages, int stage_window,
+                int window, int cin, int epilogue, int relu, int sentinel,
+                int resident, int stages, int stage_window,
                 cudaStream_t stream) {
-  const int wg_bytes = 3 * cin * cout * 2;
+  const int wg_bytes = 3 * cin * NT * 8 * 2;
   const int smem = (resident ? g_n : stages) * wg_bytes
-      + stages * ROWS * (3 * cin * 2 + 16) + g_n * 3 * ROWS * 4 + 16
+      + stages * kTile * fp::tile_stride(cin) + g_n * 3 * kTile * 4 + 16
       + (stage_window ? window * 4 : 0);
   if (smem > kSmemMax || (resident && g_n * wg_bytes > kResidentMax))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      windowed_conv_kernel<NTW, ROWS>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      windowed_conv_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (err != cudaSuccess) return (int)err;
   int dev = 0, sms = 0, per_sm = 0;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                     dev)) != cudaSuccess) return (int)err;
   if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, windowed_conv_kernel<NTW, ROWS>, kThreads, smem))
+           &per_sm, windowed_conv_kernel<NT>, kThreads, smem))
       != cudaSuccess) return (int)err;
   if (per_sm < 1) return (int)cudaErrorLaunchOutOfResources;
   // persistent blocks, each a contiguous run of tiles (so a run shares
   // its target blocks' window slices)
-  const int n_tiles = batch * (vt / ROWS);
+  const int n_tiles = batch * (vt / kTile);
   const int slots = per_sm * sms;
   const int per_block = (n_tiles + slots - 1) / slots;
   const int grid = (n_tiles + per_block - 1) / per_block;
-  windowed_conv_kernel<NTW, ROWS><<<grid, kThreads, smem, stream>>>(
+  windowed_conv_kernel<NT><<<grid, kThreads, smem, stream>>>(
       src, (const __nv_bfloat16*)feats, tgt, lo, centres,
       (const unsigned char*)w, scale, shift, out, vs, vt, nb, g_n, block,
       window, cin, epilogue, relu, sentinel, resident, stages, stage_window,
@@ -398,36 +404,34 @@ extern "C" {
 // ids (B, Vt), lo (B, nb) window starts, centres (G,) the tap groups' dz = 0
 // deltas (tap zi * G + g is centres[g] + zi - 1), w the (G*3*Cin, Cout)
 // bf16 weights (row g*3Cin + zi*Cin + c) packed in mma fragment order as
-// for fp_posgather_conv. Tiles of `rows` (128, or 64 when Cout >= 16)
-// targets, a ring of `stages` (1 or 2), weights `resident` or streamed, the
-// window slice staged in shared memory or not (`stage_window`): the
-// caller's plan, refused here if it does not fit. Cin % 16 == 0 and <= 128;
-// Cout a power of two in [8, 128]; G <= 32; block % 128 == 0; Vt % block
-// == 0; window % 4 == 0 and Vs % 4 == 0 when staged (checked by the caller).
+// for fp_posgather_conv. A ring of `stages` (1 or 2), the weights
+// `resident` or streamed, the window slice staged in shared memory or not
+// (`stage_window`): the caller's plan, refused here if it does not fit.
+// Cin % 16 == 0 and <= 128; Cout a power of two in [8, 128]; G <= 32;
+// block % 128 == 0; Vt % block == 0; window % 4 == 0 and Vs % 4 == 0
+// (checked by the caller).
 int fp_windowed_conv(const int* src, const void* feats, const int* tgt,
                      const int* lo, const int* centres, const void* w,
                      const float* scale, const float* shift, float* out,
                      int batch, int vs, int vt, int nb, int g_n, int block,
                      int window, int cin, int cout, int epilogue, int relu,
-                     int sentinel, int rows, int stages, int resident,
+                     int sentinel, int stages, int resident,
                      int stage_window, void* stream) {
-#define FP_K3_CASE(NTW, ROWS)                                                \
-  if (rows == ROWS && cout == NTW * 1024 / ROWS)                             \
-    return launch_conv<NTW, ROWS>(                                           \
-        src, feats, tgt, lo, centres, w, scale, shift, out, batch, vs, vt,   \
-        nb, g_n, block, window, cin, cout, epilogue, relu, sentinel,         \
-        resident, stages, stage_window, (cudaStream_t)stream)
   if (g_n < 1 || g_n > 32 || (stages != 1 && stages != 2))
     return (int)cudaErrorInvalidValue;
-  FP_K3_CASE(1, 128);
-  FP_K3_CASE(2, 128);
-  FP_K3_CASE(4, 128);
-  FP_K3_CASE(8, 128);
-  FP_K3_CASE(16, 128);
-  FP_K3_CASE(1, 64);
-  FP_K3_CASE(2, 64);
-  FP_K3_CASE(4, 64);
-  FP_K3_CASE(8, 64);
+#define FP_K3_CASE(NT)                                                       \
+  case NT * 8:                                                               \
+    return launch_conv<NT>(src, feats, tgt, lo, centres, w, scale, shift,    \
+                           out, batch, vs, vt, nb, g_n, block, window, cin,  \
+                           epilogue, relu, sentinel, resident, stages,       \
+                           stage_window, (cudaStream_t)stream)
+  switch (cout) {
+    FP_K3_CASE(1);
+    FP_K3_CASE(2);
+    FP_K3_CASE(4);
+    FP_K3_CASE(8);
+    FP_K3_CASE(16);
+  }
 #undef FP_K3_CASE
   return (int)cudaErrorInvalidValue;
 }

@@ -14,8 +14,8 @@ route in plain PyTorch), so the taps must be groups of three consecutive ids
     with the optional scale/shift(+ReLU) epilogue that also zeroes rows whose
     target id is >= ``sentinel``. The wrapper hands the kernel one bf16 copy
     of the features and the weights in group order packed for the mma
-    fragments (`posgather.pack_weights_mma`), and picks its tile, ring and
-    window staging (`conv_plan`);
+    fragments (`posgather.pack_weights_mma`), and picks its ring and window
+    staging (`conv_plan`);
   * K4 `windowed_dw` — ``dW[k] = sum_targets gathered_k^T . g`` over the
     whole batch, (K, Cin, Cout) float32.
 
@@ -66,7 +66,7 @@ LAUNCHES = {"windowed_conv": 0, "windowed_dw": 0}
 DW_TILE = 64             # targets per tile of the K4 kernel
 DW_BLOCKS = 2 * 132      # blocks its grid aims at: two per SM of an H100
 MAX_DW_ACC = 8192        # Cin * Cout: 3x that many f32 sums in registers
-CONV_TILE = 128          # targets per K3 tile (64 at the widest shapes)
+CONV_TILE = 128          # targets per K3 tile
 RESIDENT_MAX = 112 * 1024   # K3 keeps all groups' weights up to this
 SMEM_MAX = 227 * 1024       # shared memory of one block on an H100
 
@@ -80,7 +80,7 @@ def _lib():
     lib = _build.load("windowed_sparse")
     if lib.fp_windowed_conv.argtypes is None:
         lib.fp_windowed_conv.argtypes = [ctypes.c_void_p] * 9 \
-            + [ctypes.c_int] * 16 + [ctypes.c_void_p]
+            + [ctypes.c_int] * 15 + [ctypes.c_void_p]
         lib.fp_windowed_conv.restype = ctypes.c_int
         lib.fp_windowed_dw.argtypes = [ctypes.c_void_p] * 8 \
             + [ctypes.c_int] * 10 + [ctypes.c_void_p]
@@ -110,7 +110,8 @@ def _round_window(window, vs):
 def window_starts(src_ids, tgt_ids, deltas, block: int, window: int):
     """(B, nb) int32 ALIGN-aligned window starts: the left insertion point
     of (first target of the block + smallest delta), floored to ALIGN and
-    clamped so the window stays inside the list."""
+    clamped so the window stays inside the list. Deltas kept on the host
+    give their minimum without waiting for the stream."""
     vs = src_ids.shape[1]
     first = tgt_ids[:, ::block].long() + int(deltas.min())
     lo = torch.searchsorted(src_ids.long(), first.contiguous())
@@ -124,7 +125,8 @@ def _union_overflow(src_ids, tgt_ids, deltas, lo, block, window,
                     sentinel_start, tap_window=None):
     """The overflow rule, given the window starts `lo` (B, nb) of a
     `window`-wide window: (B,) int64 blocks with a real target whose
-    neighbour span ends beyond the window, plus the tap term."""
+    neighbour span ends beyond the window, plus the tap term. `deltas` is
+    a long tensor, best on the host (see `window_starts`)."""
     b, vt = tgt_ids.shape
     lo = lo.long()
     src_l = src_ids.long()
@@ -141,6 +143,7 @@ def _union_overflow(src_ids, tgt_ids, deltas, lo, block, window,
         src_l, (block_last + int(deltas.max())).contiguous(), right=True)
     total = (((hi - lo) > window) & has_real).sum(dim=1)
     if tap_window is not None and tap_window < window:
+        deltas = deltas.to(src_l.device)
         nb = lo.shape[1]
         first = tgt_b[:, :, 0]
         lo_tap = torch.searchsorted(
@@ -163,7 +166,7 @@ def windowed_overflow(src_ids, tgt_ids, deltas, block: int, window: int,
     `window`, plus — when `tap_window` is given and smaller — (block, tap)
     pairs whose span exceeds the reference's per-tap sub-window. src_ids
     (B, Vs) / tgt_ids (B, Vt) ascending int32; deltas (K,) int."""
-    deltas = torch.as_tensor(deltas, device=tgt_ids.device).long()
+    deltas = torch.as_tensor(deltas).long()
     window = min(window, src_ids.shape[1])
     lo = window_starts(src_ids, tgt_ids, deltas, block, window)
     return _union_overflow(src_ids, tgt_ids, deltas, lo, block, window,
@@ -265,38 +268,30 @@ def windowed_conv_plain(src_ids, feats, tgt_ids, lo, deltas, w_flat,
     return out
 
 
-def conv_smem(cin, cout, window, g_n, rows, stages, resident,
-              stage_window):
+def conv_smem(cin, cout, window, g_n, stages, resident, stage_window):
     """Shared-memory bytes of one K3 block (the kernel's own layout)."""
     return ((g_n if resident else stages) * 6 * cin * cout
-            + stages * rows * (6 * cin + 16) + g_n * 3 * rows * 4 + 16
-            + (4 * window if stage_window else 0))
+            + stages * CONV_TILE * (6 * cin + 16) + g_n * 3 * CONV_TILE * 4
+            + 16 + (4 * window if stage_window else 0))
 
 
 def conv_plan(cin, cout, window, g_n=9):
-    """K3's plan for padded widths: (rows, stages, resident, stage_window).
-    Two stages of 128-target tiles where they fit, else of 64-target tiles
-    (Cout split between two warp columns), else one stage; the weights of
-    all groups resident up to RESIDENT_MAX; the window slice in shared
+    """K3's plan for padded widths: (stages, resident, stage_window). All
+    groups' weights resident up to RESIDENT_MAX; a two-stage ring where it
+    fits (not at Cin 128 with streamed weights); the window slice in shared
     memory where the rest leaves room for it."""
     resident = g_n * 6 * cin * cout <= RESIDENT_MAX
-    for rows, stages in ((CONV_TILE, 2), (CONV_TILE // 2, 2),
-                         (CONV_TILE, 1)):
-        if rows * cout < 1024:          # a warp column holds >= 8 columns
-            continue
-        if conv_smem(cin, cout, window, g_n, rows, stages, resident,
-                     False) > SMEM_MAX:
-            continue
-        stage = conv_smem(cin, cout, window, g_n, rows, stages, resident,
-                          True) <= SMEM_MAX
-        return rows, stages, resident, stage
+    for stages in (2, 1):
+        if conv_smem(cin, cout, window, g_n, stages, resident,
+                     False) <= SMEM_MAX:
+            return stages, resident, conv_smem(
+                cin, cout, window, g_n, stages, resident, True) <= SMEM_MAX
     raise ValueError(f"no K3 plan fits cin={cin} cout={cout}")
 
 
 def conv_kernel(src_ids, feats, tgt_ids, lo, deltas, w_flat, block: int,
                 window: int, scale=None, shift=None, relu=False,
-                sentinel=None, compute_dtype=torch.float32, centres=None,
-                plan=None):
+                sentinel=None, compute_dtype=torch.float32, centres=None):
     """K3 wrapper: the CUDA kernel (bf16 operands, f32 sums on the tensor
     cores) for CUDA tensors, the plain version for CPU tensors. The kernel
     wants taps in groups of three consecutive ids (it reads the centres as
@@ -304,7 +299,7 @@ def conv_kernel(src_ids, feats, tgt_ids, lo, deltas, w_flat, block: int,
     checked on `centres` (``group_center_deltas(deltas)``) where the caller
     has them on the host, else on a copy of the deltas, which waits for the
     stream. It pads Cin to a multiple of 16 and Cout to a power of two from
-    8. `plan` overrides `conv_plan` (rows, stages, stage_window)."""
+    8, and takes the kernel's ring and window staging from `conv_plan`."""
     if not _check_device(src_ids, feats, tgt_ids, lo, deltas, w_flat):
         return windowed_conv_plain(src_ids, feats, tgt_ids, lo, deltas,
                                    w_flat, block, window, scale, shift, relu,
@@ -331,8 +326,7 @@ def conv_kernel(src_ids, feats, tgt_ids, lo, deltas, w_flat, block: int,
     g_n = len(centres)
     if 3 * g_n != k:
         raise ValueError(f"{g_n} tap group centres for {k} taps")
-    rows, stages, resident, stage_window = plan or conv_plan(
-        cin_p, cout_p, window, g_n)
+    stages, resident, stage_window = conv_plan(cin_p, cout_p, window, g_n)
     epilogue = scale is not None
     if epilogue:
         _check_shape("scale", scale, (cout,))
@@ -356,8 +350,8 @@ def conv_kernel(src_ids, feats, tgt_ids, lo, deltas, w_flat, block: int,
         _ptr(src_ids), _ptr(feats), _ptr(tgt_ids), _ptr(lo),
         _ptr(deltas[g_n:2 * g_n]), _ptr(w), _ptr(scale), _ptr(shift),
         _ptr(out), b, vs, vt, vt // block, g_n, block, window, cin_p, cout_p,
-        int(epilogue), int(relu), int(sentinel) if epilogue else 0, rows,
-        stages, int(resident), int(stage_window), _stream()),
+        int(epilogue), int(relu), int(sentinel) if epilogue else 0, stages,
+        int(resident), int(stage_window), _stream()),
         "fp_windowed_conv")
     LAUNCHES["windowed_conv"] += 1
     return out[..., :cout] if cout_p != cout else out
@@ -374,12 +368,13 @@ def _prepare(src_ids, feats, tgt_ids, deltas, block, window):
     if vt % block or block % ALIGN:
         raise ValueError(f"Vt={vt} must be a multiple of block={block}, and "
                          f"block a multiple of {ALIGN}")
-    deltas = torch.as_tensor(deltas, device=tgt_ids.device).to(torch.int32)
+    host = torch.as_tensor(deltas)
+    deltas = host.to(device=tgt_ids.device, dtype=torch.int32)
     src_ids, feats = _pad_src(src_ids, feats.float())
     window = _round_window(window, src_ids.shape[1])
     src_ids = src_ids.contiguous()
     tgt_ids = tgt_ids.contiguous()
-    lo = window_starts(src_ids, tgt_ids, deltas, block, window)
+    lo = window_starts(src_ids, tgt_ids, host, block, window)
     return src_ids, feats.contiguous(), tgt_ids, deltas.contiguous(), lo, \
         window
 
@@ -395,8 +390,8 @@ def _host_centres(deltas, feats):
 
 def _conv(src_ids, src_feats, tgt_ids, weights, deltas, block, window,
           compute_dtype=None, **epilogue):
-    """K3 on unprepared lists; returns (out, (src_ids, tgt_ids, deltas, lo,
-    window) as the kernel saw them)."""
+    """K3 on unprepared lists; returns (out, (src_ids, tgt_ids, lo, window)
+    as the kernel saw them)."""
     k, cin, cout = weights.shape
     centres = _host_centres(deltas, src_feats)
     src_ids, feats, tgt_ids, deltas, lo, window = _prepare(
@@ -406,7 +401,7 @@ def _conv(src_ids, src_feats, tgt_ids, weights, deltas, block, window,
         weights.float().reshape(k * cin, cout), block, window,
         compute_dtype=compute_dtype or _compute_dtype(feats),
         centres=centres, **epilogue)
-    return out, (src_ids, tgt_ids, deltas, lo, window)
+    return out, (src_ids, tgt_ids, lo, window)
 
 
 def windowed_conv(src_ids, src_feats, tgt_ids, weights, deltas,
@@ -421,11 +416,12 @@ def windowed_conv(src_ids, src_feats, tgt_ids, weights, deltas,
     overflow (B,) int64 against the window the kernel used)."""
     if scale is not None and sentinel_start is None:
         raise ValueError("the epilogue needs sentinel_start")
-    out, (src_ids, tgt_ids, deltas, lo, window) = _conv(
+    out, (src_ids, tgt_ids, lo, window) = _conv(
         src_ids, src_feats, tgt_ids, weights, deltas, block, window,
         compute_dtype, scale=scale, shift=shift, relu=relu,
         sentinel=sentinel_start if scale is not None else None)
-    return out, _union_overflow(src_ids, tgt_ids, deltas.long(), lo, block,
+    return out, _union_overflow(src_ids, tgt_ids,
+                                torch.as_tensor(deltas).long(), lo, block,
                                 window, sentinel_start)
 
 

@@ -250,13 +250,25 @@ def test_wrappers_refuse_what_the_kernels_cannot_take():
     assert ws.LAUNCHES == {"windowed_conv": 0, "windowed_dw": 0}
 
 
+def _transposed(c):
+    """The case's transposed conv (d_feats of the backward): lists swapped,
+    the taps reversed and negated so that they group, zero features."""
+    return dict(c, src=c["tgt"], tgt=c["src"],
+                feats=np.zeros((c["tgt"].shape[0], 1), np.float32),
+                deltas=np.ascontiguousarray(-c["deltas"][::-1]))
+
+
 def _probe_case(name):
     """(case, window): submanifold, strided, and a window too small for the
-    scene, where neighbours at the window's edges are dropped."""
-    if name == "overflow":
-        return make_case(seed=4, n_active=2000, shape=(9, 24, 24)), 512
-    return (make_case(seed=3, n_active=900) if name == "subm"
-            else strided_case()), 1536
+    scene, where neighbours at the window's edges are dropped; with
+    "-transposed", the case's transposed conv."""
+    base = name.split("-")[0]
+    if base == "overflow":
+        c, window = make_case(seed=4, n_active=2000, shape=(9, 24, 24)), 512
+    else:
+        c, window = (make_case(seed=3, n_active=900) if base == "subm"
+                     else strided_case()), 1536
+    return (_transposed(c) if name.endswith("-transposed") else c), window
 
 
 def _prepared(c, window):
@@ -264,11 +276,14 @@ def _prepared(c, window):
                        BLOCK, window)
 
 
-@pytest.mark.parametrize("name", ["subm", "strided", "overflow"])
+@pytest.mark.parametrize("name", [
+    "subm", "strided", "overflow", "subm-transposed", "strided-transposed",
+    "overflow-transposed"])
 def test_group_probe_rows_match_neighbour_rows(name):
     """One search per (target, tap group) and three probes from its rank —
-    the K4 kernel's route — find exactly the rows that one search per tap
-    finds, window edges included."""
+    the K3 and K4 kernels' route — find exactly the rows that one search
+    per tap finds, window edges included, in both directions of the conv
+    (the transposed one with its taps reversed and negated)."""
     from findnpropagate_torch.ops.posgather import group_center_deltas
 
     c, window = _probe_case(name)
@@ -330,6 +345,8 @@ class _FakeLib:
         self.calls.append(args)
         return 0
 
+    fp_windowed_conv = fp_windowed_dw
+
 
 def test_dw_cuda_wrapper_groups_pads_and_sizes_the_scratch(monkeypatch):
     """The CUDA branch of the K4 wrapper on CPU tensors, with tensors in
@@ -371,4 +388,113 @@ def test_dw_cuda_wrapper_groups_pads_and_sizes_the_scratch(monkeypatch):
     with pytest.raises(ValueError, match="unsupported"):
         ws.dw_kernel(src, feats.repeat(1, 1, 32), tgt, g, lo, deltas, BLOCK,
                      window, compute_dtype=torch.bfloat16)
+    ws.reset_launches()
+
+
+def test_transposed_call_in_group_order_matches_pallas_gradient():
+    """The backward's d_feats as WindowedConv computes it: the transposed
+    call with the taps reversed and negated and W[26-k]^T (the same
+    (delta, weight) pairs, in group order) equals the call in the forward's
+    tap order to f32 rounding, and the reference's d_feats of
+    `windowed_conv_pallas_diff` in interpret mode (2e-3, its gradient
+    tolerance)."""
+    from findnpropagate_torch.ops.posgather import (
+        flip_transpose_weights, group_center_deltas)
+
+    c = strided_case()
+    g = np.random.RandomState(1).standard_normal(
+        (c["tgt"].shape[0], 16)).astype(np.float32)
+    w = torch.from_numpy(c["w"])
+    grouped = np.ascontiguousarray(-c["deltas"][::-1])
+    group_center_deltas(grouped)                 # groups: no ValueError
+    with pytest.raises(ValueError, match="consecutive"):
+        group_center_deltas(-c["deltas"])
+    got, ovf = ws.windowed_conv(t(c["tgt"]), t(g), t(c["src"]),
+                                flip_transpose_weights(w), grouped,
+                                block=BLOCK, window=1536)
+    tap_order, _ = ws.windowed_conv(t(c["tgt"]), t(g), t(c["src"]),
+                                    w.transpose(1, 2), -c["deltas"],
+                                    block=BLOCK, window=1536)
+    assert int(ovf[0]) == 0
+    np.testing.assert_allclose(got.numpy(), tap_order.numpy(), rtol=1e-5,
+                               atol=1e-5)
+
+    def out_jax(f):
+        return windowed_conv_pallas_diff(
+            j(c["src"]), f, j(c["tgt"]), j(c["w"]), j(c["deltas"]),
+            block=BLOCK, window=1536, compute_dtype=jnp.float32,
+            interpret=True)[0]
+
+    _, vjp = jax.vjp(out_jax, j(c["feats"]))
+    want = np.asarray(vjp(j(g))[0])
+    assert np.abs(want).max() > 0.1
+    np.testing.assert_allclose(got[0].numpy(), want, rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.parametrize("cin,cout,window,want", [
+    (16, 16, 4096, (2, True, True)),        # L0 subm: everything fits
+    (32, 64, 7680, (2, True, True)),        # L1->L2 strided forward
+    (64, 32, 7680, (2, True, False)),       # its transposed: no room left
+    (64, 128, 6656, (2, False, False)),     # L2->L3: weights streamed
+    (128, 64, 6656, (1, False, True)),      # its transposed: one stage
+    (128, 128, 4096, (1, False, True))])
+def test_conv_plan(cin, cout, window, want):
+    """K3's ring and staging at the model's widths, inside one block's
+    shared memory."""
+    plan = ws.conv_plan(cin, cout, window)
+    assert plan == want
+    assert ws.conv_smem(cin, cout, window, 9, *plan) <= ws.SMEM_MAX
+
+
+def test_conv_cuda_wrapper_groups_packs_and_pads(monkeypatch):
+    """The CUDA branch of the K3 wrapper on CPU tensors, with tensors in
+    place of pointers: one bf16 copy of the features padded to 16
+    channels, the group centres as deltas[9:18], the weights in group
+    order packed for the mma fragments, Cout padded to a power of two and
+    cut back, the plan's ints; taps that do not group and widths the
+    kernel does not take are refused."""
+    from findnpropagate_torch.ops.posgather import (
+        group_center_deltas, pack_weights_mma, reorder_weights_groups)
+
+    fake = _FakeLib()
+    monkeypatch.setattr(ws, "_check_device", lambda *a: True)
+    monkeypatch.setattr(ws, "_lib", lambda: fake)
+    monkeypatch.setattr(ws, "_stream", lambda: None)
+    monkeypatch.setattr(ws, "_ptr", lambda x: x)
+    ws.reset_launches()
+    c = make_case(seed=3, n_active=900, c_in=4, c_out=10)
+    src, feats, tgt, deltas, lo, window = _prepared(c, 1536)
+    w_flat = torch.from_numpy(c["w"]).reshape(27 * 4, 10)
+    scale, shift = torch.ones(10), torch.full((10,), 0.5)
+    out = ws.conv_kernel(src, feats, tgt, lo, deltas, w_flat, BLOCK, window,
+                         scale=scale, shift=shift, relu=True,
+                         sentinel=c["sent"], compute_dtype=torch.bfloat16)
+    a, = fake.calls
+    k_feats, k_centres, k_w, k_scale, k_shift, k_out = (
+        a[1], a[4], a[5], a[6], a[7], a[8])
+    assert k_feats.dtype == torch.bfloat16 and k_feats.shape == (1, 1024, 16)
+    assert torch.equal(k_feats[..., :4], feats.to(torch.bfloat16))
+    assert not k_feats[..., 4:].any()
+    np.testing.assert_array_equal(k_centres.numpy(),
+                                  group_center_deltas(c["deltas"]))
+    wg = torch.nn.functional.pad(reorder_weights_groups(
+        torch.from_numpy(c["w"])), (0, 6, 0, 12))           # (9,3,16,16)
+    assert torch.equal(k_w, pack_weights_mma(
+        wg.reshape(27 * 16, 16).to(torch.bfloat16)))
+    assert torch.equal(k_scale[:10], scale) and not k_scale[10:].any()
+    assert torch.equal(k_shift[:10], shift) and not k_shift[10:].any()
+    assert k_out.shape == (1, 1024, 16) and out.shape == (1, 1024, 10)
+    # (..., B, Vs, Vt, nb, G, block, window, cin, cout, epilogue, relu,
+    #  sentinel, stages, resident, stage_window, stream)
+    assert a[9:24] == (1, 1024, 1024, 2, 9, BLOCK, window, 16, 16, 1, 1,
+                       c["sent"], *map(int, ws.conv_plan(16, 16, window)))
+    assert ws.LAUNCHES["windowed_conv"] == 1
+    with pytest.raises(ValueError, match="consecutive"):
+        ws.conv_kernel(src, feats, tgt, lo, deltas.flip(0).contiguous(),
+                       w_flat, BLOCK, window, compute_dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="unsupported"):
+        ws.conv_kernel(src, feats.repeat(1, 1, 33), tgt, lo, deltas,
+                       w_flat.repeat(33, 1), BLOCK, window,
+                       compute_dtype=torch.bfloat16)
+    assert ws.LAUNCHES["windowed_conv"] == 1
     ws.reset_launches()
