@@ -7,9 +7,10 @@
 
 Phases (any failure exits non-zero and prints no result line):
   1. device — the card's name and power limit, torch/CUDA versions, and the
-     nvcc build of the kernels from findnpropagate_torch/ops/csrc/ into
-     build/kernels/ (with ptxas' register / shared-memory report; a
-     register spill in any kernel fails the run);
+     nvcc build of the kernels from findnpropagate_torch/ops/csrc/ (three
+     sources, one nvcc each, in parallel) into build/kernels/ (with ptxas'
+     register / shared-memory report; a register spill in any kernel fails
+     the run);
   2. kernels — synthetic corner cases of K2, K3 and K4 at full channel
      widths (a dense cube where all 27 neighbours hit, a window too small,
      blocks of sentinels at the end, a dead block in the middle, Cout 10
@@ -58,7 +59,21 @@ Phases (any failure exits non-zero and prints no result line):
      epilogue): each of its 16 K3 launches against the plain version with
      the same epilogue, the forward against the posgather forward on the
      same weights, within bf16 error, and its ms/scan;
-  8. a `kernels` JSON line, then the result line
+  8. probes — the six ported probes of tools/ (findnpropagate_torch/tools/
+     probe_gather, probe_gather2, probe_gather3, probe_posgather,
+     probe_posgather2 --mode gpu, probe_posgather3) at their own shapes,
+     each exiting 0 (every variant right), with the launches of their
+     three kernels (P1 take_along, P2 onehot_gather, P3
+     banded_gather_conv; ops/csrc/gather_probes.cu) counted; then each
+     distinct P1-P3 call of that run through the kernel and through its
+     plain version on the card: P1 and P2 without weights bit-equal (NaN
+     included), P2 with weights and P3 within 1e-3 of the output's scale
+     plus one bf16 step of each element; ms, device ms, plain ms, bound,
+     and the library call's time (torch.take_along_dim for P1). K1's rows
+     of phases 2 and 6 carry the library call that computes its ranks,
+     torch.searchsorted of all G*Vt queries in one call (its ranks checked
+     against K1's where the id is found);
+  9. a `kernels` JSON line, then the result line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 With --before DIR (a checkout of an earlier commit of this repo, e.g.
@@ -75,8 +90,10 @@ exits non-zero.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import dataclasses
+import io
 import json
 import math
 import subprocess
@@ -121,12 +138,20 @@ SOURCES = {
     "posgather_conv": "findnpropagate_torch/ops/csrc/posgather.cu",
     "windowed_conv": "findnpropagate_torch/ops/csrc/windowed_sparse.cu",
     "windowed_dw": "findnpropagate_torch/ops/csrc/windowed_sparse.cu",
+    "take_along": "findnpropagate_torch/ops/csrc/gather_probes.cu",
+    "onehot_gather": "findnpropagate_torch/ops/csrc/gather_probes.cu",
+    "banded_gather_conv": "findnpropagate_torch/ops/csrc/gather_probes.cu",
 }
 REPLACES = {
     "positions": "findnpropagate_tpu/ops/pallas_posgather.py:75",
     "posgather_conv": "findnpropagate_tpu/ops/pallas_posgather.py:194",
     "windowed_conv": "findnpropagate_tpu/ops/pallas_sparse.py:39",
     "windowed_dw": "findnpropagate_tpu/ops/pallas_sparse.py:285",
+    # also probe_gather.py:127, probe_gather2.py:29, probe_gather3.py:29
+    "take_along": "tools/probe_gather.py:52",
+    # also probe_posgather.py:203
+    "onehot_gather": "tools/probe_gather.py:175",
+    "banded_gather_conv": "tools/probe_posgather.py:139",
 }
 
 
@@ -135,75 +160,49 @@ def log(*a):
 
 
 def cuda_ms(torch, fn, reps, warm=1):
-    for _ in range(warm):
-        fn()
-    torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(reps):
-        fn()
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / reps
+    """CUDA-event ms per call of a loop of eager calls (the package's
+    `utils.timing.ms`)."""
+    from findnpropagate_torch.utils import timing
+
+    return timing.ms(fn, reps, warm)
 
 
 def graph_ms(torch, fn, reps):
-    """Device time of fn per call: fn captured once into a CUDA graph and
-    replayed, so the host's launch work (a few small PyTorch operations
-    around each kernel) does not bound the measurement as it does in a loop
-    of eager calls at small batch."""
-    fn()
-    torch.cuda.synchronize()
-    stream = torch.cuda.Stream()
-    stream.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(stream):
-        fn()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=stream):
-            for _ in range(reps):
-                fn()
-    torch.cuda.current_stream().wait_stream(stream)
-    return cuda_ms(torch, graph.replay, 3) / reps
+    """Device ms per call, fn replayed from a CUDA graph, so the host's
+    launch work (a few small PyTorch operations around each kernel) does not
+    bound the measurement as it does in a loop of eager calls at small
+    batch (the package's `utils.timing.device_ms`)."""
+    from findnpropagate_torch.utils import timing
 
-
-def data_cfg(num_scenes, cfg, pcr=None, voxel=None, max_voxels=None,
-             max_points=None):
-    """bench.py's synthetic nuScenes data config (lidar_ring, 200k raw
-    points, x/y/z/intensity), optionally cropped for the reference phase."""
-    caps = dict(cfg.DATA_CONFIG.CAPACITIES)
-    if max_voxels:
-        caps["MAX_VOXELS"] = max_voxels
-    if max_points:
-        caps["MAX_POINTS"] = max_points
-    return {
-        "POINT_CLOUD_RANGE": pcr or list(cfg.DATA_CONFIG.POINT_CLOUD_RANGE),
-        "SYNTHETIC": {"NUM_SCENES": num_scenes, "NUM_OBJECTS": 40,
-                      "NUM_RAW_POINTS": 200000, "PATTERN": "lidar_ring"},
-        "CAPACITIES": caps,
-        "POINT_FEATURE_ENCODING": {
-            "encoding_type": "absolute_coordinates_encoding",
-            "used_feature_list": ["x", "y", "z", "intensity"],
-            "src_feature_list": ["x", "y", "z", "intensity"]},
-        "DATA_PROCESSOR": [
-            {"NAME": "mask_points_and_boxes_outside_range",
-             "REMOVE_OUTSIDE_BOXES": True},
-            {"NAME": "transform_points_to_voxels",
-             "VOXEL_SIZE": voxel or [0.075, 0.075, 0.2]}],
-    }
+    return timing.device_ms(fn, reps)
 
 
 class Recorder:
-    """Wraps a kernel wrapper of ops/posgather.py and keeps a copy of the
-    arguments of every call."""
+    """Wraps a kernel wrapper of the port's ops and keeps a copy of the
+    arguments of every call; with `distinct`, of the first call of each
+    argument signature (shapes, types, strides, other values) only, and of
+    none made while a CUDA graph is being captured."""
 
-    def __init__(self, module, name, torch):
+    def __init__(self, module, name, torch, distinct=False):
         self.module, self.name, self.torch = module, name, torch
         self.orig = getattr(module, name)
         self.calls = []
+        self.distinct, self.seen = distinct, set()
+
+    def signature(self, args, kw):
+        sig = lambda x: (tuple(x.shape), str(x.dtype), x.stride()) \
+            if isinstance(x, self.torch.Tensor) else repr(x)  # noqa: E731
+        return (tuple(sig(a) for a in args),
+                tuple((k, sig(v)) for k, v in sorted(kw.items())))
 
     def __enter__(self):
         def rec(*args, **kw):
+            if self.distinct:
+                key = self.signature(args, kw)
+                if key in self.seen or \
+                        self.torch.cuda.is_current_stream_capturing():
+                    return self.orig(*args, **kw)
+                self.seen.add(key)
             clone = lambda x: x.clone() if isinstance(  # noqa: E731
                 x, self.torch.Tensor) else x
             self.calls.append(([clone(a) for a in args],
@@ -476,8 +475,28 @@ def k3_corners(torch, ws, so, rng, block):
     return rows
 
 
+def k1_library(torch, args, pos):
+    """The library call that computes K1's ranks: torch.searchsorted of all
+    G*Vt queries (target + group centre) in each sample's sorted source ids,
+    in one call. Its global rank is K1's rank (counted from the block's
+    window start) plus that start wherever the id is found; checked there.
+    Returns the call."""
+    src, tgt, lo, block = args[0], args[1], args[2], args[6]
+    b, g_n = tgt.shape[0], args[5].shape[0]
+    q = (tgt[:, None, :] + args[5][None, :, None]).reshape(b, -1)
+    hit = pos >= 0
+    start = lo.long()[:, None, :, None].expand(
+        b, g_n, lo.shape[1], block).reshape(pos.shape)
+    rank = torch.searchsorted(src, q).reshape(pos.shape)
+    if not torch.equal(rank[hit], pos.long()[hit] + start[hit]):
+        raise AssertionError("K1: torch.searchsorted's ranks differ from "
+                             "K1's where the id is found")
+    return lambda: torch.searchsorted(src, q)
+
+
 def check_positions(torch, tp, pos_calls, label=""):
-    """K1 vs plain, bit for bit, on every recorded call; per-call rows."""
+    """K1 vs plain, bit for bit, on every recorded call, beside the library
+    call (`k1_library`); per-call rows."""
     rows = []
     for i, (args, kw) in enumerate(pos_calls):
         out = tp.positions(*args, **kw)
@@ -487,6 +506,7 @@ def check_positions(torch, tp, pos_calls, label=""):
         if not torch.equal(out, ref):
             raise AssertionError(f"{label}K1 call {i}: kernel != plain "
                                  f"(max {err})")
+        library = k1_library(torch, args, ref)
         t_b, t_o = positions_bound(args)
         bound_ms, bound_by = bound_entry(t_b, t_o)
         rows.append({
@@ -498,6 +518,8 @@ def check_positions(torch, tp, pos_calls, label=""):
                 torch, lambda: tp.positions(*args, **kw), 20),
             "plain_ms": cuda_ms(torch, lambda: tp.positions_plain(
                 *args, **kw), 3),
+            "library_ms": cuda_ms(torch, library, 20),
+            "library_device_ms": graph_ms(torch, library, 20),
             "bound_ms": bound_ms, "bound_by": bound_by})
         del out, ref
     return rows
@@ -617,7 +639,7 @@ def reference_phase(torch, cfg_mod, synth, models_mod, weights):
                           "NUM_UPSAMPLE_FILTERS": [16, 16]})
     m.DENSE_HEAD.update({"HIDDEN_CHANNEL": 32, "NUM_HEADS": 2,
                          "FFN_CHANNEL": 64, "NUM_PROPOSALS": 20})
-    ds = synth.SyntheticDataset(cfg_mod.EDict(data_cfg(
+    ds = synth.SyntheticDataset(cfg_mod.EDict(synth.bench_data_cfg(
         2, cfg, pcr=[-6.4, -6.4, -5.0, 6.4, 6.4, 3.0], voxel=[0.2, 0.2, 0.2],
         max_voxels=2048, max_points=40000)), cfg.CLASS_NAMES)
     batch = ds.batch(range(2))
@@ -925,8 +947,9 @@ def training_phase(torch, mods, cfg, args, report):
     cfg_mod, models_mod, synth, tp, ws, lap, weights, optimization, \
         trainer = mods
     b = args.train_batch
-    ds = synth.SyntheticDataset(cfg_mod.EDict(data_cfg(max(b, 2), cfg)),
-                                cfg.CLASS_NAMES, training=True)
+    ds = synth.SyntheticDataset(
+        cfg_mod.EDict(synth.bench_data_cfg(max(b, 2), cfg)),
+        cfg.CLASS_NAMES, training=True)
     det = models_mod.build_network(copy.deepcopy(cfg.MODEL), 10, ds)
     weights.init_random_(det, seed=0)
     det.train()
@@ -1022,7 +1045,7 @@ def pallas_train_phase(torch, mods, cfg, report):
     within PALLAS_TRAIN_RTOL."""
     cfg_mod, models_mod, synth, tp, ws, lap, weights, optimization, \
         trainer = mods
-    ds = synth.SyntheticDataset(cfg_mod.EDict(data_cfg(2, cfg)),
+    ds = synth.SyntheticDataset(cfg_mod.EDict(synth.bench_data_cfg(2, cfg)),
                                 cfg.CLASS_NAMES, training=True)
     batch = {k: torch.from_numpy(v).cuda()
              for k, v in ds.batch(range(1)).items()}
@@ -1052,6 +1075,180 @@ def pallas_train_phase(torch, mods, cfg, report):
     if not rel <= PALLAS_TRAIN_RTOL:
         raise AssertionError(f"pallas-mode training loss {a} vs posgather "
                              f"{b}: rel diff {rel}")
+
+
+# ------------------------------------------------------------- the probes
+
+
+PROBE_MAINS = [
+    # findnpropagate_torch/tools/<module>, argv: each at its own shapes
+    ("probe_gather", []), ("probe_gather2", []), ("probe_gather3", []),
+    ("probe_posgather", []), ("probe_posgather2", ["--mode", "gpu"]),
+    ("probe_posgather3", []),
+]
+PROBE_KERNELS = ("take_along", "onehot_gather", "banded_gather_conv")
+
+
+def take_bound(torch, gp, x, idx, axis, taps=False):
+    """P1 moves bytes only: the input and the index as given read once,
+    the output written once."""
+    out = gp.index3(x, idx, axis, taps).numel() * x.element_size()
+    return (x.numel() * x.element_size() + 4 * idx.numel() + out) \
+        / HBM_BYTES_PER_S, 0.0
+
+
+def onehot_bound(torch, gp, x, ids, want, tap_win=None, wt=None, blocks=1):
+    """P2: the inputs once (the first tap_win ids), the output once; a
+    search of log2(tap_win) steps per target and block (as the probe's
+    blocks repeat it), and with weights 2*Cout*C flops per found id and
+    block on the tensor cores."""
+    c, s = x.shape
+    taps, w = want.shape
+    n = s if tap_win is None else tap_win
+    rows = taps * c if wt is None else wt.shape[0]
+    nbytes = (2 * x.numel() + 4 * n + 4 * want.numel() + 2 * rows * blocks * w
+              + (0 if wt is None else 2 * wt.numel()))
+    t_ops = blocks * taps * w * math.ceil(math.log2(n + 1)) / CUDA_CORE_OPS
+    if wt is not None:
+        hits = int(torch.isin(want, ids[:n]).sum())
+        t_ops += 2 * wt.shape[0] * c * hits * blocks / BF16_FLOPS
+    return nbytes / HBM_BYTES_PER_S, t_ops
+
+
+def banded_bound(torch, gp, starts, feats, rel, wt, band):
+    """P3: the inputs and the bf16 output once; 2*Cout*C flops per gathered
+    (target, tap) on the tensor cores."""
+    c, s = feats.shape
+    nb = starts.shape[0]
+    valid = int((gp.band_positions(starts, rel, band, s) >= 0).sum())
+    nbytes = (4 * starts.numel() + 2 * feats.numel() + 4 * rel.numel()
+              + 2 * wt.numel() + 2 * wt.shape[0] * nb * rel.shape[1])
+    return nbytes / HBM_BYTES_PER_S, 2 * wt.shape[0] * c * valid / BF16_FLOPS
+
+
+def take_library(torch, x, idx, axis, taps=False):
+    """One PyTorch call that computes P1 where every index is in range
+    (torch.take_along_dim, or indexing for the side-by-side taps), on int64
+    indices made beforehand; None elsewhere (it asserts out of range)."""
+    if not bool(((idx >= 0) & (idx < x.shape[axis])).all()):
+        return None
+    i = idx.long()
+    if not taps:
+        return lambda: torch.take_along_dim(x, i, dim=axis)
+    if axis == 1:
+        return lambda: torch.take_along_dim(x[None], i[:, None], dim=2)
+    it = i.t()
+    return lambda: x[it]
+
+
+def check_probe_kernels(torch, gp, calls):
+    """Every distinct P1/P2/P3 call of the probes' run through the kernel
+    and through its plain version on the card: P1 and P2 without weights
+    bit-equal (NaN where the plain version has NaN), P2 with weights and P3
+    (bf16 outputs of f32 sums in another order) within 1e-3 of the output's
+    scale plus one bf16 step of each element; ms, device ms, plain ms,
+    bound and, for P1, the library call's time. Per-call rows."""
+    from findnpropagate_torch.tools._common import bf16_close, same
+
+    bounds = {"take_along": take_bound, "onehot_gather": onehot_bound,
+              "banded_gather_conv": banded_bound}
+    rows = []
+    for name in PROBE_KERNELS:
+        kernel, plain = getattr(gp, name), getattr(gp, name + "_plain")
+        for i, (args, kw) in enumerate(calls[name]):
+            out = kernel(*args, **kw)
+            ref = plain(*args, **kw)
+            torch.cuda.synchronize()
+            exact = name == "take_along" or (
+                name == "onehot_gather" and kw.get("wt") is None)
+            ok, err = (same(out, ref), 0.0) if exact else bf16_close(out,
+                                                                     ref)
+            if not ok:
+                raise AssertionError(f"{name} call {i}: kernel != plain"
+                                     + ("" if exact else f" (err {err})"))
+            library = take_library(torch, *args, **kw) \
+                if name == "take_along" else None
+            bound_ms, bound_by = bound_entry(*bounds[name](torch, gp, *args,
+                                                           **kw))
+            rows.append({
+                "name": name, "call": i,
+                "shapes": [list(a.shape) for a in args
+                           if isinstance(a, torch.Tensor)],
+                "dtype": str(args[0].dtype).replace("torch.", ""),
+                "options": {k: (list(v.shape) if isinstance(v, torch.Tensor)
+                                else v) for k, v in kw.items()},
+                "scalars": [a for a in args
+                            if not isinstance(a, torch.Tensor)],
+                "nan_outputs": int(out.isnan().sum()),
+                "max_abs_err": err, "exact": exact,
+                "ms": cuda_ms(torch, lambda: kernel(*args, **kw), 20),
+                "device_ms": graph_ms(torch, lambda: kernel(*args, **kw),
+                                      20),
+                "plain_ms": cuda_ms(torch, lambda: plain(*args, **kw), 3),
+                "library_ms": None if library is None
+                else cuda_ms(torch, library, 20),
+                "library_device_ms": None if library is None
+                else graph_ms(torch, library, 20),
+                "bound_ms": bound_ms, "bound_by": bound_by})
+            del out, ref
+    return rows
+
+
+class Tee(io.TextIOBase):
+    """A text stream that writes through to `out` and keeps a copy."""
+
+    def __init__(self, out):
+        self.out, self.copy = out, io.StringIO()
+
+    def write(self, text):
+        self.copy.write(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+
+def probes_phase(torch, gp):
+    """The six ported probes (findnpropagate_torch/tools/) at their own
+    shapes, the P1-P3 launch counts set to 0 just before and read just
+    after; then each distinct P1-P3 call of that run held against its plain
+    version (`check_probe_kernels`). Returns (launches, rows, each probe's
+    printed lines)."""
+    import importlib
+
+    gp.reset_launches()
+    printed = {}
+    with contextlib.ExitStack() as stack:
+        recs = {name: stack.enter_context(
+            Recorder(gp, name, torch, distinct=True))
+            for name in PROBE_KERNELS}
+        for mod, argv in PROBE_MAINS:
+            log(f"-- python -m findnpropagate_torch.tools.{mod} "
+                + " ".join(argv))
+            tee = Tee(sys.stdout)
+            with contextlib.redirect_stdout(tee):
+                rc = importlib.import_module(
+                    f"findnpropagate_torch.tools.{mod}").main(argv)
+            printed[mod] = tee.copy.getvalue().splitlines()
+            if rc != 0:
+                raise AssertionError(f"{mod} exited with {rc}")
+    torch.cuda.synchronize()
+    launches = dict(gp.LAUNCHES)
+    if not all(launches.values()):
+        raise AssertionError(f"probes: a kernel never launched: {launches}")
+    rows = check_probe_kernels(torch, gp, {
+        name: rec.calls for name, rec in recs.items()})
+    for r in rows:
+        log(f"{r['name']:18s} call {r['call']:2d} {r['dtype']:8s} "
+            f"{r['shapes']} {r['scalars']} {r['options']} err "
+            f"{r['max_abs_err']:.3g}  ms "
+            f"{r['ms']:.4f} (device {r['device_ms']:.4f})  plain "
+            f"{r['plain_ms']:.3f}  library "
+            + ("none" if r["library_ms"] is None else
+               f"{r['library_ms']:.4f} (device "
+               f"{r['library_device_ms']:.4f})")
+            + f"  bound {r['bound_ms']:.4f} ({r['bound_by']})")
+    return launches, rows, printed
 
 
 def log_conv_rows(rows):
@@ -1167,6 +1364,7 @@ def main():
         from findnpropagate_torch import models as models_mod
         from findnpropagate_torch.datasets import synthetic as synth
         from findnpropagate_torch.ops import _build, lap
+        from findnpropagate_torch.ops import gather_probes as gp
         from findnpropagate_torch.ops import posgather as tp
         from findnpropagate_torch.ops import sparse_ops
         from findnpropagate_torch.ops import windowed_sparse as ws
@@ -1191,7 +1389,7 @@ def main():
         f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
     t0 = time.perf_counter()
-    sources = ["posgather", "windowed_sparse"]
+    sources = ["posgather", "windowed_sparse", "gather_probes"]
     _build.build_all(sources)
     for name in sources:
         _build.load(name)
@@ -1210,8 +1408,8 @@ def main():
 
     cfg = cfg_mod.cfg_from_yaml_file(str(ROOT / CFG_FILE))
     nmax = max(max(args.batches), 2)
-    ds = synth.SyntheticDataset(cfg_mod.EDict(data_cfg(nmax, cfg)),
-                                cfg.CLASS_NAMES)
+    ds = synth.SyntheticDataset(
+        cfg_mod.EDict(synth.bench_data_cfg(nmax, cfg)), cfg.CLASS_NAMES)
     det = models_mod.build_network(copy.deepcopy(cfg.MODEL), 10, ds)
     weights.init_random_(det, seed=0)
     batches = {b: {k: torch.from_numpy(v).cuda()
@@ -1288,7 +1486,12 @@ def main():
     log(f"pallas-mode forward vs posgather forward (batch "
         f"{min(args.batches)}): {report['pallas_mode_rel_err']}")
 
-    # ---- 8. result lines
+    # ---- 8. the ported probes and their kernels
+    report["probe_launches"], report["probe_kernel_calls"], \
+        report["probe_output"] = probes_phase(torch, gp)
+    log(f"probe launches: {report['probe_launches']}")
+
+    # ---- 9. result lines
     first_batch = report["main_path"][0]["launches_per_forward"]
     pick = {
         # K1 at L0 (first call); K2 at the L0 16->16 subm conv with the
@@ -1321,8 +1524,9 @@ def main():
     for name, r in pick.items():
         # launches: the inference forward's for K1 and K2 (as before), one
         # training step's for K3 and K4; launches_train_step for all four.
-        # library_ms: no single PyTorch call computes a window rank, a
-        # rank-gather or union-window sparse conv, or its weight gradient
+        # library_ms: torch.searchsorted for K1 (k1_library); no single
+        # PyTorch call computes a rank-gather or union-window sparse conv,
+        # or its weight gradient
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name],
@@ -1330,9 +1534,37 @@ def main():
             "launches_train_step": train_launches[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": None,
+            "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
+            "library_device_ms": r.get("library_device_ms"),
             "device_ms": r.get("device_ms"), "call": r["call"],
             "vt": r["vt"]})
+    # the probes' kernels, at the probes' own shapes: P1 at probe_gather's
+    # stacked taps (27 x 1024 over a (16, 2048) bf16 window), P2 at
+    # probe_posgather's one-hot reference (weight stage, 118 blocks), P3 at
+    # band 3; launches: the probes' run
+    probe_rows = report["probe_kernel_calls"]
+    probe_pick = {
+        "take_along": next(
+            r for r in probe_rows if r["name"] == "take_along"
+            and r["options"].get("taps") and r["scalars"] == [1]),
+        "onehot_gather": next(
+            r for r in probe_rows if r["name"] == "onehot_gather"
+            and "wt" in r["options"]),
+        "banded_gather_conv": next(
+            r for r in probe_rows if r["name"] == "banded_gather_conv"
+            and r["scalars"] == [3]),
+    }
+    for name, r in probe_pick.items():
+        kernels.append({
+            "name": name, "route": "cuda", "source": SOURCES[name],
+            "replaces": REPLACES[name],
+            "launches": report["probe_launches"][name],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "library_device_ms": r["library_device_ms"],
+            "device_ms": r["device_ms"], "call": r["call"],
+            "shapes": r["shapes"]})
     report["kernels"] = kernels
     report["device"] = smi
     if args.out:

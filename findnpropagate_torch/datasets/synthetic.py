@@ -98,6 +98,33 @@ def lidar_ring_points(rng, boxes, budget):
     return np.concatenate([pts, inten], axis=-1).astype(np.float32)
 
 
+def bench_data_cfg(num_scenes, cfg, pcr=None, voxel=None, max_voxels=None,
+                   max_points=None):
+    """bench.py's synthetic nuScenes data config for a model config `cfg`
+    (lidar_ring, 200k raw points, x/y/z/intensity, 40 objects), optionally
+    cropped (`pcr`, `voxel`, capacities) for a narrow reference run."""
+    caps = dict(cfg.DATA_CONFIG.CAPACITIES)
+    if max_voxels:
+        caps["MAX_VOXELS"] = max_voxels
+    if max_points:
+        caps["MAX_POINTS"] = max_points
+    return {
+        "POINT_CLOUD_RANGE": pcr or list(cfg.DATA_CONFIG.POINT_CLOUD_RANGE),
+        "SYNTHETIC": {"NUM_SCENES": num_scenes, "NUM_OBJECTS": 40,
+                      "NUM_RAW_POINTS": 200000, "PATTERN": "lidar_ring"},
+        "CAPACITIES": caps,
+        "POINT_FEATURE_ENCODING": {
+            "encoding_type": "absolute_coordinates_encoding",
+            "used_feature_list": ["x", "y", "z", "intensity"],
+            "src_feature_list": ["x", "y", "z", "intensity"]},
+        "DATA_PROCESSOR": [
+            {"NAME": "mask_points_and_boxes_outside_range",
+             "REMOVE_OUTSIDE_BOXES": True},
+            {"NAME": "transform_points_to_voxels",
+             "VOXEL_SIZE": voxel or [0.075, 0.075, 0.2]}],
+    }
+
+
 class SyntheticDataset:
     """Geometry + scenes + collation.
 
