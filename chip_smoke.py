@@ -61,14 +61,15 @@ Phases (any failure exits non-zero and prints no result line):
      same weights, within bf16 error, and its ms/scan;
   8. probes — the six ported probes of tools/ (findnpropagate_torch/tools/
      probe_gather, probe_gather2, probe_gather3, probe_posgather,
-     probe_posgather2 --mode gpu, probe_posgather3) at their own shapes,
-     each exiting 0 (every variant right), with the launches of their
-     three kernels (P1 take_along, P2 onehot_gather, P3
-     banded_gather_conv; ops/csrc/gather_probes.cu) counted; then each
-     distinct P1-P3 call of that run through the kernel and through its
-     plain version on the card: P1 and P2 without weights bit-equal (NaN
-     included), P2 with weights and P3 within 1e-3 of the output's scale
-     plus one bf16 step of each element; ms, device ms, plain ms, bound,
+     probe_posgather2 --mode cpu and --mode gpu, probe_posgather3) at their
+     own shapes on the card, each exiting 0 (every variant right), with
+     the launches of their three kernels (P1 take_along, P2 onehot_gather,
+     P3 banded_gather_conv; ops/csrc/gather_probes.cu) counted; then every
+     P1-P3 call of that run (but the repeats of the probes' timing loops)
+     through the kernel and through its plain version on the card: P1 and
+     P2 without weights bit-equal (NaN included), P2 with weights and P3
+     within 1e-3 of the output's scale plus one bf16 step of each element;
+     for the first call of each signature ms, device ms, plain ms, bound,
      and the library call's time (torch.take_along_dim for P1). K1's rows
      of phases 2 and 6 carry the library call that computes its ranks,
      torch.searchsorted of all G*Vt queries in one call (its ranks checked
@@ -155,54 +156,29 @@ REPLACES = {
 }
 
 
+# findnpropagate_torch.utils.timing (CUDA-event `ms`, CUDA-graph
+# `device_ms`), imported by main() once it has found the port
+timing = None
+
+
 def log(*a):
     print(*a, flush=True)
 
 
-def cuda_ms(torch, fn, reps, warm=1):
-    """CUDA-event ms per call of a loop of eager calls (the package's
-    `utils.timing.ms`)."""
-    from findnpropagate_torch.utils import timing
-
-    return timing.ms(fn, reps, warm)
-
-
-def graph_ms(torch, fn, reps):
-    """Device ms per call, fn replayed from a CUDA graph, so the host's
-    launch work (a few small PyTorch operations around each kernel) does not
-    bound the measurement as it does in a loop of eager calls at small
-    batch (the package's `utils.timing.device_ms`)."""
-    from findnpropagate_torch.utils import timing
-
-    return timing.device_ms(fn, reps)
-
-
 class Recorder:
     """Wraps a kernel wrapper of the port's ops and keeps a copy of the
-    arguments of every call; with `distinct`, of the first call of each
-    argument signature (shapes, types, strides, other values) only, and of
-    none made while a CUDA graph is being captured."""
+    arguments of every call, but of none made while `skip()` is true."""
 
-    def __init__(self, module, name, torch, distinct=False):
+    def __init__(self, module, name, torch, skip=lambda: False):
         self.module, self.name, self.torch = module, name, torch
         self.orig = getattr(module, name)
         self.calls = []
-        self.distinct, self.seen = distinct, set()
-
-    def signature(self, args, kw):
-        sig = lambda x: (tuple(x.shape), str(x.dtype), x.stride()) \
-            if isinstance(x, self.torch.Tensor) else repr(x)  # noqa: E731
-        return (tuple(sig(a) for a in args),
-                tuple((k, sig(v)) for k, v in sorted(kw.items())))
+        self.skip = skip
 
     def __enter__(self):
         def rec(*args, **kw):
-            if self.distinct:
-                key = self.signature(args, kw)
-                if key in self.seen or \
-                        self.torch.cuda.is_current_stream_capturing():
-                    return self.orig(*args, **kw)
-                self.seen.add(key)
+            if self.skip():
+                return self.orig(*args, **kw)
             clone = lambda x: x.clone() if isinstance(  # noqa: E731
                 x, self.torch.Tensor) else x
             self.calls.append(([clone(a) for a in args],
@@ -513,13 +489,13 @@ def check_positions(torch, tp, pos_calls, label=""):
             "name": "positions", "call": i, "batch": args[1].shape[0],
             "vt": args[1].shape[1], "vs": args[0].shape[1], "span": args[7],
             "tap": args[8], "max_abs_err": err,
-            "ms": cuda_ms(torch, lambda: tp.positions(*args, **kw), 20),
-            "device_ms": graph_ms(
-                torch, lambda: tp.positions(*args, **kw), 20),
-            "plain_ms": cuda_ms(torch, lambda: tp.positions_plain(
+            "ms": timing.ms(lambda: tp.positions(*args, **kw), 20),
+            "device_ms": timing.device_ms(
+                lambda: tp.positions(*args, **kw), 20),
+            "plain_ms": timing.ms(lambda: tp.positions_plain(
                 *args, **kw), 3),
-            "library_ms": cuda_ms(torch, library, 20),
-            "library_device_ms": graph_ms(torch, library, 20),
+            "library_ms": timing.ms(library, 20),
+            "library_device_ms": timing.device_ms(library, 20),
             "bound_ms": bound_ms, "bound_by": bound_by})
         del out, ref
     return rows
@@ -545,15 +521,15 @@ def check_kernels(torch, tp, pos_calls, conv_calls, before=None):
             "cout": args[7].shape[1], "window": args[9],
             "epilogue": kw.get("scale") is not None, "hits": hits,
             "max_abs_err": err, "tolerance": tol,
-            "ms": cuda_ms(torch, lambda: tp.gather_conv(*args, **kw), 10),
-            "device_ms": graph_ms(
-                torch, lambda: tp.gather_conv(*args, **kw), 10),
-            "plain_ms": cuda_ms(torch, lambda: tp.posgather_conv_plain(
+            "ms": timing.ms(lambda: tp.gather_conv(*args, **kw), 10),
+            "device_ms": timing.device_ms(
+                lambda: tp.gather_conv(*args, **kw), 10),
+            "plain_ms": timing.ms(lambda: tp.posgather_conv_plain(
                 *args, **kw), 3),
             "bound_ms": bound_ms, "bound_by": bound_by})
         if before is not None:
-            rows[-1]["before_device_ms"] = graph_ms(
-                torch, lambda: before.gather_conv(*args, **kw), 10)
+            rows[-1]["before_device_ms"] = timing.device_ms(
+                lambda: before.gather_conv(*args, **kw), 10)
     return rows
 
 
@@ -719,14 +695,14 @@ def check_windowed_conv(torch, ws, k3_calls, direction, label="",
             "cin": cin, "cout": cout, "window": window,
             "epilogue": epilogue, "relu": bool(kw.get("relu")), "hits": hits,
             "max_abs_err": err, "tolerance": tol,
-            "ms": cuda_ms(torch, lambda: ws.conv_kernel(*args, **kw), 5),
-            "device_ms": graph_ms(
-                torch, lambda: ws.conv_kernel(*args, **kw), 5),
-            "plain_ms": cuda_ms(torch, plain, 1),
+            "ms": timing.ms(lambda: ws.conv_kernel(*args, **kw), 5),
+            "device_ms": timing.device_ms(
+                lambda: ws.conv_kernel(*args, **kw), 5),
+            "plain_ms": timing.ms(plain, 1),
             "bound_ms": bound_ms, "bound_by": bound_by})
         if before is not None:
-            rows[-1]["before_device_ms"] = graph_ms(
-                torch, lambda: before.conv_kernel(*args, **kw), 2)
+            rows[-1]["before_device_ms"] = timing.device_ms(
+                lambda: before.conv_kernel(*args, **kw), 2)
         del out
     return rows
 
@@ -742,8 +718,8 @@ def k3_window_rows(torch, ws, k3_calls):
             break
     rows = []
     for p in (plan, plan[:2] + (False,)):
-        ms = with_plan(ws, p, lambda: graph_ms(
-            torch, lambda: ws.conv_kernel(*args, **kw), 5))
+        ms = with_plan(ws, p, lambda: timing.device_ms(
+            lambda: ws.conv_kernel(*args, **kw), 5))
         rows.append({"cin": args[1].shape[2], "cout": args[5].shape[1],
                      "window": args[7], "plan": list(p), "device_ms": ms})
         log(f"K3 window {'staged' if p[2] else 'in device memory'}: "
@@ -775,8 +751,8 @@ def check_train_kernels(torch, tp, ws, k2_calls, k3_calls, k4_calls,
             "vt": args[2].shape[1], "vs": args[0].shape[1],
             "cin": args[1].shape[2], "cout": args[7].shape[1],
             "hits": hits, "max_abs_err": err, "tolerance": tol,
-            "ms": cuda_ms(torch, lambda: tp.gather_conv(*args, **kw), 5),
-            "plain_ms": cuda_ms(torch, plain, 1),
+            "ms": timing.ms(lambda: tp.gather_conv(*args, **kw), 5),
+            "plain_ms": timing.ms(plain, 1),
             "bound_ms": bound_ms, "bound_by": bound_by})
         del out, ref
     rows += check_windowed_conv(
@@ -807,8 +783,8 @@ def check_train_kernels(torch, tp, ws, k2_calls, k3_calls, k4_calls,
             "name": "windowed_dw", "call": i, "vt": tgt.shape[1],
             "vs": src.shape[1], "cin": cin, "cout": cout, "window": window,
             "hits": hits, "max_abs_err": err, "tolerance": tol,
-            "ms": cuda_ms(torch, lambda: ws.dw_kernel(*args, **kw), 5),
-            "plain_ms": cuda_ms(torch, plain, 1),
+            "ms": timing.ms(lambda: ws.dw_kernel(*args, **kw), 5),
+            "plain_ms": timing.ms(plain, 1),
             "bound_ms": bound_ms, "bound_by": bound_by})
         del out, ref
     return rows
@@ -1083,8 +1059,8 @@ def pallas_train_phase(torch, mods, cfg, report):
 PROBE_MAINS = [
     # findnpropagate_torch/tools/<module>, argv: each at its own shapes
     ("probe_gather", []), ("probe_gather2", []), ("probe_gather3", []),
-    ("probe_posgather", []), ("probe_posgather2", ["--mode", "gpu"]),
-    ("probe_posgather3", []),
+    ("probe_posgather", []), ("probe_posgather2", ["--mode", "cpu"]),
+    ("probe_posgather2", ["--mode", "gpu"]), ("probe_posgather3", []),
 ]
 PROBE_KERNELS = ("take_along", "onehot_gather", "banded_gather_conv")
 
@@ -1141,13 +1117,23 @@ def take_library(torch, x, idx, axis, taps=False):
     return lambda: x[it]
 
 
+def signature(torch, args, kw):
+    """A call's shapes, types, strides and other argument values."""
+    sig = lambda x: (tuple(x.shape), str(x.dtype), x.stride()) \
+        if isinstance(x, torch.Tensor) else repr(x)  # noqa: E731
+    return (tuple(sig(a) for a in args),
+            tuple((k, sig(v)) for k, v in sorted(kw.items())))
+
+
 def check_probe_kernels(torch, gp, calls):
-    """Every distinct P1/P2/P3 call of the probes' run through the kernel
+    """Every recorded P1/P2/P3 call of the probes' run through the kernel
     and through its plain version on the card: P1 and P2 without weights
     bit-equal (NaN where the plain version has NaN), P2 with weights and P3
     (bf16 outputs of f32 sums in another order) within 1e-3 of the output's
-    scale plus one bf16 step of each element; ms, device ms, plain ms,
-    bound and, for P1, the library call's time. Per-call rows."""
+    scale plus one bf16 step of each element. One row per signature
+    (`signature`: calls that differ only in their data), with the number of
+    its calls checked, their largest error, and, timed on its first call,
+    ms, device ms, plain ms, bound and, for P1, the library call's time."""
     from findnpropagate_torch.tools._common import bf16_close, same
 
     bounds = {"take_along": take_bound, "onehot_gather": onehot_bound,
@@ -1155,6 +1141,7 @@ def check_probe_kernels(torch, gp, calls):
     rows = []
     for name in PROBE_KERNELS:
         kernel, plain = getattr(gp, name), getattr(gp, name + "_plain")
+        by_sig = {}
         for i, (args, kw) in enumerate(calls[name]):
             out = kernel(*args, **kw)
             ref = plain(*args, **kw)
@@ -1166,12 +1153,19 @@ def check_probe_kernels(torch, gp, calls):
             if not ok:
                 raise AssertionError(f"{name} call {i}: kernel != plain"
                                      + ("" if exact else f" (err {err})"))
+            key = signature(torch, args, kw)
+            if key in by_sig:
+                row = by_sig[key]
+                row["calls"] += 1
+                row["max_abs_err"] = max(row["max_abs_err"], err)
+                row["nan_outputs"] += int(out.isnan().sum())
+                continue
             library = take_library(torch, *args, **kw) \
                 if name == "take_along" else None
             bound_ms, bound_by = bound_entry(*bounds[name](torch, gp, *args,
                                                            **kw))
-            rows.append({
-                "name": name, "call": i,
+            by_sig[key] = {
+                "name": name, "call": len(by_sig), "calls": 1,
                 "shapes": [list(a.shape) for a in args
                            if isinstance(a, torch.Tensor)],
                 "dtype": str(args[0].dtype).replace("torch.", ""),
@@ -1181,15 +1175,16 @@ def check_probe_kernels(torch, gp, calls):
                             if not isinstance(a, torch.Tensor)],
                 "nan_outputs": int(out.isnan().sum()),
                 "max_abs_err": err, "exact": exact,
-                "ms": cuda_ms(torch, lambda: kernel(*args, **kw), 20),
-                "device_ms": graph_ms(torch, lambda: kernel(*args, **kw),
-                                      20),
-                "plain_ms": cuda_ms(torch, lambda: plain(*args, **kw), 3),
+                "ms": timing.ms(lambda: kernel(*args, **kw), 20),
+                "device_ms": timing.device_ms(
+                    lambda: kernel(*args, **kw), 20),
+                "plain_ms": timing.ms(lambda: plain(*args, **kw), 3),
                 "library_ms": None if library is None
-                else cuda_ms(torch, library, 20),
+                else timing.ms(library, 20),
                 "library_device_ms": None if library is None
-                else graph_ms(torch, library, 20),
-                "bound_ms": bound_ms, "bound_by": bound_by})
+                else timing.device_ms(library, 20),
+                "bound_ms": bound_ms, "bound_by": bound_by}
+            rows.append(by_sig[key])
             del out, ref
     return rows
 
@@ -1211,17 +1206,34 @@ class Tee(io.TextIOBase):
 def probes_phase(torch, gp):
     """The six ported probes (findnpropagate_torch/tools/) at their own
     shapes, the P1-P3 launch counts set to 0 just before and read just
-    after; then each distinct P1-P3 call of that run held against its plain
-    version (`check_probe_kernels`). Returns (launches, rows, each probe's
+    after; then every P1-P3 call of that run held against its plain version
+    (`check_probe_kernels`), apart from the repeats inside the probes'
+    timing loops and CUDA-graph captures, which relaunch a call already
+    recorded on the same tensors. Returns (launches, rows, each probe's
     printed lines)."""
     import importlib
+
+    depth = [0]                      # timing loops under way
+
+    def timed(fn):
+        def run(*a, **kw):
+            depth[0] += 1
+            try:
+                return fn(*a, **kw)
+            finally:
+                depth[0] -= 1
+        return run
+
+    def skip():
+        return depth[0] > 0 or torch.cuda.is_current_stream_capturing()
 
     gp.reset_launches()
     printed = {}
     with contextlib.ExitStack() as stack:
+        for fn in ("ms", "device_ms"):
+            stack.enter_context(Swap(timing, fn, timed(getattr(timing, fn))))
         recs = {name: stack.enter_context(
-            Recorder(gp, name, torch, distinct=True))
-            for name in PROBE_KERNELS}
+            Recorder(gp, name, torch, skip=skip)) for name in PROBE_KERNELS}
         for mod, argv in PROBE_MAINS:
             log(f"-- python -m findnpropagate_torch.tools.{mod} "
                 + " ".join(argv))
@@ -1229,7 +1241,8 @@ def probes_phase(torch, gp):
             with contextlib.redirect_stdout(tee):
                 rc = importlib.import_module(
                     f"findnpropagate_torch.tools.{mod}").main(argv)
-            printed[mod] = tee.copy.getvalue().splitlines()
+            printed[" ".join([mod, *argv])] = tee.copy.getvalue(
+            ).splitlines()
             if rc != 0:
                 raise AssertionError(f"{mod} exited with {rc}")
     torch.cuda.synchronize()
@@ -1238,8 +1251,11 @@ def probes_phase(torch, gp):
         raise AssertionError(f"probes: a kernel never launched: {launches}")
     rows = check_probe_kernels(torch, gp, {
         name: rec.calls for name, rec in recs.items()})
+    log(f"probe kernel calls held against their plain versions: "
+        f"{sum(r['calls'] for r in rows)} ({len(rows)} signatures)")
     for r in rows:
-        log(f"{r['name']:18s} call {r['call']:2d} {r['dtype']:8s} "
+        log(f"{r['name']:18s} call {r['call']:2d} x{r['calls']:<2d} "
+            f"{r['dtype']:8s} "
             f"{r['shapes']} {r['scalars']} {r['options']} err "
             f"{r['max_abs_err']:.3g}  ms "
             f"{r['ms']:.4f} (device {r['device_ms']:.4f})  plain "
@@ -1352,6 +1368,7 @@ def main():
                     help="a checkout of an earlier commit of this repo "
                     "whose K2 and K3 are timed beside this one's")
     args = ap.parse_args()
+    global timing
 
     import torch
 
@@ -1369,7 +1386,7 @@ def main():
         from findnpropagate_torch.ops import sparse_ops
         from findnpropagate_torch.ops import windowed_sparse as ws
         from findnpropagate_torch.runtime import optimization, trainer
-        from findnpropagate_torch.utils import weights
+        from findnpropagate_torch.utils import timing, weights
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script ({e})",
               file=sys.stderr)

@@ -1,9 +1,10 @@
 // What the gather-and-multiply kernels share (K2 in posgather.cu, K3 and K4
-// in windowed_sparse.cu): the search, the three z-probes of a tap group, the
-// asynchronous 16-byte gather of bf16 source rows into a shared-memory tile,
-// the tensor-core primitives (ldmatrix, mma.sync m16n8k16 bf16 -> f32), and
-// the body of the two convs (K2, K3): the ring of gathered group tiles times
-// the packed weights, and the fused epilogue.
+// in windowed_sparse.cu, P2 and P3 in gather_probes.cu): the search, the
+// three z-probes of a tap group, the asynchronous 16-byte gather of bf16
+// source rows into a shared-memory tile, the tensor-core primitives
+// (ldmatrix, mma.sync m16n8k16 bf16 -> f32), the body of the convs (K2, K3,
+// P2, P3): the ring of gathered group tiles times the packed weights, and
+// the fused epilogue, and the convs' launch plan (shared memory, grid).
 //
 // Tile layout. A gather tile holds, per target row, the 3*Cin bf16 channels
 // of one (dy, dx) tap group: [z-1 | z | z+1] x Cin, a row every
@@ -255,6 +256,56 @@ __device__ __forceinline__ void zero_tile(float* __restrict__ out, int cout,
   float4* o4 = reinterpret_cast<float4*>(out);
   for (int e = tid; e < kConvTile * cout / 4; e += kConvThreads)
     o4[e] = make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
+
+// ---- the launch plan of a kernel over conv_tile (host side; K2, K3, the
+// probes' weight products)
+
+constexpr int kResidentMax = 112 * 1024;  // all groups' weights resident
+constexpr int kSmemMax = 227 * 1024;      // dynamic shared memory per block
+
+// Shared memory: [weights: all g_n groups when resident, else `stages` of
+// one group][`stages` gather tiles][extra bytes of the kernel's own].
+inline int conv_smem(int g_n, int cin, int cout, int resident, int stages,
+                     int extra) {
+  return (resident ? g_n : stages) * 3 * cin * cout * 2
+      + stages * kConvTile * tile_stride(cin) + extra;
+}
+
+struct ConvPlan {
+  int resident, stages, smem;
+};
+
+// All groups' weights resident where they fit in kResidentMax, two stages
+// where they fit in kSmemMax, else one; smem > kSmemMax when not even that
+// fits (the caller refuses the launch).
+inline ConvPlan conv_plan(int g_n, int cin, int cout, int extra) {
+  ConvPlan p;
+  p.resident = g_n * 3 * cin * cout * 2 <= kResidentMax;
+  p.stages =
+      conv_smem(g_n, cin, cout, p.resident, 2, extra) <= kSmemMax ? 2 : 1;
+  p.smem = conv_smem(g_n, cin, cout, p.resident, p.stages, extra);
+  return p;
+}
+
+// Opt `kernel` into `smem` bytes of dynamic shared memory and count the
+// blocks of kConvThreads that the card holds at once (*slots), the grid of
+// a persistent kernel.
+template <typename Kernel>
+cudaError_t persistent_slots(Kernel kernel, int smem, int* slots) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess) return err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, kernel, kConvThreads, smem)) != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorLaunchOutOfResources;
+  *slots = per_sm * sms;
+  return cudaSuccess;
 }
 
 }  // namespace fp

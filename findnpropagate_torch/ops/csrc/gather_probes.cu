@@ -22,10 +22,11 @@
 //    tools/probe_gather.py (body_onehot :157, pallas_call :175) and
 //    tools/probe_posgather.py (bench_onehot_ref's kernel :175, pallas_call
 //    :203).
-//    For tap k and target w, x[:, s] where ids[s] == want[k, w] among the
-//    first n_ids ids, else 0, as bf16 (T*C, W); with weights, the
-//    (Cout, T*C) weight product over that bf16 tile, f32 sums, bf16 out, for
-//    each of `blocks` identical output blocks (the probe's grid).
+//    For tap k and target w, x[:, s] where ids[s] == want[k, w], else 0,
+//    as bf16 (T*C, W) (probe_gather's body_onehot); with weights, among the
+//    first n_ids ids only, the (Cout, T*C) weight product over that bf16
+//    tile, f32 sums, bf16 out, for each of `blocks` identical output blocks
+//    (probe_posgather's grid), at C = Cout = 16, the probes' width.
 //    Bound: bytes for the gather alone (output written once); with the
 //    weight stage operations on the tensor cores per block, which the probe
 //    repeats. Design: the TPU builds a (tap_win x W) one-hot tile per tap
@@ -33,18 +34,18 @@
 //    staged once per block in shared memory and each target finds its id by
 //    a binary search (fp::lower_bound, as K1 and K3 do), which computes the
 //    same function for sorted unique ids (the wrapper checks them). The
-//    gather alone tiles over (block, tap, 128 targets); the weight stage
-//    runs K2's tile body (conv_tile of gather_mma.cuh: each (targets x 3C)
-//    tile of three taps gathered by 16-byte cp.async from a row-major bf16
-//    copy of x, mma.sync m16n8k16 against weights packed in fragment order,
-//    resident in shared memory).
+//    gather alone tiles over (tap, 128 targets); the weight stage runs K2's
+//    tile body (conv_tile of gather_mma.cuh: each (targets x 3C) tile of
+//    three taps gathered by 16-byte cp.async from a row-major bf16 copy of
+//    x into a two-stage ring, mma.sync m16n8k16 against weights packed in
+//    fragment order, all resident in shared memory).
 //
 // P3 fp_banded_gather_conv replaces tools/probe_posgather.py
 //    bench_banded_taa's kernel (:103, pallas_call :139).
 //    For block i, tap k and target t the source column starts[i, k, t/128]
 //    + rel[k, t] (nothing where rel lies outside [0, band*128) or the column
 //    outside [0, S)), then out[:, i*W + t] = sum_k wt_k . x[:, column], f32
-//    sums, bf16 out, channel-major (Cout, nb*W).
+//    sums, bf16 out, channel-major (Cout, nb*W), at C = Cout = 16.
 //    Bound: bytes at the probe's 16 channels (27*16*16*2 flop per target
 //    against 32 bytes of output). Design: K2's function with explicit
 //    positions: per 128-target tile the positions are expanded in shared
@@ -62,9 +63,9 @@ namespace {
 
 constexpr int kThreads = fp::kConvThreads;  // 8 warps
 constexpr int kTile = fp::kConvTile;        // 128 targets per tile
-constexpr int kResidentMax = 112 * 1024;    // all groups' weights resident
-constexpr int kSmemMax = 227 * 1024;
 constexpr int kGatherBlocks = 4096;         // P1's grid-stride cap
+constexpr int kC = 16;     // P2's and P3's channels in and out, as the
+constexpr int kNT = 2;     // probes take them: kNT n-tiles of 8 = kC
 
 __device__ __forceinline__ float nan_of(float) {
   return __int_as_float(0x7fc00000);
@@ -104,31 +105,28 @@ __device__ __forceinline__ int find_id(const int* ids, int n, int v) {
   return i < n && ids[i] == v ? i : -1;
 }
 
-// P2 without weights. Shared memory: [ids: n_ids][rows: kTile] int.
+// P2 without weights. Shared memory: [ids: s][rows: kTile] int.
 __global__ void __launch_bounds__(kThreads)
 onehot_gather_kernel(const __nv_bfloat16* __restrict__ x,
                      const int* __restrict__ ids, const int* __restrict__ want,
-                     __nv_bfloat16* __restrict__ out, int c, int s, int n_ids,
-                     int taps, int w_len, int blocks) {
+                     __nv_bfloat16* __restrict__ out, int c, int s, int taps,
+                     int w_len) {
   extern __shared__ __align__(16) unsigned char smem[];
   int* ids_sm = reinterpret_cast<int*>(smem);
-  int* rows = ids_sm + n_ids;
+  int* rows = ids_sm + s;
   const int tid = threadIdx.x;
-  for (int i = tid; i < n_ids; i += kThreads) ids_sm[i] = ids[i];
+  for (int i = tid; i < s; i += kThreads) ids_sm[i] = ids[i];
   __syncthreads();
   const int tiles = w_len / kTile;
-  const int n_tiles = blocks * taps * tiles;
-  const size_t ld = (size_t)blocks * w_len;
-  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const int ot = tile % tiles, k = (tile / tiles) % taps;
-    const int b = tile / (tiles * taps), w0 = ot * kTile;
+  for (int tile = blockIdx.x; tile < taps * tiles; tile += gridDim.x) {
+    const int k = tile / tiles, w0 = (tile - k * tiles) * kTile;
     if (tid < kTile)
-      rows[tid] = find_id(ids_sm, n_ids, want[(size_t)k * w_len + w0 + tid]);
+      rows[tid] = find_id(ids_sm, s, want[(size_t)k * w_len + w0 + tid]);
     __syncthreads();
     for (int e = tid; e < c * kTile; e += kThreads) {
       const int r = e % kTile, ch = e / kTile;
       const int src = rows[r];
-      out[((size_t)k * c + ch) * ld + (size_t)b * w_len + w0 + r] =
+      out[((size_t)k * c + ch) * w_len + w0 + r] =
           src >= 0 ? x[(size_t)ch * s + src] : __float2bfloat16(0.f);
     }
     __syncthreads();
@@ -137,16 +135,15 @@ onehot_gather_kernel(const __nv_bfloat16* __restrict__ x,
 
 // The tile's bf16 outputs, channel-major: out points at the tile's first
 // target of channel 0, a channel every ld elements.
-template <int NT>
 __device__ __forceinline__ void store_tile_bf16_t(
-    const float (&acc)[NT][4], __nv_bfloat16* __restrict__ out, size_t ld,
+    const float (&acc)[kNT][4], __nv_bfloat16* __restrict__ out, size_t ld,
     int tid) {
   const int warp = tid >> 5, lane = tid & 31;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int r = warp * 16 + (lane >> 2) + half * 8;
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
+    for (int nt = 0; nt < kNT; ++nt) {
       const int col = nt * 8 + (lane & 3) * 2;
       out[(size_t)col * ld + r] = __float2bfloat16(acc[nt][half * 2]);
       out[(size_t)(col + 1) * ld + r] =
@@ -156,10 +153,11 @@ __device__ __forceinline__ void store_tile_bf16_t(
 }
 
 // P2 with weights (kBanded false: positions by search among the ids) and
-// P3 (kBanded true: positions from starts + rel). Shared memory: [weights:
-// all groups, or `stages` of one group][`stages` gather tiles][rows: taps x
-// kTile int][P2: ids, n_ids int]. A tap group is three consecutive taps.
-template <int NT, bool kBanded>
+// P3 (kBanded true: positions from starts + rel), kC channels in and out.
+// Shared memory, as fp::conv_plan lays it out: [weights: all groups,
+// resident][two gather tiles][rows: taps x kTile int][P2: ids, n_ids int].
+// A tap group is three consecutive taps.
+template <bool kBanded>
 __global__ void __launch_bounds__(kThreads, 2)
 gather_product_kernel(const __nv_bfloat16* __restrict__ xt,
                       const int* __restrict__ ids,
@@ -167,27 +165,22 @@ gather_product_kernel(const __nv_bfloat16* __restrict__ xt,
                       const int* __restrict__ starts,
                       const int* __restrict__ rel,
                       const unsigned char* __restrict__ w,
-                      __nv_bfloat16* __restrict__ out, int c, int s,
-                      int n_ids, int taps, int w_len, int blocks, int band,
-                      int resident, int stages) {
+                      __nv_bfloat16* __restrict__ out, int s, int n_ids,
+                      int taps, int w_len, int blocks, int band) {
   extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int cout = NT * 8;
   const int tid = threadIdx.x;
   const int g_n = taps / 3;
-  const int wg_bytes = 3 * c * cout * 2;
-  const int a_bytes = kTile * fp::tile_stride(c);
-  const int w_bytes = (resident ? g_n : stages) * wg_bytes;
+  const int w_bytes = g_n * 3 * kC * kC * 2;
   const uint32_t a_sa = fp::smem_addr(smem) + w_bytes;
-  int* rows = reinterpret_cast<int*>(smem + w_bytes + stages * a_bytes);
+  int* rows = reinterpret_cast<int*>(
+      smem + w_bytes + 2 * kTile * fp::tile_stride(kC));
   int* ids_sm = rows + taps * kTile;
 
-  if (resident) {
-    fp::copy_async(fp::smem_addr(smem), w, g_n * wg_bytes, tid, kThreads);
-    fp::cp_async_commit();
-  }
+  fp::copy_async(fp::smem_addr(smem), w, w_bytes, tid, kThreads);
+  fp::cp_async_commit();
   if (!kBanded)
     for (int i = tid; i < n_ids; i += kThreads) ids_sm[i] = ids[i];
-  if (resident) fp::cp_async_wait<0>();
+  fp::cp_async_wait<0>();
   __syncthreads();
 
   const int tiles = w_len / kTile;
@@ -209,89 +202,42 @@ gather_product_kernel(const __nv_bfloat16* __restrict__ xt,
     }
     __syncthreads();
 
-    float acc[NT][4];
+    float acc[kNT][4];
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
+    for (int nt = 0; nt < kNT; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
-    fp::conv_tile<NT>(acc, (1u << g_n) - 1u, w, smem, a_sa, xt, rows, c,
-                      resident, stages, tid);
-    store_tile_bf16_t<NT>(acc, out + (size_t)b * w_len + w0, ld, tid);
+    fp::conv_tile<kNT>(acc, (1u << g_n) - 1u, w, smem, a_sa, xt, rows, kC,
+                       1, 2, tid);
+    store_tile_bf16_t(acc, out + (size_t)b * w_len + w0, ld, tid);
   }
-}
-
-// Opt the kernel into `smem` bytes of dynamic shared memory and size a
-// persistent grid: as many blocks as fit on the SMs, at most n_tiles.
-template <typename Kernel>
-cudaError_t persistent_grid(Kernel kernel, int smem, int n_tiles,
-                            int* grid) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                    dev)) != cudaSuccess) return err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, kernel, kThreads, smem)) != cudaSuccess) return err;
-  if (per_sm < 1) return cudaErrorLaunchOutOfResources;
-  *grid = n_tiles < per_sm * sms ? n_tiles : per_sm * sms;
-  return cudaSuccess;
-}
-
-template <int NT, bool kBanded>
-int launch_product(const void* xt, const int* ids, const int* want,
-                   const int* starts, const int* rel, const void* w,
-                   void* out, int c, int s, int n_ids, int taps, int w_len,
-                   int blocks, int band, cudaStream_t stream) {
-  const int g_n = taps / 3;
-  const int wg_bytes = 3 * c * NT * 8 * 2;
-  const int a_bytes = kTile * fp::tile_stride(c);
-  const int extra = taps * kTile * 4 + (kBanded ? 0 : n_ids * 4);
-  const int resident = g_n * wg_bytes <= kResidentMax;
-  int stages = 2;
-  auto smem_bytes = [&]() {
-    return (resident ? g_n : stages) * wg_bytes + stages * a_bytes + extra;
-  };
-  if (smem_bytes() > kSmemMax) stages = 1;
-  const int smem = smem_bytes();
-  if (smem > kSmemMax) return (int)cudaErrorInvalidValue;
-  int grid = 0;
-  cudaError_t err = persistent_grid(gather_product_kernel<NT, kBanded>, smem,
-                                    blocks * (w_len / kTile), &grid);
-  if (err != cudaSuccess) return (int)err;
-  if (grid == 0) return 0;
-  gather_product_kernel<NT, kBanded><<<grid, kThreads, smem, stream>>>(
-      (const __nv_bfloat16*)xt, ids, want, starts, rel,
-      (const unsigned char*)w, (__nv_bfloat16*)out, c, s, n_ids, taps, w_len,
-      blocks, band, resident, stages);
-  return (int)cudaGetLastError();
 }
 
 template <bool kBanded>
-int launch_product_cout(int cout, const void* xt, const int* ids,
-                        const int* want, const int* starts, const int* rel,
-                        const void* w, void* out, int c, int s, int n_ids,
-                        int taps, int w_len, int blocks, int band,
-                        cudaStream_t stream) {
-  // conv_tile takes the tap groups as a 32-bit mask; the tile's row is
-  // 3*C bf16 in 16-element mma slabs. Cout up to 64: at 128 the banded
-  // kernel's 64 accumulators spill under two blocks per SM
-  if (taps % 3 || taps / 3 > 31 || c % 16 || w_len % kTile)
+int launch_product(const void* xt, const int* ids, const int* want,
+                   const int* starts, const int* rel, const void* w,
+                   void* out, int c, int s, int n_ids, int taps, int w_len,
+                   int cout, int blocks, int band, cudaStream_t stream) {
+  // conv_tile takes the tap groups as a 32-bit mask; the weights of every
+  // group stay resident and the ring has two stages
+  if (c != kC || cout != kC || taps % 3 || taps / 3 > 31 || w_len % kTile)
     return (int)cudaErrorInvalidValue;
-#define FP_PRODUCT_CASE(NT)                                                 \
-  case NT * 8:                                                              \
-    return launch_product<NT, kBanded>(xt, ids, want, starts, rel, w, out,  \
-                                       c, s, n_ids, taps, w_len, blocks,    \
-                                       band, stream)
-  switch (cout) {
-    FP_PRODUCT_CASE(1);
-    FP_PRODUCT_CASE(2);
-    FP_PRODUCT_CASE(4);
-    FP_PRODUCT_CASE(8);
-  }
-#undef FP_PRODUCT_CASE
-  return (int)cudaErrorInvalidValue;
+  const fp::ConvPlan plan = fp::conv_plan(
+      taps / 3, kC, kC, taps * kTile * 4 + (kBanded ? 0 : n_ids * 4));
+  if (!plan.resident || plan.stages != 2 || plan.smem > fp::kSmemMax)
+    return (int)cudaErrorInvalidValue;
+  int slots = 0;
+  cudaError_t err = fp::persistent_slots(gather_product_kernel<kBanded>,
+                                         plan.smem, &slots);
+  if (err != cudaSuccess) return (int)err;
+  const int n_tiles = blocks * (w_len / kTile);
+  const int grid = n_tiles < slots ? n_tiles : slots;
+  if (grid == 0) return 0;
+  gather_product_kernel<kBanded><<<grid, kThreads, plan.smem, stream>>>(
+      (const __nv_bfloat16*)xt, ids, want, starts, rel,
+      (const unsigned char*)w, (__nv_bfloat16*)out, s, n_ids, taps, w_len,
+      blocks, band);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -326,43 +272,45 @@ int fp_take_along(const void* x, const int* idx, void* out, int elem_bytes,
 }
 
 // P2: x (c, s) bf16 (read by the gather alone), xt its (s, c) transpose
-// (read by the weight stage), ids (s,) sorted unique int32 of which the
-// first n_ids are compared, want (taps, w_len) int32. weighted == 0: out
-// (taps*c, blocks*w_len) bf16; else w = the (taps*c, cout) bf16 weights
-// packed in mma fragment order and out (cout, blocks*w_len) bf16.
-// w_len % 128 == 0.
+// (read by the weight stage), ids (s,) sorted unique int32, want (taps,
+// w_len) int32; w_len % 128 == 0. weighted == 0: all s ids compared, out
+// (taps*c, w_len) bf16 (n_ids == s, blocks == 1). Else the first n_ids ids
+// compared, w = the (taps*c, cout) bf16 weights packed in mma fragment
+// order, c == cout == 16, and out (cout, blocks*w_len) bf16.
 int fp_onehot_gather(const void* x, const void* xt, const int* ids,
                      const int* want, const void* w, void* out, int c, int s,
                      int n_ids, int taps, int w_len, int cout, int blocks,
                      int weighted, void* stream) {
   if (w_len % kTile) return (int)cudaErrorInvalidValue;
   if (weighted)
-    return launch_product_cout<false>(cout, xt, ids, want, nullptr, nullptr,
-                                      w, out, c, s, n_ids, taps, w_len,
-                                      blocks, 0, (cudaStream_t)stream);
-  const int smem = (n_ids + kTile) * 4;
-  int grid = 0;
-  cudaError_t err = persistent_grid(onehot_gather_kernel, smem,
-                                    blocks * taps * (w_len / kTile), &grid);
+    return launch_product<false>(xt, ids, want, nullptr, nullptr, w, out, c,
+                                 s, n_ids, taps, w_len, cout, blocks, 0,
+                                 (cudaStream_t)stream);
+  if (n_ids != s || blocks != 1) return (int)cudaErrorInvalidValue;
+  const int smem = (s + kTile) * 4;
+  int slots = 0;
+  cudaError_t err = fp::persistent_slots(onehot_gather_kernel, smem, &slots);
   if (err != cudaSuccess) return (int)err;
+  const int n_tiles = taps * (w_len / kTile);
+  const int grid = n_tiles < slots ? n_tiles : slots;
   if (grid == 0) return 0;
   onehot_gather_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)x, ids, want, (__nv_bfloat16*)out, c, s, n_ids,
-      taps, w_len, blocks);
+      (const __nv_bfloat16*)x, ids, want, (__nv_bfloat16*)out, c, s, taps,
+      w_len);
   return (int)cudaGetLastError();
 }
 
 // P3: starts (blocks, taps, w_len/128) int32, xt (s, c) bf16 (the
 // transpose of the probe's (c, s) features), rel (taps, w_len) int32, w
-// the (taps*c, cout) bf16 weights packed in mma fragment order; out (cout,
-// blocks*w_len) bf16.
+// the (taps*c, cout) bf16 weights packed in mma fragment order, c == cout
+// == 16; out (cout, blocks*w_len) bf16.
 int fp_banded_gather_conv(const int* starts, const void* xt, const int* rel,
                           const void* w, void* out, int c, int s, int taps,
                           int w_len, int cout, int blocks, int band,
                           void* stream) {
-  return launch_product_cout<true>(cout, xt, nullptr, nullptr, starts, rel,
-                                   w, out, c, s, 0, taps, w_len, blocks,
-                                   band, (cudaStream_t)stream);
+  return launch_product<true>(xt, nullptr, nullptr, starts, rel, w, out, c,
+                              s, 0, taps, w_len, cout, blocks, band,
+                              (cudaStream_t)stream);
 }
 
 }  // extern "C"

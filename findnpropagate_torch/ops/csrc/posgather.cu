@@ -61,8 +61,6 @@ namespace {
 constexpr int kPosThreads = 256;
 constexpr int kTile = fp::kConvTile;        // targets per conv tile
 constexpr int kThreads = fp::kConvThreads;  // 8 warps x 16 rows
-constexpr int kResidentMax = 112 * 1024;   // all groups' weights resident
-constexpr int kSmemMax = 227 * 1024;
 
 using fp::lower_bound;
 
@@ -173,35 +171,20 @@ int launch_conv(const int* src, const void* feats, const int* tgt,
                 const float* shift, float* out, int batch, int vs, int vt,
                 int nb, int g_n, int block, int window, int cin, int epilogue,
                 int relu, int sentinel, cudaStream_t stream) {
-  const int wg_bytes = 3 * cin * NT * 8 * 2;
-  const int a_bytes = kTile * (3 * cin * 2 + 16);
-  const int rows_bytes = g_n * 3 * kTile * 4;
-  const int resident = g_n * wg_bytes <= kResidentMax;
-  int stages = 2;
-  auto smem_bytes = [&]() {
-    return (resident ? g_n : stages) * wg_bytes + stages * a_bytes
-        + rows_bytes;
-  };
-  if (smem_bytes() > kSmemMax) stages = 1;
-  const int smem = smem_bytes();
-  if (smem > kSmemMax) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      conv_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  // the rows: g_n x 3 x kTile int
+  const fp::ConvPlan plan = fp::conv_plan(g_n, cin, NT * 8,
+                                          g_n * 3 * kTile * 4);
+  if (plan.smem > fp::kSmemMax) return (int)cudaErrorInvalidValue;
+  int slots = 0;
+  cudaError_t err = fp::persistent_slots(conv_kernel<NT>, plan.smem, &slots);
   if (err != cudaSuccess) return (int)err;
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                    dev)) != cudaSuccess) return (int)err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, conv_kernel<NT>, kThreads, smem)) != cudaSuccess)
-    return (int)err;
-  if (per_sm < 1) return (int)cudaErrorLaunchOutOfResources;
   const int n_tiles = batch * (vt / kTile);
-  const int grid = n_tiles < per_sm * sms ? n_tiles : per_sm * sms;
-  conv_kernel<NT><<<grid, kThreads, smem, stream>>>(
+  const int grid = n_tiles < slots ? n_tiles : slots;
+  conv_kernel<NT><<<grid, kThreads, plan.smem, stream>>>(
       src, (const __nv_bfloat16*)feats, tgt, pos, lo, has_real, gdeltas,
       (const unsigned char*)w, scale, shift, out, batch, vs, vt, nb, g_n,
-      block, window, cin, epilogue, relu, sentinel, resident, stages);
+      block, window, cin, epilogue, relu, sentinel, plan.resident,
+      plan.stages);
   return (int)cudaGetLastError();
 }
 

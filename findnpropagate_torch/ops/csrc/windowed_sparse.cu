@@ -80,8 +80,6 @@ namespace {
 constexpr int kTile = fp::kConvTile;        // targets per conv tile
 constexpr int kThreads = fp::kConvThreads;  // both kernels: 8 warps
 constexpr int kDwTile = 64;      // targets per weight-gradient tile
-constexpr int kResidentMax = 112 * 1024;   // all groups' weights resident
-constexpr int kSmemMax = 227 * 1024;
 
 // Shared memory of the conv: [weights: all groups, or `stages` of one
 // group][`stages` gather tiles][rows: g_n x 3 x kTile int][live-group
@@ -185,28 +183,21 @@ int launch_conv(const int* src, const void* feats, const int* tgt,
                 int window, int cin, int epilogue, int relu, int sentinel,
                 int resident, int stages, int stage_window,
                 cudaStream_t stream) {
-  const int wg_bytes = 3 * cin * NT * 8 * 2;
-  const int smem = (resident ? g_n : stages) * wg_bytes
-      + stages * kTile * fp::tile_stride(cin) + g_n * 3 * kTile * 4 + 16
-      + (stage_window ? window * 4 : 0);
-  if (smem > kSmemMax || (resident && g_n * wg_bytes > kResidentMax))
+  // the caller's plan, with the rows (g_n x 3 x kTile int), the live-group
+  // mask (16 bytes) and the staged window slice
+  const int smem = fp::conv_smem(
+      g_n, cin, NT * 8, resident, stages,
+      g_n * 3 * kTile * 4 + 16 + (stage_window ? window * 4 : 0));
+  if (smem > fp::kSmemMax
+      || (resident && g_n * 3 * cin * NT * 8 * 2 > fp::kResidentMax))
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      windowed_conv_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+  int slots = 0;
+  cudaError_t err = fp::persistent_slots(windowed_conv_kernel<NT>, smem,
+                                         &slots);
   if (err != cudaSuccess) return (int)err;
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                    dev)) != cudaSuccess) return (int)err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, windowed_conv_kernel<NT>, kThreads, smem))
-      != cudaSuccess) return (int)err;
-  if (per_sm < 1) return (int)cudaErrorLaunchOutOfResources;
   // persistent blocks, each a contiguous run of tiles (so a run shares
   // its target blocks' window slices)
   const int n_tiles = batch * (vt / kTile);
-  const int slots = per_sm * sms;
   const int per_block = (n_tiles + slots - 1) / slots;
   const int grid = (n_tiles + per_block - 1) / per_block;
   windowed_conv_kernel<NT><<<grid, kThreads, smem, stream>>>(

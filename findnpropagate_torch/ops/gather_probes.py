@@ -18,7 +18,8 @@ Three kernels carry them (ops/csrc/gather_probes.cu):
     ``x[:, s] * [ids[s] == want[k, w]]`` in f32, rounded to x's type
     (bf16); 0 on a miss. With `wt` the (Cout, T*C) weights multiply the
     rounded (T*C, W) tile in one more stage (f32 sums, bf16 result), once
-    for each of `blocks` identical output blocks, as the probe's grid does.
+    for each of `blocks` identical output blocks, as the probe's grid does;
+    the kernel takes `tap_win` and `blocks` only with the weight stage.
     The kernel searches each target's id among the ids staged in shared
     memory instead of building one-hot tiles, so it needs the ids sorted
     and unique; the wrapper checks that on the host and raises otherwise
@@ -33,7 +34,8 @@ P2's weight stage and P3 run on the tensor cores through K2's tile body
 (`conv_tile`, csrc/gather_mma.cuh): they take the features row-major, so
 the wrapper hands them a transposed bf16 copy of the (C, S) input, and the
 weights transposed and packed in mma fragment order
-(`posgather.pack_weights_mma`). Each kernel has a plain PyTorch version
+(`posgather.pack_weights_mma`). Both take C = Cout = 16 only, the width
+the probes run. Each kernel has a plain PyTorch version
 beside it; a wrapper takes the plain version only for a tensor on the CPU,
 for a CUDA tensor it launches the kernel or raises. `LAUNCHES` counts
 kernel launches per wrapper.
@@ -52,6 +54,7 @@ from .posgather import _check_device, _check_shape, _ptr, _stream, \
 TILE = 128               # targets per tile of the P2 / P3 kernels
 LAUNCHES = {"take_along": 0, "onehot_gather": 0, "banded_gather_conv": 0}
 MAX_TAP_WIN = 16384      # ids P2 stages in shared memory
+WIDTH = 16               # P2's weight stage and P3: C = Cout = 16
 
 
 def reset_launches():
@@ -79,10 +82,10 @@ def _check_int32(name, t):
         raise ValueError(f"{name} must be int32, got {t.dtype}")
 
 
-def _check_cout(cout):
-    if cout not in (8, 16, 32, 64):
-        raise ValueError(f"Cout={cout}: the kernel takes 8, 16, 32 or 64 "
-                         "output channels")
+def _check_widths(c, cout):
+    if (c, cout) != (WIDTH, WIDTH):
+        raise ValueError(f"{c} -> {cout} channels: the kernel takes the "
+                         f"probes' {WIDTH} -> {WIDTH}")
 
 
 def _weights_mma(wt):
@@ -192,7 +195,8 @@ def onehot_gather(x, ids, want, tap_win=None, wt=None, blocks=1):
     """P2 wrapper. x (C, S) bf16, ids (S,) int32, want (T, W) int32;
     tap_win (default S): only ids[:tap_win] are compared. Returns (T*C,
     blocks*W) bf16, or with wt (Cout, T*C) bf16 the weight product
-    (Cout, blocks*W) bf16; the `blocks` output blocks are alike."""
+    (Cout, blocks*W) bf16; the `blocks` output blocks are alike. On the card
+    tap_win and blocks > 1 need wt, and wt C = Cout = 16."""
     if not _check_device(x, ids, want, *(() if wt is None else (wt,))):
         return onehot_gather_plain(x, ids, want, tap_win, wt, blocks)
     c, s = x.shape
@@ -200,7 +204,8 @@ def onehot_gather(x, ids, want, tap_win=None, wt=None, blocks=1):
     n = s if tap_win is None else int(tap_win)
     if x.dtype != torch.bfloat16 or ids.shape != (s,) or not 0 < n <= s \
             or n > MAX_TAP_WIN or w % TILE or blocks < 1 \
-            or (wt is not None and (c % 16 or t % 3)):
+            or (wt is None and (n != s or blocks != 1)) \
+            or (wt is not None and t % 3):
         raise ValueError(f"unsupported onehot_gather: x {tuple(x.shape)} "
                          f"{x.dtype}, ids {tuple(ids.shape)}, want "
                          f"{tuple(want.shape)}, tap_win {n}")
@@ -214,7 +219,7 @@ def onehot_gather(x, ids, want, tap_win=None, wt=None, blocks=1):
         out = torch.empty(t * c, blocks * w, dtype=x.dtype, device=x.device)
     else:
         cout = wt.shape[0]
-        _check_cout(cout)
+        _check_widths(c, cout)
         _check_shape("wt", wt, (cout, t * c))
         xt = x.t().contiguous()
         w_mma = _weights_mma(wt)
@@ -253,7 +258,8 @@ def banded_gather_conv_plain(starts, feats, rel, wt, band: int):
 
 def banded_gather_conv(starts, feats, rel, wt, band: int):
     """P3 wrapper. starts (nb, T, W/128) int32, feats (C, S) bf16, rel (T,
-    W) int32, wt (Cout, T*C) bf16 -> (Cout, nb*W) bf16: for block i
+    W) int32, wt (Cout, T*C) bf16 (C = Cout = 16 on the card) -> (Cout,
+    nb*W) bf16: for block i
     ``out[:, i*W + t] = sum_k wt[:, kC:(k+1)C] . feats[:, starts[i, k,
     t // 128] + rel[k, t]]``, nothing gathered where rel lies outside the
     band [0, band*128) or the column outside the input."""
@@ -262,8 +268,8 @@ def banded_gather_conv(starts, feats, rel, wt, band: int):
     c, s = feats.shape
     nb, t, tiles = starts.shape
     cout = wt.shape[0]
-    _check_cout(cout)
-    if feats.dtype != torch.bfloat16 or c % 16 or t % 3 or band < 1:
+    _check_widths(c, cout)
+    if feats.dtype != torch.bfloat16 or t % 3 or band < 1:
         raise ValueError(f"unsupported banded_gather_conv: feats "
                          f"{tuple(feats.shape)} {feats.dtype}, {t} taps, "
                          f"band {band}")

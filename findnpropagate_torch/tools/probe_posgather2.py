@@ -3,22 +3,27 @@ small scenes, and the positions prelude and its convs timed at an L0 level
 of a real-size scene — the port of tools/probe_posgather2.py.
 
     python -m findnpropagate_torch.tools.probe_posgather2 [--mode cpu|gpu]
-        [--window 2048] [--reps 5]
+        [--device cuda|cpu] [--window 2048] [--reps 5]
 
-  * --mode cpu (the default; on the CPU, the plain versions): on three
-    small scenes (numpy seeds 0-2 at densities 0.15, 0.4 and 0.02 of a
-    9x40x40 grid, 2048 rows) a 5 -> 7 submanifold conv through
-    compute_positions + posgather_conv against the windowed conv
-    (block 512, window 1024): overflow 0 and the relative error below 2e-2
-    (the probe's own bound);
-  * --mode gpu: the L0 level of a batch-1 lidar_ring scene (bench.py's
-    data config for transfusion_lidar.yaml, the port's voxelize_mean, ids
-    sorted and padded to the block of 1024): the positions prelude alone,
-    with one 16 -> 16 conv, and with five chained convs (CUDA events around
-    eager calls), and the relative error of the conv against K3
-    (windowed_conv) over the same window, which must stay below 1e-3 (both
-    bf16 operands, f32 sums).
-Exits non-zero on a failure, and in gpu mode without CUDA.
+The mode picks the work, named as the modes of tools/probe_posgather2.py;
+--device picks where it runs, the card unless `--device cpu` is given (on
+the CPU the kernels' plain versions run):
+  * --mode cpu (the default), the parity run: on three small scenes
+    (numpy seeds 0-2 at densities 0.15, 0.4 and 0.02 of a 9x40x40 grid,
+    2048 rows) a 5 -> 7 submanifold conv through compute_positions +
+    posgather_conv against the windowed conv's plain version on the CPU
+    (block 512, window 1024):
+    overflow 0 and the relative error below 2e-2 (the probe's own bound);
+  * --mode gpu, the timing run: the L0 level of a batch-1 lidar_ring scene
+    (bench.py's data config for transfusion_lidar.yaml, the port's
+    voxelize_mean, ids sorted and padded to the block of 1024): the
+    positions prelude alone, with one 16 -> 16 conv, and with five chained
+    convs (CUDA events around eager calls), and the relative error of the
+    conv against K3 (windowed_conv) over the same window, which must stay
+    below 1e-3 (both bf16 operands, f32 sums); on the CPU nothing is
+    timed.
+Exits non-zero on a failure, and without CUDA unless `--device cpu` is
+given.
 """
 
 from __future__ import annotations
@@ -63,7 +68,9 @@ def rel_err(out, ref, valid):
     return float((out - ref).abs().max()) / (float(ref.abs().max()) + 1e-9)
 
 
-def cpu_parity():
+def parity(dev):
+    """K1 + K2 on `dev` against the windowed conv's plain version (on
+    the CPU, f32)."""
     rng = np.random.RandomState(1)
     ok = True
     for seed, density in [(0, 0.15), (1, 0.4), (2, 0.02)]:
@@ -74,9 +81,11 @@ def cpu_parity():
         ref, ovf_ref = ws.windowed_conv(ids, feats, ids, w, deltas,
                                         block=512, window=1024,
                                         sentinel_start=sent)
-        lp = tp.compute_positions(ids, ids, deltas, block=512, window=1024,
-                                  sentinel_start=sent)
-        out = tp.posgather_conv(ids, feats, ids, w, lp, sentinel_start=sent)
+        ids_d = ids.to(dev)
+        lp = tp.compute_positions(ids_d, ids_d, deltas, block=512,
+                                  window=1024, sentinel_start=sent)
+        out = tp.posgather_conv(ids_d, feats.to(dev), ids_d, w.to(dev), lp,
+                                sentinel_start=sent).cpu()
         err = rel_err(out, ref, valid)
         good = int(lp.overflow.sum()) == 0 and int(ovf_ref.sum()) == 0 \
             and err < 2e-2
@@ -84,7 +93,7 @@ def cpu_parity():
         print(f"seed {seed} density {density}: ovf={int(lp.overflow.sum())} "
               f"(ref {int(ovf_ref.sum())}) rel_err={err:.2e} "
               f"{'OK' if good else 'WRONG'}", flush=True)
-    print("CPU parity OK" if ok else "CPU parity FAILED", flush=True)
+    print(f"parity on {dev.type}: {'OK' if ok else 'FAILED'}", flush=True)
     return 0 if ok else 1
 
 
@@ -166,11 +175,11 @@ def main(argv=None):
     ap.add_argument("--window", type=int, default=2048)
     ap.set_defaults(reps=5)
     args = ap.parse_args(argv)
-    if args.mode == "cpu":
-        return cpu_parity()
     dev = device_of(args)
     if dev is None:
         return 2
+    if args.mode == "cpu":
+        return parity(dev)
     return gpu_bench(dev, args.window, args.reps)
 
 

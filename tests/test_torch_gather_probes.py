@@ -548,6 +548,14 @@ def test_cuda_wrappers_pass_sizes_and_strides(fake_lib):
         GP.onehot_gather(x, ids.flip(0), idx)
     with pytest.raises(ValueError):
         GP.onehot_gather(x, ids, idx[:, :100])            # W % 128
+    with pytest.raises(ValueError):
+        GP.onehot_gather(x, ids, idx, blocks=3)           # blocks need wt
+    with pytest.raises(ValueError):
+        GP.onehot_gather(x, ids, idx, tap_win=192)        # so does tap_win
+    with pytest.raises(ValueError):                       # C 32
+        GP.onehot_gather(torch.zeros(32, 256, dtype=torch.bfloat16), ids,
+                         idx, wt=torch.zeros(16, 27 * 32,
+                                             dtype=torch.bfloat16))
 
     starts = torch.zeros(5, 27, 1, dtype=torch.int32)
     out = GP.banded_gather_conv(starts, x, idx, wt, 3)
@@ -571,7 +579,7 @@ ENTRY_POINTS = {
     "probe_gather3": ["--device", "cpu"],
     "probe_posgather": ["--device", "cpu", "--v", "4096", "--nb", "2",
                         "--s", "1024", "--w", "256", "--tap-win", "384"],
-    "probe_posgather2": ["--mode", "cpu"],
+    "probe_posgather2": ["--device", "cpu", "--mode", "cpu"],
     "probe_posgather3": ["--device", "cpu", "--max-v", "2048"],
 }
 
@@ -597,8 +605,7 @@ def test_entry_point_runs_on_cpu(name, capsys):
 @pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
 def test_entry_point_needs_cuda_unless_told(name, monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    argv = ["--mode", "gpu"] if name == "probe_posgather2" else []
-    assert entry(name).main(argv) == 2
+    assert entry(name).main([]) == 2
     assert "--device cpu" in capsys.readouterr().out
 
 
