@@ -16,15 +16,23 @@ Phases (any failure exits non-zero and prints no result line):
      blocks of sentinels at the end, a dead block in the middle, Cout 10
      and 3, Cin 4, batch 1 and 4; for K3 also a transposed 128->64 strided
      conv with its window staged and not, and epilogue rows of real
-     targets without neighbours) against their plain versions; then a
-     batch-1 forward of the main path records the arguments of every
-     launch of K1 (positions) and K2 (posgather conv); each recorded call
-     is re-run through the kernel and through its plain PyTorch version on
-     the card: K1 must be bit-equal, K2 within its tolerance. Times are
-     CUDA events after a warm-up, around a loop of eager wrapper calls
-     (`ms`) and, for K1, K2 and K3, around replays of a CUDA graph of the
-     same calls (`device_ms`: at batch 1 the eager loop is bound by the
-     host's launch work);
+     targets without neighbours) against their plain versions, K1 on each
+     of them and on its own corners (tap windows with tap overflow,
+     windows too large to stage, no sentinel); then a batch-1 forward of
+     the main path records the arguments of every call of K1
+     (compute_positions, one launch per level) and K2 (posgather conv);
+     each recorded call is re-run through the kernel and through its plain
+     PyTorch version on the card: K1 bit-equal in all five fields (lo,
+     base, pos, has_real, overflow; also with the prelude given,
+     `positions`), K2 within its tolerance. Times are CUDA events after a
+     warm-up, around a loop of eager wrapper calls (`ms`) and, for K1, K2
+     and K3, around replays of a CUDA graph of the same calls
+     (`device_ms`: at batch 1 the eager loop is bound by the host's launch
+     work; a K1 call that synced could not be captured); K1 also with
+     its window searched in device memory instead of staged in shared
+     memory (bit-equal, device ms); the first K1 call also counts, under
+     torch.profiler, the stream syncs and host-to-device copies of 5
+     calls, which must be 0, and splits its host time under cProfile;
   3. main path — TransFusion-LiDAR from
      tools/cfgs/nuscenes_models/transfusion_lidar.yaml at full width,
      random weights (init_random_, seed 0), 200k-point lidar_ring scenes,
@@ -50,7 +58,8 @@ Phases (any failure exits non-zero and prints no result line):
      overflow 0, 0 K1, 0 K2, 16 + 15 K3 and 16 K4 launches;
   6. training kernels — every recorded call is re-run through the kernel
      and through its plain PyTorch version on the card (K2, K3, K4 sample
-     by sample): K1 at batch 4 bit-equal, the others within the stated
+     by sample): K1 at batch 4 bit-equal as in phase 2, the others within
+     the stated
      tolerance; times as in phase 2; K3's device time with the window
      slice staged in shared memory and searched in device memory at a
      strided call;
@@ -70,7 +79,8 @@ Phases (any failure exits non-zero and prints no result line):
      P2 without weights bit-equal (NaN included), P2 with weights and P3
      within 1e-3 of the output's scale plus one bf16 step of each element;
      for the first call of each signature ms, device ms, plain ms, bound,
-     and the library call's time (torch.take_along_dim for P1). K1's rows
+     the library call's time (torch.take_along_dim for P1) and, for P1,
+     the wrapper's host time split under cProfile. K1's rows
      of phases 2 and 6 carry the library call that computes its ranks,
      torch.searchsorted of all G*Vt queries in one call (its ranks checked
      against K1's where the id is found);
@@ -78,11 +88,13 @@ Phases (any failure exits non-zero and prints no result line):
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 With --before DIR (a checkout of an earlier commit of this repo, e.g.
-`git archive` of the parent unpacked under build/), that checkout's K2 and
-K3 wrappers are built and timed in the same process on every recorded K3
-call and phase 2's K2 calls (`before_device_ms`), and its K3 in place of
-this one's for the pallas-mode forward and for training steps (before,
-after, after, before).
+`git archive` of the parent unpacked under build/), that checkout's K1
+(compute_positions, and its K1 kernel alone), K2, K3 and P1 wrappers are
+built and timed in the same process on every recorded K1, K3 and P1 call
+and phase 2's K2 calls (`before_*`), its K3 in place of this one's for the
+pallas-mode forward and for training steps, and its compute_positions in
+place of this one's for a batch-1 forward and a training step (each in
+turns: before, after, after, before).
 
 Imports nothing of jax. Without CUDA, or without the port beside it, it
 exits non-zero.
@@ -94,6 +106,7 @@ import argparse
 import contextlib
 import copy
 import dataclasses
+import inspect
 import io
 import json
 import math
@@ -169,10 +182,10 @@ class Recorder:
     """Wraps a kernel wrapper of the port's ops and keeps a copy of the
     arguments of every call, but of none made while `skip()` is true."""
 
-    def __init__(self, module, name, torch, skip=lambda: False):
+    def __init__(self, module, name, torch, skip=lambda: False, calls=None):
         self.module, self.name, self.torch = module, name, torch
         self.orig = getattr(module, name)
-        self.calls = []
+        self.calls = [] if calls is None else calls
         self.skip = skip
 
     def __enter__(self):
@@ -191,14 +204,43 @@ class Recorder:
         setattr(self.module, self.name, self.orig)
 
 
-def positions_bound(args):
-    src, tgt, lo, tap_lo, has_real, gdeltas, block, span, use_tap = args
-    g_n, vt = gdeltas.shape[0], tgt.shape[1]
-    b = tgt.shape[0]
-    nbytes = 4 * (src.numel() + tgt.numel() + lo.numel() + has_real.numel()
-                  + (tap_lo.numel() if use_tap else 0) + gdeltas.numel()
-                  + b * g_n * vt)
-    ops = b * g_n * vt * math.ceil(math.log2(span + 1))
+@contextlib.contextmanager
+def record_positions(torch, tp):
+    """Records every compute_positions call, made through the posgather
+    module or through the backbone's own import of it, in call order."""
+    import importlib
+
+    bb = importlib.import_module(
+        "findnpropagate_torch.models.backbones_3d.spconv_backbone")
+    calls = []
+    with Recorder(tp, "compute_positions", torch, calls=calls), \
+            Recorder(bb, "compute_positions", torch, calls=calls):
+        yield calls
+
+
+def window_union(lo, live, window):
+    """The number of source ids that the windows [lo, lo + window) of the
+    live blocks cover together, summed over the samples: neighbouring
+    blocks' windows overlap, and an id read once serves them all."""
+    n = 0
+    for starts, keep in zip(lo.cpu().numpy(), live.cpu().numpy() != 0):
+        s = np.sort(starts[keep].astype(np.int64))
+        if s.size:
+            n += int(np.minimum(np.diff(s), window).sum()) + window
+    return n
+
+
+def positions_bound(lp, tgt, span):
+    """K1 as one launch per level: the targets read once, the source ids
+    under the live blocks' windows once (`window_union`), pos, the three
+    per-block arrays and the overflow counts written once; a search of
+    log2(span) steps per (target of a live block, group)."""
+    b, vt = tgt.shape
+    g_n, nb = lp.gdeltas.shape[0], lp.lo.shape[1]
+    live = int(lp.has_real.sum())
+    nbytes = 4 * (tgt.numel() + window_union(lp.lo, lp.has_real, lp.window)
+                  + b * g_n * vt + 3 * b * nb) + 8 * b
+    ops = live * lp.block * g_n * math.ceil(math.log2(span + 1))
     return nbytes / HBM_BYTES_PER_S, ops / CUDA_CORE_OPS
 
 
@@ -310,8 +352,9 @@ def corner_phase(torch, tp, ws, so, block=1024):
                 0.5, 1.5, cout).astype("float32")).cuda(),
                 shift=torch.from_numpy(rng.standard_normal(
                     cout).astype("float32")).cuda(), relu=True)
-        lp = tp.compute_positions(ids, ids, deltas, block=block,
-                                  window=window, sentinel_start=sent)
+        lp = check_level(torch, tp, (ids, ids, deltas),
+                         dict(block=block, window=window,
+                              sentinel_start=sent), f"corner {name}")[0]
         if name == "dead block in the middle":
             hr = lp.has_real.clone()
             hr[:, 1] = 0
@@ -375,7 +418,48 @@ def corner_phase(torch, tp, ws, so, block=1024):
             f"dead blocks {dead} max hits {int(hits.max())}: K2 err "
             f"{err2:.3g} (tol {tol2:.3g}), K3 err {k3.err:.3g} (tol "
             f"{k3.tol:.3g}), K4 err {err4:.3g} (tol {tol4:.3g})")
-    return rows + k3_corners(torch, ws, so, rng, block)
+    return rows + k3_corners(torch, ws, so, rng, block) \
+        + k1_corners(torch, tp, so, block)
+
+
+K1_CORNERS = [
+    # name, grid, actives, rows, batch, window, tap window, sentinel
+    ("tap window, tap overflow", (9, 40, 40), 3000, 4096, 2, 4096, 256,
+     True),
+    ("window beyond the staged budget", (9, 64, 64), 24000, 24576, 1,
+     16384, None, True),
+    ("tap window beyond the staged budget", (9, 64, 64), 24000, 24576, 1,
+     16384, 1024, True),
+    ("no sentinel", (9, 40, 40), 1500, 4096, 2, 1024, None, False),
+]
+
+
+def k1_corners(torch, tp, so, block):
+    """K1 against compute_positions_plain (`check_level`) where the
+    recorded launches and the conv corners do not reach: tap windows (with
+    tap-window overflow), windows too large to stage in shared memory, and
+    no sentinel (every block live, its last target the block's last id).
+    The conv corners above also hold K1 where the union window overflows
+    and on blocks of sentinels alone. Scenes from numpy seed 1."""
+    rng = np.random.RandomState(1)
+    rows = []
+    for name, shape, n, cap, b, window, tap, has_sent in K1_CORNERS:
+        ids = corner_scene(torch, so, rng, shape, n, cap, b, 16)[0]
+        deltas = so.yxz_offset_deltas((3, 3, 3), shape)
+        kw = dict(block=block, window=window, tap_window=tap,
+                  sentinel_start=so.yxz_sentinel_start(shape)
+                  if has_sent else None)
+        lp = check_level(torch, tp, (ids, ids, deltas), kw,
+                         f"K1 corner {name}")[0]
+        ovf, dead = int(lp.overflow.sum()), int((lp.has_real == 0).sum())
+        if name.startswith("tap window") and not ovf > 0:
+            raise AssertionError(f"K1 corner {name}: no tap overflow")
+        rows.append({"case": name, "batch": b, "window": lp.window,
+                     "tap_window": tap, "overflow": ovf,
+                     "dead_blocks": dead, "k1_equal": True})
+        log(f"K1 corner {name:36s} batch {b} window {lp.window} tap {tap} "
+            f"overflow {ovf} dead blocks {dead}: equal to plain")
+    return rows
 
 
 def k3_corners(torch, ws, so, rng, block):
@@ -451,60 +535,212 @@ def k3_corners(torch, ws, so, rng, block):
     return rows
 
 
-def k1_library(torch, args, pos):
+def k1_library(torch, src, tgt, lp):
     """The library call that computes K1's ranks: torch.searchsorted of all
     G*Vt queries (target + group centre) in each sample's sorted source ids,
     in one call. Its global rank is K1's rank (counted from the block's
     window start) plus that start wherever the id is found; checked there.
     Returns the call."""
-    src, tgt, lo, block = args[0], args[1], args[2], args[6]
-    b, g_n = tgt.shape[0], args[5].shape[0]
-    q = (tgt[:, None, :] + args[5][None, :, None]).reshape(b, -1)
-    hit = pos >= 0
-    start = lo.long()[:, None, :, None].expand(
-        b, g_n, lo.shape[1], block).reshape(pos.shape)
-    rank = torch.searchsorted(src, q).reshape(pos.shape)
-    if not torch.equal(rank[hit], pos.long()[hit] + start[hit]):
+    b, g_n = tgt.shape[0], lp.gdeltas.shape[0]
+    q = (tgt[:, None, :] + lp.gdeltas[None, :, None]).reshape(b, -1)
+    hit = lp.pos >= 0
+    start = lp.lo.long()[:, None, :, None].expand(
+        b, g_n, lp.lo.shape[1], lp.block).reshape(lp.pos.shape)
+    rank = torch.searchsorted(src, q).reshape(lp.pos.shape)
+    if not torch.equal(rank[hit], lp.pos.long()[hit] + start[hit]):
         raise AssertionError("K1: torch.searchsorted's ranks differ from "
                              "K1's where the id is found")
     return lambda: torch.searchsorted(src, q)
 
 
-def check_positions(torch, tp, pos_calls, label=""):
-    """K1 vs plain, bit for bit, on every recorded call, beside the library
-    call (`k1_library`); per-call rows."""
+def runtime_calls(torch, fn, reps=5):
+    """(stream or device syncs, host-to-device copies, kernel launches) per
+    call of fn that torch.profiler records over `reps` calls after a warm
+    call, less what it records around as many calls of nothing (the
+    profiler's own synchronisation)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def count(f):
+        f()
+        torch.cuda.synchronize()
+        done = torch.cuda.Event()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                f()
+            done.record()
+            done.synchronize()
+        counts = [0, 0, 0]
+        for e in prof.key_averages():
+            counts[0] += e.count * ("StreamSynchronize" in e.key
+                                    or "DeviceSynchronize" in e.key)
+            counts[1] += e.count * ("HtoD" in e.key or "cudaMemcpy" in e.key)
+            counts[2] += e.count * ("LaunchKernel" in e.key)
+        return counts
+
+    base = count(lambda: None)
+    return tuple((c - b) / reps for c, b in zip(count(fn), base))
+
+
+LP_FIELDS = ("lo", "base", "pos", "has_real", "overflow")
+
+
+def check_level(torch, tp, args, kw, label):
+    """K1 (one launch: prelude and search) against compute_positions_plain
+    on the card, all five integer fields bit for bit, and the same kernel
+    with that prelude given (`positions`; where a tap window is set, with
+    tap offsets drawn at random, multiples of 128 in [0, window - span],
+    torch seed 0) against positions_plain. Returns both LevelPositions and
+    the given-prelude call."""
+    lp = tp.compute_positions(*args, **kw)
+    ref = tp.compute_positions_plain(*args, **kw)
+    torch.cuda.synchronize()
+    for f in LP_FIELDS:
+        a, r = getattr(lp, f), getattr(ref, f)
+        if a.shape != r.shape or not torch.equal(a.long(), r.long()):
+            raise AssertionError(f"{label}: K1 {f} != plain")
+    src = tp._pad_src(args[0])[0]
+    tap = kw.get("tap_window")
+    use_tap = tap is not None and tap < ref.window
+    b, nb = ref.lo.shape
+    shape = (b, nb, ref.gdeltas.shape[0])
+    tap_lo = torch.zeros(shape, dtype=torch.int32)
+    if use_tap:
+        tap_lo = 128 * torch.randint(
+            (ref.window - tap) // 128 + 1, shape, dtype=torch.int32,
+            generator=torch.Generator().manual_seed(0))
+    given = (src, args[1].contiguous(), ref.lo, tap_lo.to(src.device),
+             ref.has_real, ref.gdeltas, ref.block,
+             tap if use_tap else ref.window, use_tap)
+    if not torch.equal(tp.positions(*given), tp.positions_plain(*given)):
+        raise AssertionError(f"{label}: K1 with the prelude given != plain")
+    return lp, ref, given
+
+
+def host_us(torch, fn, n=500):
+    """Host microseconds per call of fn over n calls (after a warm call),
+    on the host's clock, the device synchronised before and after."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / n * 1e6
+
+
+def host_split(torch, fn, n=200, least_us=0.5):
+    """Where a call's host time goes: host_us of fn, and the microseconds
+    per call that cProfile charges to each function it runs (own time; the
+    Python function that makes a ctypes call is charged with it, and
+    cProfile's own cost is in every entry), those of at least `least_us`."""
+    import cProfile
+    import pstats
+
+    split = {"call": host_us(torch, fn)}
+    prof = cProfile.Profile()
+    prof.enable()
+    for _ in range(n):
+        fn()
+    prof.disable()
+    torch.cuda.synchronize()
+    for (path, line, name), st in pstats.Stats(prof).stats.items():
+        us = st[2] / n * 1e6
+        if us >= least_us and name != "<lambda>":
+            where = "" if path == "~" else f"{Path(path).name}:"
+            split[where + name] = split.get(where + name, 0.0) + us
+    return split
+
+
+def check_positions(torch, tp, pos_calls, label="", before=None):
+    """K1 vs plain, bit for bit, on every recorded compute_positions call
+    (`check_level`), beside the library call (`k1_library`); per-call
+    rows. The first call also counts the stream syncs and host-to-device
+    copies per call (`runtime_calls`); `before`: the earlier checkout's
+    compute_positions and K1 timed on the same arguments."""
     rows = []
     for i, (args, kw) in enumerate(pos_calls):
-        out = tp.positions(*args, **kw)
-        ref = tp.positions_plain(*args, **kw)
-        torch.cuda.synchronize()
-        err = int((out.long() - ref.long()).abs().max())
-        if not torch.equal(out, ref):
-            raise AssertionError(f"{label}K1 call {i}: kernel != plain "
-                                 f"(max {err})")
-        library = k1_library(torch, args, ref)
-        t_b, t_o = positions_bound(args)
-        bound_ms, bound_by = bound_entry(t_b, t_o)
-        rows.append({
+        lp, ref, given = check_level(torch, tp, args, kw,
+                                     f"{label}K1 call {i}")
+        tap = kw.get("tap_window")
+        span = tap if tap is not None and tap < lp.window else lp.window
+        library = k1_library(torch, given[0], given[1], ref)
+        bound_ms, bound_by = bound_entry(*positions_bound(ref, args[1],
+                                                          span))
+        call = lambda: tp.compute_positions(*args, **kw)  # noqa: E731
+        row = {
             "name": "positions", "call": i, "batch": args[1].shape[0],
-            "vt": args[1].shape[1], "vs": args[0].shape[1], "span": args[7],
-            "tap": args[8], "max_abs_err": err,
-            "ms": timing.ms(lambda: tp.positions(*args, **kw), 20),
-            "device_ms": timing.device_ms(
-                lambda: tp.positions(*args, **kw), 20),
-            "plain_ms": timing.ms(lambda: tp.positions_plain(
+            "vt": args[1].shape[1], "vs": given[0].shape[1], "span": span,
+            "tap": span != lp.window, "window": lp.window,
+            "overflow": int(ref.overflow.sum()),
+            "dead_blocks": int((ref.has_real == 0).sum()), "max_abs_err": 0,
+            "ms": timing.ms(call, 20),
+            "device_ms": timing.device_ms(call, 20),
+            "given_prelude_device_ms": timing.device_ms(
+                lambda: tp.positions(*given), 20),
+            "plain_ms": timing.ms(lambda: tp.compute_positions_plain(
                 *args, **kw), 3),
             "library_ms": timing.ms(library, 20),
             "library_device_ms": timing.device_ms(library, 20),
-            "bound_ms": bound_ms, "bound_by": bound_by})
-        del out, ref
+            "bound_ms": bound_ms, "bound_by": bound_by}
+        with Swap(tp, "STAGE_WINDOW", False):
+            same = all(torch.equal(getattr(tp.compute_positions(*args, **kw),
+                                           f).long(), getattr(ref, f).long())
+                       for f in LP_FIELDS)
+            if not same:
+                raise AssertionError(f"{label}K1 call {i}: unstaged != plain")
+            row["unstaged_device_ms"] = timing.device_ms(call, 20)
+        if i == 0:
+            row["host_us"] = host_split(torch, call)
+            row["syncs"], row["h2d_copies"], row["launches_seen"] = \
+                runtime_calls(torch, call)
+            if row["syncs"] or row["h2d_copies"]:
+                raise AssertionError(
+                    f"{label}K1: compute_positions synced {row['syncs']} "
+                    f"times and copied {row['h2d_copies']} times to the "
+                    "device per call")
+        if before is not None:
+            row["before_ms"] = timing.ms(
+                lambda: before.compute_positions(*args, **kw), 20)
+            row["before_kernel_device_ms"] = timing.device_ms(
+                lambda: before.positions(*given), 20)
+            if i == 0:
+                row["before_syncs"], row["before_h2d_copies"], _ = \
+                    runtime_calls(torch, lambda: before.compute_positions(
+                        *args, **kw))
+                row["before_host_us"] = host_split(
+                    torch, lambda: before.compute_positions(*args, **kw))
+        rows.append(row)
+        del lp, ref, given
     return rows
+
+
+def log_positions_rows(rows, label=""):
+    for r in rows:
+        extra = "".join(f" {k} {r[k]:.4f}" for k in (
+            "unstaged_device_ms", "before_ms", "before_kernel_device_ms")
+            if k in r)
+        syncs = (f" syncs {r['syncs']} h2d {r['h2d_copies']} launches "
+                 f"{r['launches_seen']}" if "syncs" in r else "") + (
+            f" (before: syncs {r['before_syncs']} h2d "
+            f"{r['before_h2d_copies']})" if "before_syncs" in r else "")
+        log(f"{label}positions call {r['call']:2d} batch {r['batch']} "
+            f"vt={r['vt']} span={r['span']} ovf {r['overflow']} dead "
+            f"{r['dead_blocks']}: ms {r['ms']:.4f} (device "
+            f"{r['device_ms']:.4f}, prelude given "
+            f"{r['given_prelude_device_ms']:.4f})  plain "
+            f"{r['plain_ms']:.3f}  library {r['library_ms']:.4f} (device "
+            f"{r['library_device_ms']:.4f})  bound {r['bound_ms']:.4f} "
+            f"({r['bound_by']}){extra}{syncs}" + "".join(
+                f"  {k} " + " ".join(f"{f} {v:.1f}" for f, v in r[k].items())
+                for k in ("host_us", "before_host_us") if k in r))
 
 
 def check_kernels(torch, tp, pos_calls, conv_calls, before=None):
     """Kernel vs plain on every recorded call; returns per-call rows
-    (with `before`, K2 also timed through the earlier checkout's)."""
-    rows = check_positions(torch, tp, pos_calls)
+    (with `before`, K1 and K2 also timed through the earlier checkout's)."""
+    rows = check_positions(torch, tp, pos_calls, before=before)
     for i, (args, kw) in enumerate(conv_calls):
         out = tp.gather_conv(*args, **kw)
         ref = tp.posgather_conv_plain(*args, **kw)
@@ -791,10 +1027,11 @@ def check_train_kernels(torch, tp, ws, k2_calls, k3_calls, k4_calls,
 
 
 def load_before(path):
-    """The K2 and K3 wrappers of an earlier checkout of this repo at `path`
-    (`gather_conv`, `conv_kernel`): its package loaded under another name,
-    its kernels built into its own build/, taking this checkout's recorded
-    arguments."""
+    """The K1, K2, K3 and P1 wrappers of an earlier checkout of this repo at
+    `path` (`compute_positions`, `positions`, `gather_conv`, `conv_kernel`,
+    `take_along`, and its gather-probe module `gp`): its package loaded
+    under another name, its kernels built into its own build/, taking this
+    checkout's recorded arguments."""
     import importlib
     import importlib.util
 
@@ -806,13 +1043,38 @@ def load_before(path):
     spec.loader.exec_module(sys.modules["before_port"])
     bws = importlib.import_module("before_port.ops.windowed_sparse")
     btp = importlib.import_module("before_port.ops.posgather")
+    bgp = importlib.import_module("before_port.ops.gather_probes")
     importlib.import_module("before_port.ops._build").build_all(
-        ["posgather", "windowed_sparse"])
+        ["posgather", "windowed_sparse", "gather_probes"])
 
     def conv_kernel(*args, centres=None, **kw):
+        # the host-side centres, where that checkout's K3 takes them (else
+        # it reads the deltas back from the device, which cannot be
+        # captured in a CUDA graph)
+        if "centres" in inspect.signature(bws.conv_kernel).parameters:
+            kw["centres"] = centres
         return bws.conv_kernel(*args, **kw)
-    return types.SimpleNamespace(conv_kernel=conv_kernel,
-                                 gather_conv=btp.gather_conv)
+    return types.SimpleNamespace(
+        conv_kernel=conv_kernel, gather_conv=btp.gather_conv,
+        compute_positions=btp.compute_positions, positions=btp.positions,
+        take_along=bgp.take_along, gp=bgp)
+
+
+def k1_before_after(torch, before, run):
+    """`run()`'s milliseconds with the earlier checkout's compute_positions
+    in the backbone in place of this one's, in turns: before, after, after,
+    before."""
+    import importlib
+
+    bb = importlib.import_module(
+        "findnpropagate_torch.models.backbones_3d.spconv_backbone")
+    ab = {"before": [], "after": []}
+    for which in ("before", "after", "after", "before"):
+        fn = before.compute_positions if which == "before" \
+            else bb.compute_positions
+        with Swap(bb, "compute_positions", fn):
+            ab[which].append(run())
+    return ab
 
 
 class Swap:
@@ -985,10 +1247,14 @@ def training_phase(torch, mods, cfg, args, report):
                 ab[which].append(step_ms(torch, step1, batch))
         report["train"]["k3_before_after_ms"] = ab
         log(f"train step with the earlier K3 / this K3: {ab}")
+        ab = k1_before_after(torch, args.before,
+                             lambda: step_ms(torch, step1, batch))
+        report["train"]["k1_before_after_ms"] = ab
+        log(f"train step with the earlier / this compute_positions: {ab}")
 
     # one last step, untimed and after the profiled one, whose kernel
     # arguments are kept for phase 6
-    with Recorder(tp, "positions", torch) as k1_rec, \
+    with record_positions(torch, tp) as k1_calls, \
             Recorder(tp, "gather_conv", torch) as k2_rec, \
             Recorder(ws, "conv_kernel", torch) as k3_rec, \
             Recorder(ws, "dw_kernel", torch) as k4_rec:
@@ -998,13 +1264,8 @@ def training_phase(torch, mods, cfg, args, report):
     torch.cuda.empty_cache()
     pallas_train_phase(torch, mods, cfg, report)
     torch.cuda.empty_cache()
-    rows = check_positions(torch, tp, k1_rec.calls, "train ")
-    for r in rows:
-        log(f"positions       call {r['call']:2d} batch {r['batch']} "
-            f"vt={r['vt']} span={r['span']} err {r['max_abs_err']}  ms "
-            f"{r['ms']:.4f} (device {r['device_ms']:.4f})  plain "
-            f"{r['plain_ms']:.3f}  bound {r['bound_ms']:.4f} "
-            f"({r['bound_by']})")
+    rows = check_positions(torch, tp, k1_calls, "train ", args.before)
+    log_positions_rows(rows, "train ")
     conv_rows = check_train_kernels(torch, tp, ws, k2_rec.calls,
                                     k3_rec.calls, k4_rec.calls,
                                     args.before)
@@ -1068,7 +1329,8 @@ PROBE_KERNELS = ("take_along", "onehot_gather", "banded_gather_conv")
 def take_bound(torch, gp, x, idx, axis, taps=False):
     """P1 moves bytes only: the input and the index as given read once,
     the output written once."""
-    out = gp.index3(x, idx, axis, taps).numel() * x.element_size()
+    out = math.prod(gp.index_strides(x, idx, axis, taps)[0]) \
+        * x.element_size()
     return (x.numel() * x.element_size() + 4 * idx.numel() + out) \
         / HBM_BYTES_PER_S, 0.0
 
@@ -1125,7 +1387,7 @@ def signature(torch, args, kw):
             tuple((k, sig(v)) for k, v in sorted(kw.items())))
 
 
-def check_probe_kernels(torch, gp, calls):
+def check_probe_kernels(torch, gp, calls, before=None):
     """Every recorded P1/P2/P3 call of the probes' run through the kernel
     and through its plain version on the card: P1 and P2 without weights
     bit-equal (NaN where the plain version has NaN), P2 with weights and P3
@@ -1133,7 +1395,9 @@ def check_probe_kernels(torch, gp, calls):
     scale plus one bf16 step of each element. One row per signature
     (`signature`: calls that differ only in their data), with the number of
     its calls checked, their largest error, and, timed on its first call,
-    ms, device ms, plain ms, bound and, for P1, the library call's time."""
+    ms, device ms, plain ms, bound and, for P1, the library call's time and
+    the wrapper's host time split (`host_split`; with `before`, also the
+    earlier checkout's P1 timed and split on the same call)."""
     from findnpropagate_torch.tools._common import bf16_close, same
 
     bounds = {"take_along": take_bound, "onehot_gather": onehot_bound,
@@ -1184,6 +1448,16 @@ def check_probe_kernels(torch, gp, calls):
                 "library_device_ms": None if library is None
                 else timing.device_ms(library, 20),
                 "bound_ms": bound_ms, "bound_by": bound_by}
+            if name == "take_along":
+                by_sig[key]["host_us"] = host_split(
+                    torch, lambda: kernel(*args, **kw))
+                if before is not None:
+                    by_sig[key]["before_host_us"] = host_split(
+                        torch, lambda: before.take_along(*args, **kw))
+                    by_sig[key]["before_ms"] = timing.ms(
+                        lambda: before.take_along(*args, **kw), 20)
+                    by_sig[key]["before_device_ms"] = timing.device_ms(
+                        lambda: before.take_along(*args, **kw), 20)
             rows.append(by_sig[key])
             del out, ref
     return rows
@@ -1203,7 +1477,7 @@ class Tee(io.TextIOBase):
         self.out.flush()
 
 
-def probes_phase(torch, gp):
+def probes_phase(torch, gp, before=None):
     """The six ported probes (findnpropagate_torch/tools/) at their own
     shapes, the P1-P3 launch counts set to 0 just before and read just
     after; then every P1-P3 call of that run held against its plain version
@@ -1250,7 +1524,7 @@ def probes_phase(torch, gp):
     if not all(launches.values()):
         raise AssertionError(f"probes: a kernel never launched: {launches}")
     rows = check_probe_kernels(torch, gp, {
-        name: rec.calls for name, rec in recs.items()})
+        name: rec.calls for name, rec in recs.items()}, before)
     log(f"probe kernel calls held against their plain versions: "
         f"{sum(r['calls'] for r in rows)} ({len(rows)} signatures)")
     for r in rows:
@@ -1263,7 +1537,13 @@ def probes_phase(torch, gp):
             + ("none" if r["library_ms"] is None else
                f"{r['library_ms']:.4f} (device "
                f"{r['library_device_ms']:.4f})")
-            + f"  bound {r['bound_ms']:.4f} ({r['bound_by']})")
+            + f"  bound {r['bound_ms']:.4f} ({r['bound_by']})"
+            + ("" if "before_ms" not in r else
+               f"  before {r['before_ms']:.4f} (device "
+               f"{r['before_device_ms']:.4f})")
+            + "".join(f"  {k} " + " ".join(
+                f"{f} {v:.1f}" for f, v in r[k].items())
+                for k in ("host_us", "before_host_us") if k in r))
     return launches, rows, printed
 
 
@@ -1366,7 +1646,7 @@ def main():
                     "one training step to <file>.train.txt")
     ap.add_argument("--before", default=None,
                     help="a checkout of an earlier commit of this repo "
-                    "whose K2 and K3 are timed beside this one's")
+                    "whose K1, K2, K3 and P1 are timed beside this one's")
     args = ap.parse_args()
     global timing
 
@@ -1436,13 +1716,13 @@ def main():
     # ---- 2. kernels vs plain: corner cases, then the main path's own
     # arguments
     report["corner_cases"] = corner_phase(torch, tp, ws, sparse_ops)
-    with Recorder(tp, "positions", torch) as pos_rec, \
+    with record_positions(torch, tp) as pos_calls, \
             Recorder(tp, "gather_conv", torch) as conv_rec:
         det.post_process(det(batches[min(args.batches)]))
         torch.cuda.synchronize()
         # K1's tap sub-window mode (not on the main path: the port ranks
         # over the union window) at L0, with the yaml's L0 tap window
-        src = pos_rec.calls[0][0][0]
+        src = pos_calls[0][0][0]
         s1 = det.backbone_3d.level_shapes[0]
         bb = cfg.MODEL.BACKBONE_3D
         tp.compute_positions(
@@ -1450,18 +1730,18 @@ def main():
             int(bb.WINDOWED_BLOCK), int(bb.WINDOWED_WINDOW[0]),
             tap_window=int(bb.TAP_WINDOW[0]),
             sentinel_start=sparse_ops.yxz_sentinel_start(s1))
-    rows = check_kernels(torch, tp, pos_rec.calls, conv_rec.calls,
-                         args.before)
+    rows = check_kernels(torch, tp, pos_calls, conv_rec.calls, args.before)
     report["kernel_calls"] = rows
+    log_positions_rows([r for r in rows if r["name"] == "positions"])
     for r in rows:
-        shape = (f"vt={r['vt']} span={r['span']}" if r["name"] == "positions"
-                 else f"vt={r['vt']} {r['cin']}->{r['cout']} "
-                 f"epi={int(r['epilogue'])}")
+        if r["name"] == "positions":
+            continue
         dev = (f" (device {r['device_ms']:.4f}" + (
             f", before {r['before_device_ms']:.4f}"
             if "before_device_ms" in r else "") + ")"
             if "device_ms" in r else "")
-        log(f"{r['name']:15s} call {r['call']:2d} {shape:28s} "
+        log(f"{r['name']:15s} call {r['call']:2d} vt={r['vt']} "
+            f"{r['cin']}->{r['cout']} epi={int(r['epilogue'])} "
             f"err {r['max_abs_err']:.3g}  ms {r['ms']:.4f}{dev}  plain "
             f"{r['plain_ms']:.3f}  bound {r['bound_ms']:.4f} "
             f"({r['bound_by']})")
@@ -1476,6 +1756,14 @@ def main():
             f"{res['launches_per_forward']}, active/level "
             f"{res['active_voxels_per_level']}, peak "
             f"{res['peak_mem_gb']:.2f} GiB")
+
+    if args.before is not None:
+        b = min(args.batches)
+        ab = k1_before_after(torch, args.before, lambda: forward_ms(
+            torch, det, batches[b], args.reps)[0])
+        report["main_path_k1_before_after_ms"] = {"batch": b, **ab}
+        log(f"main path batch {b}, ms/batch with the earlier / this "
+            f"compute_positions: {ab}")
 
     if args.profile:
         report["profile"] = profile_forward(
@@ -1505,7 +1793,7 @@ def main():
 
     # ---- 8. the ported probes and their kernels
     report["probe_launches"], report["probe_kernel_calls"], \
-        report["probe_output"] = probes_phase(torch, gp)
+        report["probe_output"] = probes_phase(torch, gp, args.before)
     log(f"probe launches: {report['probe_launches']}")
 
     # ---- 9. result lines

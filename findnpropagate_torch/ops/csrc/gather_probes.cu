@@ -14,9 +14,14 @@
 //    along axis 0 side by side (N, T*C). Negative indices count from the
 //    end; out of range the result is NaN, as jnp.take_along_axis gives.
 //    Bound: bytes (no arithmetic): the output written once, the input and
-//    index read. Design: one thread per output element, consecutive threads
-//    on consecutive output addresses (stores coalesce); the input, a few
-//    hundred KB at most in the probes, is read through L1/L2.
+//    index read. Design: each thread writes 16 consecutive output bytes (8
+//    bf16 or 4 f32 values) with one store, decoding their (tap, row) once
+//    where the 16 bytes lie in one output row; it loads the indices as int4
+//    where they are contiguous, and along axis 0 with one index per row
+//    (the stacked taps) copies the input row's 16 bytes with one load. The
+//    grid is one wave at full occupancy (8 blocks on each SM), striding over
+//    the output; the input, a few hundred KB at most in the probes, is read
+//    through L1/L2.
 //
 // P2 fp_onehot_gather replaces the one-hot compare+matmul gathers of
 //    tools/probe_gather.py (body_onehot :157, pallas_call :175) and
@@ -63,7 +68,6 @@ namespace {
 
 constexpr int kThreads = fp::kConvThreads;  // 8 warps
 constexpr int kTile = fp::kConvTile;        // 128 targets per tile
-constexpr int kGatherBlocks = 4096;         // P1's grid-stride cap
 constexpr int kC = 16;     // P2's and P3's channels in and out, as the
 constexpr int kNT = 2;     // probes take them: kNT n-tiles of 8 = kC
 
@@ -74,29 +78,114 @@ __device__ __forceinline__ __nv_bfloat16 nan_of(__nv_bfloat16) {
   return __ushort_as_bfloat16(0x7fc0);
 }
 
-// Output element e, in memory order: axis 1 (t, i, j) of (T*m, n), axis 0
-// (i, t, j) of (m, T*n); it reads x[i, idx] or x[idx, j].
+// 16 bytes of T.
 template <typename T>
-__global__ void take_along_kernel(const T* __restrict__ x,
-                                  const int* __restrict__ idx,
-                                  T* __restrict__ out, int axis, int rows,
-                                  int cols, int taps, int m, int n, int st_t,
-                                  int st_i, int st_j) {
-  const int total = taps * m * n;
+union Vec16 {
+  uint4 u;
+  T v[16 / sizeof(T)];
+};
+
+// x[i, idx] (axis 1) or x[idx, j] (axis 0); negative indices count from
+// the end, out of range NaN.
+template <typename T>
+__device__ __forceinline__ T take_one(const T* __restrict__ x, int v,
+                                      int axis, int i, int j, int len,
+                                      int cols) {
+  if (v < 0) v += len;
+  if (v < 0 || v >= len) return nan_of(T());
+  return x[axis == 1 ? (size_t)i * cols + v : (size_t)v * cols + j];
+}
+
+// Output element e, in memory order: axis 1 (t, i, j) of (T*m, n), axis 0
+// (i, t, j) of (m, T*n); it reads x[i, idx] or x[idx, j], the index at
+// idx[t*st_t + i*st_i + j*st_j]. Thread step: 16 output bytes.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+take_along_kernel(const T* __restrict__ x, const int* __restrict__ idx,
+                  T* __restrict__ out, int axis, int rows, int cols,
+                  int taps, int m, int n, int st_t, int st_i, int st_j) {
+  constexpr int V = 16 / sizeof(T);
+  const int total = taps * m * n;  // < 2^31 (the wrapper checks)
   const int len = axis == 1 ? cols : rows;
-  for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < total;
-       e += gridDim.x * blockDim.x) {
-    const int j = e % n, q = e / n;
-    const int i = axis == 1 ? q % m : q / taps;
-    const int t = axis == 1 ? q / m : q % taps;
-    int v = idx[(long long)t * st_t + (long long)i * st_i
-                + (long long)j * st_j];
-    if (v < 0) v += len;
-    T r = nan_of(T());
-    if (v >= 0 && v < len)
-      r = x[axis == 1 ? (size_t)i * cols + v : (size_t)v * cols + j];
-    out[e] = r;
+  const int vecs = (total + V - 1) / V;
+  for (int vi = blockIdx.x * blockDim.x + threadIdx.x; vi < vecs;
+       vi += gridDim.x * blockDim.x) {
+    const int e0 = vi * V;
+    const int j0 = e0 % n, q = e0 / n;
+    Vec16<T> r;
+    if (j0 + V <= n) {  // one output row: (t, i) decoded once
+      const int i = axis == 1 ? q % m : q / taps;
+      const int t = axis == 1 ? q / m : q % taps;
+      const int* ip = idx + (long long)t * st_t + (long long)i * st_i
+                      + (long long)j0 * st_j;
+      if (st_j == 0) {
+        int v = *ip;
+        if (axis == 0) {  // V consecutive values of input row v
+          if (v < 0) v += len;
+          const T* row = x + (size_t)v * cols + j0;
+          if (v < 0 || v >= len) {
+#pragma unroll
+            for (int k = 0; k < V; ++k) r.v[k] = nan_of(T());
+          } else if (((uintptr_t)row & 15) == 0) {
+            r.u = *reinterpret_cast<const uint4*>(row);
+          } else {
+#pragma unroll
+            for (int k = 0; k < V; ++k) r.v[k] = row[k];
+          }
+        } else {
+          const T g = take_one(x, v, axis, i, j0, len, cols);
+#pragma unroll
+          for (int k = 0; k < V; ++k) r.v[k] = g;
+        }
+      } else {
+        int iv[V];
+        if (st_j == 1 && ((uintptr_t)ip & 15) == 0) {
+#pragma unroll
+          for (int k = 0; k < V; k += 4)
+            *reinterpret_cast<int4*>(iv + k) =
+                *reinterpret_cast<const int4*>(ip + k);
+        } else {
+#pragma unroll
+          for (int k = 0; k < V; ++k) iv[k] = ip[(long long)k * st_j];
+        }
+#pragma unroll
+        for (int k = 0; k < V; ++k)
+          r.v[k] = take_one(x, iv[k], axis, i, j0 + k, len, cols);
+      }
+    } else {  // the 16 bytes span output rows, or end the output
+#pragma unroll
+      for (int k = 0; k < V; ++k) {
+        const int e = e0 + k;
+        if (e >= total) break;
+        const int j = e % n, qe = e / n;
+        const int i = axis == 1 ? qe % m : qe / taps;
+        const int t = axis == 1 ? qe / m : qe % taps;
+        r.v[k] = take_one(x, idx[(long long)t * st_t + (long long)i * st_i
+                                 + (long long)j * st_j],
+                          axis, i, j, len, cols);
+      }
+    }
+    if (e0 + V <= total) {
+      *reinterpret_cast<uint4*>(out + e0) = r.u;
+    } else {
+      for (int k = 0; e0 + k < total; ++k) out[e0 + k] = r.v[k];
+    }
   }
+}
+
+// Blocks of kThreads threads in one wave at full occupancy on this device.
+int wave_blocks() {
+  static int blocks[64] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev >= 64) return 1024;
+  if (blocks[dev] == 0) {
+    int sms = 0;
+    if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)
+        != cudaSuccess)
+      return 1024;
+    blocks[dev] = sms * (2048 / kThreads);
+  }
+  return blocks[dev];
 }
 
 // The rank of v among the sorted unique ids[0:n) where it is there, else -1.
@@ -247,26 +336,28 @@ extern "C" {
 // out = take_along(x, idx): x (rows, cols) with elem_bytes 4 (f32) or 2
 // (bf16); element (t, i, j) of the (taps, m, n) gather reads idx at
 // t*st_t + i*st_i + j*st_j. axis 1: out (taps*m, n), m == rows; axis 0:
-// out (m, taps*n), n == cols.
+// out (m, taps*n), n == cols. out is 16-byte aligned (a fresh allocation).
 int fp_take_along(const void* x, const int* idx, void* out, int elem_bytes,
                   int axis, int rows, int cols, int taps, int m, int n,
                   int st_t, int st_i, int st_j, void* stream) {
   const long long total = (long long)taps * m * n;
   if (total == 0) return 0;
-  long long grid = (total + kThreads - 1) / kThreads;
-  if (grid > kGatherBlocks) grid = kGatherBlocks;
+  if ((elem_bytes != 4 && elem_bytes != 2) || total >= (1ll << 31) - 16
+      || ((uintptr_t)out & 15) != 0)
+    return (int)cudaErrorInvalidValue;
+  const long long vecs = (total + 16 / elem_bytes - 1) / (16 / elem_bytes);
+  long long grid = (vecs + kThreads - 1) / kThreads;
+  if (grid > wave_blocks()) grid = wave_blocks();
   if (elem_bytes == 4) {
     take_along_kernel<float><<<(int)grid, kThreads, 0,
                                (cudaStream_t)stream>>>(
         (const float*)x, idx, (float*)out, axis, rows, cols, taps, m, n,
         st_t, st_i, st_j);
-  } else if (elem_bytes == 2) {
+  } else {
     take_along_kernel<__nv_bfloat16><<<(int)grid, kThreads, 0,
                                        (cudaStream_t)stream>>>(
         (const __nv_bfloat16*)x, idx, (__nv_bfloat16*)out, axis, rows, cols,
         taps, m, n, st_t, st_i, st_j);
-  } else {
-    return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
 }

@@ -1,20 +1,42 @@
 // Position-gather sparse convolution for Hopper (sm_90a): the two kernels of
 // the TransFusion inference path, bound through a plain C ABI (ctypes).
 //
-// K1 fp_positions replaces findnpropagate_tpu/ops/pallas_posgather.py
-//    _positions_kernel / _positions_block (:75, :125; pallas_call :185).
-//    For each target and each of the G (dy, dx) group-centre deltas D_g: the
-//    left-insertion rank of tgt + D_g in the target block's sorted source-id
-//    (sub-)window, and a hit flag, written as hit ? rank : ~rank; blocks
-//    with has_real == 0 write -1.
-//    Bound: bytes. Each thread reads its target id and does a binary search
-//    of log2(span) ~ 11 steps over a window that the 1024 targets of a block
-//    share, so the window stays in L1/L2 and device memory sees roughly the
-//    ids once plus the (G, Vt) int32 output. Design: one thread per
-//    (target, group), threads consecutive in the target so reads of the
-//    target ids and writes of pos coalesce; no shared memory. The TPU's
-//    compare-count over the whole window (a (span, block) plane per group)
-//    becomes a log-time search giving the same rank.
+// K1 fp_level_positions replaces findnpropagate_tpu/ops/pallas_posgather.py
+//    _positions_kernel / _positions_block (:75, :125; pallas_call :185)
+//    together with the XLA prelude around it in compute_positions (:523-:599).
+//    One block of threads per target block of `block` targets: it computes
+//    the block's prelude integer for integer as the plain version does
+//    (window start lo = the lower bound of first + d_min floored to ALIGN and
+//    clamped to lo_max, base = src[lo], has_real and the last real target,
+//    the union and tap-window overflow terms, each group's tap offset), then
+//    for each target and each of the G (dy, dx) group-centre deltas D_g the
+//    left-insertion rank of tgt + D_g in the block's sorted source-id
+//    (sub-)window and a hit flag, written as hit ? rank : ~rank; blocks
+//    without a real target write -1.
+//    fp_positions runs the same kernel with the prelude supplied (lo, tap
+//    offsets, has_real and the deltas read from device memory): one search.
+//    Bound: bytes. The targets read once, the source ids under the live
+//    blocks' windows once (neighbouring windows overlap: each block stages
+//    its own, so the kernel reads shared ids again, mostly from L2), the
+//    (G, Vt) int32 output written once.
+//    Design: the TPU's compare-count over the whole window (a (span, block)
+//    plane per group) becomes a log-time search giving the same rank, and the
+//    prelude that XLA fused into the TPU program is computed in the kernel
+//    instead of ~20 eager PyTorch operations with a host sync; each block
+//    adds its overflow conditions to its sample's count atomically. One search
+//    over the sample's whole id list is left (lo's): one warp runs it as a
+//    32-way search (a ballot per step, 4 dependent loads for 120k ids) while
+//    the other warps find the last real target. The window [lo, lo +
+//    window) is then staged in shared memory by one TMA bulk copy completing
+//    on an mbarrier (lo and the window are multiples of ALIGN ids, so the
+//    copy is aligned; windows beyond 40 KB are searched in device memory).
+//    Upper bounds are not searched: an overflow term hi - start > span holds
+//    exactly where the id at start + span exists and is at most the bound's
+//    value, one load. The tap offsets are lower bounds inside the staged
+//    window, one warp per group. Each thread searches all G groups of a
+//    target at once: a branchless search whose step count depends on the
+//    span only, so the G searches interleave and hide shared-memory latency.
+//    pos is written coalesced per group.
 //
 // K2 fp_posgather_conv replaces pallas_posgather.py _conv_kernel /
 //    _conv_block (:194, :296; pallas_call :485).
@@ -54,43 +76,262 @@
 // Every entry launches on the stream it is given, allocates nothing, and
 // returns the launch's error code.
 
+#include <climits>
+
 #include "gather_mma.cuh"
+
+// K1's group-centre deltas, passed by value (no device buffer, no copy);
+// outside the anonymous namespace, so the C entry that takes it is
+// exported.
+struct Deltas {
+  int n;
+  int d[9];
+};
 
 namespace {
 
-constexpr int kPosThreads = 256;
+constexpr int kPosThreads = 512;
+constexpr int kPosWarps = kPosThreads / 32;
+constexpr int kMaxGroups = 9;               // tap groups of a 3x3x3 kernel
+static_assert(sizeof(Deltas::d) == kMaxGroups * sizeof(int), "Deltas");
+constexpr int kAlign = 512;                 // window starts: ALIGN ids
+constexpr int kStageMaxIds = 10240;         // windows staged: <= 40 KB
 constexpr int kTile = fp::kConvTile;        // targets per conv tile
 constexpr int kThreads = fp::kConvThreads;  // 8 warps x 16 rows
 
-using fp::lower_bound;
+struct PosArgs {
+  const int* src;            // (B, vs) sorted ids
+  const int* tgt;            // (B, vt) sorted ids
+  // the prelude supplied (fp_positions), else null
+  const int* lo_in;          // (B, nb)
+  const int* tap_lo_in;      // (B, nb, G)
+  const int* has_real_in;    // (B, nb)
+  const int* gdeltas_in;     // (G,)
+  // the prelude computed (fp_level_positions), else null
+  int* lo;                   // (B, nb)
+  int* base;                 // (B, nb)
+  int* has_real;             // (B, nb)
+  unsigned long long* ovf;   // (B,) overflow conditions, zeroed first
+  int* pos;                  // (B, G, vt)
+  Deltas deltas;             // g_n always; the values when computed
+  long long sentinel;        // targets >= sentinel are padding
+  int has_sentinel;
+  int vs, vt, nb, block, window, span, use_tap, lo_max, stage;
+};
 
-__global__ void positions_kernel(const int* __restrict__ src,
-                                 const int* __restrict__ tgt,
-                                 const int* __restrict__ lo,
-                                 const int* __restrict__ tap_lo,
-                                 const int* __restrict__ has_real,
-                                 const int* __restrict__ gdeltas,
-                                 int* __restrict__ pos, int vs, int vt,
-                                 int nb, int g_n, int block, int span,
-                                 int use_tap) {
-  const int b = blockIdx.y;
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (long long)g_n * vt) return;
-  const int g = (int)(idx / vt);
-  const int t = (int)(idx % vt);
-  const int i = t / block;
-  const int bi = b * nb + i;
-  int out = -1;
-  if (has_real[bi] != 0) {
-    const int off = use_tap ? tap_lo[(size_t)bi * g_n + g] : 0;
-    const int* win = src + (size_t)b * vs + lo[bi] + off;
-    const int want = tgt[(size_t)b * vt + t] + gdeltas[g];
-    const int r = lower_bound(win, span, want);
-    const bool hit = r < span && win[r] == want;
-    const int rank = r + off;
-    out = hit ? rank : ~rank;
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
+               :: "r"(fp::smem_addr(bar)) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// One thread: `bytes` (a multiple of 16, both addresses 16-byte aligned)
+// from device to shared memory by the TMA, completing on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          int bytes, uint64_t* bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(fp::smem_addr(bar)), "r"(bytes) : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      :: "r"(fp::smem_addr(dst)), "l"(src), "r"(bytes),
+         "r"(fp::smem_addr(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(fp::smem_addr(bar)), "r"(parity) : "memory");
   }
-  pos[((size_t)b * g_n + g) * vt + t] = out;
+}
+
+// One warp: the number of a[0:n) (sorted) below v, the lower bound as
+// torch.searchsorted gives it. Each step the 32 lanes probe 32 evenly
+// spaced ids of the range left and a ballot keeps 1/32 of it.
+__device__ __forceinline__ int warp_search(const int* __restrict__ a, int n,
+                                           long long v) {
+  const int lane = threadIdx.x & 31;
+  int l = 0, r = n;  // the answer lies in [l, r]
+  while (l < r) {
+    const int step = (r - l + 31) >> 5;
+    const int at = l + (lane + 1) * step - 1;
+    const bool below = at < r && a[at] < v;
+    const int c = __popc(__ballot_sync(0xffffffffu, below));
+    const int miss = l + (c + 1) * step - 1;  // the first probe not below
+    if (c < 32 && miss < r) r = miss;
+    l += c * step;
+  }
+  return l;
+}
+
+// Grid (nb, B): one block of threads per target block. With kPrelude the
+// block computes its prelude; else it reads lo, the tap offsets, has_real
+// and the deltas.
+template <bool kPrelude>
+__global__ void __launch_bounds__(kPosThreads)
+level_positions_kernel(const PosArgs a) {
+  extern __shared__ __align__(128) int win_sm[];
+  __shared__ __align__(8) uint64_t bar;
+  __shared__ int gd[kMaxGroups], off[kMaxGroups], tap_ovf[kMaxGroups];
+  __shared__ int red_max[kPosWarps], red_any[kPosWarps];
+  __shared__ int s_lo, s_real, s_last, s_ovf;
+  const int b = blockIdx.y, i = blockIdx.x, tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int bi = b * a.nb + i;
+  const int g_n = a.deltas.n;
+  const int* src = a.src + (size_t)b * a.vs;
+  const int* tgt = a.tgt + (size_t)b * a.vt + (size_t)i * a.block;
+
+  if (tid < g_n) gd[tid] = kPrelude ? a.deltas.d[tid] : a.gdeltas_in[tid];
+  if (tid == 0 && a.stage > 0) mbar_init(&bar);
+  if (kPrelude) {
+    int d_min = a.deltas.d[0];
+    for (int g = 1; g < g_n; ++g) d_min = min(d_min, a.deltas.d[g]);
+    if (warp == 0) {
+      // lo's lower bound over the sample's whole id list, while the other
+      // warps find the last real target (the largest below the sentinel)
+      const int r = warp_search(src, a.vs, (long long)tgt[0] + d_min - 1);
+      if (lane == 0) s_lo = min(r / kAlign * kAlign, a.lo_max);
+    } else if (a.has_sentinel) {
+      int last = INT_MIN, any = 0;
+      for (int t = tid - 32; t < a.block; t += kPosThreads - 32) {
+        const int v = tgt[t];
+        if (v < a.sentinel) {
+          any = 1;
+          last = max(last, v);
+        }
+      }
+      last = __reduce_max_sync(0xffffffffu, last);
+      any = __any_sync(0xffffffffu, any);
+      if (lane == 0) {
+        red_max[warp] = last;
+        red_any[warp] = any;
+      }
+    }
+    __syncthreads();
+    if (tid == 0) {
+      int last = INT_MIN, any = 0;
+      if (a.has_sentinel) {
+        for (int w = 1; w < kPosWarps; ++w) {
+          last = max(last, red_max[w]);
+          any |= red_any[w];
+        }
+      } else {
+        last = tgt[a.block - 1];
+        any = 1;
+      }
+      const int lo = s_lo;
+      s_last = last;
+      s_real = any;
+      a.lo[bi] = lo;
+      a.has_real[bi] = any;
+      a.base[bi] = src[lo];
+      // hi = the upper bound of last + d_max; hi - lo > window exactly
+      // where the id at lo + window exists and is at most last + d_max
+      int d_max = gd[0];
+      for (int g = 1; g < g_n; ++g) d_max = max(d_max, gd[g]);
+      const int end = lo + a.window;
+      s_ovf = any && end < a.vs && src[end] <= (long long)last + d_max + 1;
+    }
+  } else {
+    if (tid == 0) {
+      s_lo = a.lo_in[bi];
+      s_real = a.has_real_in[bi] != 0;
+    }
+    if (tid < g_n)
+      off[tid] = a.use_tap ? a.tap_lo_in[(size_t)bi * g_n + tid] : 0;
+  }
+  __syncthreads();
+
+  int* pos = a.pos + (size_t)b * g_n * a.vt + (size_t)i * a.block;
+  const int lo = s_lo;
+  if (!s_real) {
+    for (int g = 0; g < g_n; ++g)
+      for (int t = tid; t < a.block; t += kPosThreads)
+        pos[(size_t)g * a.vt + t] = -1;
+    return;
+  }
+  const int* win = src + lo;
+  const bool staged = a.stage > 0 && (a.stage & 3) == 0
+                      && lo + a.stage <= a.vs
+                      && ((uintptr_t)win & 15) == 0;
+  if (staged) {
+    if (tid == 0) bulk_load(win_sm, win, a.stage * 4, &bar);
+    mbar_wait(&bar, 0);
+    win = win_sm;
+  }
+
+  if (kPrelude) {
+    if (a.use_tap && warp < g_n) {
+      // group g's tap offset: its lower bound from the window start (at
+      // least lo; one past the window reads as the window's end, which
+      // clamps the same), and the tap overflow term as the union's
+      const long long first = tgt[0], last = s_last;
+      const int r = warp_search(win, a.window, first + gd[warp] - 1);
+      if (lane == 0) {
+        const int rel = min(max(r & ~127, 0), a.window - a.span);
+        const int end = lo + rel + a.span;
+        off[warp] = rel;
+        tap_ovf[warp] = end < a.vs && src[end] <= last + gd[warp] + 1;
+      }
+    } else if (!a.use_tap && tid < g_n) {
+      off[tid] = 0;
+    }
+    __syncthreads();
+    if (tid == 0) {
+      int ovf = s_ovf;
+      if (a.use_tap)
+        for (int g = 0; g < g_n; ++g) ovf += tap_ovf[g];
+      if (ovf) atomicAdd(a.ovf + b, (unsigned long long)ovf);
+    }
+  }
+
+  for (int t = tid; t < a.block; t += kPosThreads) {
+    const long long v = tgt[t];
+    long long want[kMaxGroups];
+    int at[kMaxGroups];
+#pragma unroll
+    for (int g = 0; g < kMaxGroups; ++g) {
+      want[g] = g < g_n ? v + gd[g] : 0;
+      at[g] = g < g_n ? off[g] : 0;
+    }
+    // branchless lower bound: after the loop the rank is at[g] - off[g]
+    // plus (win[at[g]] < want)
+    for (int len = a.span; len > 1;) {
+      const int half = len >> 1;
+#pragma unroll
+      for (int g = 0; g < kMaxGroups; ++g)
+        if (g < g_n && win[at[g] + half] < want[g]) at[g] += half;
+      len -= half;
+    }
+#pragma unroll
+    for (int g = 0; g < kMaxGroups; ++g) {
+      if (g >= g_n) break;
+      const int x = win[at[g]];
+      const int r = at[g] - off[g] + (x < want[g]);
+      const bool hit = x < want[g]
+                           ? r < a.span && win[off[g] + r] == want[g]
+                           : x == want[g];
+      const int rank = r + off[g];
+      pos[(size_t)g * a.vt + t] = hit ? rank : ~rank;
+    }
+  }
+}
+
+template <bool kPrelude>
+int launch_positions(const PosArgs& a, int batch, cudaStream_t stream) {
+  if (a.deltas.n < 1 || a.deltas.n > kMaxGroups || a.block <= 0
+      || a.vt % a.block || a.span < 1)
+    return (int)cudaErrorInvalidValue;
+  if (a.vt == 0 || batch == 0) return 0;
+  dim3 grid(a.nb, batch);
+  level_positions_kernel<kPrelude><<<grid, kPosThreads, a.stage * 4,
+                                     stream>>>(a);
+  return (int)cudaGetLastError();
 }
 
 // Shared memory: [weights: all groups, or `stages` of one group]
@@ -192,19 +433,77 @@ int launch_conv(const int* src, const void* feats, const int* tgt,
 
 extern "C" {
 
-// pos (B, G, Vt) int32 from src ids (B, Vs), tgt ids (B, Vt), lo / has_real
-// (B, nb), tap_lo (B, nb, G), gdeltas (G,). span = tap window, or the union
-// window when use_tap == 0.
+// The level's positions: lo / base / has_real (B, nb) int32, ovf (B,) int64
+// (the count of overflow conditions of each sample's blocks) and pos
+// (B, G, Vt) int32 from src ids (B, Vs) and tgt ids (B, Vt), both sorted,
+// Vs % ALIGN == 0 (the caller pads), Vt % block == 0, the G <= 9 group-centre
+// deltas by value. window: the union window (ALIGN-rounded, <= Vs);
+// tap_window: the tap sub-window span, 0 for none (then the union window is
+// searched); sentinel: targets at or above it are padding (has_sentinel 0:
+// none); stage: 1 stages a window of at most 40 KB in shared memory, 0
+// searches every window in device memory.
+int fp_level_positions(const int* src, const int* tgt, int* lo, int* base,
+                       int* has_real, long long* ovf, int* pos,
+                       Deltas deltas,
+                       long long sentinel, int has_sentinel, int batch,
+                       int vs, int vt, int block, int window, int tap_window,
+                       int stage, void* stream) {
+  if (block <= 0 || window < 1 || window > vs || vs % kAlign
+      || tap_window < 0 || tap_window >= window)
+    return (int)cudaErrorInvalidValue;
+  PosArgs a = {};
+  a.src = src;
+  a.tgt = tgt;
+  a.lo = lo;
+  a.base = base;
+  a.has_real = has_real;
+  a.ovf = (unsigned long long*)ovf;
+  a.pos = pos;
+  a.deltas = deltas;
+  a.sentinel = sentinel;
+  a.has_sentinel = has_sentinel;
+  a.vs = vs;
+  a.vt = vt;
+  a.nb = vt / block;
+  a.block = block;
+  a.window = window;
+  a.use_tap = tap_window > 0;
+  a.span = a.use_tap ? tap_window : window;
+  a.lo_max = vs - window >= 0 ? (vs - window) / kAlign * kAlign : 0;
+  a.stage = stage && window <= kStageMaxIds ? window : 0;
+  const cudaError_t err = cudaMemsetAsync(ovf, 0, sizeof(long long) * batch,
+                                          (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
+  return launch_positions<true>(a, batch, (cudaStream_t)stream);
+}
+
+// K1 with the prelude supplied: pos (B, G, Vt) int32 from src ids (B, Vs),
+// tgt ids (B, Vt), lo / has_real (B, nb), tap_lo (B, nb, G), gdeltas (G,),
+// G <= 9; span = tap window, or the union window when use_tap == 0; each
+// searched window lies inside src's row (lo + tap_lo + span <= Vs).
 int fp_positions(const int* src, const int* tgt, const int* lo,
                  const int* tap_lo, const int* has_real, const int* gdeltas,
                  int* pos, int batch, int vs, int vt, int nb, int g_n,
                  int block, int span, int use_tap, void* stream) {
-  const long long n = (long long)g_n * vt;
-  dim3 grid((unsigned)((n + kPosThreads - 1) / kPosThreads), batch);
-  positions_kernel<<<grid, kPosThreads, 0, (cudaStream_t)stream>>>(
-      src, tgt, lo, tap_lo, has_real, gdeltas, pos, vs, vt, nb, g_n, block,
-      span, use_tap);
-  return (int)cudaGetLastError();
+  PosArgs a = {};
+  a.src = src;
+  a.tgt = tgt;
+  a.lo_in = lo;
+  a.tap_lo_in = tap_lo;
+  a.has_real_in = has_real;
+  a.gdeltas_in = gdeltas;
+  a.pos = pos;
+  a.deltas.n = g_n;
+  a.vs = vs;
+  a.vt = vt;
+  a.nb = nb;
+  a.block = block;
+  a.window = span;
+  a.span = span;
+  a.use_tap = use_tap;
+  // without tap offsets the searched window is [lo, lo + span)
+  a.stage = !use_tap && span <= kStageMaxIds ? span : 0;
+  return launch_positions<false>(a, batch, (cudaStream_t)stream);
 }
 
 // out (B, Vt, Cout) f32 from feats (B, Vs, Cin) bf16 and w, the (G*3*Cin,

@@ -97,10 +97,10 @@ def _weights_mma(wt):
 # ----------------------------------------------------------------- P1
 
 
-def index3(x, idx, axis: int, taps: bool = False):
-    """idx as the (T, M, N) view the kernel reads, with stride 0 where it
-    is broadcast: the gather of output element (t, i, j) reads
-    x[i, idx3[t, i, j]] (axis 1) or x[idx3[t, i, j], j] (axis 0).
+def index_strides(x, idx, axis: int, taps: bool = False):
+    """((T, M, N), strides): the (T, M, N) index view the kernel reads, with
+    stride 0 where it is broadcast: the gather of output element (t, i, j)
+    reads x[i, idx3[t, i, j]] (axis 1) or x[idx3[t, i, j], j] (axis 0).
 
     Without taps idx is 2-D and broadcasts (extent 1) on the axis other
     than `axis`; its extent on `axis` is the output's. With taps idx is
@@ -110,14 +110,24 @@ def index3(x, idx, axis: int, taps: bool = False):
         raise ValueError(f"take_along wants 2-D x and idx and axis 0 or 1, "
                          f"got {tuple(x.shape)}, {tuple(idx.shape)}, {axis}")
     rows, cols = x.shape
+    (a, b), (sa, sb) = idx.shape, idx.stride()
     if taps:
-        t, n = idx.shape
         if axis == 1:
-            return idx[:, None, :].expand(t, rows, n)
-        return idx[:, :, None].expand(t, n, cols)
+            return (a, rows, b), (sa, 0, sb)
+        return (a, b, cols), (sa, sb, 0)
+    other = rows if axis == 1 else cols
+    if (b if axis == 0 else a) not in (1, other):
+        raise ValueError(f"take_along: index {tuple(idx.shape)} does not "
+                         f"broadcast against x {tuple(x.shape)} on axis "
+                         f"{1 - axis}")
     if axis == 1:
-        return idx.expand(rows, idx.shape[1])[None]
-    return idx.expand(idx.shape[0], cols)[None]
+        return (1, rows, b), (0, sa if a != 1 else 0, sb)
+    return (1, a, cols), (0, sa, sb if b != 1 else 0)
+
+
+def index3(x, idx, axis: int, taps: bool = False):
+    """idx as the (T, M, N) view the kernel reads (`index_strides`)."""
+    return idx.as_strided(*index_strides(x, idx, axis, taps))
 
 
 def _stacked(g, axis):
@@ -145,7 +155,7 @@ def take_along_plain(x, idx, axis: int, taps: bool = False):
 def take_along(x, idx, axis: int, taps: bool = False):
     """P1 wrapper: ``jnp.take_along_axis(x, idx, axis)`` for 2-D x (f32 or
     bf16) with idx broadcast on the other axis, or with ``taps=True`` T such
-    gathers of one (T, N) index in one launch (`index3`, `_stacked`).
+    gathers of one (T, N) index in one launch (`index_strides`, `_stacked`).
     Negative indices count from the end; out of range they give NaN."""
     if not _check_device(x, idx):
         return take_along_plain(x, idx, axis, taps)
@@ -153,15 +163,14 @@ def take_along(x, idx, axis: int, taps: bool = False):
             or not x.is_contiguous():
         raise ValueError("take_along wants contiguous float32 or bfloat16 x")
     _check_int32("idx", idx)
-    i3 = index3(x, idx, axis, taps)
-    t, m, n = i3.shape
-    if t * m * n >= 2 ** 31 or x.numel() >= 2 ** 31:
+    (t, m, n), strides = index_strides(x, idx, axis, taps)
+    if t * m * n >= 2 ** 31 - 16 or x.numel() >= 2 ** 31:
         raise ValueError("take_along: more than 2^31 elements")
-    shape = (t * m, n) if axis == 1 else (m, t * n)
-    out = torch.empty(shape, dtype=x.dtype, device=x.device)
+    out = torch.empty((t * m, n) if axis == 1 else (m, t * n),
+                      dtype=x.dtype, device=x.device)
     _build.check(_lib().fp_take_along(
-        _ptr(x), _ptr(i3), _ptr(out), x.element_size(), axis, x.shape[0],
-        x.shape[1], t, m, n, *i3.stride(), _stream()), "fp_take_along")
+        _ptr(x), _ptr(idx), _ptr(out), x.element_size(), axis, *x.shape, t,
+        m, n, *strides, _stream()), "fp_take_along")
     LAUNCHES["take_along"] += 1
     return out
 

@@ -5,9 +5,12 @@ findnpropagate_tpu/ops/pallas_posgather.py (`group_center_deltas` :50,
 `posgather_subm_diff` :706).
 
 Two kernels carry it (ops/csrc/posgather.cu):
-  * K1 `positions` — per target and tap group (dy, dx), the left-insertion
-    rank of ``tgt + D_g`` in the block's sorted source-id (sub-)window and
-    a hit flag, as ``hit ? rank : ~rank``; -1 for dead blocks;
+  * K1 `compute_positions` — one launch per level: each target block's
+    window start, first id, liveness and overflow terms (the prelude), then
+    per target and tap group (dy, dx) the left-insertion rank of
+    ``tgt + D_g`` in the block's sorted source-id (sub-)window and a hit
+    flag, as ``hit ? rank : ~rank``; -1 for dead blocks. `positions` runs
+    the same kernel with the prelude given;
   * K2 `gather_conv` — the 27 neighbours fetched through those ranks (z-1
     at rank-1, z at rank, z+1 at rank+hit, each checked against the exact
     id) times the weights on the tensor cores, with the optional fused
@@ -15,12 +18,12 @@ Two kernels carry it (ops/csrc/posgather.cu):
     the features and the weights packed in mma fragment order
     (`pack_weights_mma`).
 
-Each has a plain PyTorch version beside it (`positions_plain`,
-`posgather_conv_plain`). A wrapper takes the plain version only for a
-tensor on the CPU; for a CUDA tensor it launches the kernel or raises.
-`LAUNCHES` counts kernel launches per wrapper.
+Each has a plain PyTorch version beside it (`compute_positions_plain`,
+`positions_plain`, `posgather_conv_plain`). A wrapper takes the plain
+version only for a tensor on the CPU; for a CUDA tensor it launches the
+kernel or raises. `LAUNCHES` counts kernel launches per wrapper.
 
-The torch prelude keeps the reference's window starts ``lo``, ``base``,
+The prelude keeps the reference's window starts ``lo``, ``base``,
 ``has_real`` and the exact overflow count (a) union-window span > window
 and (b) tap sub-window span > tap_window. The reference's band starts and
 fallback flags (``starts``/``flags``, and overflow term (c)) exist only for
@@ -46,6 +49,8 @@ from . import _build
 
 ALIGN = 512
 CONV_TILE = 128          # targets per tile of the K2 kernel
+MAX_GROUPS = 9           # K1's tap groups (a 3x3x3 kernel has 9)
+STAGE_WINDOW = True      # K1 stages a window of <= 40 KB in shared memory
 LAUNCHES = {"positions": 0, "posgather_conv": 0}
 
 
@@ -118,11 +123,14 @@ def _check_device(*tensors):
 
 
 def _ptr(t):
-    return ctypes.c_void_p(t.data_ptr())
+    return t.data_ptr()
 
 
 def _stream():
-    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    """The raw handle of PyTorch's current stream on the current device,
+    which `torch.cuda.current_stream().cuda_stream` gives too, without
+    building a Stream object on every launch."""
+    return torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())
 
 
 def _lib():
@@ -134,6 +142,10 @@ def _lib():
         lib.fp_positions.argtypes = [ctypes.c_void_p] * 7 \
             + [ctypes.c_int] * 8 + [ctypes.c_void_p]
         lib.fp_positions.restype = ctypes.c_int
+        lib.fp_level_positions.argtypes = [ctypes.c_void_p] * 7 \
+            + [_Deltas, ctypes.c_longlong] + [ctypes.c_int] * 8 \
+            + [ctypes.c_void_p]
+        lib.fp_level_positions.restype = ctypes.c_int
         lib.fp_posgather_conv.argtypes = [ctypes.c_void_p] * 11 \
             + [ctypes.c_int] * 12 + [ctypes.c_void_p]
         lib.fp_posgather_conv.restype = ctypes.c_int
@@ -182,8 +194,9 @@ def positions_plain(src_ids, tgt_ids, lo, tap_lo, has_real, gdeltas,
 
 def positions(src_ids, tgt_ids, lo, tap_lo, has_real, gdeltas, block: int,
               span: int, use_tap: bool):
-    """K1 wrapper: the CUDA kernel for CUDA tensors, the plain version for
-    CPU tensors."""
+    """K1 with its prelude given (lo, tap_lo, has_real as
+    `compute_positions` makes them): the CUDA kernel for CUDA tensors, the
+    plain version for CPU tensors."""
     if not _check_device(src_ids, tgt_ids, lo, tap_lo, has_real, gdeltas):
         return positions_plain(src_ids, tgt_ids, lo, tap_lo, has_real,
                                gdeltas, block, span, use_tap)
@@ -191,7 +204,8 @@ def positions(src_ids, tgt_ids, lo, tap_lo, has_real, gdeltas, block: int,
                has_real=has_real, gdeltas=gdeltas)
     b, vt = tgt_ids.shape
     nb, g_n = vt // block, gdeltas.shape[0]
-    if vt % block or span > src_ids.shape[1] or src_ids.shape[0] != b:
+    if vt % block or span > src_ids.shape[1] or src_ids.shape[0] != b \
+            or not 0 < g_n <= MAX_GROUPS:
         raise ValueError(f"positions: vt={vt} block={block} span={span} "
                          f"src {tuple(src_ids.shape)}")
     for name, t, shape in (("lo", lo, (b, nb)),
@@ -342,15 +356,44 @@ def gather_conv(src_ids, feats, tgt_ids, pos, lo, has_real, gdeltas,
 # ----------------------------------------------------------------- prelude
 
 
-def compute_positions(src_ids, tgt_ids, deltas27, block: int, window: int,
-                      tap_window=None, sentinel_start=None) -> LevelPositions:
-    """src_ids (B, Vs) / tgt_ids (B, Vt) sorted ascending int32,
-    Vt % block == 0, block % ALIGN == 0.
+class _Deltas(ctypes.Structure):
+    """The kernel's by-value group-centre deltas (csrc/posgather.cu)."""
 
-    overflow counts, exactly as the reference's terms (a) and (b): target
-    blocks whose union span (+-1 for the z taps) exceeds `window`, and
-    (block, group) tap sub-window overflows when tap_window is set. Any
-    nonzero count means a neighbour contribution was dropped."""
+    _fields_ = [("n", ctypes.c_int), ("d", ctypes.c_int * MAX_GROUPS)]
+
+
+_DELTAS: dict = {}   # (tap deltas, device) -> (centres, gdeltas, _Deltas)
+
+
+def _level_deltas(deltas27, dev):
+    """The group centres of `deltas27` as a numpy array, as the (G,) int32
+    tensor on `dev` that K2 reads, and as the kernel's by-value struct;
+    cached, so a call copies nothing to the device after the first (a copy
+    from host memory waits for the stream and breaks CUDA-graph capture)."""
+    d = np.asarray(deltas27)
+    key = (d.tobytes(), d.dtype.str, dev)
+    if key not in _DELTAS:
+        g_np = group_center_deltas(d)
+        if g_np.shape[0] > MAX_GROUPS:
+            raise ValueError(f"{g_np.shape[0]} tap groups: K1 takes at most "
+                             f"{MAX_GROUPS}")
+        st = _Deltas(g_np.shape[0],
+                     (ctypes.c_int * MAX_GROUPS)(*map(int, g_np)))
+        _DELTAS[key] = (g_np, torch.as_tensor(g_np, dtype=torch.int32,
+                                              device=dev), st)
+    return _DELTAS[key]
+
+
+def _level_window(window, vs):
+    """The union window rounded up past one more ALIGN, at most Vs."""
+    return min(-(-(min(window, vs) + ALIGN) // ALIGN) * ALIGN, vs)
+
+
+def compute_positions_plain(src_ids, tgt_ids, deltas27, block: int,
+                            window: int, tap_window=None,
+                            sentinel_start=None) -> LevelPositions:
+    """Plain version of `compute_positions`: the reference's prelude in
+    PyTorch operations, then `positions_plain`."""
     dev = tgt_ids.device
     b, vt = tgt_ids.shape
     nb = vt // block
@@ -359,8 +402,7 @@ def compute_positions(src_ids, tgt_ids, deltas27, block: int, window: int,
     gdeltas = torch.as_tensor(g_np, dtype=torch.int32, device=dev)
     src_ids, _ = _pad_src(src_ids)
     vs = src_ids.shape[1]
-    window = -(-(min(window, vs) + ALIGN) // ALIGN) * ALIGN
-    window = min(window, vs)
+    window = _level_window(window, vs)
 
     src = src_ids.contiguous()
     src_l = src.long()
@@ -413,8 +455,60 @@ def compute_positions(src_ids, tgt_ids, deltas27, block: int, window: int,
     lo = lo.to(torch.int32).contiguous()
     base = torch.gather(src, 1, lo.long())
     hr = has_real.to(torch.int32).contiguous()
-    pos = positions(src, tgt_ids.contiguous(), lo, tap_lo, hr, gdeltas,
-                    block, span, use_tap)
+    pos = positions_plain(src, tgt_ids.contiguous(), lo, tap_lo, hr,
+                          gdeltas, block, span, use_tap)
+    return LevelPositions(lo=lo, base=base, pos=pos, gdeltas=gdeltas,
+                          has_real=hr, overflow=overflow, block=block,
+                          window=window)
+
+
+def compute_positions(src_ids, tgt_ids, deltas27, block: int, window: int,
+                      tap_window=None, sentinel_start=None) -> LevelPositions:
+    """src_ids (B, Vs) / tgt_ids (B, Vt) sorted ascending int32,
+    Vt % block == 0, block % ALIGN == 0.
+
+    overflow counts, exactly as the reference's terms (a) and (b): target
+    blocks whose union span (+-1 for the z taps) exceeds `window`, and
+    (block, group) tap sub-window overflows when tap_window is set. Any
+    nonzero count means a neighbour contribution was dropped.
+
+    On CUDA tensors one K1 launch computes the whole level (the prelude,
+    the search and the overflow counts): no copy to the device and no
+    stream sync, so the call can be captured in a CUDA graph. On CPU
+    tensors `compute_positions_plain` runs."""
+    if not _check_device(src_ids, tgt_ids):
+        return compute_positions_plain(src_ids, tgt_ids, deltas27, block,
+                                       window, tap_window, sentinel_start)
+    b, vt = tgt_ids.shape
+    if block % ALIGN or vt % block or src_ids.shape[0] != b:
+        raise ValueError(f"compute_positions: vt={vt} block={block} src "
+                         f"{tuple(src_ids.shape)}")
+    g_np, gdeltas, deltas = _level_deltas(deltas27, tgt_ids.device)
+    src_ids, _ = _pad_src(src_ids)
+    # bound to names: a temporary freed inside the argument list could
+    # hand its memory to the next one before the launch
+    src, tgt = src_ids.contiguous(), tgt_ids.contiguous()
+    _check_ids(src_ids=src, tgt_ids=tgt)
+    if src.data_ptr() % 16:      # the window's bulk copy reads 16-byte units
+        src = src.clone()
+    vs = src.shape[1]
+    window = _level_window(window, vs)
+    use_tap = tap_window is not None and tap_window < window
+    if use_tap and tap_window % 128:
+        raise ValueError(f"tap_window {tap_window} is not a multiple of 128")
+    nb, g_n = vt // block, g_np.shape[0]
+    lo, base, hr = torch.empty(3, b, nb, dtype=torch.int32,
+                               device=tgt.device).unbind(0)
+    pos = torch.empty(b, g_n, vt, dtype=torch.int32, device=tgt.device)
+    overflow = torch.empty(b, dtype=torch.int64, device=tgt.device)
+    _build.check(_lib().fp_level_positions(
+        _ptr(src), _ptr(tgt), _ptr(lo), _ptr(base), _ptr(hr),
+        _ptr(overflow), _ptr(pos), deltas,
+        0 if sentinel_start is None else int(sentinel_start),
+        int(sentinel_start is not None), b, vs, vt, block, window,
+        int(tap_window) if use_tap else 0, int(STAGE_WINDOW), _stream()),
+        "fp_level_positions")
+    LAUNCHES["positions"] += 1
     return LevelPositions(lo=lo, base=base, pos=pos, gdeltas=gdeltas,
                           has_real=hr, overflow=overflow, block=block,
                           window=window)

@@ -17,8 +17,10 @@ the CPU the kernels' plain versions run):
   * --mode gpu, the timing run: the L0 level of a batch-1 lidar_ring scene
     (bench.py's data config for transfusion_lidar.yaml, the port's
     voxelize_mean, ids sorted and padded to the block of 1024): the
-    positions prelude alone, with one 16 -> 16 conv, and with five chained
-    convs (CUDA events around eager calls), and the relative error of the
+    positions prelude alone (CUDA events around eager calls, and replays
+    of a CUDA graph of the same calls: the prelude is one K1 launch with no
+    host sync), with one 16 -> 16 conv, and with five chained convs (eager
+    calls), and the relative error of the
     conv against K3 (windowed_conv) over the same window, which must stay
     below 1e-3 (both bf16 operands, f32 sums); on the CPU nothing is
     timed.
@@ -149,10 +151,11 @@ def gpu_bench(dev, window, reps):
     print(f"L0 of a batch-1 lidar_ring scene: {n_real} voxels, Vt "
           f"{ids.shape[1]}, window {lp.window}, overflow "
           f"{int(lp.overflow.sum())}", flush=True)
-    t_pos = probe.time(prelude, graph=False)[0]
+    t_pos, d_pos = probe.time(prelude)
     t1 = probe.time(lambda: convs(1), graph=False)[0]
     t5 = probe.time(lambda: convs(5), graph=False)[0]
-    print(f"positions prelude: {fmt_ms(t_pos)}", flush=True)
+    print(f"positions prelude: {fmt_ms(t_pos)}  device {fmt_ms(d_pos)}",
+          flush=True)
     print(f"positions + 1 conv: {fmt_ms(t1)}", flush=True)
     per = None if t5 is None else (t5 - t_pos) / 5
     print(f"positions + 5 convs: {fmt_ms(t5)} (per conv {fmt_ms(per)})",

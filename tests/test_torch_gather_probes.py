@@ -570,6 +570,79 @@ def test_cuda_wrappers_pass_sizes_and_strides(fake_lib):
                            "banded_gather_conv": 1}
 
 
+TAKE_CASES = {
+    # name: (x shape, dtype, idx, axis, taps, the expand view it stands for)
+    "taps axis 1, vectors": (
+        (16, 256), torch.bfloat16, lambda: torch.zeros(27, 128), 1, True,
+        lambda i: i[:, None, :].expand(27, 16, 128)),
+    "taps axis 0, row copies": (
+        (256, 16), torch.float32, lambda: torch.zeros(27, 128), 0, True,
+        lambda i: i[:, :, None].expand(27, 128, 16)),
+    "taps axis 1, tail n = 13": (
+        (16, 64), torch.bfloat16, lambda: torch.zeros(5, 13), 1, True,
+        lambda i: i[:, None, :].expand(5, 16, 13)),
+    "taps axis 0, tail cols = 13": (
+        (64, 13), torch.bfloat16, lambda: torch.zeros(5, 7), 0, True,
+        lambda i: i[:, :, None].expand(5, 7, 13)),
+    "axis 1, a row broadcast": (
+        (16, 64), torch.float32, lambda: torch.zeros(1, 20), 1, False,
+        lambda i: i.expand(16, 20)[None]),
+    "axis 1, full": (
+        (16, 64), torch.float32, lambda: torch.zeros(16, 21), 1, False,
+        lambda i: i[None]),
+    "axis 0, a column broadcast": (
+        (64, 16), torch.float32, lambda: torch.zeros(30, 1), 0, False,
+        lambda i: i.expand(30, 16)[None]),
+    "axis 0, a transposed row": (
+        (64, 16), torch.float32, lambda: torch.zeros(1, 30).t(), 0, False,
+        lambda i: i.expand(30, 16)[None]),
+    "taps axis 1, rows 2-6 of 8": (
+        (16, 64), torch.bfloat16,
+        lambda: torch.arange(8 * 40, dtype=torch.int32).reshape(8, 40)[2:7],
+        1, True,
+        lambda i: i[:, None, :].expand(5, 16, 40)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(TAKE_CASES))
+def test_take_along_wrapper_sizes_and_strides(fake_lib, name):
+    """P1's CUDA branch on CPU tensors: the sizes and index strides the
+    kernel gets are those of the expand view each form stands for (stride 0
+    where an index is broadcast, the index's own strides and offset
+    otherwise), the kernel reads the index in place, and the output has the
+    stacked shape."""
+    shape, dtype, make, axis, taps, view = TAKE_CASES[name]
+    x = torch.zeros(shape, dtype=dtype)
+    idx = make().to(torch.int32)            # keeps the view's strides
+    out = GP.take_along(x, idx, axis, taps=taps)
+    (_, a), = fake_lib.calls
+    want = view(idx)
+    t, m, n = want.shape
+    assert a[1] is idx and a[3:10] == (x.element_size(), axis, *shape, t, m,
+                                       n)
+    assert all(got == st for got, st, e in zip(a[10:13], want.stride(),
+                                                want.shape) if e > 1)
+    assert torch.equal(GP.index3(x, idx, axis, taps), want)
+    assert GP.index3(x, idx, axis, taps).data_ptr() == idx.data_ptr()
+    if name.endswith("of 8"):
+        assert idx.storage_offset() == 80
+    assert out.dtype == dtype and out.shape == (
+        (t * m, n) if axis == 1 else (m, t * n))
+    assert GP.LAUNCHES["take_along"] == 1
+
+
+def test_take_along_refuses_what_does_not_broadcast(fake_lib):
+    x = torch.zeros(16, 64)
+    with pytest.raises(ValueError, match="broadcast"):
+        GP.take_along(x, torch.zeros(4, 20, dtype=torch.int32), 1)
+    with pytest.raises(ValueError, match="broadcast"):
+        GP.take_along(x.t().contiguous(),
+                      torch.zeros(30, 4, dtype=torch.int32), 0)
+    with pytest.raises(ValueError, match="2-D"):
+        GP.take_along(x, torch.zeros(20, dtype=torch.int32), 1)
+    assert not fake_lib.calls
+
+
 # ------------------------------------------------ the ported entry points
 
 

@@ -2,8 +2,9 @@
 versions on the CPU) against the JAX package's Pallas kernels run in
 interpret mode.
 
-  * compute_positions: the integer fields lo, base, pos[:9], has_real and
-    overflow are bit-equal — subm and strided, tap_window set and unset.
+  * compute_positions (on CPU tensors) and compute_positions_plain: the
+    integer fields lo, base, pos[:9], has_real and overflow are bit-equal —
+    subm and strided, tap_window set and unset.
   * posgather_conv at f32: rtol/atol 1e-5, the tolerance of the JAX
     package's own interpret tests (the two sum the 27*Cin products in
     different orders) — with and without the fused epilogue, strided, the
@@ -68,31 +69,40 @@ def subm_case(name):
             JS.yxz_sentinel_start(shape), window, tap)
 
 
-def both_positions(case, band=3):
+def both_positions(case, band=3, fn=TP.compute_positions):
     src, _, tgt, _, deltas, sent, window, tap = case
     lj = JP.compute_positions(jnp.asarray(src), jnp.asarray(tgt), deltas,
                               block=512, window=window, band=band,
                               tap_window=tap, sentinel_start=sent,
                               interpret=True)
-    lt = TP.compute_positions(torch.from_numpy(src)[None],
-                              torch.from_numpy(tgt)[None], deltas,
-                              block=512, window=window, tap_window=tap,
-                              sentinel_start=sent)
+    lt = fn(torch.from_numpy(src)[None], torch.from_numpy(tgt)[None],
+            deltas, block=512, window=window, tap_window=tap,
+            sentinel_start=sent)
     return lj, lt
 
 
-@pytest.mark.parametrize("name", ["subm", "subm_tap", "strided",
-                                  "strided_tap"])
-def test_positions_bit_equal(name):
-    case = {"strided": lambda: strided_case(None),
-            "strided_tap": lambda: strided_case(1024 - 512)}.get(
-        name, lambda: subm_case(name))()
-    lj, lt = both_positions(case)
+def assert_positions_equal(lt, lj):
     for field in ("lo", "base", "has_real"):
         np.testing.assert_array_equal(getattr(lt, field)[0].numpy(),
                                       np.asarray(getattr(lj, field)))
     np.testing.assert_array_equal(lt.pos[0].numpy(), np.asarray(lj.pos)[:9])
     assert int(lt.overflow[0]) == int(lj.overflow)
+
+
+@pytest.mark.parametrize("name", sorted(SUBM_CASES) + ["strided",
+                                                       "strided_tap"])
+def test_positions_bit_equal(name):
+    """compute_positions_plain (what compute_positions runs on the CPU, and
+    what the card's fused K1 is held against) on every scene: the SUBM_CASES
+    (among them the band=1 scene and a union-window overflow) and the
+    strided ones."""
+    case = {"strided": lambda: strided_case(None),
+            "strided_tap": lambda: strided_case(1024 - 512)}.get(
+        name, lambda: subm_case(name))()
+    lj, lt = both_positions(case, fn=TP.compute_positions_plain)
+    assert_positions_equal(lt, lj)
+    if name == "overflow":
+        assert int(lt.overflow[0]) > 0 and int((lt.has_real == 0).sum()) > 0
 
 
 def _weights(cin, cout, seed=11):
@@ -144,7 +154,8 @@ class _FakeLib:
 
     def __init__(self):
         self.calls = []
-        for name in ("fp_positions", "fp_posgather_conv"):
+        for name in ("fp_level_positions", "fp_positions",
+                     "fp_posgather_conv"):
             setattr(self, name, self._recorder(name))
 
     def _recorder(self, name):
@@ -155,9 +166,9 @@ class _FakeLib:
 
 
 def test_cuda_wrappers_validate_and_pack_arguments(monkeypatch):
-    """The CUDA branch of both wrappers, run on CPU tensors against a fake
-    library: shapes are checked, the C entries get the right sizes, and
-    each launch counts once."""
+    """The CUDA branch of the K1 and K2 wrappers, run on CPU tensors against
+    a fake library: shapes are checked, the C entries get the right sizes,
+    and each launch counts once."""
     fake = _FakeLib()
     monkeypatch.setattr(TP, "_check_device", lambda *t: True)
     monkeypatch.setattr(TP, "_lib", lambda: fake)
@@ -171,16 +182,28 @@ def test_cuda_wrappers_validate_and_pack_arguments(monkeypatch):
     TP.posgather_conv(src_t, torch.from_numpy(feats)[None], src_t, w, lp,
                       scale=torch.ones(7), shift=torch.zeros(7), relu=True,
                       sentinel_start=sent)
-    assert TP.LAUNCHES == {"positions": 1, "posgather_conv": 1}
-    (n1, a1), (n2, a2) = fake.calls
-    # fp_positions(..., B, Vs, Vt, nb, G, block, span, use_tap, stream)
-    assert n1 == "fp_positions" and a1[7:15] == (1, 1024, 1024, 2, 9, 512,
-                                                 1024, 0)
+    tap_lo = torch.zeros(1, 2, 9, dtype=torch.int32)
+    TP.positions(src_t, src_t, lp.lo, tap_lo, lp.has_real, lp.gdeltas, 512,
+                 1024, False)
+    assert TP.LAUNCHES == {"positions": 2, "posgather_conv": 1}
+    (n1, a1), (n2, a2), (n3, a3) = fake.calls
+    # fp_level_positions(src, tgt, lo, base, has_real, ovf, pos, deltas,
+    #                    sentinel, has_sentinel, B, Vs, Vt, block, window,
+    #                    tap_window, stage, stream)
+    assert n1 == "fp_level_positions" and a1[8:17] == (
+        sent, 1, 1, 1024, 1024, 512, 1024, 0, 1)
+    assert a1[7].n == 9 and list(a1[7].d) == list(
+        TP.group_center_deltas(deltas))
+    assert lp.pos.shape == (1, 9, 1024) and lp.overflow.shape == (1,)
+    assert lp.lo.shape == lp.base.shape == lp.has_real.shape == (1, 2)
     # fp_posgather_conv(..., B, Vs, Vt, nb, G, block, window, cin, cout,
     #                   epilogue, relu, sentinel, stream); Cin 5 -> 16,
     # Cout 7 -> 8
     assert n2 == "fp_posgather_conv" and a2[11:23] == (
         1, 1024, 1024, 2, 9, 512, 1024, 16, 8, 1, 1, sent)
+    # fp_positions(..., B, Vs, Vt, nb, G, block, span, use_tap, stream)
+    assert n3 == "fp_positions" and a3[7:15] == (1, 1024, 1024, 2, 9, 512,
+                                                 1024, 0)
     with pytest.raises(ValueError):
         TP.gather_conv(src_t, torch.zeros(1, 1024, 16), src_t, lp.pos, lp.lo,
                        lp.has_real, lp.gdeltas, torch.zeros(27 * 16 - 1, 8),
@@ -188,6 +211,60 @@ def test_cuda_wrappers_validate_and_pack_arguments(monkeypatch):
     with pytest.raises(ValueError):
         TP.positions(src_t, src_t, lp.lo, lp.lo, lp.has_real, lp.gdeltas,
                      512, 1024, True)
+    with pytest.raises(ValueError):                     # Vt % block
+        TP.compute_positions(src_t, src_t[:, :1000], deltas, block=512,
+                             window=window)
+
+
+@pytest.mark.parametrize("tap,window,want", [
+    (None, 1024, (0, 1024)), (256, 1024, (256, 1024)),
+    (1024, 1024, (0, 1024)), (None, 4096, (0, 1024))])
+def test_cuda_level_positions_passes_deltas_by_value_and_caches(
+        monkeypatch, tap, window, want):
+    """The CUDA branch of compute_positions on CPU tensors against a fake
+    library: the tap groups' centres reach the kernel by value, the (G,)
+    gdeltas tensor K2 reads is made once per (deltas, device) and reused,
+    the source list is padded to ALIGN, and the tap window is passed only
+    below the union window (which is rounded up and capped at Vs)."""
+    fake = _FakeLib()
+    monkeypatch.setattr(TP, "_check_device", lambda *t: True)
+    monkeypatch.setattr(TP, "_lib", lambda: fake)
+    monkeypatch.setattr(TP, "_stream", lambda: None)
+    monkeypatch.setattr(TP, "_ptr", lambda t: t)
+    monkeypatch.setattr(TP, "_DELTAS", {})
+    made = []
+    as_tensor = torch.as_tensor
+    monkeypatch.setattr(torch, "as_tensor",
+                        lambda *a, **k: made.append(1) or as_tensor(*a, **k))
+    src, _, _, _, deltas, sent, _, _ = subm_case("subm")
+    src_t = torch.from_numpy(src)[None]
+    l1 = TP.compute_positions(src_t[:, :1000], src_t, deltas, block=512,
+                              window=window, tap_window=tap,
+                              sentinel_start=sent)
+    l2 = TP.compute_positions(src_t, src_t, deltas.copy(), block=512,
+                              window=window, tap_window=tap)
+    assert len(made) == 1 and l1.gdeltas is l2.gdeltas
+    np.testing.assert_array_equal(l1.gdeltas.numpy(),
+                                  TP.group_center_deltas(deltas))
+    (_, a1), (_, a2) = fake.calls
+    assert a1[7] is a2[7] and a1[7].n == 9
+    assert list(a1[7].d) == l1.gdeltas.tolist()
+    k_src = a1[0]
+    assert k_src.shape == (1, 1024) and torch.equal(k_src[:, :1000],
+                                                    src_t[:, :1000])
+    assert bool((k_src[0, 1000:] > k_src[0, 999]).all())
+    assert (a1[15], a1[14]) == want and (a2[15], a2[14]) == want
+    assert a1[8:10] == (sent, 1) and a2[8:10] == (0, 0)
+    assert l1.window == want[1]
+    # lo, base and has_real: one int32 buffer; the kernel counts the
+    # overflow conditions into the (B,) int64 result itself
+    assert a1[2].dtype == torch.int32 and a1[2].shape == (1, 2)
+    assert a1[3].data_ptr() == a1[2].data_ptr() + 2 * 4
+    assert a1[5] is l1.overflow and l1.overflow.dtype == torch.int64
+    centres = np.arange(10) * 50 - 250              # 10 groups of three
+    with pytest.raises(ValueError, match="at most 9"):
+        TP.compute_positions(src_t, src_t, np.concatenate(
+            [centres - 1, centres, centres + 1]), block=512, window=window)
 
 
 @pytest.mark.parametrize("name", ["subm", "dense_band1"])
