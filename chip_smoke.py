@@ -84,7 +84,27 @@ Phases (any failure exits non-zero and prints no result line):
      of phases 2 and 6 carry the library call that computes its ranks,
      torch.searchsorted of all G*Vt queries in one call (its ranks checked
      against K1's where the id is found);
-  9. a `kernels` JSON line, then the result line
+  9. seeker — the Greedy Box Seeker (findnpropagate_torch/openvocab/), no
+     kernel of its own: FrustumProposerOG from
+     tools/cfgs/nuscenes_models/nuscenes_box_seeker_proposals.yaml at
+     bench.py:277-328's shape (numpy seed 0: the 6-camera yaw ring, 200k
+     points, 96 detections written as per-camera COCO files under
+     build/seeker_dets/ and read back through PreprocessedDetector.infer):
+     ms/frame and frames/s (median of 10 propose calls by CUDA events after
+     2 warm-ups), host syncs per frame (at most 2), copies and launches per
+     frame under the profiler, peak memory, and with --profile the busy
+     share and top kernels of one frame (table in <file>.seeker.txt); the
+     card's output against the port's own CPU run: valid and labels equal,
+     per valid detection boxes within 1e-4 and oracle within 1e-3, unless
+     the CPU's two best oracle scores lie within 1e-3 (printed with the
+     margin). Then the SEG seeker on the same frame (PointNet weights from
+     torch's initialisation at seed 0, the output bias at the median logit
+     of the frame's filtered points), its foreground masks and its output
+     against the CPU's (a mask may differ only where a point's probability
+     lies within 1e-4 of a threshold), and one frame of the KITTI seeker
+     (its yaml, a synthetic calibration, 120k points, 32 detections through
+     infer_kitti) against the CPU's;
+ 10. a `kernels` JSON line, then the result line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 With --before DIR (a checkout of an earlier commit of this repo, e.g.
@@ -1631,6 +1651,412 @@ def pallas_phase(torch, models_mod, cfg, ds, det, batch, tp, ws, reps,
     return errs, rows, times
 
 
+SEEKER_CFG = "tools/cfgs/nuscenes_models/nuscenes_box_seeker_proposals.yaml"
+KITTI_SEEKER_CFG = "tools/cfgs/kitti_models/kitti_box_seeker_proposals.yaml"
+# The card's seeker is held against the port's own CPU run on the same
+# inputs: valid and labels equal, and per valid detection the same
+# proposal (boxes within SEEKER_BOX_ATOL, oracle within SEEKER_ORACLE_ATOL).
+# The one allowed exception is a detection whose top two oracle scores on
+# the CPU lie within SEEKER_TIE: CUDA's and the CPU's transcendental
+# functions differ by an ulp or two, which can move a point across a box
+# face or reorder two near-equal proposals. For the SEG filter, a
+# detection whose foreground mask differs is allowed only where one of its
+# points' CPU probabilities lies within SEG_MARGIN of a decision threshold
+# (the network's matmuls sum in another order on the card).
+SEEKER_BOX_ATOL = 1e-4
+SEEKER_ORACLE_ATOL = 1e-3
+SEEKER_TIE = 1e-3
+SEG_MARGIN = 1e-4
+SEEKER_REPS = 10
+# host syncs per nuScenes frame: one to find the rows of the 2D NMS that
+# suppress anything, one to size the compacted on-box buffer
+SEEKER_SYNCS = 2
+# the KITTI frame: a 64-beam sweep's points, 32 detections, and the
+# calibration of tests/test_seeker_kitti_parity.py::make_kitti_calib
+KITTI_POINTS = 120000
+KITTI_DETS = 32
+KITTI_P2 = [[721.5, 0.0, 609.6, 44.85], [0.0, 721.5, 172.8, 0.216],
+            [0.0, 0.0, 1.0, 0.0027]]
+KITTI_V2C = [[0.0, -1.0, 0.0, -0.002], [0.0, 0.0, -1.0, -0.075],
+             [1.0, 0.0, 0.0, -0.272]]
+
+
+def bench_seeker_inputs(num_dets=96, num_points=200000):
+    """bench.py:277-328's seeker inputs, numpy seed 0: the 6-camera yaw
+    ring (K = 1266.4 / 800 / 450), points uniform in +-54 m with z in
+    [-3, 1], 96 random 2D boxes over the cameras."""
+    rng = np.random.RandomState(0)
+    k = np.array([[1266.4, 0, 800.0], [0, 1266.4, 450.0], [0, 0, 1.0]])
+    r_c2l = np.array([[0, 0, 1.0], [-1, 0, 0], [0, -1, 0]])
+    l2i, c2l, intr = [], [], []
+    for ci in range(6):
+        yaw = ci * np.pi / 3
+        rot = np.array([[np.cos(yaw), -np.sin(yaw), 0],
+                        [np.sin(yaw), np.cos(yaw), 0], [0, 0, 1.0]])
+        c = np.eye(4)
+        c[:3, :3] = rot @ r_c2l
+        l2c = np.linalg.inv(c)
+        m = np.eye(4)
+        m[:3, :3] = k @ l2c[:3, :3]
+        m[:3, 3] = k @ l2c[:3, 3]
+        i4 = np.eye(4)
+        i4[:3, :3] = k
+        l2i.append(m)
+        c2l.append(c)
+        intr.append(i4)
+    pts = rng.uniform(-54, 54, (num_points, 3)).astype(np.float32)
+    pts[:, 2] = rng.uniform(-3, 1, num_points)
+    boxes = np.zeros((num_dets, 4), np.float32)
+    boxes[:, 0] = rng.uniform(0, 1400, num_dets)
+    boxes[:, 1] = rng.uniform(0, 700, num_dets)
+    boxes[:, 2] = boxes[:, 0] + rng.uniform(40, 200, num_dets)
+    boxes[:, 3] = boxes[:, 1] + rng.uniform(40, 200, num_dets)
+    labels = rng.randint(1, 11, num_dets).astype(np.int32)
+    scores = rng.uniform(0.2, 1.0, num_dets).astype(np.float32)
+    cams = rng.randint(0, 6, num_dets).astype(np.int32)
+    mats = tuple(np.stack(x).astype(np.float32) for x in (l2i, c2l, intr))
+    return mats, pts, (boxes, labels, scores, cams)
+
+
+def write_coco(path, image_name, class_names, boxes, labels, scores):
+    """One COCO-format prediction file (boxes xyxy) for one image."""
+    Path(path).write_text(json.dumps({
+        "images": [{"id": 1, "file_name": image_name}],
+        "categories": [{"id": i + 1, "name": n}
+                       for i, n in enumerate(class_names)],
+        "annotations": [{"image_id": 1, "bbox": [float(v) for v in b],
+                         "category_id": int(lb), "score": float(s)}
+                        for b, lb, s in zip(boxes, labels, scores)]}))
+
+
+def top2_margins(torch, calls):
+    """Per detection, the gap between its two best valid oracle scores, from
+    the recorded nms_normal_bev call of a propose (inf with one valid)."""
+    (args, kw), = calls
+    s = torch.where(kw["valid_mask"], args[1],
+                    torch.full_like(args[1], float("-inf")))
+    top = s.topk(2, dim=-1).values
+    return (top[:, 0] - top[:, 1]).nan_to_num(float("inf")).cpu().numpy()
+
+
+def hold_seeker(torch, label, card, cpu, margins, exempt=None):
+    """The card's SeekerOutput against the CPU's (see SEEKER_TIE); returns
+    the comparison's numbers and its exceptions, each with its margin."""
+    exempt = exempt or {}
+    card = [t.cpu().numpy() for t in card]
+    cpu = [t.numpy() for t in cpu]
+    boxes_c, _, oracle_c, labels_c, valid_c = card
+    boxes_h, _, oracle_h, labels_h, valid_h = cpu
+    if not np.array_equal(labels_c, labels_h):
+        raise AssertionError(f"{label}: labels differ between card and CPU")
+    if not valid_h.any():
+        raise AssertionError(f"{label}: no valid proposal on the CPU")
+    exceptions, box_err, oracle_err = [], 0.0, 0.0
+    for d in np.nonzero(valid_c | valid_h)[0]:
+        if valid_c[d] != valid_h[d]:
+            if d not in exempt:
+                raise AssertionError(f"{label}: det {d} valid "
+                                     f"{valid_c[d]} on the card, "
+                                     f"{valid_h[d]} on the CPU")
+            exceptions.append({"det": int(d), "why": "seg mask",
+                               "margin": exempt[d]})
+            continue
+        if not np.isfinite(boxes_c[d]).all():
+            raise AssertionError(f"{label}: det {d} non-finite box")
+        be = float(np.abs(boxes_c[d] - boxes_h[d]).max())
+        oe = float(abs(oracle_c[d] - oracle_h[d]))
+        if be <= SEEKER_BOX_ATOL and oe <= SEEKER_ORACLE_ATOL:
+            box_err, oracle_err = max(box_err, be), max(oracle_err, oe)
+            continue
+        if d in exempt:
+            exceptions.append({"det": int(d), "why": "seg mask",
+                               "margin": exempt[d], "box_err": be})
+        elif margins[d] < SEEKER_TIE:
+            exceptions.append({"det": int(d), "why": "oracle tie",
+                               "margin": float(margins[d]), "box_err": be})
+        else:
+            raise AssertionError(
+                f"{label}: det {d} box err {be:.3g}, oracle err {oe:.3g}, "
+                f"CPU top-two margin {margins[d]:.3g}")
+    for e in exceptions:
+        log(f"  {label} exception: det {e['det']} ({e['why']}, margin "
+            f"{e['margin']:.3g})")
+    return {"dets": len(valid_h), "valid": int(valid_h.sum()),
+            "max_box_err": box_err, "max_oracle_err": oracle_err,
+            "exceptions": exceptions}
+
+
+def frame_ms(torch, fn, reps, warm=2):
+    """(median, all) ms of `reps` calls of fn after `warm`, each timed by
+    CUDA events and synchronised."""
+    times = []
+    for i in range(reps + warm):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        fn()
+        t1.record()
+        torch.cuda.synchronize()
+        if i >= warm:
+            times.append(t0.elapsed_time(t1))
+    return sorted(times)[len(times) // 2], times
+
+
+def profile_frame(torch, fn, path):
+    """One call of fn under torch.profiler: wall, summed kernel time, busy
+    share and the five kernels with the most device time; the table goes
+    to `path`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.key_averages()
+              if e.device_type.name == "CUDA" or "cuda" in str(
+                  e.device_type).lower()]
+    kernel_ms = sum(e.self_device_time_total for e in events) / 1e3
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    Path(path).write_text(prof.key_averages().table(
+        sort_by="self_cuda_time_total", row_limit=40))
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:5]
+    return {"wall_ms": wall * 1e3, "kernel_ms": kernel_ms,
+            "busy_share": kernel_ms / (wall * 1e3),
+            "top_kernels": [(e.key[:80], e.self_device_time_total / 1e3)
+                            for e in top]}
+
+
+def seg_head_at_median(torch, seg, args, dev):
+    """Random weights give every point of a frustum nearly the same logits
+    (the 1024-wide global feature dominates), so the filter would keep all
+    points or none. Zero logit 0 and move logit 1's bias to the median over
+    the points of the frame's filtered detections (more than seg_pts_thr
+    points; all detections are real here): half of them become
+    foreground."""
+    seen = []
+    hook = seg.seg_net.register_forward_hook(
+        lambda mod, inp, out: seen.append((out, inp[2])))
+    seg.seg_point_masks(*args, device=dev)
+    hook.remove()
+    logits, valid = seen[0]
+    used = valid & (valid.sum(-1, keepdim=True) > seg.seg_pts_thr)
+    state = {k: v.clone() for k, v in seg.seg_net.state_dict().items()}
+    state["seg_out.weight"][0] = 0.0
+    state["seg_out.bias"][0] = 0.0
+    state["seg_out.bias"][1] -= logits[..., 1][used].median()
+    return {k: v.cpu() for k, v in state.items()}
+
+
+def seg_margins(torch, seg, args):
+    """The SEG masks on the CPU and, per detection, the least distance of
+    a filtered point's foreground probability from a decision threshold."""
+    seen = []
+    hook = seg.seg_net.register_forward_hook(
+        lambda mod, inp, out: seen.append((out, inp[2])))
+    masks = seg.seg_point_masks(*args, device="cpu")
+    hook.remove()
+    logits, valid = seen[0]
+    prob = torch.sigmoid(logits)
+    gap = torch.minimum((prob[..., 1] - prob[..., 0]).abs(),
+                        (prob[..., 1] - seg.seg_thr).abs())
+    gap = torch.where(valid, gap, torch.full_like(gap, float("inf")))
+    return masks, gap.amin(-1).numpy()
+
+
+def seeker_phase(torch, profile=None, device="cuda"):
+    """The Greedy Box Seeker on the card: FrustumProposerOG from the
+    nuScenes seeker yaml at bench.py's shape (200k points, 96 detections
+    loaded from per-camera COCO files through PreprocessedDetector),
+    frames/s, host syncs per frame, peak memory (and under --profile the
+    busy share and top kernels), held against the port's CPU run; then
+    one frame each of the KITTI seeker (its yaml, a synthetic calibration,
+    120k points, 32 detections through infer_kitti) and of the SEG seeker
+    (random PointNet weights, seed 0) against their CPU runs. `device`
+    names the card (another device only to rehearse the phase)."""
+    from findnpropagate_torch import config as cfg_mod
+    from findnpropagate_torch.models.frustum_pointnets import (
+        PointNetInstanceSeg,
+    )
+    from findnpropagate_torch.openvocab import frustum_proposer as fp
+    from findnpropagate_torch.openvocab import frustum_proposer_kitti as fk
+    from findnpropagate_torch.openvocab.frustum_proposer_seg import (
+        FrustumProposerSEG,
+    )
+    from findnpropagate_torch.openvocab.preprocessed_detector import (
+        CAMERA_NAMES,
+        PreprocessedDetector,
+    )
+
+    out = {}
+    dev = torch.device(device)
+    work = ROOT / "build" / "seeker_dets"
+    work.mkdir(parents=True, exist_ok=True)
+
+    # ---- nuScenes, bench shape
+    cfg = cfg_mod.cfg_from_yaml_file(str(ROOT / SEEKER_CFG))
+    head = cfg.MODEL.DENSE_HEAD
+    seeker = fp.FrustumProposerOG.from_config(head, cfg.CLASS_NAMES)
+    (l2i, c2l, intr), pts, (boxes, labels, scores, cams) = \
+        bench_seeker_inputs()
+    preds, images = [], []
+    for c, name in enumerate(CAMERA_NAMES):
+        images.append(f"samples/{name}/frame0__{name}.jpg")
+        preds.append(work / f"{name}.json")
+        sel = cams == c
+        write_coco(preds[-1], images[-1], cfg.CLASS_NAMES, boxes[sel],
+                   labels[sel], scores[sel])
+    detector = PreprocessedDetector(preds, cfg.CLASS_NAMES, box_fmt="xyxy",
+                                    max_dets=len(boxes))
+    dets = detector.infer(images)
+    if int(dets["det_mask"].sum()) != len(boxes):
+        raise AssertionError("seeker: PreprocessedDetector lost detections")
+    det_args = [dets[k] for k in ("det_boxes", "det_labels", "det_scores",
+                                  "det_cams", "det_mask")]
+    pts_d = torch.from_numpy(pts).to(dev)
+    mask_d = torch.ones(len(pts), dtype=torch.bool, device=dev)
+    mats_d = [torch.from_numpy(m).to(dev) for m in (l2i, c2l, intr)]
+
+    def frame():
+        return seeker.propose(pts_d, mask_d, *det_args, *mats_d,
+                              device=dev)
+
+    card = frame()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    med, times = frame_ms(torch, frame, SEEKER_REPS)
+    # the frames' own peak, above what was allocated before them
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    syncs, copies, launches = runtime_calls(torch, frame, reps=3)
+    out["nuscenes"] = {
+        "points": len(pts), "dets": len(boxes), "ms_per_frame": med,
+        "frames_per_s": 1e3 / med, "times_ms": times,
+        "host_syncs_per_frame": syncs, "copies_per_frame": copies,
+        "kernel_launches_per_frame": launches, "peak_mem_gb": peak}
+    if profile:
+        out["nuscenes"]["profile"] = profile_frame(
+            torch, frame, str(profile) + ".seeker.txt")
+    with Recorder(fp, "nms_normal_bev", torch) as rec:
+        cpu = seeker.propose(pts, np.ones(len(pts), bool), *det_args,
+                             l2i, c2l, intr, device="cpu")
+    out["nuscenes"]["vs_cpu"] = hold_seeker(
+        torch, "seeker nuScenes", card, cpu, top2_margins(torch, rec.calls))
+    r = out["nuscenes"]
+    log(f"seeker nuScenes ({len(pts)} points, {len(boxes)} dets): "
+        f"{r['ms_per_frame']:.2f} ms/frame, {r['frames_per_s']:.2f} "
+        f"frames/s (median of {SEEKER_REPS}), per frame {syncs:g} host "
+        f"syncs, {copies:g} copy records (memcpy calls and transfers, any "
+        f"direction), {launches:g} kernel launches; peak {peak:.3f} GiB; "
+        f"card vs CPU "
+        f"{r['vs_cpu']['valid']} valid of {r['vs_cpu']['dets']}, max box "
+        f"err {r['vs_cpu']['max_box_err']:.3g}, oracle err "
+        f"{r['vs_cpu']['max_oracle_err']:.3g}, "
+        f"{len(r['vs_cpu']['exceptions'])} exceptions")
+    if profile:
+        p = r["profile"]
+        log(f"seeker profile: wall {p['wall_ms']:.2f} ms, kernels "
+            f"{p['kernel_ms']:.2f} ms, busy {p['busy_share']:.3f}; top "
+            + "; ".join(f"{n} {t:.3f}" for n, t in p["top_kernels"]))
+    if syncs > SEEKER_SYNCS:
+        raise AssertionError(f"seeker: {syncs} host syncs per frame, want "
+                             f"at most {SEEKER_SYNCS}")
+
+    # ---- SEG on the same frame
+    # torch's own initialisation from seed 0 (init_random_'s N(0, 0.05^2)
+    # leaves every ReLU of the 1024-wide layers dead: constant logits)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        net = PointNetInstanceSeg(6)
+    seg_args = (pts_d, mask_d, det_args[0], det_args[1], det_args[3],
+                det_args[4], mats_d[0])
+    seg = FrustumProposerSEG.from_config(head, cfg.CLASS_NAMES,
+                                         seg_params=net.state_dict())
+    seg = FrustumProposerSEG.from_config(
+        head, cfg.CLASS_NAMES,
+        seg_params=seg_head_at_median(torch, seg, seg_args, dev))
+    masks_card = seg.seg_point_masks(*seg_args, device=dev).cpu()
+    cpu_args = (pts, np.ones(len(pts), bool), *det_args)
+    masks_cpu, gaps = seg_margins(
+        torch, seg, (cpu_args[0], cpu_args[1], cpu_args[2], cpu_args[3],
+                     cpu_args[5], cpu_args[6], l2i))
+    exempt = {}
+    for d in np.nonzero((masks_card != masks_cpu).any(-1).numpy())[0]:
+        if not gaps[d] < SEG_MARGIN:
+            raise AssertionError(f"seeker SEG: det {d} mask differs, least "
+                                 f"probability margin {gaps[d]:.3g}")
+        exempt[int(d)] = float(gaps[d])
+    ms_seg, _ = frame_ms(torch, lambda: seg.propose(
+        pts_d, mask_d, *det_args, *mats_d, device=dev), 3, warm=1)
+    card = seg.propose(pts_d, mask_d, *det_args, *mats_d, device=dev)
+    with Recorder(fp, "nms_normal_bev", torch) as rec:
+        cpu = seg.propose(*cpu_args, l2i, c2l, intr, device="cpu")
+    filtered = ~masks_cpu.all(-1)
+    kept = int(masks_cpu[filtered].sum())
+    if not filtered.any() or kept == 0:
+        raise AssertionError("seeker SEG: the filter kept nothing or ran "
+                             "on no detection")
+    out["seg"] = {"ms_per_frame": ms_seg, "filtered_dets": int(
+                      filtered.sum()), "kept_points": kept,
+                  "mask_dets_differing": len(exempt),
+                  "vs_cpu": hold_seeker(torch, "seeker SEG", card, cpu,
+                                        top2_margins(torch, rec.calls),
+                                        exempt)}
+    r = out["seg"]
+    log(f"seeker SEG: {ms_seg:.2f} ms/frame (median of 3), "
+        f"{r['filtered_dets']} dets filtered ({kept} points kept), masks "
+        f"differing card vs CPU in {len(exempt)} dets, "
+        f"{r['vs_cpu']['valid']} valid, max box err "
+        f"{r['vs_cpu']['max_box_err']:.3g}, "
+        f"{len(r['vs_cpu']['exceptions'])} exceptions")
+
+    # ---- KITTI, one frame
+    kcfg = cfg_mod.cfg_from_yaml_file(str(ROOT / KITTI_SEEKER_CFG))
+    kseeker = fk.FrustumProposerOGKITTI.from_config(kcfg.MODEL.DENSE_HEAD,
+                                                    kcfg.CLASS_NAMES)
+    rng = np.random.RandomState(1)
+    n_k, d_k = KITTI_POINTS, KITTI_DETS
+    kpts = np.stack([rng.uniform(0, 70.4, n_k), rng.uniform(-40, 40, n_k),
+                     rng.uniform(-3, 1, n_k)], -1).astype(np.float32)
+    kb = np.zeros((d_k, 4), np.float32)
+    kb[:, 0] = rng.uniform(0, 1100, d_k)
+    kb[:, 1] = rng.uniform(80, 280, d_k)
+    kb[:, 2] = kb[:, 0] + rng.uniform(30, 140, d_k)
+    kb[:, 3] = kb[:, 1] + rng.uniform(30, 90, d_k)
+    write_coco(work / "kitti.json", "000042.png", kcfg.CLASS_NAMES, kb,
+               rng.randint(1, 8, d_k), rng.uniform(0.2, 1.0, d_k))
+    kd = PreprocessedDetector([work / "kitti.json"], kcfg.CLASS_NAMES,
+                              box_fmt="xyxy", max_dets=d_k).infer_kitti(
+        "000042")
+    th = 0.004
+    calib = (np.array(KITTI_P2, np.float32),
+             np.array([[np.cos(th), -np.sin(th), 0],
+                       [np.sin(th), np.cos(th), 0], [0, 0, 1]], np.float32),
+             np.array(KITTI_V2C, np.float32))
+    kargs = [kd[k] for k in ("det_boxes", "det_labels", "det_scores",
+                             "det_mask")]
+    kpts_d = torch.from_numpy(kpts).to(dev)
+    kmask_d = torch.ones(n_k, dtype=torch.bool, device=dev)
+    ms_k, _ = frame_ms(torch, lambda: kseeker.propose(
+        kpts_d, kmask_d, *kargs, *calib, device=dev), 3, warm=1)
+    card = kseeker.propose(kpts_d, kmask_d, *kargs, *calib, device=dev)
+    with Recorder(fk, "nms_normal_bev", torch) as rec:
+        cpu = kseeker.propose(kpts, np.ones(n_k, bool), *kargs, *calib,
+                              device="cpu")
+    out["kitti"] = {"points": n_k, "dets": d_k, "ms_per_frame": ms_k,
+                    "vs_cpu": hold_seeker(torch, "seeker KITTI", card, cpu,
+                                          top2_margins(torch, rec.calls))}
+    r = out["kitti"]
+    log(f"seeker KITTI ({n_k} points, {d_k} dets): {ms_k:.2f} ms/frame "
+        f"(median of 3), {r['vs_cpu']['valid']} valid, max box err "
+        f"{r['vs_cpu']['max_box_err']:.3g}, "
+        f"{len(r['vs_cpu']['exceptions'])} exceptions")
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--batches", type=int, nargs="+", default=[1, 8])
@@ -1796,7 +2222,10 @@ def main():
         report["probe_output"] = probes_phase(torch, gp, args.before)
     log(f"probe launches: {report['probe_launches']}")
 
-    # ---- 9. result lines
+    # ---- 9. the Greedy Box Seeker: nuScenes, SEG, KITTI
+    report["seeker"] = seeker_phase(torch, args.profile)
+
+    # ---- 10. result lines
     first_batch = report["main_path"][0]["launches_per_forward"]
     pick = {
         # K1 at L0 (first call); K2 at the L0 16->16 subm conv with the

@@ -1,6 +1,6 @@
-"""Rotated BEV overlap — port of `boxes_overlap_bev` and what it needs from
-findnpropagate_tpu/ops/rotated_iou.py:31-128 and
-utils/geometry.py:74-109 (`rotate_points_2d`, `boxes_to_corners_bev`).
+"""Rotated BEV overlap and IoU — port of `boxes_overlap_bev`,
+`_height_overlap` and `boxes_iou_bev` of findnpropagate_tpu/ops/
+rotated_iou.py:31-162 (the corners come from utils/geometry.py).
 
 The convex intersection of two rotated rectangles, branch-free, with the
 reference's fixed 24 candidates per pair: 16 edge-pair crossings, 4 corners
@@ -15,21 +15,9 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.geometry import boxes_to_corners_bev
+
 _EPS = 1e-8
-
-
-def boxes_to_corners_bev(boxes):
-    """(..., 7) -> (..., 4, 2) BEV corners: (+x,+y), (-x,+y), (-x,-y),
-    (+x,-y) in the box frame, rotated by the heading, moved to the centre."""
-    h = boxes[..., 3] / 2
-    w = boxes[..., 4] / 2
-    tx = torch.stack([h, -h, -h, h], dim=-1)
-    ty = torch.stack([w, w, -w, -w], dim=-1)
-    cosa = torch.cos(boxes[..., 6])[..., None]
-    sina = torch.sin(boxes[..., 6])[..., None]
-    x = tx * cosa - ty * sina + boxes[..., 0:1]
-    y = tx * sina + ty * cosa + boxes[..., 1:2]
-    return torch.stack([x, y], dim=-1)
 
 
 def _inside(pts, quad):
@@ -94,3 +82,21 @@ def boxes_overlap_bev(boxes_a, boxes_b):
     ca = boxes_to_corners_bev(boxes_a[..., :7])[..., :, None, :, :]
     cb = boxes_to_corners_bev(boxes_b[..., :7])[..., None, :, :, :]
     return pair_intersection_area(ca, cb)
+
+
+def _height_overlap(boxes_a, boxes_b):
+    """(..., N, 7), (..., M, 7) -> (..., N, M) z-extent overlaps."""
+    a_top = (boxes_a[..., 2] + boxes_a[..., 5] / 2)[..., :, None]
+    a_bot = (boxes_a[..., 2] - boxes_a[..., 5] / 2)[..., :, None]
+    b_top = (boxes_b[..., 2] + boxes_b[..., 5] / 2)[..., None, :]
+    b_bot = (boxes_b[..., 2] - boxes_b[..., 5] / 2)[..., None, :]
+    return torch.clamp(torch.minimum(a_top, b_top)
+                       - torch.maximum(a_bot, b_bot), min=0.0)
+
+
+def boxes_iou_bev(boxes_a, boxes_b):
+    """(..., N, 7), (..., M, 7) -> (..., N, M) rotated BEV IoU."""
+    overlap = boxes_overlap_bev(boxes_a, boxes_b)
+    area_a = (boxes_a[..., 3] * boxes_a[..., 4])[..., :, None]
+    area_b = (boxes_b[..., 3] * boxes_b[..., 4])[..., None, :]
+    return overlap / torch.clamp(area_a + area_b - overlap, min=_EPS)

@@ -16,6 +16,12 @@ what differs is the layout, converted here:
   * BatchNorm: scale/bias/mean/var -> weight/bias/running_mean/running_var;
     LayerNorm: scale/bias -> weight/bias.
 
+The same walk covers any module built from these layers under the flax
+names, such as models/frustum_pointnets.py::PointNetInstanceSeg (its
+``enc0_fc0`` Linear, ``enc0_bn0`` MaskedBatchNorm, ... ``seg_out``): a
+flax variables tree of the JAX PointNetInstanceSeg, params and batch
+statistics, loads into it as it stands.
+
 `to_jax_tree(model, what)` is the inverse map: the port's parameters,
 their gradients or its BN statistics as a nested dict of numpy arrays under
 the flax names and in the flax layouts, so the two packages compare leaf by
