@@ -33,6 +33,11 @@ Phases (any failure exits non-zero and prints no result line):
      memory (bit-equal, device ms); the first K1 call also counts, under
      torch.profiler, the stream syncs and host-to-device copies of 5
      calls, which must be 0, and splits its host time under cProfile;
+     then P2 and P3 (the probes' kernels) against their plain versions
+     where the probes do not reach (`probe_corners`: rel and columns out
+     of range, ids beyond tap_win and absent, S not a multiple of 8, one
+     tile, 9 taps, windows at the shared-memory limit and one row more
+     refused), and a duplicate id that makes P2's kernel fail the launch;
   3. main path — TransFusion-LiDAR from
      tools/cfgs/nuscenes_models/transfusion_lidar.yaml at full width,
      random weights (init_random_, seed 0), 200k-point lidar_ring scenes,
@@ -79,8 +84,10 @@ Phases (any failure exits non-zero and prints no result line):
      P2 without weights bit-equal (NaN included), P2 with weights and P3
      within 1e-3 of the output's scale plus one bf16 step of each element;
      for the first call of each signature ms, device ms, plain ms, bound,
-     the library call's time (torch.take_along_dim for P1) and, for P1,
-     the wrapper's host time split under cProfile. K1's rows
+     the library call's time (torch.take_along_dim for P1), the wrapper's
+     host time split under cProfile and, for P2 and P3, the syncs,
+     host-to-device copies and launches per call under torch.profiler
+     (0, 0 and 1, or the run fails). K1's rows
      of phases 2 and 6 carry the library call that computes its ranks,
      torch.searchsorted of all G*Vt queries in one call (its ranks checked
      against K1's where the id is found);
@@ -109,12 +116,14 @@ Phases (any failure exits non-zero and prints no result line):
 
 With --before DIR (a checkout of an earlier commit of this repo, e.g.
 `git archive` of the parent unpacked under build/), that checkout's K1
-(compute_positions, and its K1 kernel alone), K2, K3 and P1 wrappers are
-built and timed in the same process on every recorded K1, K3 and P1 call
-and phase 2's K2 calls (`before_*`), its K3 in place of this one's for the
-pallas-mode forward and for training steps, and its compute_positions in
-place of this one's for a batch-1 forward and a training step (each in
-turns: before, after, after, before).
+(compute_positions, and its K1 kernel alone), K2, K3 and P1-P3 wrappers
+are built and timed in the same process on every recorded K1, K3 and
+P1-P3 call and phase 2's K2 calls (`before_*`; P1-P3 also from CUDA
+graphs in turns with this one's, and their syncs and host split), its K3
+in place of this one's for the pallas-mode forward and for training
+steps, and its compute_positions in place of this one's for a batch-1
+forward and a training step (each in turns: before, after, after,
+before).
 
 Imports nothing of jax. Without CUDA, or without the port beside it, it
 exits non-zero.
@@ -1047,11 +1056,12 @@ def check_train_kernels(torch, tp, ws, k2_calls, k3_calls, k4_calls,
 
 
 def load_before(path):
-    """The K1, K2, K3 and P1 wrappers of an earlier checkout of this repo at
-    `path` (`compute_positions`, `positions`, `gather_conv`, `conv_kernel`,
-    `take_along`, and its gather-probe module `gp`): its package loaded
-    under another name, its kernels built into its own build/, taking this
-    checkout's recorded arguments."""
+    """The K1, K2, K3 and P1-P3 wrappers of an earlier checkout of this
+    repo at `path` (`compute_positions`, `positions`, `gather_conv`,
+    `conv_kernel`, `take_along`, and its gather-probe module `gp`, whose
+    `onehot_gather` and `banded_gather_conv` are P2 and P3): its package
+    loaded under another name, its kernels built into its own build/,
+    taking this checkout's recorded arguments."""
     import importlib
     import importlib.util
 
@@ -1088,13 +1098,14 @@ def k1_before_after(torch, before, run):
 
     bb = importlib.import_module(
         "findnpropagate_torch.models.backbones_3d.spconv_backbone")
-    ab = {"before": [], "after": []}
-    for which in ("before", "after", "after", "before"):
-        fn = before.compute_positions if which == "before" \
-            else bb.compute_positions
-        with Swap(bb, "compute_positions", fn):
-            ab[which].append(run())
-    return ab
+
+    def with_fn(fn):
+        def measure():
+            with Swap(bb, "compute_positions", fn):
+                return run()
+        return measure
+    return timing.in_turns(with_fn(before.compute_positions),
+                           with_fn(bb.compute_positions))
 
 
 class Swap:
@@ -1415,9 +1426,12 @@ def check_probe_kernels(torch, gp, calls, before=None):
     scale plus one bf16 step of each element. One row per signature
     (`signature`: calls that differ only in their data), with the number of
     its calls checked, their largest error, and, timed on its first call,
-    ms, device ms, plain ms, bound and, for P1, the library call's time and
-    the wrapper's host time split (`host_split`; with `before`, also the
-    earlier checkout's P1 timed and split on the same call)."""
+    ms, device ms, plain ms, bound, for P1 the library call's time, the
+    wrapper's host time split (`host_split`) and, for P2 and P3, the syncs,
+    host-to-device copies and launches per call (`runtime_calls`: 0, 0 and
+    1, or the run fails); with `before`, the earlier checkout's kernel on
+    the same call: ms, host split, and device ms in turns with this one's
+    (`timing.in_turns`; `before_device_ms` the better of its two)."""
     from findnpropagate_torch.tools._common import bf16_close, same
 
     bounds = {"take_along": take_bound, "onehot_gather": onehot_bound,
@@ -1468,19 +1482,224 @@ def check_probe_kernels(torch, gp, calls, before=None):
                 "library_device_ms": None if library is None
                 else timing.device_ms(library, 20),
                 "bound_ms": bound_ms, "bound_by": bound_by}
-            if name == "take_along":
-                by_sig[key]["host_us"] = host_split(
-                    torch, lambda: kernel(*args, **kw))
-                if before is not None:
-                    by_sig[key]["before_host_us"] = host_split(
-                        torch, lambda: before.take_along(*args, **kw))
-                    by_sig[key]["before_ms"] = timing.ms(
-                        lambda: before.take_along(*args, **kw), 20)
-                    by_sig[key]["before_device_ms"] = timing.device_ms(
-                        lambda: before.take_along(*args, **kw), 20)
+            call = lambda: kernel(*args, **kw)  # noqa: E731
+            row = by_sig[key]
+            row["host_us"] = host_split(torch, call)
+            if name != "take_along":
+                row["syncs"], row["h2d_copies"], row["launches_seen"] = \
+                    runtime_calls(torch, call)
+                if row["syncs"] or row["h2d_copies"] \
+                        or row["launches_seen"] != 1:
+                    raise AssertionError(
+                        f"{name}: {row['syncs']} syncs, {row['h2d_copies']} "
+                        f"host-to-device copies and {row['launches_seen']} "
+                        "launches per call (want 0, 0, 1)")
+            if before is not None:
+                bcall = lambda: getattr(before.gp, name)(  # noqa: E731
+                    *args, **kw)
+                row["before_host_us"] = host_split(torch, bcall)
+                row["before_ms"] = timing.ms(bcall, 20)
+                row["turns_device_ms"] = timing.in_turns(
+                    lambda: timing.device_ms(bcall, 20),
+                    lambda: timing.device_ms(call, 20))
+                row["before_device_ms"] = min(
+                    row["turns_device_ms"]["before"])
+                if name != "take_along":
+                    row["before_syncs"], row["before_h2d_copies"], \
+                        row["before_launches_seen"] = runtime_calls(
+                            torch, bcall)
             rows.append(by_sig[key])
             del out, ref
     return rows
+
+
+def probe_corners(torch, gp):
+    """P2 and P3 against their plain versions (P2 without weights bit-equal,
+    the others `bf16_close`) where the probes' own calls do not reach
+    (numpy seed 0): P3 with rel below 0 and at or above band*128 and
+    starts that put columns outside [0, S); P2 with wanted ids beyond
+    tap_win and ids not there; S not a multiple of 8; one 128-target tile
+    and one block; 9 taps; a window at the size limit
+    (gather_probes.max_window), and one row more refused with ValueError
+    before any launch. Last, unsorted ids make the P2 kernel trap
+    (`unsorted_ids_refused`)."""
+    from findnpropagate_torch.tools._common import bf16_close, same
+
+    rng = np.random.RandomState(0)
+    rows = []
+
+    def bf16(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(
+            "cuda", torch.bfloat16)
+
+    def i32(a):
+        return torch.from_numpy(np.asarray(a, np.int32)).cuda()
+
+    def hold(label, name, args, kw, stats):
+        out = getattr(gp, name)(*args, **kw)
+        ref = getattr(gp, name + "_plain")(*args, **kw)
+        torch.cuda.synchronize()
+        exact = name == "onehot_gather" and kw.get("wt") is None
+        ok, err = (same(out, ref), 0.0) if exact else bf16_close(out, ref)
+        if not ok:
+            raise AssertionError(f"probe corner {label}: {name} != plain"
+                                 + ("" if exact else f" (err {err})"))
+        rows.append({"case": label, "kernel": name, "exact": exact,
+                     "max_abs_err": err, **stats})
+        log(f"probe corner {label:52s} {name}: err {err:.3g} {stats}")
+
+    def refused(label, fn):
+        try:
+            fn()
+        except ValueError as e:
+            rows.append({"case": label, "refused": str(e)})
+            log(f"probe corner {label:52s} refused: {e}")
+            return
+        raise AssertionError(f"probe corner {label}: not refused")
+
+    def p3(label, s, w, nb, taps, band, rel_range, start_range):
+        feats = bf16(rng.randn(16, s))
+        rel = i32(rng.randint(*rel_range, (taps, w)))
+        starts = i32(rng.randint(*start_range, (nb, taps, w // 128)))
+        wt = bf16(rng.randn(16, taps * 16) * 0.1)
+        col = starts.long().repeat_interleave(128, dim=2) + rel.long()[None]
+        in_band = ((rel >= 0) & (rel < band * 128))[None]
+        stats = {"s": s, "w": w, "nb": nb, "taps": taps, "band": band,
+                 "rel_outside_band": int((~in_band).sum()) * nb,
+                 "column_outside": int((in_band & ((col < 0) | (col >= s)))
+                                       .sum()),
+                 "gathered": int((gp.band_positions(starts, rel, band, s)
+                                  >= 0).sum())}
+        hold(label, "banded_gather_conv", (starts, feats, rel, wt, band), {},
+             stats)
+        return stats
+
+    def p2(label, s, w, taps, tap_win=None, blocks=1, ids=None):
+        n = s if tap_win is None else tap_win
+        x = bf16(rng.randn(16, s))
+        if ids is None:
+            ids = np.sort(rng.choice(10 * s, s, replace=False))
+        pick = rng.randint(0, 3, (taps, w))
+        inside = ids[rng.randint(0, n, (taps, w))]
+        beyond = ids[rng.randint(n, s, (taps, w))] if n < s else inside
+        absent = rng.randint(max(int(ids[0]) - 50, -2 ** 31),
+                             int(ids[-1]) // 2 + 50, (taps, w),
+                             dtype=np.int64)
+        want = np.where(pick == 0, inside, np.where(pick == 1, beyond,
+                                                    absent))
+        kw = {} if tap_win is None else dict(
+            tap_win=tap_win, wt=bf16(rng.randn(16, taps * 16) * 0.1),
+            blocks=blocks)
+        stats = {"s": s, "w": w, "taps": taps, "tap_win": n,
+                 "blocks": blocks,
+                 "found": int(np.isin(want, ids[:n]).sum()),
+                 "beyond_tap_win": int(np.isin(want, ids[n:]).sum()),
+                 "not_there": int((~np.isin(want, ids)).sum())}
+        hold(label, "onehot_gather", (x, i32(ids), i32(want)), kw, stats)
+        return stats
+
+    st = p3("P3 rel outside the band, columns outside [0, S)", 2048, 1024,
+            3, 27, 3, (-200, 3 * 128 + 200), (-400, 2048 + 100))
+    if not (st["rel_outside_band"] and st["column_outside"]):
+        raise AssertionError(f"probe corner P3: no case outside: {st}")
+    p3("P3 S not a multiple of 8", 2045, 256, 2, 27, 2, (0, 256),
+       (0, 2045 - 128))
+    p3("P3 one tile, nb 1", 2048, 128, 1, 27, 4, (0, 512), (0, 1536))
+    p3("P3 9 taps", 1000, 256, 2, 9, 2, (0, 256), (0, 744))
+    lim = gp.max_window(27, False)
+    p3(f"P3 window at the limit, S {lim}", lim, 1024, 4, 27, 4, (0, 512),
+       (0, lim - 512))
+    feats = torch.zeros(16, lim + 1, dtype=torch.bfloat16, device="cuda")
+    refused(f"P3 S {lim + 1}", lambda: gp.banded_gather_conv(
+        torch.zeros(1, 27, 1, dtype=torch.int32, device="cuda"), feats,
+        torch.zeros(27, 128, dtype=torch.int32, device="cuda"),
+        torch.zeros(16, 432, dtype=torch.bfloat16, device="cuda"), 2))
+
+    st = p2("P2 want beyond tap_win and not there", 2048, 1024, 27, 1000, 3)
+    if not (st["found"] and st["beyond_tap_win"] and st["not_there"]):
+        raise AssertionError(f"probe corner P2: a kind of id missing: {st}")
+    p2("P2 S not a multiple of 8", 2045, 256, 27, 2045, 2)
+    p2("P2 one tile, nb 1", 2048, 128, 27, 1536, 1)
+    p2("P2 9 taps", 1000, 256, 9, 700, 2)
+    # the search index's buckets: negative ids, a gap of 2^30 between two
+    # clusters, and the int32 ends
+    clustered = np.concatenate([np.arange(-700, 300), 2 ** 30 + np.arange(
+        1000), [-2 ** 31, 2 ** 31 - 1]])
+    clustered = np.sort(clustered)
+    p2("P2 ids in two clusters and at the int32 ends", 2002, 256, 27, 1900,
+       2, ids=clustered)
+    p2("P2 without weights, ids in two clusters and at the int32 ends",
+       2002, 256, 27, ids=clustered)
+    lim = gp.max_window(27, True)
+    p2(f"P2 window at the limit, tap_win {lim}", 6000, 512, 27, lim, 2)
+    x = torch.zeros(16, 6000, dtype=torch.bfloat16, device="cuda")
+    ids6k = torch.arange(6000, dtype=torch.int32, device="cuda")
+    want = torch.zeros(27, 128, dtype=torch.int32, device="cuda")
+    refused(f"P2 tap_win {lim + 1}", lambda: gp.onehot_gather(
+        x, ids6k, want, tap_win=lim + 1,
+        wt=torch.zeros(16, 432, dtype=torch.bfloat16, device="cuda")))
+
+    p2("P2 without weights, ids there and not", 2048, 1024, 27)
+    p2("P2 without weights, S not a multiple of 8", 2045, 256, 27)
+    p2("P2 without weights, one tile", 2048, 128, 27)
+    lim = gp.max_ids()
+    p2(f"P2 without weights, window at the limit, S {lim}", lim, 256, 27)
+    refused(f"P2 without weights, S {lim + 1}", lambda: gp.onehot_gather(
+        torch.zeros(16, lim + 1, dtype=torch.bfloat16, device="cuda"),
+        torch.arange(lim + 1, dtype=torch.int32, device="cuda"), want))
+
+    for mode, said in unsorted_ids_refused().items():
+        rows.append({"case": f"P2 {mode} with a duplicate id",
+                     "refused": said})
+        log(f"probe corner P2 {mode} with a duplicate id: {said}")
+    return rows
+
+
+UNSORTED_IDS = """
+import sys
+import torch
+sys.path.insert(0, sys.argv[1])
+from findnpropagate_torch.ops import gather_probes as gp
+x = torch.zeros(16, 256, dtype=torch.bfloat16, device="cuda")
+ids = torch.arange(256, dtype=torch.int32, device="cuda") * 2
+ids[200] = ids[199]
+want = torch.zeros(27, 128, dtype=torch.int32, device="cuda")
+kw = {} if sys.argv[2] == "gather" else dict(
+    tap_win=250, blocks=2,
+    wt=torch.zeros(16, 432, dtype=torch.bfloat16, device="cuda"))
+try:
+    gp.onehot_gather(x, ids, want, **kw)
+    torch.cuda.synchronize()
+except RuntimeError as e:
+    print(str(e).strip().splitlines()[0])
+    sys.exit(0)
+sys.exit(1)
+"""
+
+
+def unsorted_ids_refused():
+    """P2 without and with weights on ids with a duplicate among those it
+    compares, each in a process of its own (a trap ends the process's
+    CUDA context): the launch must fail at the next synchronisation.
+    Returns what each process's error said."""
+    procs = {mode: subprocess.Popen(
+        [sys.executable, "-c", UNSORTED_IDS, str(ROOT), mode],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for mode in ("gather", "product")}
+    said = {}
+    try:
+        for mode, proc in procs.items():
+            out, err = proc.communicate(timeout=300)
+            if proc.returncode != 0:
+                raise AssertionError(f"P2 {mode} with unsorted ids was not "
+                                     f"refused: {out}{err[-2000:]}")
+            said[mode] = out.strip()
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return said
 
 
 class Tee(io.TextIOBase):
@@ -1560,7 +1779,11 @@ def probes_phase(torch, gp, before=None):
             + f"  bound {r['bound_ms']:.4f} ({r['bound_by']})"
             + ("" if "before_ms" not in r else
                f"  before {r['before_ms']:.4f} (device "
-               f"{r['before_device_ms']:.4f})")
+               f"{r['before_device_ms']:.4f}; in turns "
+               f"{r['turns_device_ms']})")
+            + "".join(f"  {k} {r[k]}" for k in (
+                "syncs", "h2d_copies", "launches_seen", "before_syncs",
+                "before_h2d_copies", "before_launches_seen") if k in r)
             + "".join(f"  {k} " + " ".join(
                 f"{f} {v:.1f}" for f, v in r[k].items())
                 for k in ("host_us", "before_host_us") if k in r))
@@ -2072,7 +2295,8 @@ def main():
                     "one training step to <file>.train.txt")
     ap.add_argument("--before", default=None,
                     help="a checkout of an earlier commit of this repo "
-                    "whose K1, K2, K3 and P1 are timed beside this one's")
+                    "whose K1, K2, K3 and P1-P3 are timed beside this "
+                    "one's")
     args = ap.parse_args()
     global timing
 
@@ -2142,6 +2366,7 @@ def main():
     # ---- 2. kernels vs plain: corner cases, then the main path's own
     # arguments
     report["corner_cases"] = corner_phase(torch, tp, ws, sparse_ops)
+    report["probe_corner_cases"] = probe_corners(torch, gp)
     with record_positions(torch, tp) as pos_calls, \
             Recorder(tp, "gather_conv", torch) as conv_rec:
         det.post_process(det(batches[min(args.batches)]))

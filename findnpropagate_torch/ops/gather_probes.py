@@ -18,27 +18,32 @@ Three kernels carry them (ops/csrc/gather_probes.cu):
     ``x[:, s] * [ids[s] == want[k, w]]`` in f32, rounded to x's type
     (bf16); 0 on a miss. With `wt` the (Cout, T*C) weights multiply the
     rounded (T*C, W) tile in one more stage (f32 sums, bf16 result), once
-    for each of `blocks` identical output blocks, as the probe's grid does;
-    the kernel takes `tap_win` and `blocks` only with the weight stage.
+    for each of `blocks` output blocks, as the probe's grid does; the
+    kernel takes `tap_win` and `blocks` only with the weight stage.
     The kernel searches each target's id among the ids staged in shared
     memory instead of building one-hot tiles, so it needs the ids sorted
-    and unique; the wrapper checks that on the host and raises otherwise
-    (the plain version sums duplicates, as the matmul does);
+    and unique: it tests them while it stages them and traps otherwise (the
+    launch fails, and the next synchronisation raises). The plain version
+    sums duplicates, as the matmul does;
   * P3 `banded_gather_conv` — probe_posgather.py's banded gather: for block
     i, tap k and target t the source column ``starts[i, k, t // 128] +
     rel[k, t]`` (nothing where rel lies outside the band [0, band*128) or
     the column outside the input), then ``wt . gathered`` with f32 sums,
     rounded to bf16.
 
-P2's weight stage and P3 run on the tensor cores through K2's tile body
-(`conv_tile`, csrc/gather_mma.cuh): they take the features row-major, so
-the wrapper hands them a transposed bf16 copy of the (C, S) input, and the
-weights transposed and packed in mma fragment order
-(`posgather.pack_weights_mma`). Both take C = Cout = 16 only, the width
-the probes run. Each kernel has a plain PyTorch version
-beside it; a wrapper takes the plain version only for a tensor on the CPU,
-for a CUDA tensor it launches the kernel or raises. `LAUNCHES` counts
-kernel launches per wrapper.
+P2 and P3 take C = Cout = 16 only, the width the probes run. P2's weight
+stage and P3 stage the window once in shared memory, as rows of 16
+channels read from the (C, S) input as given, with the plain (Cout, T*C)
+weights and P2's ids, and feed the tensor cores from it with ldmatrix; P2
+without weights stages only its ids and gathers from the input
+(csrc/gather_probes.cu). The wrappers hand the kernels the caller's
+tensors, with no transposed or packed copy. What does not fit in a
+block's shared memory raises ValueError (`window_smem`, `max_window`,
+`max_ids`: at 27 taps 5609 ids for P2 with weights, 6567 columns for
+P3, 58112 ids for P2 without weights); there is no unstaged path. Each
+kernel has a plain PyTorch version beside it; a wrapper takes the plain
+version only for a tensor on the CPU, for a CUDA tensor it launches the
+kernel or raises. `LAUNCHES` counts kernel launches per wrapper.
 """
 
 from __future__ import annotations
@@ -48,13 +53,13 @@ import ctypes
 import torch
 
 from . import _build
-from .posgather import _check_device, _check_shape, _ptr, _stream, \
-    pack_weights_mma
+from .posgather import _check_device, _check_shape, _ptr, _stream
 
-TILE = 128               # targets per tile of the P2 / P3 kernels
+TILE = 128               # W % TILE == 0; P3's starts are per TILE targets
 LAUNCHES = {"take_along": 0, "onehot_gather": 0, "banded_gather_conv": 0}
-MAX_TAP_WIN = 16384      # ids P2 stages in shared memory
-WIDTH = 16               # P2's weight stage and P3: C = Cout = 16
+WIDTH = 16               # P2 and P3: C = Cout = 16
+WARPS = 16               # warps of a P2 / P3 block, a store tile each
+SMEM_MAX = 227 * 1024    # dynamic shared memory of an H100 block
 
 
 def reset_launches():
@@ -68,7 +73,7 @@ def _lib():
         lib.fp_take_along.argtypes = [ctypes.c_void_p] * 3 \
             + [ctypes.c_int] * 10 + [ctypes.c_void_p]
         lib.fp_take_along.restype = ctypes.c_int
-        lib.fp_onehot_gather.argtypes = [ctypes.c_void_p] * 6 \
+        lib.fp_onehot_gather.argtypes = [ctypes.c_void_p] * 5 \
             + [ctypes.c_int] * 8 + [ctypes.c_void_p]
         lib.fp_onehot_gather.restype = ctypes.c_int
         lib.fp_banded_gather_conv.argtypes = [ctypes.c_void_p] * 5 \
@@ -88,10 +93,55 @@ def _check_widths(c, cout):
                          f"probes' {WIDTH} -> {WIDTH}")
 
 
-def _weights_mma(wt):
-    """(Cout, T*C) weights -> the (T*C, Cout) matrix, row k*C + c, packed
-    in mma fragment order for the shared tile body."""
-    return pack_weights_mma(wt.to(torch.bfloat16).t())
+def ids_smem(n_ids: int) -> int:
+    """Bytes of shared memory the ids of P2 with weights take staged
+    (csrc/gather_probes.cu ids_smem): n_ids int32 and their search index, a
+    uint16 start per bucket (a power of two of buckets, at most n_ids) and
+    one more."""
+    if not n_ids:
+        return 0
+    return 4 * n_ids + 2 * ((1 << (n_ids.bit_length() - 1)) + 1)
+
+
+def window_smem(rows: int, n_ids: int, taps: int) -> int:
+    """Bytes of shared memory a block of P2 with weights or P3 stages
+    (csrc/gather_probes.cu window_smem): `rows` window rows of 16 bf16
+    channels and a zero row, the (16, taps*16) bf16 weights (rows padded by
+    16 bytes), a 16 x 16 bf16 store tile per warp, and P2's ids
+    (`ids_smem`)."""
+    return ((rows + 1) * 2 * WIDTH + WIDTH * (taps * WIDTH * 2 + 16)
+            + WARPS * WIDTH * WIDTH * 2 + ids_smem(n_ids))
+
+
+def _largest(fits, hi):
+    """The largest n in [0, hi] with fits(n), for fits monotone."""
+    lo = 0
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        lo, hi = (mid, hi) if fits(mid) else (lo, mid - 1)
+    return lo
+
+
+def max_window(taps: int, ids: bool) -> int:
+    """The most window rows that fit in SMEM_MAX (`window_smem`), with an
+    id staged beside each row (P2 with weights) or none (P3)."""
+    return _largest(lambda n: window_smem(n, n if ids else 0, taps)
+                    <= SMEM_MAX, SMEM_MAX // (2 * WIDTH))
+
+
+def max_ids() -> int:
+    """The most ids P2 without weights stages (int32, nothing else)."""
+    return SMEM_MAX // 4
+
+
+def _check_fits(name, need, rows, limit, taps):
+    """Raise unless `need` bytes fit in a block; limit() gives the most
+    rows that do (computed only then)."""
+    if need > SMEM_MAX:
+        raise ValueError(
+            f"{name}: a window of {rows} rows needs {need} bytes of shared "
+            f"memory, more than the {SMEM_MAX} of a block: at most {limit()}"
+            f" at {taps} taps")
 
 
 # ----------------------------------------------------------------- P1
@@ -189,54 +239,47 @@ def onehot_gather_plain(x, ids, want, tap_win=None, wt=None, blocks=1):
     return g.repeat(1, blocks)
 
 
-def check_sorted_unique(ids):
-    """Raise unless the ids ascend strictly. The host reads them, which
-    waits for the stream: a probe may, but not inside the capture of a CUDA
-    graph, so a captured call is checked by the eager call before it."""
-    capturing = torch.cuda.is_available() \
-        and torch.cuda.is_current_stream_capturing()
-    if not capturing and ids.numel() > 1 \
-            and not bool((ids[1:] > ids[:-1]).all()):
-        raise ValueError("onehot_gather's kernel needs sorted unique ids")
-
-
 def onehot_gather(x, ids, want, tap_win=None, wt=None, blocks=1):
     """P2 wrapper. x (C, S) bf16, ids (S,) int32, want (T, W) int32;
     tap_win (default S): only ids[:tap_win] are compared. Returns (T*C,
-    blocks*W) bf16, or with wt (Cout, T*C) bf16 the weight product
-    (Cout, blocks*W) bf16; the `blocks` output blocks are alike. On the card
-    tap_win and blocks > 1 need wt, and wt C = Cout = 16."""
+    blocks*W) bf16, or with wt (Cout, T*C) the weight product (Cout,
+    blocks*W) bf16, one block per `blocks`. On the card: C = Cout = 16,
+    W % 128 == 0, tap_win and blocks > 1 only with wt, ids[:tap_win] sorted
+    unique (the kernel traps otherwise), and a window that fits
+    (`max_window`, `max_ids`)."""
     if not _check_device(x, ids, want, *(() if wt is None else (wt,))):
         return onehot_gather_plain(x, ids, want, tap_win, wt, blocks)
     c, s = x.shape
     t, w = want.shape
     n = s if tap_win is None else int(tap_win)
     if x.dtype != torch.bfloat16 or ids.shape != (s,) or not 0 < n <= s \
-            or n > MAX_TAP_WIN or w % TILE or blocks < 1 \
-            or (wt is None and (n != s or blocks != 1)) \
-            or (wt is not None and t % 3):
+            or t < 1 or w % TILE or blocks < 1 \
+            or (wt is None and (n != s or blocks != 1)):
         raise ValueError(f"unsupported onehot_gather: x {tuple(x.shape)} "
                          f"{x.dtype}, ids {tuple(ids.shape)}, want "
                          f"{tuple(want.shape)}, tap_win {n}")
     _check_int32("ids", ids)
     _check_int32("want", want)
-    check_sorted_unique(ids[:n])
-    x, ids, want = x.contiguous(), ids.contiguous(), want.contiguous()
+    cout = WIDTH if wt is None else wt.shape[0]
+    _check_widths(c, cout)
     if wt is None:
-        xt = w_mma = x                       # the gather alone reads neither
-        cout = 0
-        out = torch.empty(t * c, blocks * w, dtype=x.dtype, device=x.device)
+        _check_fits("onehot_gather", 4 * n, n, max_ids, t)
     else:
-        cout = wt.shape[0]
-        _check_widths(c, cout)
         _check_shape("wt", wt, (cout, t * c))
-        xt = x.t().contiguous()
-        w_mma = _weights_mma(wt)
-        out = torch.empty(cout, blocks * w, dtype=x.dtype, device=x.device)
+        _check_fits("onehot_gather", window_smem(n, n, t), n,
+                    lambda: max_window(t, True), t)
+    # bound to names: a temporary freed inside the argument list could
+    # hand its memory to the next one before the launch; none is made for
+    # contiguous bf16 operands
+    x, ids, want = x.contiguous(), ids.contiguous(), want.contiguous()
+    if wt is not None:
+        wt = wt.to(torch.bfloat16).contiguous()
+    out = torch.empty(t * c if wt is None else cout, blocks * w,
+                      dtype=x.dtype, device=x.device)
     _build.check(_lib().fp_onehot_gather(
-        _ptr(x), _ptr(xt), _ptr(ids), _ptr(want), _ptr(w_mma), _ptr(out),
-        c, s, n, t, w, cout, blocks, int(wt is not None), _stream()),
-        "fp_onehot_gather")
+        _ptr(x), _ptr(ids), _ptr(want), None if wt is None else _ptr(wt),
+        _ptr(out), c, s, n, t, w, cout, blocks, int(wt is not None),
+        _stream()), "fp_onehot_gather")
     LAUNCHES["onehot_gather"] += 1
     return out
 
@@ -267,34 +310,34 @@ def banded_gather_conv_plain(starts, feats, rel, wt, band: int):
 
 def banded_gather_conv(starts, feats, rel, wt, band: int):
     """P3 wrapper. starts (nb, T, W/128) int32, feats (C, S) bf16, rel (T,
-    W) int32, wt (Cout, T*C) bf16 (C = Cout = 16 on the card) -> (Cout,
-    nb*W) bf16: for block i
+    W) int32, wt (Cout, T*C) -> (Cout, nb*W) bf16: for block i
     ``out[:, i*W + t] = sum_k wt[:, kC:(k+1)C] . feats[:, starts[i, k,
     t // 128] + rel[k, t]]``, nothing gathered where rel lies outside the
-    band [0, band*128) or the column outside the input."""
+    band [0, band*128) or the column outside the input. On the card C =
+    Cout = 16 and S at most `max_window` (6567 at 27 taps)."""
     if not _check_device(starts, feats, rel, wt):
         return banded_gather_conv_plain(starts, feats, rel, wt, band)
     c, s = feats.shape
     nb, t, tiles = starts.shape
     cout = wt.shape[0]
     _check_widths(c, cout)
-    if feats.dtype != torch.bfloat16 or t % 3 or band < 1:
+    if feats.dtype != torch.bfloat16 or min(nb, t, tiles, band) < 1:
         raise ValueError(f"unsupported banded_gather_conv: feats "
-                         f"{tuple(feats.shape)} {feats.dtype}, {t} taps, "
-                         f"band {band}")
+                         f"{tuple(feats.shape)} {feats.dtype}, starts "
+                         f"{tuple(starts.shape)}, band {band}")
     _check_int32("starts", starts)
     _check_int32("rel", rel)
     _check_shape("rel", rel, (t, tiles * TILE))
     _check_shape("wt", wt, (cout, t * c))
-    # bound to names: a temporary freed inside the argument list could
-    # hand its memory to the next one before the launch
-    starts, rel = starts.contiguous(), rel.contiguous()
-    xt = feats.t().contiguous()
-    w_mma = _weights_mma(wt)
+    _check_fits("banded_gather_conv", window_smem(s, 0, t), s,
+                lambda: max_window(t, False), t)
+    starts, feats, rel = starts.contiguous(), feats.contiguous(), \
+        rel.contiguous()
+    wt = wt.to(torch.bfloat16).contiguous()
     out = torch.empty(cout, nb * tiles * TILE, dtype=feats.dtype,
                       device=feats.device)
     _build.check(_lib().fp_banded_gather_conv(
-        _ptr(starts), _ptr(xt), _ptr(rel), _ptr(w_mma), _ptr(out), c, s, t,
+        _ptr(starts), _ptr(feats), _ptr(rel), _ptr(wt), _ptr(out), c, s, t,
         tiles * TILE, cout, nb, band, _stream()), "fp_banded_gather_conv")
     LAUNCHES["banded_gather_conv"] += 1
     return out

@@ -36,8 +36,11 @@ from ._common import Probe, device_of, parser, same
 
 def main(argv=None):
     ap = parser(__doc__)
-    ap.add_argument("--c", type=int, default=16)
-    ap.add_argument("--s", type=int, default=2048)
+    ap.add_argument("--c", type=int, default=16,
+                    help="channels; the P2 kernel takes 16 only")
+    ap.add_argument("--s", type=int, default=2048,
+                    help="window ids; the P2 kernel stages them in shared "
+                    f"memory: at most {gp.max_ids()} (gather_probes.max_ids)")
     ap.add_argument("--w", type=int, default=1024)
     ap.add_argument("--taps", type=int, default=27)
     args = ap.parse_args(argv)

@@ -142,9 +142,14 @@ def main(argv=None):
     ap = parser(__doc__)
     ap.add_argument("--v", type=int, default=120000)
     ap.add_argument("--nb", type=int, default=118)
-    ap.add_argument("--s", type=int, default=2048)
+    ap.add_argument("--s", type=int, default=2048,
+                    help="window columns; P3 stages them in shared memory: "
+                    f"at most {gp.max_window(27, False)} "
+                    "(gather_probes.max_window)")
     ap.add_argument("--w", type=int, default=1024)
-    ap.add_argument("--tap-win", type=int, default=1536)
+    ap.add_argument("--tap-win", type=int, default=1536,
+                    help="ids P2 compares, staged in shared memory: at "
+                    f"most {gp.max_window(27, True)}")
     args = ap.parse_args(argv)
     dev = device_of(args)
     if dev is None:

@@ -44,3 +44,13 @@ def device_ms(fn, reps: int) -> float:
                 fn()
     torch.cuda.current_stream().wait_stream(stream)
     return ms(graph.replay, 3) / reps
+
+
+def in_turns(before, after):
+    """{"before": [b1, b2], "after": [a1, a2]}: the two measurements (each
+    a call returning a number) taken twice in turns: before, after, after,
+    before, so that a drift of the card between them shows."""
+    got = {"before": [], "after": []}
+    for which in ("before", "after", "after", "before"):
+        got[which].append((before if which == "before" else after)())
+    return got

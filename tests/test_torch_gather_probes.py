@@ -378,15 +378,19 @@ def test_onehot_weighted_matches_probe():
 
 def test_onehot_plain_sums_duplicate_ids():
     """The one-hot matmul adds the columns of equal ids (in f32, then one
-    bf16 rounding); the kernel's wrapper refuses such ids."""
+    bf16 rounding); the kernel refuses such ids on the card (it traps:
+    chip_smoke.unsorted_ids_refused), and its source tests every adjacent
+    pair of the ids it stages."""
     x = torch.tensor([[1.0, 2.0, 4.0, 8.0]]).to(torch.bfloat16)
     ids = torch.tensor([3, 5, 5, 7], dtype=torch.int32)
     want = torch.tensor([[5, 7, 4]], dtype=torch.int32)
     got = GP.onehot_gather_plain(x, ids, want)
     assert got.float().tolist() == [[6.0, 8.0, 0.0]]
-    with pytest.raises(ValueError, match="sorted unique"):
-        GP.check_sorted_unique(ids)
-    GP.check_sorted_unique(torch.tensor([1, 2, 9], dtype=torch.int32))
+    from findnpropagate_torch.ops import _build
+
+    src = (_build.CSRC / "gather_probes.cu").read_text()
+    copy = src[src.index("void copy_ids("):src.index("IdIndex index_ids(")]
+    assert copy.count("__trap()") == 2      # 16-byte pieces and the rest
 
 
 # ------------------------------------------------- P3: the banded gather
@@ -473,18 +477,43 @@ def test_band_positions_expand_per_tile_starts():
     assert pos[1, 0, 128:131].tolist() == [900, 999, -1]
 
 
+def ldmatrix_b_fragments(wt):
+    """What the P2 / P3 kernels' ldmatrix.x4 reads from the plain (Cout,
+    T*C) bf16 weights staged row-major, per 16-channel k-slab (a tap) and
+    n-tile of 8 output channels: lane l gives the address of row l%8 of
+    block l/8 (output channel (l%8) + 8(l/16), input channels 8((l/8)%2)..
+    of the slab) and receives, of each block, row l/4, columns 2(l%4) and
+    2(l%4)+1. Returns (slabs, n-tiles, 32 lanes, 4): b0 then b1 of each
+    n-tile, two values each."""
+    cout, k = wt.shape
+    out = torch.empty(k // 16, cout // 8, 32, 4, dtype=wt.dtype)
+    for ks in range(k // 16):
+        blocks = []
+        for j in range(4):                    # the x4 blocks, in order
+            rows = [(r + 8 * (j >> 1), ks * 16 + 8 * (j & 1))
+                    for r in range(8)]        # the addresses lanes 8j.. give
+            blocks.append(torch.stack([wt[n, c0:c0 + 8] for n, c0 in rows]))
+        for lane in range(32):
+            got = [blocks[j][lane // 4, 2 * (lane % 4) + e]
+                   for j in range(4) for e in range(2)]
+            out[ks, 0, lane] = torch.stack(got[0:4])
+            out[ks, 1, lane] = torch.stack(got[4:8])
+    return out
+
+
 def test_weights_packed_as_the_transposed_matrix():
-    """P2's weight stage and P3 take (Cout, T*C) weights as the (T*C,
-    Cout) matrix of K2's tile body, row k*C + c."""
+    """P2's weight stage and P3 stage the plain (Cout, T*C) weights: read
+    by ldmatrix they give the B fragments of the (T*C, Cout) matrix (row
+    k*C + c) in exactly the order that K2's tile body takes packed
+    (`pack_weights_mma`), so no per-call packing is needed."""
     rng = np.random.RandomState(1)
-    wt = torch.from_numpy(rng.randn(16, 48).astype(np.float32))
-    got = GP._weights_mma(wt)
+    wt = torch.from_numpy(rng.randn(16, 48).astype(np.float32)).to(
+        torch.bfloat16)
+    got = ldmatrix_b_fragments(wt)
     assert got.dtype == torch.bfloat16 and got.shape == (3, 2, 32, 4)
-    assert torch.equal(got, pack_weights_mma(
-        wt.to(torch.bfloat16).t().contiguous()))
+    assert torch.equal(got, pack_weights_mma(wt.t().contiguous()))
     # slab 0, n-tile 0: lane 0 holds rows 0, 1, 8, 9 of column 0
-    assert got[0, 0, 0].tolist() == wt.to(torch.bfloat16)[0, [0, 1, 8, 9]
-                                                          ].tolist()
+    assert got[0, 0, 0].tolist() == wt[0, [0, 1, 8, 9]].tolist()
 
 
 # ------------------------------------------ the CUDA branch, faked library
@@ -539,13 +568,18 @@ def test_cuda_wrappers_pass_sizes_and_strides(fake_lib):
     out = GP.onehot_gather(x, ids, idx, tap_win=192, wt=wt, blocks=3)
     assert out.shape == (16, 3 * 128)
     _, d = fake_lib.calls[-1]
-    # (..., c, s, n_ids, taps, w, cout, blocks, weighted, stream)
-    assert d[6:14] == (16, 256, 192, 27, 128, 16, 3, 1)
-    assert torch.equal(d[1], x.t().contiguous())
+    # fp_onehot_gather(x, ids, want, wt, out, c, s, n_ids, taps, w, cout,
+    #                  blocks, weighted, stream): the caller's x and wt
+    assert d[0] is x and d[3] is wt
+    assert d[5:13] == (16, 256, 192, 27, 128, 16, 3, 1)
     out = GP.onehot_gather(x, ids, idx)
-    assert out.shape == (27 * 16, 128) and fake_lib.calls[-1][1][13] == 0
-    with pytest.raises(ValueError, match="sorted unique"):
-        GP.onehot_gather(x, ids.flip(0), idx)
+    _, d = fake_lib.calls[-1]
+    assert out.shape == (27 * 16, 128) and d[3] is None and d[12] == 0
+    # the kernel tests the ids' order on the device (it traps on a
+    # violation): the wrapper reads nothing back and passes them as given
+    flipped = ids.flip(0)
+    GP.onehot_gather(x, flipped, idx)
+    assert fake_lib.calls[-1][1][1] is flipped
     with pytest.raises(ValueError):
         GP.onehot_gather(x, ids, idx[:, :100])            # W % 128
     with pytest.raises(ValueError):
@@ -556,6 +590,9 @@ def test_cuda_wrappers_pass_sizes_and_strides(fake_lib):
         GP.onehot_gather(torch.zeros(32, 256, dtype=torch.bfloat16), ids,
                          idx, wt=torch.zeros(16, 27 * 32,
                                              dtype=torch.bfloat16))
+    with pytest.raises(ValueError):                       # C 32, no wt
+        GP.onehot_gather(torch.zeros(32, 256, dtype=torch.bfloat16), ids,
+                         idx)
 
     starts = torch.zeros(5, 27, 1, dtype=torch.int32)
     out = GP.banded_gather_conv(starts, x, idx, wt, 3)
@@ -566,8 +603,68 @@ def test_cuda_wrappers_pass_sizes_and_strides(fake_lib):
         GP.banded_gather_conv(starts, x, idx, wt[:10], 3)  # Cout 10
     with pytest.raises(ValueError):
         GP.take_along(x, idx.long(), 1, taps=True)
-    assert GP.LAUNCHES == {"take_along": 3, "onehot_gather": 2,
+    assert GP.LAUNCHES == {"take_along": 3, "onehot_gather": 3,
                            "banded_gather_conv": 1}
+
+
+def window_call(name, rows, taps=27):
+    """A P2 / P3 wrapper call with a window of `rows` rows (ids for P2,
+    input columns for P3) at `taps` taps: (fn, the caller's tensors in the
+    order of the C entry's first four pointers, None for no weights)."""
+    x = torch.zeros(16, rows, dtype=torch.bfloat16)
+    ids = torch.arange(rows, dtype=torch.int32)
+    want = torch.zeros(taps, 128, dtype=torch.int32)
+    wt = torch.zeros(16, taps * 16, dtype=torch.bfloat16)
+    if name == "P2 without weights":
+        return lambda: GP.onehot_gather(x, ids, want), (x, ids, want, None)
+    if name == "P2 with weights":
+        return (lambda: GP.onehot_gather(x, ids, want, tap_win=rows, wt=wt,
+                                         blocks=2), (x, ids, want, wt))
+    starts = torch.zeros(2, taps, 1, dtype=torch.int32)
+    return (lambda: GP.banded_gather_conv(starts, x, want, wt, 3),
+            (starts, x, want, wt))
+
+
+WINDOWS = {
+    # name: (its limit at `taps` taps, the shared memory a window takes)
+    "P2 without weights": (lambda taps: GP.max_ids(), lambda n: 4 * n),
+    "P2 with weights": (lambda taps: GP.max_window(taps, True),
+                        lambda n, taps: GP.window_smem(n, n, taps)),
+    "P3": (lambda taps: GP.max_window(taps, False),
+           lambda n, taps: GP.window_smem(n, 0, taps)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(WINDOWS))
+@pytest.mark.parametrize("taps", [27, 9])
+def test_wrappers_refuse_windows_beyond_shared_memory(fake_lib, name, taps):
+    """A window that fits in a block's dynamic shared memory launches, one
+    row more raises ValueError before any launch; the limits are
+    window_smem's and, for P2 without weights, the ids' (at 27 taps 58112
+    ids for P2 without weights, 5609 with them, 6567 columns for P3)."""
+    limit_of, smem = WINDOWS[name]
+    limit = limit_of(taps)
+    args = (limit,) if name == "P2 without weights" else (limit, taps)
+    assert smem(*args) <= GP.SMEM_MAX
+    if taps == 27:
+        assert limit == {"P2 without weights": 58112,
+                         "P2 with weights": 5609, "P3": 6567}[name]
+    window_call(name, limit, taps)[0]()
+    assert len(fake_lib.calls) == 1
+    with pytest.raises(ValueError, match="shared memory"):
+        window_call(name, limit + 1, taps)[0]()
+    assert len(fake_lib.calls) == 1
+
+
+@pytest.mark.parametrize("name", sorted(WINDOWS))
+def test_wrappers_hand_the_kernel_the_callers_tensors(fake_lib, name):
+    """No transposed, packed or contiguous copy per call: the C entry gets
+    the caller's own tensors (features (C, S) as given, plain weights), and
+    one output."""
+    fn, given = window_call(name, 2048)
+    out = fn()
+    (_, args), = fake_lib.calls
+    assert all(a is g for a, g in zip(args[:4], given)) and args[4] is out
 
 
 TAKE_CASES = {
@@ -715,3 +812,25 @@ def test_probe_kernels_build_from_the_shared_header():
     assert [f.name for f in _build.source_files(
         _build.CSRC / "gather_probes.cu")] == ["gather_probes.cu",
                                                "gather_mma.cuh"]
+
+
+@pytest.mark.parametrize("name", sorted(
+    __import__("findnpropagate_torch.tools.probe_window_parts",
+               fromlist=["CUTS"]).CUTS))
+def test_window_parts_cuts_apply_to_the_source(name):
+    """Each cut of probe_window_parts replaces text that the probe kernels'
+    source holds exactly once, so the probe times what it names."""
+    from findnpropagate_torch.ops import _build
+    from findnpropagate_torch.tools import probe_window_parts as pw
+
+    src = (_build.CSRC / "gather_probes.cu").read_text()
+    cut = pw.cut_source(src, name)
+    assert cut != src
+
+
+def test_window_parts_needs_cuda(monkeypatch, capsys):
+    from findnpropagate_torch.tools import probe_window_parts as pw
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert pw.main([]) == 2
+    assert "card" in capsys.readouterr().out
