@@ -111,7 +111,34 @@ Phases (any failure exits non-zero and prints no result line):
      lies within 1e-4 of a threshold), and one frame of the KITTI seeker
      (its yaml, a synthetic calibration, 120k points, 32 detections through
      infer_kitti) against the CPU's;
- 10. a `kernels` JSON line, then the result line
+ 10. propagate — self-training through the port's entry point,
+     findnpropagate_torch/tools/train_st.py's main with arguments, on
+     tools/cfgs/nuscenes_models/transfusion_lidar_st.yaml at full width
+     (6 known classes of 10, 200 proposals, unknown_cls_weight 0.6, its
+     capacities and augmentations, adam_onecycle at batch 4) with the main
+     path's backbone (transfusion_lidar.yaml's BACKBONE_3D: the ST yaml's
+     gather backbone is not ported) over 8 of bench.py's 200k-point
+     lidar_ring training scenes, weights from init_random_(seed 0); its
+     inputs written under build/st_smoke/: a gt database of 8 further
+     scenes through build_shared_database (read as a memmap), and a
+     frustum store of unknown-class boxes (bicycle, pedestrian and cone
+     sizes) centred on each frame's points (numpy seed 0), each holding 5
+     points or more and overlapping no ground truth. 2 epochs, st_warmup 1:
+     epoch 0 trains 2 steps, epoch 1 extracts pseudo labels over the 8
+     frames and trains 2 steps. Gates: per step finite loss and gradient
+     norm, overflow 0, pseudo boxes in the batch, 3 K1, 25 K2, 6 K3 and 16
+     K4 launches; 6 K1 and 16 K2 per extraction batch; parameters changed;
+     a non-empty copy-paste queue; unknown-class targets in the loss; 8
+     self-train files stamped with epoch 1; BN statistics unchanged by the
+     extraction. Printed with the card's name and power limit: ms per step
+     (CUDA events, median of epoch 1), wall ms per iteration and the wait
+     for the batch, the loader's host ms per batch, extraction ms per
+     frame, pseudo boxes per frame, copy-paste samples per batch, peak
+     memory, and with --profile the busy share of one epoch-1 iteration.
+     Then the extraction CLI's frame loop (extract_frames) on phase 9's
+     bench frame through a wrapper that supplies its camera_paths: the
+     store equal to the seeker's valid proposals;
+ 11. a `kernels` JSON line, then the result line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 With --before DIR (a checkout of an earlier commit of this repo, e.g.
@@ -133,12 +160,16 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import cProfile
 import copy
 import dataclasses
 import inspect
 import io
 import json
 import math
+import os
+import pstats
+import shutil
 import subprocess
 import sys
 import time
@@ -664,9 +695,6 @@ def host_split(torch, fn, n=200, least_us=0.5):
     per call that cProfile charges to each function it runs (own time; the
     Python function that makes a ctypes call is charged with it, and
     cProfile's own cost is in every entry), those of at least `least_us`."""
-    import cProfile
-    import pstats
-
     split = {"call": host_us(torch, fn)}
     prof = cProfile.Profile()
     prof.enable()
@@ -1941,6 +1969,28 @@ def bench_seeker_inputs(num_dets=96, num_points=200000):
     return mats, pts, (boxes, labels, scores, cams)
 
 
+def bench_seeker_frame(class_names, work):
+    """bench_seeker_inputs with its detections written as one COCO file
+    per camera under `work` (boxes xyxy) and a PreprocessedDetector over
+    them: (matrices, points, detections, detector, image names)."""
+    from findnpropagate_torch.openvocab.preprocessed_detector import (
+        CAMERA_NAMES,
+        PreprocessedDetector,
+    )
+
+    mats, pts, (boxes, labels, scores, cams) = bench_seeker_inputs()
+    preds, images = [], []
+    for c, name in enumerate(CAMERA_NAMES):
+        images.append(f"samples/{name}/frame0__{name}.jpg")
+        preds.append(work / f"{name}.json")
+        sel = cams == c
+        write_coco(preds[-1], images[-1], class_names, boxes[sel],
+                   labels[sel], scores[sel])
+    detector = PreprocessedDetector(preds, class_names, box_fmt="xyxy",
+                                    max_dets=len(boxes))
+    return mats, pts, (boxes, labels, scores, cams), detector, images
+
+
 def write_coco(path, image_name, class_names, boxes, labels, scores):
     """One COCO-format prediction file (boxes xyxy) for one image."""
     Path(path).write_text(json.dumps({
@@ -2110,7 +2160,6 @@ def seeker_phase(torch, profile=None, device="cuda"):
         FrustumProposerSEG,
     )
     from findnpropagate_torch.openvocab.preprocessed_detector import (
-        CAMERA_NAMES,
         PreprocessedDetector,
     )
 
@@ -2123,17 +2172,8 @@ def seeker_phase(torch, profile=None, device="cuda"):
     cfg = cfg_mod.cfg_from_yaml_file(str(ROOT / SEEKER_CFG))
     head = cfg.MODEL.DENSE_HEAD
     seeker = fp.FrustumProposerOG.from_config(head, cfg.CLASS_NAMES)
-    (l2i, c2l, intr), pts, (boxes, labels, scores, cams) = \
-        bench_seeker_inputs()
-    preds, images = [], []
-    for c, name in enumerate(CAMERA_NAMES):
-        images.append(f"samples/{name}/frame0__{name}.jpg")
-        preds.append(work / f"{name}.json")
-        sel = cams == c
-        write_coco(preds[-1], images[-1], cfg.CLASS_NAMES, boxes[sel],
-                   labels[sel], scores[sel])
-    detector = PreprocessedDetector(preds, cfg.CLASS_NAMES, box_fmt="xyxy",
-                                    max_dets=len(boxes))
+    (l2i, c2l, intr), pts, (boxes, labels, scores, cams), detector, images \
+        = bench_seeker_frame(cfg.CLASS_NAMES, work)
     dets = detector.infer(images)
     if int(dets["det_mask"].sum()) != len(boxes):
         raise AssertionError("seeker: PreprocessedDetector lost detections")
@@ -2277,6 +2317,444 @@ def seeker_phase(torch, profile=None, device="cuda"):
         f"(median of 3), {r['vs_cpu']['valid']} valid, max box err "
         f"{r['vs_cpu']['max_box_err']:.3g}, "
         f"{len(r['vs_cpu']['exceptions'])} exceptions")
+    return out
+
+
+ST_CFG = "tools/cfgs/nuscenes_models/transfusion_lidar_st.yaml"
+ST_WORK = "build/st_smoke"
+ST_SCENES = 8            # training frames, and the gt database's scenes
+ST_EPOCHS = 2
+ST_BATCH = 4             # the ST yaml's BATCH_SIZE_PER_GPU
+# unknown classes the frustum store is seeded with: label in
+# FULL_CLASS_NAMES (1-indexed) -> box size (dx, dy, dz)
+ST_SEED_SIZES = {8: (1.8, 0.7, 1.2), 9: (0.8, 0.7, 1.7), 10: (0.4, 0.4, 1.0)}
+ST_SEEDS_PER_FRAME = 6
+ST_MIN_PTS = 5
+# per extraction batch (an eval forward), as the main path's forward
+EVAL_LAUNCHES = {"positions": 6, "posgather_conv": 16, "windowed_conv": 0,
+                 "windowed_dw": 0}
+
+
+def st_inputs(cfg_mod, synth, work):
+    """Phase 10's config and inputs under `work`: the ST yaml with the
+    main path's backbone and bench.py's scenes, a gt database of 8 further
+    scenes through build_shared_database, and a frustum store of
+    unknown-class boxes on the training frames. Returns the config file,
+    the store's folder and the boxes seeded per frame."""
+    import pickle
+
+    from findnpropagate_torch.datasets.augmentor.database_sampler import (
+        build_shared_database,
+    )
+    from findnpropagate_torch.openvocab.pseudo_labels import PseudoLabelStore
+    from findnpropagate_torch.utils import geometry_np as G
+
+    cfg = cfg_mod.cfg_from_yaml_file(str(ROOT / ST_CFG))
+    cfg.MODEL.BACKBONE_3D = cfg_mod.cfg_from_yaml_file(
+        str(ROOT / CFG_FILE)).MODEL.BACKBONE_3D
+    data = synth.bench_data_cfg(ST_SCENES, cfg)
+    augs = [dict(a) for a in cfg.DATA_CONFIG.DATA_AUGMENTOR.AUG_CONFIG_LIST]
+    gt_sampling = augs[0]
+    assert gt_sampling["NAME"] == "gt_sampling"
+    gt_sampling.update(USE_SHARED_MEMORY=True,
+                       DB_DATA_PATH=["gt_database.npy"])
+    data.update(DATASET="SyntheticDataset", DATA_PATH=str(work / "db"),
+                DATA_AUGMENTOR=dict(cfg.DATA_CONFIG.DATA_AUGMENTOR,
+                                    AUG_CONFIG_LIST=augs))
+    cfg.DATA_CONFIG = data
+
+    # gt database: the objects of 8 further scenes, rows of 5 features
+    # (x, y, z relative to the box centre, intensity, a zero time lag)
+    db = work / "db"
+    (db / "gt_database").mkdir(parents=True, exist_ok=True)
+    plain = dict(data, DATA_AUGMENTOR=None)
+    more = synth.SyntheticDataset(cfg_mod.EDict(dict(plain, SYNTHETIC=dict(
+        data["SYNTHETIC"], SEED=1000))), cfg.CLASS_NAMES, training=True)
+    infos = {n: [] for n in cfg.CLASS_NAMES}
+    for s in range(ST_SCENES):
+        d = more.generate_scene(s)
+        inside = G.points_in_boxes_mask(d["points"][:, :3], d["gt_boxes"])
+        for k, (box, name) in enumerate(zip(d["gt_boxes"], d["gt_names"])):
+            rows = np.zeros((int(inside[k].sum()), 5), np.float32)
+            rows[:, :4] = d["points"][inside[k]]
+            rows[:, :3] -= box[:3]
+            rel = f"gt_database/{s}_{name}_{k}.bin"
+            rows.tofile(db / rel)
+            infos[str(name)].append({"name": str(name), "path": rel,
+                                     "box3d_lidar": box.copy(),
+                                     "num_points_in_gt": len(rows)})
+    infos = build_shared_database(infos, db, db / "gt_database.npy")
+    with open(db / gt_sampling["DB_INFO_PATH"][0], "wb") as f:
+        pickle.dump(infos, f)
+
+    # frustum store: unknown-class boxes centred on points of each training
+    # frame beyond the ego vehicle, each holding ST_MIN_PTS points or more
+    # and overlapping no ground truth
+    train = synth.SyntheticDataset(cfg_mod.EDict(plain), cfg.CLASS_NAMES,
+                                   training=True)
+    store = PseudoLabelStore(work / "frustum")
+    rng = np.random.RandomState(0)
+    seeded = []
+    for i in range(ST_SCENES):
+        d = train.generate_scene(i)
+        pts = d["points"]
+        far = pts[np.hypot(pts[:, 0], pts[:, 1]) > 6.0]
+        boxes, labels = [], []
+        for _ in range(2000):
+            lbl = int(rng.choice(list(ST_SEED_SIZES)))
+            b = np.array([*far[rng.randint(len(far)), :3],
+                          *ST_SEED_SIZES[lbl], rng.uniform(-np.pi, np.pi)],
+                         np.float32)
+            if (G.points_in_boxes_mask(pts[:, :3], b[None]).sum()
+                    >= ST_MIN_PTS and G.boxes_bev_iou_cpu(
+                        b[None], d["gt_boxes"]).max() == 0
+                    and (not boxes or G.boxes_bev_iou_cpu(
+                        b[None], np.stack(boxes)).max() == 0)):
+                boxes.append(b)
+                labels.append(lbl)
+                if len(boxes) == ST_SEEDS_PER_FRAME:
+                    break
+        store.save(i, np.stack(boxes), rng.uniform(0.3, 0.9, len(boxes)),
+                   np.array(labels, np.int32))
+        seeded.append(len(boxes))
+    path = work / "transfusion_lidar_st_smoke.yaml"
+    path.write_text(json.dumps(cfg))      # JSON is YAML
+    return path, work / "frustum", seeded
+
+
+class STProbe:
+    """The instruments of phase 10, swapped into the port's modules while
+    train_st.main runs: each train step with its launches set to 0 just
+    before and read just after, CUDA-event times, the wall time since the
+    last step ended, the batch's pseudo boxes and copy-paste samples, the
+    unknown-class targets of the head, each extraction batch's launches,
+    the BN statistics around each extraction, the training dataset's
+    host time, and the PseudoLoader the CLI builds."""
+
+    def __init__(self, torch, tp, ws, profile=None):
+        self.torch, self.tp, self.ws, self.profile = torch, tp, ws, profile
+        self.steps, self.extractions, self.eval_launches = [], [], []
+        self.unknown_targets = []
+        self.loader = self.detector = self.params = self.train_ds = None
+        self.last_end = None
+        self.sample_s = 0.0
+        self.prof = self.prof_t0 = None
+        self.busy = None
+
+    def make_train_step(self, orig):
+        def make(detector, tx, **kw):
+            inner = orig(detector, tx, **kw)
+            self.detector = detector
+
+            def step(batch):
+                return self.train_step(inner, batch)
+            return step
+        return make
+
+    def train_step(self, inner, batch):
+        torch = self.torch
+        t_in = time.perf_counter()
+        if self.params is None:
+            self.params = [p.detach().clone()
+                           for p in self.detector.parameters()]
+        self.tp.reset_launches()
+        self.ws.reset_launches()
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        metrics = inner(batch)
+        t1.record()
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        launches = launches_now(self.tp, self.ws)
+        m = {k: float(v) for k, v in metrics.items()}
+        self.steps.append({
+            "ms": t0.elapsed_time(t1),
+            "wait_ms": None if self.last_end is None
+            else (t_in - self.last_end) * 1e3,
+            "iter_ms": None if self.last_end is None
+            else (now - self.last_end) * 1e3,
+            "loss": m["loss"], "grad_norm": m["grad_norm"],
+            "overflow": m["sparse_window_overflow"],
+            "launches": launches,
+            "pseudo_per_frame": [int(n) for n in (
+                batch["pseudo_boxes"][..., 7] > 0).sum(dim=1)],
+            "copy_paste": int(batch["pseudo_samples_mask"].sum()),
+            "unknown_targets": int(sum(self.unknown_targets)),
+            "known_matches": sum(v for k, v in m.items()
+                                 if k.endswith("_matches"))})
+        self.unknown_targets.clear()
+        if self.prof is not None:
+            self.prof.__exit__(None, None, None)
+            wall = (now - self.prof_t0) * 1e3
+            events = [e for e in self.prof.key_averages()
+                      if e.device_type.name == "CUDA"]
+            kernel = sum(e.self_device_time_total for e in events) / 1e3
+            self.busy = {"wall_ms": wall, "kernel_ms": kernel,
+                         "busy_share": kernel / wall}
+            Path(str(self.profile) + ".st.txt").write_text(
+                self.prof.key_averages().table(
+                    sort_by="self_cuda_time_total", row_limit=40))
+            self.prof = None
+        if (self.profile and len(self.steps) == 2 * ST_EPOCHS - 1
+                and self.busy is None):
+            # one epoch-1 iteration under the profiler: the wait for the
+            # last batch and its step
+            from torch.profiler import ProfilerActivity, profile
+
+            self.prof = profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA])
+            self.prof.__enter__()
+            self.prof_t0 = time.perf_counter()
+        self.last_end = time.perf_counter()
+        return metrics
+
+    def make_eval_step(self, orig):
+        def make(detector, **kw):
+            inner = orig(detector, **kw)
+
+            def step(batch):
+                self.tp.reset_launches()
+                self.ws.reset_launches()
+                out = inner(batch)
+                self.torch.cuda.synchronize()
+                self.eval_launches.append(launches_now(self.tp, self.ws))
+                return out
+            return step
+        return make
+
+    def extract(self, orig):
+        def run(detector, loader, *a, **kw):
+            bn = {k: v.clone() for k, v in detector.named_buffers()}
+            t0 = time.perf_counter()
+            n = orig(detector, loader, *a, **kw)
+            self.torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            changed = [k for k, v in detector.named_buffers()
+                       if not self.torch.equal(v, bn[k])]
+            self.extractions.append({"frames": n, "ms_per_frame":
+                                     wall * 1e3 / max(n, 1),
+                                     "bn_changed": changed,
+                                     "training_after": detector.training})
+            self.last_end = time.perf_counter()
+            return n
+        return run
+
+    def hooks(self, orig):
+        def register(loader):
+            self.loader = loader
+            return orig(loader)
+        return register
+
+    def targets(self, orig):
+        def get_targets(head, res, gt):
+            t = orig(head, res, gt)
+            self.unknown_targets.append(t["unknown_mask"].sum())
+            return t
+        return get_targets
+
+    def getitem(self, orig):
+        def item(ds, index):
+            t0 = time.perf_counter()
+            try:
+                return orig(ds, index)
+            finally:
+                if ds.data_augmentor is not None:
+                    self.sample_s += time.perf_counter() - t0
+                    self.train_ds = ds
+        return item
+
+
+def propagate_phase(torch, tp, ws, smi, profile=None):
+    """Phase 10: self-training through the port's tools/train_st.py entry
+    (main with arguments) at the ST yaml's full width, then the port's
+    extraction loop on phase 9's bench frame; every gate checked here."""
+    import findnpropagate_torch.datasets.synthetic as synth
+    from findnpropagate_torch import config as cfg_mod
+    from findnpropagate_torch.models.dense_heads.transfusion_head import (
+        TransFusionHead,
+    )
+    from findnpropagate_torch.openvocab import frustum_proposer as fp
+    from findnpropagate_torch.openvocab import self_training
+    from findnpropagate_torch.openvocab.pseudo_labels import PseudoLabelStore
+    from findnpropagate_torch.runtime import trainer
+    from findnpropagate_torch.tools import extract_pseudo_labels as ex
+    from findnpropagate_torch.tools import train_st
+
+    work = ROOT / ST_WORK
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    t0 = time.perf_counter()
+    cfg_path, frustum, seeded = st_inputs(cfg_mod, synth, work)
+    inputs_s = time.perf_counter() - t0
+    # the CLI runs in `work`: paths given relative to here are resolved
+    probe = STProbe(torch, tp, ws, profile and Path(profile).resolve())
+    cwd = Path.cwd()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        os.chdir(work)      # the CLI writes output/ under the working dir
+        with Swap(trainer, "make_train_step",
+                  probe.make_train_step(trainer.make_train_step)), \
+                Swap(trainer, "make_eval_step",
+                     probe.make_eval_step(trainer.make_eval_step)), \
+                Swap(self_training, "extract_pseudo_labels",
+                     probe.extract(self_training.extract_pseudo_labels)), \
+                Swap(self_training, "register_pseudo_hooks",
+                     probe.hooks(self_training.register_pseudo_hooks)), \
+                Swap(TransFusionHead, "get_targets",
+                     probe.targets(TransFusionHead.get_targets)), \
+                Swap(synth.SyntheticDataset, "__getitem__",
+                     probe.getitem(synth.SyntheticDataset.__getitem__)):
+            rc = train_st.main([
+                "--cfg_file", str(cfg_path), "--epochs", str(ST_EPOCHS),
+                "--st_warmup", "1", "--st_interval", "1", "--seed", "0",
+                "--pseudo_path", str(frustum), "--st_path",
+                str(work / "st_labels")])
+    finally:
+        os.chdir(cwd)
+    run_s = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    steps = probe.steps
+    # ---- gates
+    if rc != 0 or len(steps) != 2 * ST_EPOCHS:
+        raise AssertionError(f"propagate: rc {rc}, {len(steps)} steps")
+    for i, s in enumerate(steps):
+        if s["launches"] != TRAIN_LAUNCHES:
+            raise AssertionError(f"propagate step {i}: launches "
+                                 f"{s['launches']}, want {TRAIN_LAUNCHES}")
+        if not (math.isfinite(s["loss"]) and math.isfinite(s["grad_norm"])
+                and s["grad_norm"] > 0 and s["overflow"] == 0):
+            raise AssertionError(f"propagate step {i}: {s}")
+        if sum(s["pseudo_per_frame"]) == 0:
+            raise AssertionError(f"propagate step {i}: no pseudo box")
+    if probe.eval_launches != [EVAL_LAUNCHES] * (ST_SCENES // ST_BATCH):
+        raise AssertionError("propagate extraction launches "
+                             f"{probe.eval_launches}, want {EVAL_LAUNCHES} "
+                             f"per batch")
+    changed = sum(bool((p.detach() != q).any()) for p, q in zip(
+        probe.detector.parameters(), probe.params))
+    if changed < 0.9 * len(probe.params):
+        raise AssertionError(f"propagate: only {changed} of "
+                             f"{len(probe.params)} parameters changed")
+    queues = {lbl: len(q) for lbl, q in
+              probe.loader.sampler.unknown_queue.items()}
+    if not any(queues.values()):
+        raise AssertionError("propagate: every copy-paste queue is empty")
+    unknown = sum(s["unknown_targets"] for s in steps)
+    if unknown <= 0:
+        raise AssertionError("propagate: no unknown-class target reached "
+                             "the loss")
+    st = PseudoLabelStore(work / "st_labels")
+    files = sorted((work / "st_labels").glob("*.npz"))
+    if len(files) != ST_SCENES or st.stamped_epoch() != 1:
+        raise AssertionError(f"propagate: {len(files)} self-train files, "
+                             f"stamped {st.stamped_epoch()}")
+    ext, = probe.extractions
+    if ext["bn_changed"] or not ext["training_after"]:
+        raise AssertionError(f"propagate: the extraction changed BN "
+                             f"statistics {ext['bn_changed'][:3]} or left "
+                             "eval mode on")
+    st_pseudos = [len(st.load(i)[0]) for i in range(ST_SCENES)]
+    # one training batch built again with nothing else running, then one
+    # more under cProfile for the functions that take its host time
+    ds = probe.train_ds
+    t0 = time.perf_counter()
+    ds.collate_batch([ds[i] for i in range(ST_BATCH)])
+    alone_ms = (time.perf_counter() - t0) * 1e3
+    prof = cProfile.Profile()
+    prof.enable()
+    ds.collate_batch([ds[i] for i in range(ST_BATCH)])
+    prof.disable()
+    loader_top = [(f"{Path(fn[0]).name}:{fn[1]}({fn[2]})", st[2] * 1e3)
+                  for fn, st in sorted(pstats.Stats(prof).stats.items(),
+                                       key=lambda kv: -kv[1][2])[:8]]
+    for ck in (work / "output").rglob("ckpt"):
+        shutil.rmtree(ck)
+
+    # ---- the extraction CLI's frame loop on phase 9's bench frame
+    scfg = cfg_mod.cfg_from_yaml_file(str(ROOT / SEEKER_CFG))
+    seeker = fp.FrustumProposerOG.from_config(scfg.MODEL.DENSE_HEAD,
+                                              scfg.CLASS_NAMES)
+    (l2i, c2l, intr), pts, _, detector2d, images = bench_seeker_frame(
+        scfg.CLASS_NAMES, work)
+    frame = {"points": pts, "frame_id": "bench0", "camera_paths": images,
+             "lidar2image": l2i, "camera2lidar": c2l,
+             "camera_intrinsics": intr}
+
+    class Frames(list):
+        max_points = len(pts)
+
+    store = PseudoLabelStore(work / "find")
+    t0 = time.perf_counter()
+    ex.extract_frames(Frames([frame]), seeker, detector2d, store,
+                      device=torch.device("cuda"))
+    find_ms = (time.perf_counter() - t0) * 1e3
+    dev = torch.device("cuda")
+    dets = detector2d.infer(images)
+    ref = seeker.propose(
+        torch.from_numpy(pts).to(dev),
+        torch.ones(len(pts), dtype=torch.bool, device=dev),
+        *[dets[k] for k in ("det_boxes", "det_labels", "det_scores",
+                            "det_cams", "det_mask")],
+        *[torch.from_numpy(m).to(dev) for m in (l2i, c2l, intr)], device=dev)
+    valid = ref.valid.cpu().numpy()
+    for got, want, name in zip(store.load("bench0"),
+                               (ref.boxes, ref.scores, ref.labels),
+                               ("boxes", "scores", "labels")):
+        if not np.array_equal(got, want.cpu().numpy()[valid]):
+            raise AssertionError(f"propagate: the extraction CLI's {name} "
+                                 "differ from the seeker's valid proposals")
+
+    e1 = [s for i, s in enumerate(steps) if i >= ST_EPOCHS]
+    med = sorted(s["ms"] for s in e1)[len(e1) // 2]
+    n_batches = len(steps)
+    out = {
+        "device": smi, "inputs_s": inputs_s, "run_s": run_s,
+        "seeded_per_frame": seeded, "steps": steps,
+        "ms_per_step_epoch1": med,
+        "iter_ms": [s["iter_ms"] for s in steps],
+        "wait_ms": [s["wait_ms"] for s in steps],
+        "loader_host_ms_per_batch": probe.sample_s * 1e3 / n_batches,
+        "loader_alone_ms_per_batch": alone_ms,
+        "loader_top_self_ms": loader_top,
+        "extraction_ms_per_frame": ext["ms_per_frame"],
+        "pseudo_per_frame": [s["pseudo_per_frame"] for s in steps],
+        "copy_paste_per_batch": [s["copy_paste"] for s in steps],
+        "unknown_targets": [s["unknown_targets"] for s in steps],
+        "queues": queues, "selftrain_boxes_per_frame": st_pseudos,
+        "peak_mem_gb": peak, "find_ms": find_ms,
+        "find_valid": int(valid.sum()), "busy": probe.busy}
+    log(f"propagate ({smi}): inputs {inputs_s:.1f} s, train_st.main "
+        f"{run_s:.1f} s; {med:.1f} ms per self-training step (median of "
+        f"epoch 1, CUDA events), steps "
+        f"{[round(s['ms'], 1) for s in steps]} ms, wall per iteration "
+        f"{[None if t is None else round(t, 1) for t in out['iter_ms']]} ms "
+        f"(waits {[None if t is None else round(t, 1) for t in out['wait_ms']]}"
+        f"), loader host {out['loader_host_ms_per_batch']:.1f} ms per batch "
+        f"(data_time; {alone_ms:.1f} alone after the run), extraction {ext['ms_per_frame']:.1f} ms/frame, peak "
+        f"{peak:.2f} GiB")
+    log(f"propagate ({smi}): pseudo boxes per frame {out['pseudo_per_frame']}"
+        f", copy-paste samples per batch {out['copy_paste_per_batch']}, "
+        f"unknown targets per step {out['unknown_targets']}, queues "
+        f"{queues}, self-train boxes per frame {st_pseudos}, losses "
+        f"{[round(s['loss'], 3) for s in steps]}, launches per step "
+        f"{steps[0]['launches']}, per extraction batch "
+        f"{probe.eval_launches[0]}; extraction CLI on the bench frame "
+        f"{find_ms:.1f} ms, {out['find_valid']} valid proposals = the "
+        "seeker's")
+    log(f"propagate ({smi}): one training batch's host time under "
+        "cProfile, the functions with the most self time (ms): " + "; ".join(
+            f"{n} {t:.1f}" for n, t in loader_top))
+    if probe.busy:
+        log(f"propagate profile ({smi}): one epoch-1 iteration wall "
+            f"{probe.busy['wall_ms']:.1f} ms, kernels "
+            f"{probe.busy['kernel_ms']:.1f} ms, busy "
+            f"{probe.busy['busy_share']:.3f}")
+    out["launches_per_step"] = steps[0]["launches"]
+    out["launches_per_extraction_batch"] = probe.eval_launches[0]
     return out
 
 
@@ -2450,7 +2928,11 @@ def main():
     # ---- 9. the Greedy Box Seeker: nuScenes, SEG, KITTI
     report["seeker"] = seeker_phase(torch, args.profile)
 
-    # ---- 10. result lines
+    # ---- 10. Propagate: self-training through train_st.main, then the
+    # extraction CLI's frame loop
+    report["propagate"] = propagate_phase(torch, tp, ws, smi, args.profile)
+
+    # ---- 11. result lines
     first_batch = report["main_path"][0]["launches_per_forward"]
     pick = {
         # K1 at L0 (first call); K2 at the L0 16->16 subm conv with the
@@ -2491,6 +2973,10 @@ def main():
             "replaces": REPLACES[name],
             "launches": first_batch.get(name, train_launches[name]),
             "launches_train_step": train_launches[name],
+            "launches_st_step": report["propagate"]["launches_per_step"][
+                name],
+            "launches_st_extraction_batch": report["propagate"][
+                "launches_per_extraction_batch"][name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),

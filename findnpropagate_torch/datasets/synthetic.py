@@ -1,21 +1,19 @@
-"""SyntheticDataset — the `lidar_ring` procedural LiDAR scenes, numpy only.
+"""SyntheticDataset — procedurally generated LiDAR scenes; port of
+findnpropagate_tpu/datasets/synthetic.py on the port's DatasetTemplate.
 
-The port's own copy of findnpropagate_tpu/datasets/synthetic.py:26-200
-(`_lidar_ring_points`, scene and box generation) and of the fixed-capacity
-collation of findnpropagate_tpu/datasets/dataset.py. Scenes are
-deterministic per (seed, index), so the same index gives the same points in
-both packages. Only the `lidar_ring` pattern and the data pipeline of the
-TransFusion configs are carried over: point-range mask
-(geometry_np.mask_points_by_range), the configured point features, padding
-to MAX_POINTS with a mask, and the ground truth as (MAX_GT, 8) rows of
-7 box values + the 1-indexed class, boxes whose centre is out of range
-removed in training (REMOVE_OUTSIDE_BOXES), zero rows as padding. No
-augmentation and no point shuffling are ported.
+Scenes are deterministic per (seed, index), so the same index gives the
+same points, boxes and cameras in both packages. Two point patterns:
+`uniform` (the default: points uniform inside each box plus ground
+clutter) and `lidar_ring` (a 32-beam, 10-sweep spinning-LiDAR aggregate of
+nuScenes' LIDAR_TOP geometry). SYNTHETIC.CAMERA attaches a camera rig and
+random images. Object classes are drawn from the dataset's class names.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from .dataset import DatasetTemplate
 
 SIZE_PRIORS = {
     "Car": ([4.6, 1.95, 1.7], [0.3, 0.1, 0.1]),
@@ -125,55 +123,29 @@ def bench_data_cfg(num_scenes, cfg, pcr=None, voxel=None, max_voxels=None,
     }
 
 
-class SyntheticDataset:
-    """Geometry + scenes + collation.
+class SyntheticDataset(DatasetTemplate):
+    """dataset_cfg keys: the DatasetTemplate's (POINT_CLOUD_RANGE,
+    POINT_FEATURE_ENCODING, DATA_AUGMENTOR, DATA_PROCESSOR, CAPACITIES) and
+    SYNTHETIC {NUM_SCENES, NUM_OBJECTS, NUM_RAW_POINTS, SEED, PATTERN
+    ('uniform' or 'lidar_ring'), CAMERA {NUM, IMAGE_SIZE}}. `training`
+    defaults to False here (the inference scenes, seeds from 10000)."""
 
-    dataset_cfg keys: POINT_CLOUD_RANGE, SYNTHETIC {NUM_OBJECTS,
-    NUM_RAW_POINTS, PATTERN='lidar_ring', SEED}, CAPACITIES, DATA_PROCESSOR
-    (its transform_points_to_voxels entry gives VOXEL_SIZE),
-    POINT_FEATURE_ENCODING."""
-
-    def __init__(self, dataset_cfg, class_names, training=False):
-        self.dataset_cfg = dataset_cfg
-        self.class_names = list(class_names)
-        self.training = training
-        self.point_cloud_range = np.array(dataset_cfg["POINT_CLOUD_RANGE"],
-                                          dtype=np.float32)
+    def __init__(self, dataset_cfg, class_names, training=False, logger=None,
+                 root_path=None, rng=None, hooks=None):
+        super().__init__(
+            dataset_cfg=dataset_cfg, class_names=class_names,
+            training=training, logger=logger, root_path=root_path, rng=rng,
+            hooks=hooks,
+        )
         syn = dataset_cfg.get("SYNTHETIC", {})
         self.num_scenes = int(syn.get("NUM_SCENES", 64))
         self.num_objects = int(syn.get("NUM_OBJECTS", 24))
         self.num_raw_points = int(syn.get("NUM_RAW_POINTS", 20000))
         self.base_seed = int(syn.get("SEED", 0)) + (0 if training else 10_000)
-        pattern = str(syn.get("PATTERN", "lidar_ring"))
-        if pattern != "lidar_ring":
-            raise NotImplementedError(
-                f"synthetic PATTERN {pattern!r}: only lidar_ring is ported")
-        enc = dataset_cfg["POINT_FEATURE_ENCODING"]
-        assert list(enc["src_feature_list"][0:3]) == ["x", "y", "z"]
-        self.used_feature_list = list(enc["used_feature_list"])
-        self.src_feature_list = list(enc["src_feature_list"])
-
-        self.voxel_size = None
-        for proc in dataset_cfg["DATA_PROCESSOR"]:
-            if proc["NAME"] == "transform_points_to_voxels":
-                self.voxel_size = np.asarray(proc["VOXEL_SIZE"], np.float32)
-        grid = (self.point_cloud_range[3:6] - self.point_cloud_range[0:3]
-                ) / self.voxel_size
-        self.grid_size = np.round(grid).astype(np.int64)
-
-        caps = dataset_cfg.get("CAPACITIES", {})
-        self.max_points = int(caps.get("MAX_POINTS", 60000))
-        self.max_gt = int(caps.get("MAX_GT", 128))
-        self.remove_outside_boxes = training and any(
-            proc["NAME"] == "mask_points_and_boxes_outside_range"
-            and proc.get("REMOVE_OUTSIDE_BOXES", False)
-            for proc in dataset_cfg["DATA_PROCESSOR"])
-        self.max_voxels = int(caps.get("MAX_VOXELS", 40000))
-        self.max_points_per_voxel = int(caps.get("MAX_POINTS_PER_VOXEL", 32))
-
-    @property
-    def num_point_features(self):
-        return len(self.used_feature_list)
+        self.camera_cfg = syn.get("CAMERA")
+        self.pattern = str(syn.get("PATTERN", "uniform"))
+        if self.pattern not in ("uniform", "lidar_ring"):
+            raise ValueError(f"synthetic PATTERN {self.pattern!r}")
 
     def __len__(self):
         return self.num_scenes
@@ -182,11 +154,11 @@ class SyntheticDataset:
         rng = np.random.RandomState(self.base_seed + index)
         pcr = self.point_cloud_range
         n = self.num_objects
-        names = [self.class_names[rng.randint(len(self.class_names))]
-                 for _ in range(n)]
+
+        names = [self.class_names[rng.randint(len(self.class_names))] for _ in range(n)]
         boxes = np.zeros((n, 7), np.float32)
         margin = 4.0
-        ground_lvl = -1.84
+        ground_lvl = -1.84 if self.pattern == "lidar_ring" else -1.5
         boxes[:, 0] = rng.uniform(pcr[0] + margin, pcr[3] - margin, n)
         boxes[:, 1] = rng.uniform(pcr[1] + margin, pcr[4] - margin, n)
         for i, nm in enumerate(names):
@@ -194,82 +166,96 @@ class SyntheticDataset:
             boxes[i, 3:6] = np.abs(rng.normal(mean, std))
         boxes[:, 2] = boxes[:, 5] / 2 + ground_lvl
         boxes[:, 6] = rng.uniform(-np.pi, np.pi, n)
-        points = lidar_ring_points(rng, boxes, self.num_raw_points)
-        return {"points": points, "gt_boxes": boxes,
-                "gt_names": np.asarray(names), "frame_id": index}
+
+        if self.pattern == "lidar_ring":
+            points = lidar_ring_points(rng, boxes, self.num_raw_points)
+            out = {
+                "points": points,
+                "gt_boxes": boxes,
+                "gt_names": np.asarray(names),
+                "frame_id": index,
+            }
+            return self._attach_cameras(out, rng)
+
+        # object points: uniform inside each box, count scaled by footprint
+        obj_pts = []
+        for i in range(n):
+            cnt = max(20, int(40 * boxes[i, 3] * boxes[i, 4]))
+            local = rng.uniform(-0.5, 0.5, (cnt, 3)) * boxes[i, 3:6]
+            c, s = np.cos(boxes[i, 6]), np.sin(boxes[i, 6])
+            x = local[:, 0] * c - local[:, 1] * s + boxes[i, 0]
+            y = local[:, 0] * s + local[:, 1] * c + boxes[i, 1]
+            z = local[:, 2] + boxes[i, 2]
+            inten = rng.uniform(0, 1, (cnt, 1))
+            obj_pts.append(
+                np.concatenate([np.stack([x, y, z], -1), inten], -1)
+            )
+        # ground clutter
+        m = self.num_raw_points - sum(len(p) for p in obj_pts)
+        m = max(m, 1000)
+        ground = np.zeros((m, 4), np.float32)
+        ground[:, 0] = rng.uniform(pcr[0], pcr[3], m)
+        ground[:, 1] = rng.uniform(pcr[1], pcr[4], m)
+        ground[:, 2] = rng.normal(-1.5, 0.05, m)
+        ground[:, 3] = rng.uniform(0, 1, m)
+        points = np.concatenate(obj_pts + [ground], axis=0).astype(np.float32)
+
+        out = {
+            "points": points,
+            "gt_boxes": boxes,
+            "gt_names": np.asarray(names),
+            "frame_id": index,
+        }
+        return self._attach_cameras(out, rng)
+
+    def _attach_cameras(self, out, rng):
+        if self.camera_cfg:
+            ncam = int(self.camera_cfg.get("NUM", 2))
+            h, w = (int(v) for v in self.camera_cfg.get("IMAGE_SIZE",
+                                                        (64, 64)))
+            fx = w  # ~90 deg FOV
+            K = np.array([[fx, 0, w / 2], [0, fx, h / 2], [0, 0, 1.0]])
+            l2i, c2l, intr = [], [], []
+            for ci in range(ncam):
+                yaw = 2 * np.pi * ci / ncam
+                R_c2l = np.array([[0, 0, 1.0], [-1, 0, 0], [0, -1, 0]])
+                rot = np.array([[np.cos(yaw), -np.sin(yaw), 0],
+                                [np.sin(yaw), np.cos(yaw), 0], [0, 0, 1.0]])
+                c2l_i = np.eye(4, dtype=np.float32)
+                c2l_i[:3, :3] = rot @ R_c2l
+                l2c = np.linalg.inv(c2l_i)
+                l2i_i = np.eye(4, dtype=np.float32)
+                l2i_i[:3, :3] = K @ l2c[:3, :3]
+                l2i_i[:3, 3] = K @ l2c[:3, 3]
+                intr_i = np.eye(4, dtype=np.float32)
+                intr_i[:3, :3] = K
+                l2i.append(l2i_i)
+                c2l.append(c2l_i)
+                intr.append(intr_i)
+            out["lidar2image"] = np.stack(l2i)
+            out["camera2lidar"] = np.stack(c2l)
+            out["camera_intrinsics"] = np.stack(intr)
+            out["camera_imgs"] = rng.uniform(
+                0, 1, (ncam, h, w, 3)).astype(np.float32)
+            # CaDDN-style single-camera transforms (camera 0)
+            out["trans_lidar_to_cam"] = np.linalg.inv(
+                c2l[0]).astype(np.float32)
+            out["trans_cam_to_img"] = intr[0][:3, :4].astype(np.float32)
+        return out
 
     def __getitem__(self, index):
-        d = self.generate_scene(index)
-        pts = d["points"]
-        cols = [pts[:, 0:3]] + [
-            pts[:, self.src_feature_list.index(f):
-                self.src_feature_list.index(f) + 1]
-            for f in self.used_feature_list if f not in ("x", "y", "z")]
-        pts = np.concatenate(cols, axis=1)
-        r = self.point_cloud_range
-        keep = ((pts[:, 0] >= r[0]) & (pts[:, 0] <= r[3])
-                & (pts[:, 1] >= r[1]) & (pts[:, 1] <= r[4]))
-        d["points"] = pts[keep]
-        known = np.array([n in self.class_names for n in d["gt_names"]],
-                         dtype=bool)
-        names = d["gt_names"][known]
-        classes = np.array([self.class_names.index(n) + 1 for n in names],
-                           dtype=np.float32)
-        boxes = np.concatenate([d["gt_boxes"][known][:, :7],
-                                classes.reshape(-1, 1)], axis=1)
-        if self.remove_outside_boxes:
-            c = boxes[:, 0:3]
-            inside = ((c >= r[0:3]).all(axis=-1) & (c <= r[3:6]).all(axis=-1))
-            boxes, names = boxes[inside], names[inside]
-        d["gt_boxes"], d["gt_names"] = boxes, names
-        return d
-
-    def collate_batch(self, samples):
-        """Pad to (B, MAX_POINTS, F) float32 + (B, MAX_POINTS) bool mask
-        and (B, MAX_GT, 8) float32 ground truth."""
-        b = len(samples)
-        f = samples[0]["points"].shape[-1]
-        points = np.zeros((b, self.max_points, f), np.float32)
-        mask = np.zeros((b, self.max_points), bool)
-        gt_boxes = np.zeros((b, self.max_gt, 8), np.float32)
-        for i, s in enumerate(samples):
-            p = s["points"][: self.max_points]
-            points[i, : len(p)] = p
-            mask[i, : len(p)] = True
-            g = s["gt_boxes"][: self.max_gt]
-            gt_boxes[i, : len(g)] = g
-        return {"points": points, "points_mask": mask, "gt_boxes": gt_boxes}
+        data_dict = self.generate_scene(index)
+        return self.prepare_data(data_dict)
 
     def batch(self, indices):
-        return self.collate_batch([self[int(i)] for i in indices])
+        """The collated samples `indices` without the host-only keys
+        (frame_id, batch_size): every value a numpy array."""
+        batch = self.collate_batch([self[int(i)] for i in indices])
+        batch.pop("frame_id")
+        batch.pop("batch_size")
+        return batch
 
-
-class DataLoader:
-    """Deterministic epoch-based loader over fixed-shape collated batches,
-    the reference's datasets.DataLoader without sharding: the order of
-    epoch e is ``RandomState(seed + e).permutation`` when shuffling, and
-    the last short batch is dropped when `drop_last`."""
-
-    def __init__(self, dataset, batch_size, shuffle=True, seed=0,
-                 drop_last=True):
-        self.dataset, self.batch_size = dataset, int(batch_size)
-        self.shuffle, self.seed, self.drop_last = shuffle, seed, drop_last
-        self.epoch = 0
-
-    def set_epoch(self, epoch):
-        self.epoch = epoch
-
-    def __len__(self):
-        n = len(self.dataset)
-        if self.drop_last:
-            return n // self.batch_size
-        return (n + self.batch_size - 1) // self.batch_size
-
-    def __iter__(self):
-        order = np.arange(len(self.dataset))
-        if self.shuffle:
-            order = np.random.RandomState(self.seed + self.epoch
-                                          ).permutation(len(self.dataset))
-        for b in range(len(self)):
-            idxs = order[b * self.batch_size:(b + 1) * self.batch_size]
-            yield self.dataset.batch(idxs)
+    def evaluation(self, det_annos, class_names, **kwargs):
+        raise NotImplementedError(
+            "evaluation needs datasets/eval_utils.py, which is not ported "
+            "yet (ROADMAP.md queue 1 item 14)")

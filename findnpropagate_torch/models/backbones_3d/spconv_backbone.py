@@ -96,8 +96,8 @@ class VoxelResBackBone8x(nn.Module):
                 or self.impl not in ("posgather", "pallas"):
             raise NotImplementedError(
                 "the port runs the SUBM_MODE: windowed backbone with "
-                "SUBM_IMPL: posgather or pallas only (ROADMAP queue 1 item "
-                "13 for the others)")
+                "SUBM_IMPL: posgather or pallas only; the gather / XLA "
+                "backbone modes are ROADMAP.md queue 1 item 15")
         nx, ny, nz = (int(g) for g in grid_size)
         s1 = (nz + 1, ny, nx)
         s2 = tuple(conv_out_dim(n, 3, 2, 1) for n in s1)

@@ -1,0 +1,134 @@
+"""Self-training orchestration ("Propagate") — port of
+findnpropagate_tpu/openvocab/self_training.py.
+
+Per epoch, once past `st_warmup` and on every `st_interval`, the current
+model runs over the augmentation-stripped train split and its detections
+are saved as per-frame pseudo labels (PseudoProcessor.save_predictions);
+the training epochs then read them through the PseudoLoader augmentation
+hooks, and the head merges them with the ground truth (its
+``merge_pseudos``) with the unknown classes down-weighted.
+
+The state lives in the detector module and the Optimizer, as in
+runtime/trainer.py; the reference's mesh arguments are not ported
+(ROADMAP.md queue 1 item 16), nor is its VLM relabeler factory
+`build_relabeler` (item 13): `relabeler` takes any callable
+(boxes, batch, i, labels, scores) -> (labels, scores).
+"""
+
+from __future__ import annotations
+
+import time
+from functools import partial
+
+import torch
+
+from ..runtime import trainer
+from .pseudo_labels import PseudoLoader, PseudoProcessor
+
+
+def register_pseudo_hooks(loader: PseudoLoader):
+    """The reference's augmentation hook names bound to a PseudoLoader, as
+    the mapping name -> factory(cfg, augmentor) that build_dataloader hands
+    to the dataset (`hooks=`). The copy-paste step draws from the
+    augmentor's rng, the dataset's own."""
+    return {
+        "load_frustum_pseudos": lambda cfg, aug: loader.load_frustum_pseudos,
+        "load_selftrain_pseudos":
+            lambda cfg, aug: loader.load_selftrain_pseudos,
+        "unknowns_copy_paste":
+            lambda cfg, aug: partial(loader.unknowns_copy_paste, rng=aug.rng),
+    }
+
+
+def pseudo_labels_exist(processor: PseudoProcessor, epoch: int) -> bool:
+    """Epoch-stamp check preventing re-extraction after a restart."""
+    return (processor.store is not None
+            and processor.store.stamped_epoch() == epoch)
+
+
+def to_device(batch, device):
+    """The batch's arrays as tensors on `device`, one copy each; the
+    host-only keys (frame_id, batch_size) dropped."""
+    return {k: torch.as_tensor(v).to(device) for k, v in batch.items()
+            if k not in ("frame_id", "batch_size")}
+
+
+def extract_pseudo_labels(detector, inference_loader, processor, epoch,
+                          logger=None, relabeler=None, max_batches=None):
+    """Run the model over the train split in eval mode and save its
+    detections as pseudo labels; returns the number of frames."""
+    eval_step = trainer.make_eval_step(detector)
+    dev = next(detector.parameters()).device
+    emit = logger.info if logger else print
+    t0 = time.time()
+    n = 0
+    for bi, batch in enumerate(inference_loader):
+        if max_batches is not None and bi >= max_batches:
+            break
+        frame_ids = batch["frame_id"]
+        dets = eval_step(to_device(batch, dev))
+        boxes = dets.boxes.cpu().numpy()
+        scores = dets.scores.cpu().numpy()
+        labels = dets.labels.cpu().numpy()
+        counts = dets.count.cpu().numpy()
+        data_dicts = []
+        det_dicts = []
+        for i in range(boxes.shape[0]):
+            k = int(counts[i])
+            b, s, l = boxes[i, :k], scores[i, :k], labels[i, :k]
+            if relabeler is not None and k > 0:
+                l, s = relabeler(b, batch, i, l, s)
+            det_dicts.append(
+                {"pred_boxes": b, "pred_scores": s, "pred_labels": l})
+            data_dicts.append({"frame_id": frame_ids[i]})
+            n += 1
+        processor.save_predictions(data_dicts, det_dicts)
+    processor.stamp_epoch(epoch)
+    emit(f"extracted pseudo labels for {n} frames in {time.time()-t0:.1f}s")
+    return n
+
+
+def train_model_st(detector, train_loader, inference_loader, tx, epochs,
+                   processor: PseudoProcessor, logger=None, ckpt_dir=None,
+                   st_warmup=3, st_interval=1, relabeler=None,
+                   log_interval=10, seed: int = 17,
+                   ckpt_save_time_interval=None):
+    """The self-training epoch driver. ckpt_save_time_interval (seconds):
+    timed ``latest_model`` saves inside the epochs. Returns the logged
+    history: per logged step the metrics, its epoch and iteration, and the
+    seconds spent waiting for the batch (``data_time``)."""
+    train_step = trainer.make_train_step(detector, tx, seed=seed)
+    dev = next(detector.parameters()).device
+    emit = logger.info if logger else print
+    history = []
+    last_timed_save = time.time()
+    for epoch in range(epochs):
+        if epoch >= st_warmup and (epoch - st_warmup) % st_interval == 0:
+            if not pseudo_labels_exist(processor, epoch):
+                extract_pseudo_labels(
+                    detector, inference_loader, processor, epoch,
+                    logger=logger, relabeler=relabeler)
+        train_loader.set_epoch(epoch)
+        t0 = time.time()
+        t_iter = time.time()
+        for it, batch in enumerate(train_loader):
+            data_time = time.time() - t_iter
+            metrics = train_step(to_device(batch, dev))
+            if (ckpt_save_time_interval is not None and ckpt_dir is not None
+                    and time.time() - last_timed_save
+                    > ckpt_save_time_interval):
+                trainer.save_intra_checkpoint(ckpt_dir, detector, tx, epoch,
+                                              it + 1)
+                last_timed_save = time.time()
+                emit(f"timed checkpoint saved at st epoch {epoch} it {it+1}")
+            if it % log_interval == 0:
+                m = {k: float(v) for k, v in metrics.items()}
+                emit(f"st epoch {epoch} it {it}/{len(train_loader)} "
+                     + " ".join(f"{k}={v:.4f}" for k, v in m.items()))
+                history.append({"epoch": epoch, "it": it,
+                                "data_time": data_time, **m})
+            t_iter = time.time()
+        emit(f"st epoch {epoch} done in {time.time()-t0:.1f}s")
+        if ckpt_dir is not None:
+            trainer.save_checkpoint(ckpt_dir, detector, tx, step=epoch + 1)
+    return history

@@ -1,6 +1,6 @@
-"""Training runtime: train step, epoch loop, checkpoints — port of
-findnpropagate_tpu/runtime/trainer.py (`make_train_step` :66-151,
-checkpoints :180-255, `train_epochs` :260-366).
+"""Training runtime: train step, eval step, epoch loop, checkpoints — port
+of findnpropagate_tpu/runtime/trainer.py (`make_train_step` :66-151,
+`make_eval_step` :154, checkpoints :180-255, `train_epochs` :260-366).
 
 The reference threads an explicit TrainState through a jitted step; here
 the state lives where PyTorch keeps it — the parameters and BN buffers in
@@ -71,6 +71,29 @@ def make_train_step(detector, tx, seed: int = 17, accum_steps: int = 1):
         return metrics
 
     return train_step
+
+
+def make_eval_step(detector, with_overflow=False):
+    """Returns eval_step(batch) -> Detections (with ``with_overflow``:
+    (Detections, sparse_window_overflow)). The forward and post_process run
+    under no_grad with the module in eval mode (dropout off, BN on its
+    running statistics), and the module is put back in the mode it was in,
+    so a training loop can call it between steps."""
+
+    def eval_step(batch):
+        was_training = detector.training
+        detector.eval()
+        try:
+            with torch.no_grad():
+                out = detector(batch)
+                dets = detector.post_process(out)
+        finally:
+            detector.train(was_training)
+        if not with_overflow:
+            return dets
+        return dets, out["sparse_window_overflow"]
+
+    return eval_step
 
 
 # ---------------------------------------------------------------- checkpoints

@@ -332,7 +332,7 @@ def test_checkpoint_round_trip(both, tmp_path):
 def test_train_epochs_logs_and_warns(both, tmp_path):
     """The epoch loop over the port's DataLoader: history with step-time
     telemetry, a checkpoint per epoch, and the overflow warning."""
-    from findnpropagate_torch.datasets.synthetic import DataLoader
+    from findnpropagate_torch.datasets import DataLoader
 
     cfg = train_cfg()
     data = train_data()
