@@ -138,7 +138,34 @@ Phases (any failure exits non-zero and prints no result line):
      Then the extraction CLI's frame loop (extract_frames) on phase 9's
      bench frame through a wrapper that supplies its camera_paths: the
      store equal to the seeker's valid proposals;
- 11. a `kernels` JSON line, then the result line
+ 11. open vocabulary — phase 10's model and 8 frames at batch 4, the
+     extraction run once plain and once per CLIP_TYPE (GLIP, CROP,
+     MASKCLIP) through self_training.build_relabeler on the ST yaml's
+     OPTIMIZATION with CLIP_UNK_RELABEL, its batches given phase 9's
+     6-camera rig (lidar2image) and image names (camera_paths, GLIP reads
+     phase 9's per-camera COCO files through PreprocessedDetector.infer),
+     CROP and MASKCLIP six seeded 900x1600 images a frame and seeded
+     stand-ins for the encoders alone (their weights are not in the
+     repository): the projection, crops, normalisation, softmax, resize
+     and per-box means run on the card. Gates: 6 K1 and 16 K2 launches
+     per extraction batch, in each mode a stored label that differs from
+     the plain extraction's, and on one frame the card's labels equal to
+     the port's CPU run and its scores within 1e-5 (OV_TOL). Printed with
+     the card's name and power limit: relabel ms per frame (CUDA events
+     around each call, the call ends in its results' copies to the host),
+     host syncs and copies per call, peak
+     memory. Then memory_ensemble with each NAME over the plain and GLIP
+     labels of every frame, and recall_record (known: the 6 known
+     classes) against each frame's ground truth and its unknown frustum
+     boxes for every store (detections scored >= the yaml's SCORE_THRESH;
+     IoU thresholds 0.01 and 0.1 beside the yaml's 0.3, 0.5 and 0.7), the
+     card's equal to the CPU's. Last, the extraction CLI's alt mode
+     (extract_frames) on phase 9's bench frame for every name of
+     ALT_PROPOSER_REGISTRY (GTProposals on 24 seeded ground truths,
+     CLIP2Scene on seeded per-point labels): a store written, boxes
+     finite, ms per frame, the FrustumProposer's HDBSCAN point count and
+     time, and its labels on the first 4000 points equal on card and CPU;
+ 12. a `kernels` JSON line, then the result line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 With --before DIR (a checkout of an earlier commit of this repo, e.g.
@@ -2755,6 +2782,392 @@ def propagate_phase(torch, tp, ws, smi, profile=None):
             f"{probe.busy['busy_share']:.3f}")
     out["launches_per_step"] = steps[0]["launches"]
     out["launches_per_extraction_batch"] = probe.eval_launches[0]
+    return out, probe.detector, cfg_path, frustum
+
+
+OV_MODES = ("GLIP", "CROP", "MASKCLIP")
+# the stand-ins' embedding width (CLIP ViT-B/32's) and MaskCLIP's patch grid
+OV_EMBED = 512
+OV_GRID = 7
+# The card's relabel against the port's CPU run on the same frame: labels
+# equal and scores within OV_TOL, but for a box whose CPU and card scores
+# lie within OV_TOL (its two best classes tie within it; printed). The
+# class scores are f32 sums (IoU products, crop features, per-pixel
+# probabilities) taken in another order on the card.
+OV_TOL = 1e-5
+OV_ENSEMBLE = {"IOU_THRESH": 0.1, "NMS_THRESH": 0.1,
+               "MEMORY_VOTING": {"ENABLED": True, "IGNORE_THRESH": 2,
+                                 "RM_THRESH": 3}}
+# alt mode on the bench frame: seeded ground truths, and CLIP2Scene's
+# clustering at a radius the bench cloud's density (4.3 points per m^3)
+# can hold
+OV_GT = 24
+OV_SEG_PARAMS = {"eps": 1.0, "min_samples": 5}
+OV_HDBSCAN_SUBSET = 4000
+OV_RECALL_LOW = (0.01, 0.1)
+
+
+class ClipStandIn:
+    """A seeded stand-in for CLIP's image tower (its weights are not in
+    the repository): each 224 crop's 7x7 grid of 32x32 patch means through
+    a seeded (147, 512) projection."""
+
+    def __init__(self, torch, weight):
+        self.torch, self.weight = torch, weight
+
+    def get_image_features(self, pixel_values):
+        p = self.torch.nn.functional.avg_pool2d(pixel_values, 32)
+        return p.reshape(len(p), -1) @ self.weight
+
+
+def dense_stand_in(torch, weight):
+    """MaskCLIP's dense encoder, a seeded stand-in: 14x14 cell means of
+    each image grouped 2x2 into a 7x7 grid of 12 values, through a seeded
+    (12, 512) projection."""
+    def encode(images):
+        b = images.shape[0]
+        p = torch.nn.functional.adaptive_avg_pool2d(
+            images.permute(0, 3, 1, 2), 2 * OV_GRID)
+        p = p.reshape(b, 3, OV_GRID, 2, OV_GRID, 2).permute(
+            0, 2, 4, 1, 3, 5).reshape(b, OV_GRID, OV_GRID, 12)
+        return p @ weight
+    return encode
+
+
+def hold_relabel(label, card, cpu):
+    """The card's (labels, scores) against the CPU's (see OV_TOL): the
+    comparison's numbers and its exceptions."""
+    cl, cs = card
+    hl, hs = cpu
+    gap = np.abs(cs - hs)
+    if not (gap <= OV_TOL).all():
+        raise AssertionError(f"{label}: card and CPU scores differ by "
+                             f"{gap.max():.3g} > {OV_TOL}")
+    diff = np.flatnonzero(cl != hl)
+    for b in diff:
+        log(f"  {label} exception: box {b} label {cl[b]} on the card, "
+            f"{hl[b]} on the CPU (scores {cs[b]:.7f} / {hs[b]:.7f})")
+    return {"boxes": len(cl), "max_score_err": float(gap.max(initial=0.0)),
+            "label_exceptions": len(diff)}
+
+
+def seg_labels_of(pts, gt, class_names):
+    """Seeded CLIP2Scene per-point labels: a point in a ground truth takes
+    its class's CLIP2Scene label, the others a background label."""
+    from findnpropagate_torch.openvocab.alt_proposers import (
+        CLASSES_NUSCENES_SEG,
+    )
+    from findnpropagate_torch.utils import geometry_np as G
+
+    rng = np.random.RandomState(1)
+    seg = rng.randint(11, len(CLASSES_NUSCENES_SEG) + 1, len(pts))
+    inside = G.points_in_boxes_mask(pts[:, :3], gt[:, :7])
+    for k, row in enumerate(gt):
+        name = class_names[int(row[7]) - 1]
+        seg[inside[k]] = CLASSES_NUSCENES_SEG.index(name) + 1
+    return seg
+
+
+def open_vocab_phase(torch, tp, ws, smi, detector, cfg_path, frustum,
+                     device="cuda"):
+    """Phase 11: phase 10's model relabeled through build_relabeler in the
+    extraction (GLIP, CROP, MASKCLIP), the memory ensembles and the
+    known / unknown recall over the stored labels, and the extraction
+    CLI's alt mode on phase 9's bench frame; every gate checked here.
+    `device` names the card (another device only to rehearse the phase)."""
+    from findnpropagate_torch import config as cfg_mod
+    from findnpropagate_torch.models.post_processing import recall_record
+    from findnpropagate_torch.openvocab import alt_proposers, self_training
+    from findnpropagate_torch.openvocab.box_classification import (
+        CLIPBoxClassification,
+    )
+    from findnpropagate_torch.openvocab.pseudo_labels import (
+        PseudoLabelStore,
+        PseudoLoader,
+        PseudoProcessor,
+    )
+    from findnpropagate_torch.runtime import trainer
+    from findnpropagate_torch.tools import extract_pseudo_labels as ex
+    from findnpropagate_torch.tools import train_st
+    from findnpropagate_torch.utils import memory_ensemble as me
+    from findnpropagate_torch.utils.clustering import hdbscan
+
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    cpu = torch.device("cpu")
+    work = ROOT / ST_WORK / "open_vocab"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    cfg = cfg_mod.cfg_from_yaml_file(str(cfg_path))
+    known = list(cfg.KNOWN_CLASS_NAMES)
+    full = list(cfg.FULL_CLASS_NAMES)
+    hooks = self_training.register_pseudo_hooks(PseudoLoader(
+        known, pseudo_path=str(frustum), self_train_path=str(work / "none"),
+        all_class_names=full))
+    dataset, loader = train_st.inference_loader(cfg, ST_BATCH, hooks,
+                                                prefetch=0)
+    # phase 9's rig and per-camera COCO files (labels in the 10 classes)
+    (l2i, _, _), pts, _, detector2d, image_names = bench_seeker_frame(
+        full, work)
+    gen = torch.Generator().manual_seed(0)
+    w_img = torch.randn(147, OV_EMBED, generator=gen) / 147 ** 0.5
+    w_dense = torch.randn(12, OV_EMBED, generator=gen) / 12 ** 0.5
+    text = torch.randn(len(full), OV_EMBED, generator=gen)
+    text = text / text.norm(dim=-1, keepdim=True)
+
+    class Rigged:
+        """The extraction's batches with the keys the relabelers read."""
+
+        def __iter__(self):
+            for batch in loader:
+                n = len(batch["frame_id"])
+                batch["lidar2image"] = np.repeat(l2i[None], n, axis=0)
+                batch["camera_paths"] = [image_names] * n
+                yield batch
+
+    def frame_images(batch, i, where=dev):
+        """Six seeded 900x1600 images of the frame, in [0, 1]."""
+        g = torch.Generator(device=dev).manual_seed(
+            1000 + int(batch["frame_id"][i]))
+        return torch.rand((6, 900, 1600, 3), generator=g,
+                          device=dev).to(where)
+
+    def relabeler(mode, where):
+        opt = dict(cfg.OPTIMIZATION, CLIP_UNK_RELABEL=True, CLIP_TYPE=mode)
+        r = self_training.build_relabeler(
+            opt, full, detector2d=detector2d, device=where,
+            image_provider=lambda b, i: frame_images(b, i, where))
+        if isinstance(r.vlm, CLIPBoxClassification):
+            r.vlm._model = ClipStandIn(torch, w_img.to(where))
+            r.vlm._text_features = text.to(where)
+        elif mode == "MASKCLIP":
+            r.vlm.maskclip._encode_dense = dense_stand_in(torch,
+                                                          w_dense.to(where))
+            r.vlm.maskclip._text_features = text.to(where)
+        return r
+
+    def extract(name, relabel=None):
+        eval_launches, calls = [], []
+
+        def make_eval(orig):
+            def make(det, **kw):
+                inner = orig(det, **kw)
+
+                def step(batch):
+                    tp.reset_launches()
+                    ws.reset_launches()
+                    out = inner(batch)
+                    if cuda:
+                        torch.cuda.synchronize()
+                    eval_launches.append(launches_now(tp, ws))
+                    return out
+                return step
+            return make
+
+        def spy(b, batch, i, lab, sc):
+            if cuda:
+                torch.cuda.synchronize()
+                ev = [torch.cuda.Event(enable_timing=True) for _ in "ab"]
+                ev[0].record()
+            t0 = time.perf_counter()
+            out = relabel(b, batch, i, lab, sc)
+            wall = (time.perf_counter() - t0) * 1e3
+            if cuda:
+                ev[1].record()
+                ev[1].synchronize()
+            calls.append({"ms": ev[0].elapsed_time(ev[1]) if cuda else wall,
+                          "wall_ms": wall, "args": (b, batch, i, lab, sc),
+                          "out": out})
+            return out
+
+        proc = PseudoProcessor(known, self_training_folder=work / name,
+                               all_class_names=full)
+        with Swap(trainer, "make_eval_step",
+                  make_eval(trainer.make_eval_step)):
+            n = self_training.extract_pseudo_labels(
+                detector, Rigged(), proc, epoch=1,
+                relabeler=None if relabel is None else spy)
+        want = [EVAL_LAUNCHES] * (ST_SCENES // ST_BATCH)
+        if n != ST_SCENES or (cuda and eval_launches != want):
+            raise AssertionError(f"open vocab {name}: {n} frames, launches "
+                                 f"{eval_launches}, want {want}")
+        return PseudoLabelStore(work / name), calls, eval_launches
+
+    out = {"device": smi}
+    t_phase = time.perf_counter()
+    plain, _, launches = extract("plain")
+    plain_labels = [plain.load(i)[2] for i in range(ST_SCENES)]
+    out["launches_per_extraction_batch"] = launches[0] if launches else None
+    stores = {"plain": plain}
+    for mode in OV_MODES:
+        relabel = relabeler(mode, dev)
+        if cuda:
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        store, calls, _ = extract(mode.lower(), relabel)
+        peak = ((torch.cuda.max_memory_allocated() - base) / 2 ** 30
+                if cuda else None)
+        stores[mode] = store
+        changed = sum(int((store.load(i)[2] != plain_labels[i]).sum())
+                      for i in range(ST_SCENES))
+        if len(calls) != ST_SCENES or not changed:
+            raise AssertionError(f"open vocab {mode}: {len(calls)} relabel "
+                                 f"calls, {changed} labels changed")
+        # one frame on the card against the port's CPU run
+        first = calls[0]
+        b, batch, i, lab, sc = first["args"]
+        held = hold_relabel(mode, first["out"],
+                            relabeler(mode, cpu)(b, batch, i, lab, sc))
+        syncs = copies = None
+        if cuda:
+            syncs, copies, _ = runtime_calls(
+                torch, lambda: relabel(b, batch, i, lab, sc), reps=2)
+        ms = sorted(c["ms"] for c in calls)
+        out[mode] = {"ms_per_frame": ms[len(ms) // 2],
+                     "ms_per_frame_all": [c["ms"] for c in calls],
+                     "wall_ms_per_frame_all": [c["wall_ms"] for c in calls],
+                     "boxes_per_frame": [len(c["out"][0]) for c in calls],
+                     "labels_changed": changed, "card_vs_cpu": held,
+                     "syncs_per_call": syncs, "h2d_copies_per_call": copies,
+                     "peak_mem_gb": peak}
+        log(f"open vocab {mode} ({smi}): relabel "
+            f"{out[mode]['ms_per_frame']:.2f} ms/frame (median of "
+            f"{len(calls)}, {ms[0]:.2f}-{ms[-1]:.2f}), "
+            f"{out[mode]['boxes_per_frame']} boxes per frame, {changed} "
+            f"stored labels changed, {syncs} host syncs and {copies} "
+            f"host-to-device copies per call, peak "
+            f"{peak if peak is None else round(peak, 3)} GiB; card vs CPU "
+            f"on frame {i}: {held}")
+
+    # ---- ensembles and recall over the stored labels, card against CPU
+    def rows(store, i):
+        boxes, scores, labels = store.load(i)
+        return np.concatenate([boxes[:, :7], labels[:, None].astype(
+            np.float32), scores[:, None]], 1).astype(np.float32)
+
+    rng = np.random.RandomState(0)
+    ens = {}
+    for i in range(ST_SCENES):
+        a = {"gt_boxes": rows(plain, i), "cls_scores": None,
+             "iou_scores": None}
+        a["memory_counter"] = rng.randint(0, 3, len(a["gt_boxes"]))
+        b = {"gt_boxes": rows(stores["GLIP"], i), "cls_scores": None,
+             "iou_scores": None}
+        b["memory_counter"] = np.zeros(len(b["gt_boxes"]), np.int64)
+        for name in ("consistency_ensemble", "nms_ensemble",
+                     "bipartite_ensemble"):
+            c = dict(OV_ENSEMBLE, NAME=name)
+            got = me.memory_ensemble(a, b, c, device=dev)
+            want = me.memory_ensemble(a, b, c, device=cpu)
+            for k, v in want.items():
+                if v is not None and not np.array_equal(got[k], v):
+                    raise AssertionError(f"memory_ensemble {name} frame {i}"
+                                         f": {k} differs card / CPU")
+            ens.setdefault(name, []).append(len(got["gt_boxes"]))
+    out["ensemble_boxes_per_frame"] = ens
+    known_labels = tuple(range(1, len(known) + 1))
+    post = cfg.MODEL.POST_PROCESSING
+    # the yaml's IoU thresholds, and two low ones: a model of 4 steps from
+    # random weights reaches few ground truths at 0.3
+    thresh = OV_RECALL_LOW + tuple(post.RECALL_THRESH_LIST)
+    fr = PseudoLabelStore(frustum)
+    recall = {}
+    for name, store in stores.items():
+        acc = {}
+        for i in range(ST_SCENES):
+            gt = np.asarray(dataset[i]["gt_boxes"], np.float32)
+            fb, _, fl = fr.load(i)
+            # (box, label) rows: the frame's known-class ground truths
+            # (label last) and its unknown-class frustum boxes
+            gt = np.concatenate([np.concatenate([gt[:, :7], gt[:, -1:]], 1),
+                                 np.concatenate([fb[:, :7], fl[:, None]], 1)]
+                                ).astype(np.float32)
+            boxes, scores, _ = store.load(i)
+            args = (boxes[:, :7], scores >= float(post.SCORE_THRESH), gt)
+            recs = [recall_record(*[torch.from_numpy(np.ascontiguousarray(
+                x)).to(d) for x in args], thresh, known_labels)
+                for d in (dev, cpu)]
+            for k in recs[1]:
+                if int(recs[0][k]) != int(recs[1][k]):
+                    raise AssertionError(f"recall_record {name} frame {i}: "
+                                         f"{k} differs card / CPU")
+                acc[k] = acc.get(k, 0) + int(recs[1][k])
+        recall[name] = acc
+    out["recall"] = recall
+    log(f"open vocab ({smi}): memory ensembles (plain then GLIP labels) "
+        f"boxes per frame {ens}, card = CPU; recall (scores >= "
+        f"{post.SCORE_THRESH}, known {known_labels}) " + "; ".join(
+            f"{n}: " + ", ".join(f"{k} {v}" for k, v in r.items())
+            for n, r in recall.items()))
+
+    # ---- the extraction CLI's alt mode on the bench frame
+    grng = np.random.RandomState(2)
+    gt = np.zeros((OV_GT, 8), np.float32)
+    gt[:, :2] = grng.uniform(-40, 40, (OV_GT, 2))
+    gt[:, 2] = grng.uniform(-2, 0, OV_GT)
+    gt[:, 7] = grng.randint(1, len(full) + 1, OV_GT)
+    from findnpropagate_torch.openvocab.frustum_proposer import (
+        NUSCENES_ANCHORS,
+    )
+    gt[:, 3:6] = NUSCENES_ANCHORS[gt[:, 7].astype(int) - 1]
+    gt[:, 6] = grng.uniform(-np.pi, np.pi, OV_GT)
+    frame = {"points": pts, "frame_id": "bench0", "camera_paths":
+             image_names, "lidar2image": l2i, "gt_boxes": gt,
+             "point_seg_labels": seg_labels_of(pts, gt, full)}
+
+    class Frames(list):
+        max_points = len(pts)
+
+    pooled = []
+    orig_hdbscan = alt_proposers._hdbscan
+
+    def hd_spy(feats, *a, **kw):
+        pooled.append(feats)
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        labels = orig_hdbscan(feats, *a, **kw)
+        pooled.append((time.perf_counter() - t0) * 1e3)
+        return labels
+
+    alt = {}
+    for name in alt_proposers.ALT_PROPOSER_REGISTRY:
+        head = cfg_mod.EDict({"NAME": name, "PARAMS": OV_SEG_PARAMS
+                              if name.startswith("CLIP2Scene") else {}})
+        proposer = ex.build_alt_proposer(head, full, device=dev)
+        store = PseudoLabelStore(work / f"alt_{name}")
+        t0 = time.perf_counter()
+        with Swap(alt_proposers, "_hdbscan", hd_spy):
+            recalled, total = ex.extract_frames(
+                Frames([frame]), proposer, detector2d, store, device=dev,
+                alt=name)
+        ms = (time.perf_counter() - t0) * 1e3
+        if not (work / f"alt_{name}" / "bench0.npz").exists():
+            raise AssertionError(f"alt mode {name}: no store written")
+        boxes, scores, labels = store.load("bench0")
+        if not (np.isfinite(boxes).all() and np.isfinite(scores).all()):
+            raise AssertionError(f"alt mode {name}: non-finite boxes")
+        alt[name] = {"ms_per_frame": ms, "boxes": len(boxes),
+                     "recalled": recalled, "gt": total}
+    feats, hd_ms = pooled[0], pooled[1]
+    sub = feats[:OV_HDBSCAN_SUBSET]
+    same = np.array_equal(hdbscan(sub, 5, device=dev),
+                          hdbscan(sub, 5, device=cpu))
+    if not same:
+        raise AssertionError("HDBSCAN: the card's labels differ from the "
+                             "CPU's")
+    out["alt"] = alt
+    out["hdbscan_points"] = len(feats)
+    out["hdbscan_ms"] = hd_ms
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"open vocab alt mode ({smi}), bench frame (200k points, 96 "
+        "detections): " + "; ".join(
+            f"{n} {a['ms_per_frame']:.0f} ms, {a['boxes']} boxes"
+            for n, a in alt.items()) + f"; FrustumProposer's HDBSCAN over "
+        f"{len(feats)} pooled points in {hd_ms:.0f} ms (spanning tree on "
+        f"the card; labels of the first {len(sub)} equal to the CPU's); "
+        f"phase {out['phase_s']:.1f} s")
     return out
 
 
@@ -2930,9 +3343,14 @@ def main():
 
     # ---- 10. Propagate: self-training through train_st.main, then the
     # extraction CLI's frame loop
-    report["propagate"] = propagate_phase(torch, tp, ws, smi, args.profile)
+    report["propagate"], st_detector, st_cfg, st_frustum = propagate_phase(
+        torch, tp, ws, smi, args.profile)
 
-    # ---- 11. result lines
+    # ---- 11. open vocabulary: relabeling, ensembles, recall, alt mode
+    report["open_vocab"] = open_vocab_phase(torch, tp, ws, smi, st_detector,
+                                            st_cfg, st_frustum)
+
+    # ---- 12. result lines
     first_batch = report["main_path"][0]["launches_per_forward"]
     pick = {
         # K1 at L0 (first call); K2 at the L0 16->16 subm conv with the
@@ -2976,6 +3394,8 @@ def main():
             "launches_st_step": report["propagate"]["launches_per_step"][
                 name],
             "launches_st_extraction_batch": report["propagate"][
+                "launches_per_extraction_batch"][name],
+            "launches_open_vocab_extraction_batch": report["open_vocab"][
                 "launches_per_extraction_batch"][name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

@@ -8,11 +8,15 @@ the training epochs then read them through the PseudoLoader augmentation
 hooks, and the head merges them with the ground truth (its
 ``merge_pseudos``) with the unknown classes down-weighted.
 
+The extraction can relabel each frame's boxes with a VLM first:
+`build_relabeler` is the reference's CLIP_TYPE dispatch (GLIP, CLIP crops,
+MaskCLIP; openvocab/box_classification.py) and returns the callable
+(boxes, batch, i, labels, scores) -> (labels, scores) that
+`extract_pseudo_labels` and `train_model_st` take as `relabeler`.
+
 The state lives in the detector module and the Optimizer, as in
 runtime/trainer.py; the reference's mesh arguments are not ported
-(ROADMAP.md queue 1 item 16), nor is its VLM relabeler factory
-`build_relabeler` (item 13): `relabeler` takes any callable
-(boxes, batch, i, labels, scores) -> (labels, scores).
+(ROADMAP.md queue 1 item 16).
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ from functools import partial
 
 import torch
 
+from .. import resolve_device
 from ..runtime import trainer
 from .pseudo_labels import PseudoLoader, PseudoProcessor
 
@@ -40,17 +45,82 @@ def register_pseudo_hooks(loader: PseudoLoader):
     }
 
 
+def build_relabeler(opt_cfg, class_names, detector2d=None,
+                    image_provider=None, device=None):
+    """The VLM relabeler of OPTIMIZATION's CLIP_UNK_RELABEL / CLIP_TYPE:
+    GLIP -> GLIPBoxClassification over `detector2d.infer` of the frame's
+    `camera_paths`, CROP (the default) -> CLIPBoxClassification, MASKCLIP
+    -> CLIPBoxClassificationMaskCLIP over `image_provider(batch, i)`'s
+    (NCAM, H, W, 3) images in [0, 1]; both read the batch's `lidar2image`.
+
+    Returns None when relabeling is off, else a callable (boxes, batch, i,
+    labels, scores) -> (labels, scores) as numpy arrays, computed on
+    `device` (CUDA unless another device is named). It hands back the
+    labels and scores unchanged when it has no detector2d (GLIP) or no
+    image_provider (CROP, MASKCLIP). Its `vlm` attribute is the
+    relabeling object, whose encoders a caller may set."""
+    if not opt_cfg.get("CLIP_UNK_RELABEL", False):
+        return None
+    from .box_classification import (
+        CLIPBoxClassification,
+        CLIPBoxClassificationMaskCLIP,
+        GLIPBoxClassification,
+    )
+
+    dev = resolve_device(device)
+    clip_type = str(opt_cfg.get("CLIP_TYPE", "CROP")).upper()
+
+    def on_dev(x):
+        # floats as f32, as the reference's jnp arrays
+        t = torch.as_tensor(x)
+        return (t.float() if t.is_floating_point() else t).to(dev)
+
+    if clip_type == "GLIP":
+        vlm = GLIPBoxClassification(num_classes=len(class_names))
+
+        def relabel(boxes, batch, i, labels, scores):
+            if detector2d is None:
+                return labels, scores
+            paths = batch.get("camera_paths")
+            dets = detector2d.infer(paths[i] if paths is not None else [])
+            lab, sc = vlm.relabel(
+                on_dev(boxes[:, :7]), on_dev(batch["lidar2image"][i]),
+                *[on_dev(dets[k]) for k in ("det_boxes", "det_labels",
+                                             "det_scores", "det_cams",
+                                             "det_mask")])
+            return lab.cpu().numpy(), sc.cpu().numpy()
+    else:
+        cls = CLIPBoxClassification if clip_type == "CROP" \
+            else CLIPBoxClassificationMaskCLIP
+        vlm = cls(class_names=class_names)
+
+        def relabel(boxes, batch, i, labels, scores):
+            if image_provider is None:
+                return labels, scores
+            lab, sc = vlm.relabel(
+                on_dev(boxes[:, :7]), on_dev(batch["lidar2image"][i]),
+                on_dev(image_provider(batch, i)))
+            return lab.cpu().numpy(), sc.cpu().numpy()
+
+    relabel.vlm = vlm
+    return relabel
+
+
 def pseudo_labels_exist(processor: PseudoProcessor, epoch: int) -> bool:
     """Epoch-stamp check preventing re-extraction after a restart."""
     return (processor.store is not None
             and processor.store.stamped_epoch() == epoch)
 
 
+HOST_KEYS = ("frame_id", "batch_size", "camera_paths")
+
+
 def to_device(batch, device):
     """The batch's arrays as tensors on `device`, one copy each; the
-    host-only keys (frame_id, batch_size) dropped."""
+    host-only keys (frame ids, the batch size, the cameras' image names)
+    dropped."""
     return {k: torch.as_tensor(v).to(device) for k, v in batch.items()
-            if k not in ("frame_id", "batch_size")}
+            if k not in HOST_KEYS}
 
 
 def extract_pseudo_labels(detector, inference_loader, processor, epoch,

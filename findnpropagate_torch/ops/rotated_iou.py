@@ -1,6 +1,7 @@
 """Rotated BEV overlap and IoU — port of `boxes_overlap_bev`,
-`_height_overlap` and `boxes_iou_bev` of findnpropagate_tpu/ops/
-rotated_iou.py:31-162 (the corners come from utils/geometry.py).
+`_height_overlap`, `boxes_iou_bev` and `boxes_iou3d` of
+findnpropagate_tpu/ops/rotated_iou.py:31-168 (the corners come from
+utils/geometry.py).
 
 The convex intersection of two rotated rectangles, branch-free, with the
 reference's fixed 24 candidates per pair: 16 edge-pair crossings, 4 corners
@@ -100,3 +101,13 @@ def boxes_iou_bev(boxes_a, boxes_b):
     area_a = (boxes_a[..., 3] * boxes_a[..., 4])[..., :, None]
     area_b = (boxes_b[..., 3] * boxes_b[..., 4])[..., None, :]
     return overlap / torch.clamp(area_a + area_b - overlap, min=_EPS)
+
+
+def boxes_iou3d(boxes_a, boxes_b):
+    """(..., N, 7), (..., M, 7) -> (..., N, M) 3D IoU: the rotated BEV
+    overlap times the height overlap over the union of the volumes."""
+    overlap_3d = boxes_overlap_bev(boxes_a, boxes_b) \
+        * _height_overlap(boxes_a, boxes_b)
+    vol_a = (boxes_a[..., 3] * boxes_a[..., 4] * boxes_a[..., 5])[..., :, None]
+    vol_b = (boxes_b[..., 3] * boxes_b[..., 4] * boxes_b[..., 5])[..., None, :]
+    return overlap_3d / torch.clamp(vol_a + vol_b - overlap_3d, min=1e-6)

@@ -12,11 +12,19 @@ proposals to a PseudoLabelStore at `--save_path`, stamps it with epoch 0
 and logs the running recall where the frames carry ground truth. The 2D
 detections come from the yaml's PREDS_PATHS through PreprocessedDetector:
 per frame by its `camera_paths` (nuScenes, SEG) or its frame id and
-`calib` {P2, R0, V2C} (KITTI). `extract_frames` is the frame loop, for
-callers that bring their own dataset. The host-side ablation proposers
-(alt mode) are not ported yet (ROADMAP.md queue 1 item 10). Runs on CUDA
-unless `--device` names another device; raises when CUDA is missing and
-none is named.
+`calib` {P2, R0, V2C} (KITTI).
+
+A DENSE_HEAD named in openvocab/alt_proposers.py's ALT_PROPOSER_REGISTRY
+runs that ablation proposer instead (alt mode), built with the head's
+PARAMS: GTProposals from the frame's gt_boxes, CLIP2SceneProposer /
+CLIP2SceneCCProposer from its `point_seg_labels` (frames without them are
+skipped), the others (FGR, FrustumProposer, FrustumClusterProposer,
+FrustumDBSCAN, FrustumOV3DET) from the frame's points and its cached 2D
+detections.
+
+`extract_frames` is the frame loop, for callers that bring their own
+dataset. Runs on CUDA unless `--device` names another device; raises when
+CUDA is missing and none is named.
 """
 
 from __future__ import annotations
@@ -29,24 +37,29 @@ import numpy as np
 from .. import config as cfg_mod
 from .. import resolve_device
 from ..datasets import build_dataloader
+from ..openvocab.alt_proposers import ALT_PROPOSER_REGISTRY
 from ..openvocab.frustum_proposer import FrustumProposerOG
 from ..openvocab.preprocessed_detector import PreprocessedDetector
 from ..openvocab.pseudo_labels import PseudoLabelStore
 from ..utils.geometry_np import boxes_bev_iou_cpu
 from ..utils.logging import create_logger
 
-# the reference's host-side ablation proposers (its ALT_PROPOSER_REGISTRY)
-ALT_PROPOSERS = ("FGR", "FrustumProposer", "FrustumClusterProposer",
-                 "FrustumDBSCAN", "FrustumOV3DET", "CLIP2SceneProposer",
-                 "CLIP2SceneCCProposer", "GTProposals")
+
+def build_alt_proposer(head_cfg, class_names, device=None):
+    """The ablation proposer MODEL.DENSE_HEAD names, with its PARAMS
+    (GTProposals is a function of the ground truth alone); the
+    FrustumProposer's HDBSCAN runs on `device`."""
+    name = head_cfg.NAME
+    if name == "GTProposals":
+        return ALT_PROPOSER_REGISTRY[name]
+    params = dict(head_cfg.get("PARAMS", {}))
+    if name == "FrustumProposer":
+        params.setdefault("device", device)
+    return ALT_PROPOSER_REGISTRY[name](class_names, **params)
 
 
 def build_seeker(head_cfg, class_names):
     """(seeker, kitti_mode) for MODEL.DENSE_HEAD."""
-    if head_cfg.NAME in ALT_PROPOSERS:
-        raise NotImplementedError(
-            f"the alternative proposer {head_cfg.NAME!r} (alt_proposers.py, "
-            "fgr.py) is not ported yet (ROADMAP.md queue 1 item 10)")
     if head_cfg.NAME == "FrustumProposerOGKITTI":
         from ..openvocab.frustum_proposer_kitti import FrustumProposerOGKITTI
 
@@ -58,18 +71,53 @@ def build_seeker(head_cfg, class_names):
     return FrustumProposerOG.from_config(head_cfg, class_names), False
 
 
+def alt_propose(name, proposer, data, detector2d):
+    """(boxes, scores, labels) of an ablation proposer on one frame, or
+    None where the frame lacks its input."""
+    pts = np.asarray(data["points"])[:, :3]
+    if name == "GTProposals":
+        return proposer(np.asarray(data["gt_boxes"], np.float32))
+    if name.startswith("CLIP2Scene"):
+        seg = data.get("point_seg_labels")
+        return None if seg is None else proposer.propose(pts,
+                                                         np.asarray(seg))
+    dets = detector2d.infer(data.get("camera_paths", []))
+    dm = np.asarray(dets["det_mask"], bool)
+    return proposer.propose(
+        pts, *[np.asarray(dets[k])[dm] for k in (
+            "det_boxes", "det_labels", "det_scores", "det_cams")],
+        np.asarray(data["lidar2image"], np.float32))
+
+
 def extract_frames(dataset, seeker, detector2d, store, kitti_mode=False,
-                   max_frames=None, logger=None, device=None):
+                   max_frames=None, logger=None, device=None, alt=None):
     """Propose on every frame of `dataset` (points padded to its
     max_points), save the valid proposals under the frame's id, and return
     (recalled ground truths, ground truths): a ground truth counts as
-    recalled when a proposal overlaps it by BEV IoU > 0.25."""
+    recalled when a proposal overlaps it by BEV IoU > 0.25. With `alt`, a
+    name of ALT_PROPOSER_REGISTRY, `seeker` is that ablation proposer and
+    every box it proposes is saved; frames without its input are
+    skipped."""
     emit = logger.info if logger else print
     recalls, total_gt = 0, 0
     for i in range(len(dataset)):
         if max_frames is not None and i >= max_frames:
             break
         data = dataset[i]
+        if alt is not None:
+            out = alt_propose(alt, seeker, data, detector2d)
+            if out is None:
+                emit(f"frame {i}: no point_seg_labels; skipped")
+                continue
+            boxes, scores, labels = out
+            store.save(data["frame_id"], boxes, scores, labels)
+            if data.get("gt_boxes") is not None and len(data["gt_boxes"]):
+                gt = np.asarray(data["gt_boxes"])[:, :7]
+                total_gt += len(gt)
+                if len(boxes):
+                    iou = boxes_bev_iou_cpu(gt, boxes[:, :7])
+                    recalls += int((iou.max(axis=1) > 0.25).sum())
+            continue
         P = dataset.max_points
         pts = np.zeros((P, 3), np.float32)
         n = min(len(data["points"]), P)
@@ -127,7 +175,12 @@ def main(argv=None):
 
     logger = create_logger()
     head_cfg = cfg.MODEL.DENSE_HEAD
-    seeker, kitti_mode = build_seeker(head_cfg, cfg.CLASS_NAMES)
+    alt = head_cfg.NAME if head_cfg.NAME in ALT_PROPOSER_REGISTRY else None
+    if alt is not None:
+        seeker, kitti_mode = build_alt_proposer(head_cfg, cfg.CLASS_NAMES,
+                                                device), False
+    else:
+        seeker, kitti_mode = build_seeker(head_cfg, cfg.CLASS_NAMES)
     # the seeker reads raw geometry: the augmentation queue is emptied
     # before the loader is built (the pseudo-label hooks are the
     # self-training's, not given here)
@@ -141,14 +194,18 @@ def main(argv=None):
     preds_paths = head_cfg.get("PREDS_PATHS", [])
     store = PseudoLabelStore(args.save_path)
     recalls, total_gt = 0, 0
-    if not preds_paths:
+    # GTProposals and CLIP2Scene read no 2D detection
+    needs_dets = alt is None or not (alt == "GTProposals"
+                                     or alt.startswith("CLIP2Scene"))
+    if needs_dets and not preds_paths:
         logger.warning("no PREDS_PATHS configured; nothing to extract")
     else:
         recalls, total_gt = extract_frames(
             dataset, seeker, PreprocessedDetector(preds_paths,
-                                                  cfg.CLASS_NAMES),
+                                                  cfg.CLASS_NAMES)
+            if preds_paths else None,
             store, kitti_mode=kitti_mode, max_frames=args.max_frames,
-            logger=logger, device=device)
+            logger=logger, device=device, alt=alt)
     store.stamp_epoch(0)
     logger.info(f"done; final recall {recalls}/{total_gt}")
     return 0

@@ -37,6 +37,20 @@ from ..utils.logging import create_logger
 from ..utils.weights import init_random_
 
 
+def inference_loader(cfg, batch_size, hooks, logger=None, prefetch=2):
+    """(dataset, loader) of the extraction: the training split with the
+    augmentations stripped, in order."""
+    dataset, loader, _ = build_dataloader(
+        cfg.DATA_CONFIG, cfg.CLASS_NAMES, batch_size=batch_size,
+        training=True, logger=logger, hooks=hooks, prefetch=prefetch,
+    )
+    dataset.data_augmentor = None
+    dataset.training = False
+    dataset.data_processor.training = False
+    (loader.loader if hasattr(loader, "loader") else loader).shuffle = False
+    return dataset, loader
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--cfg_file", type=str, required=True)
@@ -83,17 +97,7 @@ def main(argv=None):
         cfg.DATA_CONFIG, cfg.CLASS_NAMES, batch_size=batch_size,
         training=True, seed=args.seed, logger=logger, hooks=hooks,
     )
-    # the extraction's loader: the training split with the augmentations
-    # stripped, in order
-    inf_dataset, inf_loader, _ = build_dataloader(
-        cfg.DATA_CONFIG, cfg.CLASS_NAMES, batch_size=batch_size,
-        training=True, logger=logger, hooks=hooks,
-    )
-    inf_dataset.data_augmentor = None
-    inf_dataset.training = False
-    inf_dataset.data_processor.training = False
-    (inf_loader.loader if hasattr(inf_loader, "loader")
-     else inf_loader).shuffle = False
+    _, inf_loader = inference_loader(cfg, batch_size, hooks, logger=logger)
 
     detector = build_network(cfg.MODEL, num_class=len(cfg.CLASS_NAMES),
                              dataset=dataset, device=device)

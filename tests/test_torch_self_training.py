@@ -20,6 +20,9 @@ from findnpropagate_torch import config as cfg_mod
 from findnpropagate_torch.datasets import build_dataloader
 from findnpropagate_torch.datasets.synthetic import SyntheticDataset
 from findnpropagate_torch.models import build_network
+from findnpropagate_torch.openvocab.alt_proposers import (
+    ALT_PROPOSER_REGISTRY,
+)
 from findnpropagate_torch.models.dense_heads.transfusion_head import (
     TransFusionHead,
 )
@@ -343,14 +346,56 @@ def test_extraction_main_on_synthetic_frames(tmp_path):
     assert len(list((tmp_path / "out").glob("*.npz"))) == 2
 
 
-def test_extraction_alt_mode_is_not_ported(tmp_path):
-    cfg = {"CLASS_NAMES": ["car"], "DATA_CONFIG": DATA,
-           "MODEL": {"DENSE_HEAD": {"NAME": "FGR"}}}
+def alt_main(tmp_path, name):
+    """The extraction CLI's main in alt mode over the synthetic split,
+    with one empty COCO file as PREDS_PATHS: (rc, store)."""
+    coco = tmp_path / "cam.json"
+    write_coco(coco, "x.jpg", ["car"], np.zeros((0, 4)), [], [])
+    head = {"NAME": name, "PREDS_PATHS": [str(coco)]}
+    data = copy.deepcopy(DATA)
+    data["SYNTHETIC"]["CAMERA"] = {"NUM": 6, "IMAGE_SIZE": [8, 8]}
+    cfg = {"CLASS_NAMES": ["car"], "DATA_CONFIG": data,
+           "MODEL": {"DENSE_HEAD": head}}
     path = tmp_path / "alt.yaml"
     path.write_text(json.dumps(cfg))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        cli_ex.main(["--cfg_file", str(path), "--save_path",
-                     str(tmp_path / "out"), "--device", "cpu"])
+    rc = cli_ex.main(["--cfg_file", str(path), "--save_path",
+                      str(tmp_path / "out"), "--device", "cpu"])
+    return rc, PseudoLabelStore(tmp_path / "out")
+
+
+def test_extraction_alt_mode_is_not_ported(tmp_path):
+    """Alt mode is ported (the name is kept from when it raised): FGR, an
+    ablation proposer, runs through main and stores every frame."""
+    rc, store = alt_main(tmp_path, "FGR")
+    assert rc == 0 and store.stamped_epoch() == 0
+    assert len(list((tmp_path / "out").glob("*.npz"))) == 2
+
+
+@pytest.mark.parametrize("name", list(ALT_PROPOSER_REGISTRY))
+def test_extraction_main_accepts_every_alt_proposer(tmp_path, name):
+    """main runs every name of ALT_PROPOSER_REGISTRY: GTProposals stores
+    each frame's ground truth; CLIP2Scene skips the synthetic frames (no
+    point_seg_labels); the others propose from the frames' 2D detections
+    (none here, no dataset of the repo gives camera_paths)."""
+    rc, store = alt_main(tmp_path, name)
+    files = list((tmp_path / "out").glob("*.npz"))
+    assert rc == 0 and store.stamped_epoch() == 0
+    if name.startswith("CLIP2Scene"):
+        assert not files
+        return
+    assert len(files) == 2
+    data = copy.deepcopy(DATA)
+    data["SYNTHETIC"]["CAMERA"] = {"NUM": 6, "IMAGE_SIZE": [8, 8]}
+    ds = SyntheticDataset(cfg_mod.EDict(data), ["car"], training=True)
+    for i in range(2):
+        boxes, scores, labels = store.load(i)
+        if name == "GTProposals":
+            gt = ds[i]["gt_boxes"]
+            np.testing.assert_array_equal(boxes, gt[:, :7])
+            np.testing.assert_array_equal(labels, gt[:, 7].astype(int))
+            assert len(boxes) > 0
+        else:
+            assert len(boxes) == 0
 
 
 @pytest.mark.parametrize("cli", ["train_st", "extract_pseudo_labels"])
