@@ -2,8 +2,9 @@
 
 Host side stays numpy (augmentation, filtering, padding); voxelization runs
 on the device inside the model. The loader is a plain python iterator over
-fixed-shape numpy batches. Of the reference's datasets only
-SyntheticDataset is ported; the others raise (ROADMAP.md queue 1 item 14).
+fixed-shape numpy batches. Of the reference's datasets SyntheticDataset,
+KittiDataset and NuScenesDataset are ported; the others (Waymo, ONCE,
+Lyft, Argo2 and the misc datasets) raise (ROADMAP.md queue 1 item 14).
 """
 
 from __future__ import annotations
@@ -13,10 +14,14 @@ import threading
 
 import numpy as np
 
+from .kitti import KittiDataset
+from .nuscenes import NuScenesDataset
 from .synthetic import SyntheticDataset
 
 DATASET_REGISTRY = {
     "SyntheticDataset": SyntheticDataset,
+    "KittiDataset": KittiDataset,
+    "NuScenesDataset": NuScenesDataset,
 }
 
 

@@ -5,10 +5,10 @@ Per-class sample groups loaded from a dbinfos pickle, min-points
 filtering, IoU collision rejection against the scene's boxes and those
 already placed, removal of the scene's points inside the pasted boxes; the
 shared database is one stacked .npy read through a memmap
-(`build_shared_database`). With no database on disk it is a no-op. The
-random draws come from `rng`, the dataset's np.random.RandomState, in the
-reference's order. USE_ROAD_PLANE needs KITTI's calibration, which is not
-ported (ROADMAP.md queue 1 item 14), and raises.
+(`build_shared_database`); with USE_ROAD_PLANE the pasted boxes and their
+points are set down on the sample's KITTI road plane (its `road_plane` and
+`calib`). With no database on disk it is a no-op. The random draws come
+from `rng`, the dataset's np.random.RandomState, in the reference's order.
 """
 
 from __future__ import annotations
@@ -24,10 +24,6 @@ from ...utils import geometry_np as G
 class DataBaseSampler:
     def __init__(self, sampler_cfg, root_path, class_names, logger=None,
                  rng=None):
-        if sampler_cfg.get("USE_ROAD_PLANE", False):
-            raise NotImplementedError(
-                "gt_sampling USE_ROAD_PLANE needs KITTI's calibration, which "
-                "is not ported yet (ROADMAP.md queue 1 item 14)")
         self.rng = rng if rng is not None else np.random.RandomState(0)
         self.cfg = sampler_cfg
         self.class_names = list(class_names)
@@ -136,6 +132,11 @@ class DataBaseSampler:
 
         if new_boxes:
             new_boxes = np.stack(new_boxes)
+            if self.cfg.get("USE_ROAD_PLANE", False) \
+                    and data_dict.get("road_plane") is not None \
+                    and data_dict.get("calib") is not None:
+                new_boxes = self._on_road_plane(data_dict, new_boxes,
+                                                new_points)
             # remove original points inside pasted boxes (occlusion)
             inside = G.points_in_boxes_mask(points[:, :3], new_boxes)
             points = points[~inside.any(axis=0)]
@@ -153,6 +154,30 @@ class DataBaseSampler:
                      np.ones(len(new_boxes), bool)]
                 )
         return data_dict
+
+
+    @staticmethod
+    def _on_road_plane(data_dict, boxes, points):
+        """Shift each pasted box, and its points in place, down so that its
+        bottom sits on the road plane a*x + b*y + c*z + d = 0 (rectified
+        camera frame) under its centre."""
+        from ...utils.calibration_kitti import Calibration
+
+        calib = data_dict["calib"]
+        if isinstance(calib, dict):
+            calib = Calibration({"P2": calib["P2"], "R0": calib["R0"],
+                                 "Tr_velo2cam": calib["V2C"]})
+        a, b, c, d = data_dict["road_plane"]
+        center_cam = calib.lidar_to_rect(boxes[:, 0:3])
+        center_cam[:, 1] = (-d - a * center_cam[:, 0]
+                            - c * center_cam[:, 2]) / b
+        lidar_h = calib.rect_to_lidar(center_cam)[:, 2]
+        mv = boxes[:, 2] - boxes[:, 5] / 2 - lidar_h
+        boxes = boxes.copy()
+        boxes[:, 2] -= mv
+        for i, p in enumerate(points):
+            p[:, 2] -= mv[i]
+        return boxes
 
 
 def build_shared_database(db_infos, root_path, out_path,

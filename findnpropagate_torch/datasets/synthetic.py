@@ -127,10 +127,10 @@ class SyntheticDataset(DatasetTemplate):
     """dataset_cfg keys: the DatasetTemplate's (POINT_CLOUD_RANGE,
     POINT_FEATURE_ENCODING, DATA_AUGMENTOR, DATA_PROCESSOR, CAPACITIES) and
     SYNTHETIC {NUM_SCENES, NUM_OBJECTS, NUM_RAW_POINTS, SEED, PATTERN
-    ('uniform' or 'lidar_ring'), CAMERA {NUM, IMAGE_SIZE}}. `training`
-    defaults to False here (the inference scenes, seeds from 10000)."""
+    ('uniform' or 'lidar_ring'), CAMERA {NUM, IMAGE_SIZE}}. Training
+    scenes draw their seeds from SEED, test scenes from SEED + 10000."""
 
-    def __init__(self, dataset_cfg, class_names, training=False, logger=None,
+    def __init__(self, dataset_cfg, class_names, training=True, logger=None,
                  root_path=None, rng=None, hooks=None):
         super().__init__(
             dataset_cfg=dataset_cfg, class_names=class_names,
@@ -256,6 +256,9 @@ class SyntheticDataset(DatasetTemplate):
         return batch
 
     def evaluation(self, det_annos, class_names, **kwargs):
-        raise NotImplementedError(
-            "evaluation needs datasets/eval_utils.py, which is not ported "
-            "yet (ROADMAP.md queue 1 item 14)")
+        """Center-distance mAP of eval_utils against the scenes' ground
+        truth: (result_str, result_dict)."""
+        from .eval_utils import simple_map_eval
+
+        gts = [self.generate_scene(i) for i in range(len(self))]
+        return simple_map_eval(det_annos, gts, class_names)

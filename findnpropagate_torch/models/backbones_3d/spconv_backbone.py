@@ -1,37 +1,56 @@
 """VoxelResBackBone8x, eval and training forward — port of
 findnpropagate_tpu/models/backbones_3d/spconv_backbone.py (:84-323,
-:373-782) on its windowed branches (``SUBM_MODE: windowed`` with
-``SUBM_IMPL: posgather`` or ``pallas``).
+:373-782) in every mode of the reference.
 
-A level is either
-  ("win", (ids, coords, valid, feats), shape) — the active list of each
-      sample sorted by guard-banded (y, x, z) id, padded to a block
-      multiple with ids in sentinel space; feats (B, V, C) float32; or
+A level is one of
+  ("sparse", grid, feats) — gather mode (``SUBM_MODE: gather``, the
+      default): the active list in the voxelizer's order with its lookup
+      table (ops/sparse_ops.py::SparseGrid, built once per level), feats
+      (B, V, C);
+  ("win", (ids, coords, valid, feats), shape) — windowed mode: the active
+      list of each sample sorted by guard-banded (y, x, z) id (skipped
+      under ``ASSUME_SORTED``), padded to a block multiple with ids in
+      sentinel space; feats (B, V, C) float32;
   ("dense", x (B, C, nz, ny, nx), mask (B, nz, ny, nx)) — from
       DENSE_FROM_LEVEL on, in DENSE_DTYPE (bf16 at eval only).
 
-Eval, ``posgather``: sparse levels run the two posgather kernels
-(ops/posgather.py): one positions computation per level shared by its
-submanifold convs (`_level_ctx`), one per strided conv, and every conv with
-bias + BN (+ReLU) fused into the kernel's epilogue. Eval, ``pallas``: every
-sparse conv runs the union-window kernel (ops/windowed_sparse.py) with the
-same fused epilogue. Training (``self.training``): submanifold convs run
-the differentiable posgather conv (`posgather_subm_diff`; the windowed one
-under ``pallas``), strided convs the differentiable windowed conv
-(`windowed_conv_diff`), each followed by bias, padding mask, batch-statistic
-BN and ReLU unfused, and the dense tail stays float32. Dense levels use
-F.conv3d, as the reference left them to XLA. Outputs keep the reference's
-telemetry:
-``sparse_active_counts`` (actives per level over the batch) and
-``sparse_window_overflow`` (dropped-neighbour conditions; 0 = exact).
+Gather mode: every sparse conv gathers its 27 neighbours through the
+level's table (`subm_conv`, `strided_conv`), strided convs first build the
+next level's active set (`downsample_active_set`), then bias, masked BN
+and ReLU; training differentiates through it with autograd.
 
-The yaml's per-tap sub-windows (TAP_WINDOW, STRIDED_TAP_WINDOW) are not
-read: they narrow the TPU kernel's compare plane, while the CUDA positions
-kernel binary-searches the whole union window in about one more step. So
-the port ranks over the union window only, which also removes the tap
-overflow the reference reports on the batch-8 nuScenes-scale scenes (15
-dropped (block, group) spans at the L0->L1 strided conv of one scene).
-The dense output ``encoded_spconv_tensor`` is channels-first
+Windowed mode, by ``SUBM_IMPL``:
+  * ``xla``: the reference's XLA windowed conv (`sparse_ops.windowed_conv`)
+    for every sparse conv, in eval and training, with the unfused tail;
+  * ``posgather``: at eval the two posgather kernels (ops/posgather.py),
+    one positions computation per level shared by its submanifold convs
+    (`_level_ctx`) and one per strided conv; in training the
+    differentiable posgather conv (`posgather_subm_diff`) for submanifold
+    convs and the differentiable windowed conv (`windowed_conv_diff`) for
+    strided ones;
+  * ``pallas``: the union-window kernel (ops/windowed_sparse.py) for every
+    sparse conv, differentiable in training.
+At eval the kernels take bias + BN (+ReLU) in their epilogue (eval BN is an
+affine map) unless ``FUSE_BN_EPILOGUE: False``; otherwise, and in
+training, bias, padding mask, BN (batch statistics in training) and ReLU
+follow the conv. The strided active sets are built by
+``DOWNSAMPLE_IMPL``: ``dense`` (occupancy grid), ``sort``, ``scatter``, or
+``auto`` (dense at batch <= 2, sort above). Dense levels use F.conv3d, as
+the reference left them to XLA; ``DENSE_CHUNK`` runs the dense tail at
+eval over that many batch chunks (windowed mode, DENSE_FROM_LEVEL 2).
+
+Outputs keep the reference's telemetry in every mode:
+``sparse_active_counts`` (actives per level over the batch) and
+``sparse_window_overflow`` (dropped-neighbour conditions; 0 = exact, and
+always 0 in gather mode).
+
+The yaml's per-tap sub-windows (TAP_WINDOW, STRIDED_TAP_WINDOW), sub-blocks
+and WINDOWED_PRECISION are not read: they shape the TPU kernel's compare
+plane, while the port's windowed convs search the whole union window in
+float32. So the port ranks over the union window only, which also removes
+the tap overflow the reference reports on the batch-8 nuScenes-scale
+scenes (15 dropped (block, group) spans at the L0->L1 strided conv of one
+scene). The dense output ``encoded_spconv_tensor`` is channels-first
 (B, C, nz, ny, nx).
 """
 
@@ -42,24 +61,35 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...ops import sparse_ops
 from ...ops.posgather import (
     compute_positions,
     posgather_conv,
     posgather_subm_diff,
 )
 from ...ops.sparse_ops import (
+    build_grid,
     coords_to_dense,
+    downsample_active_set,
+    sparse_to_dense,
     strided_base_ids,
+    strided_conv,
     strided_deltas,
     strided_sentinel_start,
+    subm_conv,
     win_downsample,
     win_downsample_dense,
+    win_downsample_scatter,
     yxz_linear_ids,
     yxz_offset_deltas,
     yxz_sentinel_start,
 )
 from ...ops.windowed_sparse import windowed_conv, windowed_conv_diff
 from ..blocks import MaskedBatchNorm
+
+IMPLS = ("xla", "posgather", "pallas")
+DOWNSAMPLE = {"dense": win_downsample_dense, "sort": win_downsample,
+              "scatter": win_downsample_scatter}
 
 
 def conv_out_dim(n, k, s, p):
@@ -91,13 +121,14 @@ class VoxelResBackBone8x(nn.Module):
         super().__init__()
         cfg = model_cfg
         self.model_cfg = cfg
+        self.windowed = str(cfg.get("SUBM_MODE", "gather")) == "windowed"
         self.impl = str(cfg.get("SUBM_IMPL", "xla")).lower()
-        if str(cfg.get("SUBM_MODE", "gather")) != "windowed" \
-                or self.impl not in ("posgather", "pallas"):
-            raise NotImplementedError(
-                "the port runs the SUBM_MODE: windowed backbone with "
-                "SUBM_IMPL: posgather or pallas only; the gather / XLA "
-                "backbone modes are ROADMAP.md queue 1 item 15")
+        self.downsample = str(cfg.get("DOWNSAMPLE_IMPL", "auto")).lower()
+        if self.impl not in IMPLS:
+            raise ValueError(f"SUBM_IMPL {self.impl!r}: one of {IMPLS}")
+        if self.downsample not in ("auto", *DOWNSAMPLE):
+            raise ValueError(f"DOWNSAMPLE_IMPL {self.downsample!r}")
+        self.fuse = bool(cfg.get("FUSE_BN_EPILOGUE", True))
         nx, ny, nz = (int(g) for g in grid_size)
         s1 = (nz + 1, ny, nx)
         s2 = tuple(conv_out_dim(n, 3, 2, 1) for n in s1)
@@ -174,11 +205,13 @@ class VoxelResBackBone8x(nn.Module):
     def _win_entry(self, coords, valid, feats, shape):
         block = self._win_cfg()[0]
         ids = yxz_linear_ids(coords, valid, shape)
-        ids, order = torch.sort(ids, dim=1, stable=True)
-        coords = torch.gather(coords, 1, order[..., None].expand(-1, -1, 3))
-        valid = torch.gather(valid, 1, order)
-        feats = torch.gather(feats, 1, order[..., None].expand(
-            -1, -1, feats.shape[2]))
+        if not bool(self.model_cfg.get("ASSUME_SORTED", False)):
+            ids, order = torch.sort(ids, dim=1, stable=True)
+            coords = torch.gather(coords, 1,
+                                  order[..., None].expand(-1, -1, 3))
+            valid = torch.gather(valid, 1, order)
+            feats = torch.gather(feats, 1, order[..., None].expand(
+                -1, -1, feats.shape[2]))
         pad = (-ids.shape[1]) % block
         if pad:
             start = torch.clamp(ids[:, -1:] + 1,
@@ -190,15 +223,20 @@ class VoxelResBackBone8x(nn.Module):
             feats = F.pad(feats, (0, 0, 0, pad))
         return ("win", (ids, coords, valid, feats.float()), shape)
 
-    def _to_dense(self, level, dtype):
-        kind, a, shape = level
+    def _to_dense(self, level):
+        kind, a, m = level
         if kind == "dense":
             return level
-        ids, coords, valid, feats = a
-        x = coords_to_dense(coords, valid, feats.to(dtype), shape)
-        ones = feats.new_ones(feats.shape[0], feats.shape[1], 1)
-        mask = coords_to_dense(coords, valid, ones, shape)[:, 0] > 0
-        return ("dense", x, mask)
+        dtype = self._dense_dtype()
+        if kind == "win":
+            ids, coords, valid, feats = a
+            x = coords_to_dense(coords, valid, feats.to(dtype), m)
+            ones = feats.new_ones(feats.shape[0], feats.shape[1], 1)
+            mask = coords_to_dense(coords, valid, ones, m)[:, 0] > 0
+            return ("dense", x, mask)
+        x = sparse_to_dense(a, m.to(dtype))
+        ones = m.new_ones(m.shape[0], m.shape[1], 1)
+        return ("dense", x, sparse_to_dense(a, ones)[:, 0] > 0)
 
     def _level_ctx(self, ctx_cache, ids, shape, lvl_i, kernel, ovf_acc):
         key = (id(ids), tuple(kernel))
@@ -212,47 +250,66 @@ class VoxelResBackBone8x(nn.Module):
             ctx_cache[key] = (ctx, ids)
         return ctx_cache[key][0]
 
-    def _sparse_conv(self, src_ids, feats, tgt_ids, wmod, bnmod, ctx, deltas,
-                     window, sent, relu, tgt_valid, ovf_acc):
-        """One sparse conv + bias + BN (+ReLU) over a (source, target) id
-        pair. Eval: fused into the kernel's epilogue (eval BN is an affine
-        map) — the posgather kernel over `ctx`, or the windowed kernel when
-        ctx is None. Training: the differentiable conv, then the unfused
-        tail with batch statistics."""
-        block = self._win_cfg()[0]
-        if not self.training:
-            scale, shift = bnmod.affine()
-            if wmod.bias is not None:
-                shift = shift + scale * wmod.bias
-            if ctx is not None:
-                return posgather_conv(src_ids, feats, tgt_ids, wmod.kernel,
-                                      ctx, scale=scale, shift=shift,
-                                      relu=relu, sentinel_start=sent)
-            out, ovf = windowed_conv(src_ids, feats, tgt_ids, wmod.kernel,
-                                     deltas, block=block, window=window,
-                                     sentinel_start=sent, scale=scale,
-                                     shift=shift, relu=relu)
-            ovf_acc.append(ovf.sum())
-            return out
-        if ctx is not None:
-            out = posgather_subm_diff(src_ids, feats, wmod.kernel, deltas,
-                                      ctx, dw_block=block, dw_window=window)
-        else:
-            out, ovf = windowed_conv_diff(src_ids, feats, tgt_ids,
-                                          wmod.kernel, deltas, block=block,
-                                          window=window, sentinel_start=sent)
-            ovf_acc.append(ovf.sum())
+    def _tail(self, out, wmod, bnmod, valid, relu):
+        """The unfused tail of a sparse conv: bias, padding mask, BN
+        (batch statistics in training), ReLU."""
         if wmod.bias is not None:
             out = out + wmod.bias
-        out = torch.where(tgt_valid[..., None], out, torch.zeros_like(out))
-        out = bnmod(out, tgt_valid, channels_last=True)
+        out = torch.where(valid[..., None], out, torch.zeros_like(out))
+        out = bnmod(out, valid, channels_last=True)
         return torch.relu(out) if relu else out
+
+    def _sparse_conv(self, src_ids, feats, tgt_ids, wmod, bnmod, ctx, deltas,
+                     window, sent, relu, tgt_valid, ovf_acc):
+        """One windowed-mode sparse conv + bias + BN (+ReLU) over a
+        (source, target) id pair. `ctx`: the posgather positions (posgather
+        eval, and its training submanifold convs), else None."""
+        block = self._win_cfg()[0]
+        kernel = wmod.kernel
+        if self.impl == "xla":
+            out, ovf = sparse_ops.windowed_conv(
+                src_ids, feats, tgt_ids, kernel, deltas, block=block,
+                window=window, sentinel_start=sent)
+            ovf_acc.append(ovf.sum())
+        elif self.training:
+            if ctx is not None:
+                out = posgather_subm_diff(src_ids, feats, kernel, deltas,
+                                          ctx, dw_block=block,
+                                          dw_window=window)
+            else:
+                out, ovf = windowed_conv_diff(src_ids, feats, tgt_ids,
+                                              kernel, deltas, block=block,
+                                              window=window,
+                                              sentinel_start=sent)
+                ovf_acc.append(ovf.sum())
+        else:
+            epi = {}
+            if self.fuse:
+                scale, shift = bnmod.affine()
+                if wmod.bias is not None:
+                    shift = shift + scale * wmod.bias
+                epi = dict(scale=scale, shift=shift, relu=relu)
+            if ctx is not None:
+                out = posgather_conv(src_ids, feats, tgt_ids, kernel, ctx,
+                                     sentinel_start=sent, **epi)
+            else:
+                out, ovf = windowed_conv(src_ids, feats, tgt_ids, kernel,
+                                         deltas, block=block, window=window,
+                                         sentinel_start=sent, **epi)
+                ovf_acc.append(ovf.sum())
+            if epi:
+                return out
+        return self._tail(out, wmod, bnmod, tgt_valid, relu)
 
     def _subm(self, level, wmod, bnmod, ovf_acc, ctx_cache, relu=True):
         kind, a, m = level
+        kernel = wmod.kernel_size
+        if kind == "sparse":
+            out = subm_conv(a, m, wmod.kernel, wmod.bias, kernel_size=kernel)
+            out = bnmod(out, a.valid, channels_last=True)
+            return ("sparse", a, torch.relu(out) if relu else out)
         if kind == "win":
             ids, coords, valid, feats = a
-            kernel = wmod.kernel_size
             lvl_i = self._level_index(m)
             ctx = self._level_ctx(ctx_cache, ids, m, lvl_i, kernel, ovf_acc) \
                 if self.impl == "posgather" else None
@@ -263,8 +320,7 @@ class VoxelResBackBone8x(nn.Module):
             return ("win", (ids, coords, valid, out), m)
         w = wmod.dense_weight(a.dtype)
         b = wmod.bias.to(a.dtype) if wmod.bias is not None else None
-        y = F.conv3d(a, w, b, padding=tuple(
-            (k - 1) // 2 for k in wmod.kernel_size))
+        y = F.conv3d(a, w, b, padding=tuple((k - 1) // 2 for k in kernel))
         y = torch.where(m[:, None], y, torch.zeros_like(y))
         y = bnmod(y, m)
         return ("dense", torch.relu(y) if relu else y, m)
@@ -273,20 +329,34 @@ class VoxelResBackBone8x(nn.Module):
               stride=(2, 2, 2), padding=(1, 1, 1), dense_out=False):
         kind, a, m = level
         kernel = wmod.kernel_size
+        if kind == "sparse":
+            with torch.no_grad():
+                oc, ov = downsample_active_set(a, out_shape, cap,
+                                               kernel_size=kernel,
+                                               stride=stride, padding=padding)
+                grid = build_grid(oc, ov, out_shape)
+            out = strided_conv(a, m, grid, wmod.kernel, wmod.bias,
+                               kernel_size=kernel, stride=stride,
+                               padding=padding)
+            out = torch.relu(bnmod(out, grid.valid, channels_last=True))
+            level = ("sparse", grid, out)
+            return self._to_dense(level) \
+                if dense_out else level
         if kind == "win":
             ids, coords, valid, feats = a
             in_shape = m
             lvl_i = self._level_index(in_shape)
             block, _, swindow = self._win_cfg(lvl_i)
             cap = -(-cap // block) * block
-            # the dense occupancy grid is fastest at small batch and costs
-            # a grid per sample; the sort scales with the actives
-            ds_fn = win_downsample_dense if coords.shape[0] <= 2 \
-                else win_downsample
+            ds = self.downsample
+            if ds == "auto":
+                # the dense occupancy grid is fastest at small batch and
+                # costs a grid per sample; the sort scales with the actives
+                ds = "dense" if coords.shape[0] <= 2 else "sort"
             with torch.no_grad():
-                oi, oc, ov = ds_fn(coords, valid, in_shape, out_shape, cap,
-                                   kernel_size=kernel, stride=stride,
-                                   padding=padding)
+                oi, oc, ov = DOWNSAMPLE[ds](
+                    coords, valid, in_shape, out_shape, cap,
+                    kernel_size=kernel, stride=stride, padding=padding)
                 base = strided_base_ids(oc, ov, stride, in_shape, out_shape)
             sent = strided_sentinel_start(in_shape)
             deltas = strided_deltas(kernel, stride, padding, in_shape)
@@ -298,7 +368,7 @@ class VoxelResBackBone8x(nn.Module):
             out = self._sparse_conv(ids, feats, base, wmod, bnmod, ctx,
                                     deltas, swindow, sent, True, ov, ovf_acc)
             level = ("win", (oi, oc, ov, out), out_shape)
-            return self._to_dense(level, self._dense_dtype()) \
+            return self._to_dense(level) \
                 if dense_out else level
         w = wmod.dense_weight(a.dtype)
         b = wmod.bias.to(a.dtype) if wmod.bias is not None else None
@@ -312,7 +382,8 @@ class VoxelResBackBone8x(nn.Module):
     def _blocks(self, stage, level, ovf_acc, ctx_cache):
         for blk in range(2):
             kind, a, m = level
-            identity = a[3] if kind == "win" else a
+            identity = a[3] if kind == "win" else m if kind == "sparse" \
+                else a
             level = self._subm(level, getattr(self, f"blocks{stage}_res{blk}"
                                                     "_conv1"),
                                getattr(self, f"blocks{stage}_res{blk}_bn1"),
@@ -328,11 +399,45 @@ class VoxelResBackBone8x(nn.Module):
                 out = torch.where(valid[..., None], out,
                                   torch.zeros_like(out))
                 level = ("win", (ids, coords, valid, out), m)
+            elif kind == "sparse":
+                out = torch.relu(m + identity)
+                level = ("sparse", a, torch.where(
+                    a.valid[..., None], out, torch.zeros_like(out)))
             else:
                 out = torch.relu(a + identity)
                 level = ("dense", torch.where(m[:, None], out,
                                               torch.zeros_like(out)), m)
         return level
+
+    def _dense_tail(self, level, ovf_acc, ctx_cache, dense_from):
+        """Levels 3, 4 and the output conv: (lvl3, lvl4, dense output)."""
+        _, _, s3, s4, s_out = self.level_shapes
+        level = self._down(level, self.blocks3_down, self.blocks3_down_bn,
+                           s3, self.caps[3], ovf_acc,
+                           dense_out=dense_from <= 2)
+        lvl3 = level = self._blocks(3, level, ovf_acc, ctx_cache)
+        level = self._down(level, self.blocks4_down, self.blocks4_down_bn,
+                           s4, self.caps[4], ovf_acc, padding=(0, 1, 1),
+                           dense_out=dense_from <= 3)
+        lvl4 = level = self._blocks(4, level, ovf_acc, ctx_cache)
+        level = self._down(level, self.w_out, self.bn_out, s_out,
+                           self.caps[4], ovf_acc, stride=(2, 1, 1),
+                           padding=(0, 0, 0), dense_out=dense_from <= 4)
+        return lvl3, lvl4, self._to_dense(level)
+
+    def _chunked_tail(self, level, chunks, ovf_acc, ctx_cache, dense_from):
+        """DENSE_CHUNK: the dense tail over `chunks` batch chunks in turn,
+        so its dense temporaries peak at chunk/B of their size."""
+        _, arrs, shape = level
+        split = [t.chunk(chunks) for t in arrs]
+        parts = [self._dense_tail(("win", tuple(c[i] for c in split), shape),
+                                  ovf_acc, ctx_cache, dense_from)
+                 for i in range(chunks)]
+
+        def cat(j):
+            return ("dense", torch.cat([p[j][1] for p in parts]),
+                    torch.cat([p[j][2] for p in parts]))
+        return cat(0), cat(1), cat(2)
 
     def forward(self, batch):
         feats = batch["voxel_features"]
@@ -340,41 +445,43 @@ class VoxelResBackBone8x(nn.Module):
         valid = batch["voxel_mask"]
         s1, s2, s3, s4, s_out = self.level_shapes
         dense_from = int(self.model_cfg.get("DENSE_FROM_LEVEL", 1))
-        dt = self._dense_dtype()
         ovf_acc, ctx_cache = [], {}
 
-        level = self._win_entry(coords, valid, feats, s1)
+        if self.windowed:
+            level = self._win_entry(coords, valid, feats, s1)
+        else:
+            with torch.no_grad():
+                grid = build_grid(coords, valid, s1)
+            level = ("sparse", grid, feats.float())
+        if dense_from <= 0:
+            level = self._to_dense(level)
         level = self._subm(level, self.w_input, self.bn_input, ovf_acc,
                            ctx_cache)
-        level = self._blocks(1, level, ovf_acc, ctx_cache)
-        lvl1 = level
+        lvl1 = level = self._blocks(1, level, ovf_acc, ctx_cache)
         level = self._down(level, self.blocks2_down, self.blocks2_down_bn,
                            s2, self.caps[2], ovf_acc,
                            dense_out=dense_from <= 1)
-        level = self._blocks(2, level, ovf_acc, ctx_cache)
-        lvl2 = level
-        level = self._down(level, self.blocks3_down, self.blocks3_down_bn,
-                           s3, self.caps[3], ovf_acc,
-                           dense_out=dense_from <= 2)
-        level = self._blocks(3, level, ovf_acc, ctx_cache)
-        lvl3 = level
-        level = self._down(level, self.blocks4_down, self.blocks4_down_bn,
-                           s4, self.caps[4], ovf_acc, padding=(0, 1, 1),
-                           dense_out=dense_from <= 3)
-        level = self._blocks(4, level, ovf_acc, ctx_cache)
-        lvl4 = level
-        level = self._down(level, self.w_out, self.bn_out, s_out,
-                           self.caps[4], ovf_acc, stride=(2, 1, 1),
-                           padding=(0, 0, 0), dense_out=dense_from <= 4)
-        level = self._to_dense(level, dt)
+        lvl2 = level = self._blocks(2, level, ovf_acc, ctx_cache)
+        chunks = int(self.model_cfg.get("DENSE_CHUNK", 1))
+        if (chunks > 1 and not self.training and dense_from == 2
+                and level[0] == "win" and feats.shape[0] % chunks == 0):
+            lvl3, lvl4, level = self._chunked_tail(level, chunks, ovf_acc,
+                                                   ctx_cache, dense_from)
+        else:
+            lvl3, lvl4, level = self._dense_tail(level, ovf_acc, ctx_cache,
+                                                 dense_from)
 
         batch["encoded_spconv_tensor"] = level[1].float()
         batch["encoded_spconv_tensor_stride"] = 8
 
         def count(lv):
-            return lv[1][2].sum() if lv[0] == "win" else lv[2].sum()
+            kind, a, m = lv
+            return (a[2] if kind == "win" else a.valid if kind == "sparse"
+                    else m).sum()
 
         batch["sparse_active_counts"] = torch.stack(
             [count(lv) for lv in (lvl1, lvl2, lvl3, lvl4)])
-        batch["sparse_window_overflow"] = torch.stack(ovf_acc).sum()
+        batch["sparse_window_overflow"] = torch.stack(ovf_acc).sum() \
+            if ovf_acc else torch.zeros((), dtype=torch.int64,
+                                        device=feats.device)
         return batch

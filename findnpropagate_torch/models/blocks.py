@@ -93,8 +93,30 @@ class MaskedBatchNorm(nn.Module):
         return torch.where(m, y, torch.zeros_like(y)).to(x.dtype)
 
 
+def _bn_relu(bn, x):
+    """BN then ReLU; a bf16 input (the BEV backbone's eval DTYPE) is
+    normalised in float32 from the float32 statistics and cast back, as
+    flax's BatchNorm(dtype=bf16) does."""
+    if x.dtype == torch.bfloat16 and not bn.training:
+        k = torch.rsqrt(bn.running_var + bn.eps) * bn.weight
+        shift = bn.bias - bn.running_mean * k
+        y = x.float() * k[:, None, None] + shift[:, None, None]
+        return torch.relu(y).to(x.dtype)
+    return torch.relu(bn(x))
+
+
+def _conv_in(conv, x):
+    """A conv in x's dtype (bf16 on the BEV eval path; weights stay
+    float32 and are cast)."""
+    if x.dtype == conv.weight.dtype:
+        return conv(x)
+    return torch.nn.functional.conv2d(x, conv.weight.to(x.dtype), None,
+                                      conv.stride, conv.padding)
+
+
 class ConvBNReLU(nn.Module):
-    """3x3 conv (pad 1), no bias, BatchNorm, ReLU; NCHW."""
+    """3x3 conv (pad 1), no bias, BatchNorm, ReLU; NCHW, in the input's
+    dtype (float32, or bf16 at eval)."""
 
     def __init__(self, cin: int, features: int, stride: int = 1):
         super().__init__()
@@ -102,18 +124,36 @@ class ConvBNReLU(nn.Module):
         self.BatchNorm_0 = BatchNorm2d(features, eps=BN_EPS)
 
     def forward(self, x):
-        return torch.relu(self.BatchNorm_0(self.Conv_0(x)))
+        return _bn_relu(self.BatchNorm_0, _conv_in(self.Conv_0, x))
 
 
 class DeconvBNReLU(nn.Module):
-    """Transposed-conv upsample (kernel = stride), no bias, BatchNorm, ReLU;
-    NCHW. (The reference's stride < 1 downsample form is not ported.)"""
+    """BatchNorm and ReLU after a resampling conv without bias, NCHW, in
+    the input's dtype: for stride >= 1 a transposed-conv upsample (kernel =
+    stride), for stride < 1 a conv downsample by 1/stride (kernel = stride,
+    flax's SAME padding: the right and bottom edges padded to a multiple)."""
 
-    def __init__(self, cin: int, features: int, stride: int = 2):
+    def __init__(self, cin: int, features: int, stride: float = 2):
         super().__init__()
-        self.ConvTranspose_0 = nn.ConvTranspose2d(cin, features, stride,
-                                                  stride, bias=False)
+        self.up = float(stride) >= 1
+        if self.up:
+            s = int(round(float(stride)))
+            self.ConvTranspose_0 = nn.ConvTranspose2d(cin, features, s, s,
+                                                      bias=False)
+        else:
+            s = int(round(1 / float(stride)))
+            self.Conv_0 = nn.Conv2d(cin, features, s, s, bias=False)
+        self.s = s
         self.BatchNorm_0 = BatchNorm2d(features, eps=BN_EPS)
 
     def forward(self, x):
-        return torch.relu(self.BatchNorm_0(self.ConvTranspose_0(x)))
+        if self.up:
+            conv = self.ConvTranspose_0
+            y = conv(x) if x.dtype == conv.weight.dtype else \
+                torch.nn.functional.conv_transpose2d(
+                    x, conv.weight.to(x.dtype), None, self.s)
+        else:
+            h, w = x.shape[-2:]
+            x = torch.nn.functional.pad(x, (0, -w % self.s, 0, -h % self.s))
+            y = _conv_in(self.Conv_0, x)
+        return _bn_relu(self.BatchNorm_0, y)

@@ -11,7 +11,7 @@ module is in training mode (`.train()`), where every BN uses and records
 batch statistics; `loss(batch, generator)` runs it so and returns the
 head's loss and its `tb` dictionary with the backbone's
 ``sparse_window_overflow`` added. Other topologies raise
-NotImplementedError (ROADMAP.md, queue 1 item 13).
+NotImplementedError (ROADMAP.md, queue 1 item 15).
 """
 
 from __future__ import annotations
@@ -43,12 +43,12 @@ class DetectorModule(nn.Module):
         if cfg.get("NAME") not in ("TransFusion", None):
             raise NotImplementedError(
                 f"detector {cfg.get('NAME')!r} is not ported yet (ROADMAP.md "
-                "queue 1 item 13)")
+                "queue 1 item 15)")
         for key, name in _PORTED.items():
             if cfg.get(key, {}).get("NAME") != name:
                 raise NotImplementedError(
                     f"{key} {cfg.get(key, {}).get('NAME')!r} is not ported "
-                    "yet (ROADMAP.md queue 1 item 13)")
+                    "yet (ROADMAP.md queue 1 item 15)")
         self.grid_size = tuple(int(g) for g in grid_size)
         self.voxel_size = tuple(float(v) for v in voxel_size)
         self.point_cloud_range = tuple(float(v) for v in point_cloud_range)

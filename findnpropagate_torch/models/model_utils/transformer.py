@@ -73,16 +73,19 @@ class PositionEmbeddingLearned(nn.Module):
 
 class TransformerDecoderLayer(nn.Module):
     """Self-attention, cross-attention and FFN, each with a residual and a
-    post-norm."""
+    post-norm; with `cross_only` the self-attention and its norm are left
+    out (and hold no parameters), as in the reference."""
 
     def __init__(self, d_model: int, nhead: int, dim_feedforward: int = 2048,
-                 dropout: float = 0.1):
+                 dropout: float = 0.1, cross_only: bool = False):
         super().__init__()
         self.dropout = dropout
+        self.cross_only = cross_only
         self.self_posembed = PositionEmbeddingLearned(d_model)
         self.cross_posembed = PositionEmbeddingLearned(d_model)
-        self.self_attn = MultiHeadAttention(d_model, nhead, dropout)
-        self.norm1 = nn.LayerNorm(d_model, eps=1e-6)
+        if not cross_only:
+            self.self_attn = MultiHeadAttention(d_model, nhead, dropout)
+            self.norm1 = nn.LayerNorm(d_model, eps=1e-6)
         self.cross_attn = MultiHeadAttention(d_model, nhead, dropout)
         self.norm2 = nn.LayerNorm(d_model, eps=1e-6)
         self.linear1 = nn.Linear(d_model, dim_feedforward)
@@ -97,9 +100,10 @@ class TransformerDecoderLayer(nn.Module):
 
         q_embed = self.self_posembed(query_pos)
         k_embed = self.cross_posembed(key_pos)
-        qkv = query + q_embed
-        query = self.norm1(query + drop(
-            self.self_attn(qkv, qkv, qkv, generator)))
+        if not self.cross_only:
+            qkv = query + q_embed
+            query = self.norm1(query + drop(
+                self.self_attn(qkv, qkv, qkv, generator)))
         kk = key + k_embed
         query = self.norm2(query + drop(
             self.cross_attn(query + q_embed, kk, kk, generator)))

@@ -1,10 +1,13 @@
 // What the gather-and-multiply kernels share (K2 in posgather.cu, K3 and K4
-// in windowed_sparse.cu, P2 and P3 in gather_probes.cu): the search, the
-// three z-probes of a tap group, the asynchronous 16-byte gather of bf16
-// source rows into a shared-memory tile, the tensor-core primitives
-// (ldmatrix, mma.sync m16n8k16 bf16 -> f32), the body of the convs (K2, K3,
-// P2, P3): the ring of gathered group tiles times the packed weights, and
-// the fused epilogue, and the convs' launch plan (shared memory, grid).
+// in windowed_sparse.cu): the search, the three z-probes of a tap group, the
+// asynchronous 16-byte gather of bf16 source rows into a shared-memory tile,
+// the tensor-core primitives (ldmatrix, mma.sync m16n8k16 bf16 -> f32), the
+// body of the convs (K2, K3): the ring of gathered group tiles times the
+// packed weights, and the fused epilogue, and the convs' launch plan (shared
+// memory, grid). P2 and P3 in gather_probes.cu take only the tile sizes,
+// the shared-memory limit and the tensor-core primitives from here: their
+// window_product_kernel stages the window once per block and has a body of
+// its own.
 //
 // Tile layout. A gather tile holds, per target row, the 3*Cin bf16 channels
 // of one (dy, dx) tap group: [z-1 | z | z+1] x Cin, a row every
@@ -259,8 +262,7 @@ __device__ __forceinline__ void zero_tile(float* __restrict__ out, int cout,
 }
 
 
-// ---- the launch plan of a kernel over conv_tile (host side; K2, K3, the
-// probes' weight products)
+// ---- the launch plan of a kernel over conv_tile (host side; K2, K3)
 
 constexpr int kResidentMax = 112 * 1024;  // all groups' weights resident
 constexpr int kSmemMax = 227 * 1024;      // dynamic shared memory per block

@@ -1,24 +1,38 @@
-"""Sparse-level bookkeeping for the windowed / position-gather backbone —
-port of the parts of findnpropagate_tpu/ops/sparse_ops.py that the
-TransFusion inference path runs:
+"""Sparse convolution primitives of the backbone — port of
+findnpropagate_tpu/ops/sparse_ops.py.
 
-  * guard-banded (y, x, z)-major ids: `yxz_linear_ids` (:262),
-    `yxz_offset_deltas` (:279), `yxz_sentinel_start` (:286),
-    `strided_sentinel_start` (:293);
-  * strided-conv id mapping: `strided_deltas` (:401), `strided_base_ids`
-    (:417);
-  * the strided active-set build, emitted sorted by output id:
-    `win_downsample` (sort + dedup, :439) and `win_downsample_dense`
-    (occupancy max-pool + rank select, :559). Both give the same active
-    set (the spconv receptive-field rule); the backbone picks dense at
-    batch <= 2 and sort above, as the reference does;
-  * `coords_to_dense` (:791).
+Gather mode (the reference's default ``SUBM_MODE``): a level is a
+`SparseGrid`, the active list in the voxelizer's order with a dense int32
+table from each cell's zyx linear id to its slot, built once per level
+(`build_grid` :59) and shared by the level's convs. `subm_conv` (:86) and
+`strided_conv` (:182) look each kernel tap's neighbour up in that table and
+multiply the gathered rows by the tap's weights; `downsample_active_set`
+(:118) builds the next level's active set by the spconv receptive-field
+rule, sorted by linear id; `sparse_to_dense` (:225), `masked_batch_stats`
+(:236).
 
-Shape helpers are numpy; tensor functions take a leading batch axis
-(the reference vmaps single-sample functions). Ids are int32.
+Windowed mode: guard-banded (y, x, z)-major ids, `yxz_linear_ids` (:262),
+`yxz_offset_deltas` (:279), `yxz_sentinel_start` (:286),
+`strided_sentinel_start` (:293); the strided id mapping `strided_deltas`
+(:401), `strided_base_ids` (:417); the strided active-set build emitted
+sorted by output id — `win_downsample` (sort + dedup, :439),
+`win_downsample_dense` (occupancy max-pool + rank select, :559) and
+`win_downsample_scatter` (candidate mask + rank select, :622), three routes
+to one active set; `coords_to_dense` (:791). `windowed_conv` (:300) and
+`subm_conv_windowed` (:385) are the reference's XLA windowed conv
+(``SUBM_IMPL: xla``): a target reads tap k's neighbour only inside its
+block's window of the source list, and the blocks whose neighbour span
+overflows the window are counted.
+
+The per-tap products run in float32 with TF32 off, as the reference's
+run at ``Precision.HIGHEST``. Shape helpers are numpy; tensor
+functions take a leading batch axis (the reference vmaps single-sample
+functions). Ids are int32.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -38,6 +52,224 @@ def kernel_offsets(kernel_size):
         indexing="ij",
     )
     return np.stack([oz, oy, ox], axis=-1).reshape(-1, 3).astype(np.int32)
+
+
+# ---- gather mode: one lookup table per level --------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class SparseGrid:
+    """One level of the gather mode: the active list and its lookup table.
+
+    coords (B, V, 3) int32 zyx, -1 rows padding; valid (B, V) bool (inside
+    the grid); table (B, nz*ny*nx + 1) int32, the slot of each cell's
+    linear id, -1 where empty, the last entry an always-empty sentinel;
+    shape (nz, ny, nx)."""
+
+    coords: torch.Tensor
+    valid: torch.Tensor
+    table: torch.Tensor
+    shape: tuple
+
+
+def linear_id(coords, shape):
+    """(..., 3) zyx -> ((...) int64 linear id, inside); a cell outside the
+    grid gets the sentinel nz*ny*nx."""
+    nz, ny, nx = (int(s) for s in shape)
+    c = coords.long()
+    z, y, x = c[..., 0], c[..., 1], c[..., 2]
+    inside = ((z >= 0) & (z < nz) & (y >= 0) & (y < ny) & (x >= 0)
+              & (x < nx))
+    lin = (z * ny + y) * nx + x
+    return torch.where(inside, lin, torch.full_like(lin, nz * ny * nx)), \
+        inside
+
+
+def build_grid(coords, valid, shape) -> SparseGrid:
+    """The lookup table of an active set (one int32 per cell and sample:
+    build it once per level and share it between the level's convs)."""
+    shape = tuple(int(s) for s in shape)
+    n_cells = int(np.prod(shape))
+    b, v = valid.shape
+    lin, inside = linear_id(coords, shape)
+    ok = valid & inside
+    lin = torch.where(ok, lin, torch.full_like(lin, n_cells))
+    slots = torch.arange(v, dtype=torch.int32, device=coords.device)
+    table = torch.full((b, n_cells + 1), -1, dtype=torch.int32,
+                       device=coords.device)
+    table.scatter_(1, lin, torch.where(ok, slots, torch.full_like(slots, -1)))
+    table[:, n_cells] = -1
+    return SparseGrid(coords=coords, valid=ok, table=table, shape=shape)
+
+
+def _lookup(grid: SparseGrid, cells):
+    """(B, Vt, K, 3) zyx cells -> (B, Vt, K) int64 slot in `grid`, V where
+    the cell is empty or outside the grid."""
+    b, vt, k, _ = cells.shape
+    lin, _ = linear_id(cells, grid.shape)
+    slot = torch.gather(grid.table, 1, lin.reshape(b, -1)).reshape(b, vt, k)
+    v = grid.coords.shape[1]
+    return torch.where(slot >= 0, slot.long(), torch.full_like(
+        slot, v, dtype=torch.long))
+
+
+# zero rows that the taps without a neighbour read, spread over so many
+# rows that the backward's per-row sums stay short (see _tap_products)
+ZERO_ROWS = 1 << 16
+
+
+def _tap_products(features, slot, weights):
+    """sum_k features[slot[:, :, k]] @ weights[k]: (B, V, Cin) features,
+    (B, Vt, K) int64 slots (V where the tap has no neighbour), (K, Cin,
+    Cout) weights -> (B, Vt, Cout) float32.
+
+    The rows are gathered by F.embedding from the features followed by
+    ZERO_ROWS zero rows; a tap without a neighbour reads zero row (its
+    position mod ZERO_ROWS). The backward sums each row's gradients as a
+    segment of the sorted indices, one row at a time: with one shared zero
+    row, the many taps of a sparse scene that have no neighbour
+    would make one segment of millions of entries, summed in series (an
+    indexing gather's backward, index_put_ with accumulate, adds them one
+    after the other as well). chip_smoke.py's `paper_step_pair` times
+    both against this one.
+
+    The product is a plain matmul: the port leaves
+    torch.backends.cuda.matmul.allow_tf32 at PyTorch's default, False,
+    so on the card it runs in full float32 as the reference's
+    Precision.HIGHEST; TF32 (10-bit mantissa) would put a ~1e-3 relative
+    error into every sparse conv."""
+    b, v, cin = features.shape
+    k, _, cout = weights.shape
+    vt = slot.shape[1]
+    n = b * v
+    table = torch.cat([features.float().reshape(n, cin),
+                       features.new_zeros(ZERO_ROWS, cin,
+                                          dtype=torch.float32)])
+    base = torch.arange(b, device=slot.device)[:, None, None] * v
+    spread = torch.arange(vt * k, device=slot.device).view(1, vt, k) \
+        % ZERO_ROWS + n
+    idx = torch.where(slot < v, slot + base, spread)
+    rows = F.embedding(idx, table)                      # (B, Vt, K, Cin)
+    return rows.reshape(b, vt, k * cin) @ weights.float().reshape(
+        k * cin, cout)
+
+
+def _finish(out, bias, valid, dtype):
+    if bias is not None:
+        out = out + bias.float()
+    return torch.where(valid[..., None], out, torch.zeros_like(out)).to(dtype)
+
+
+def subm_conv(grid: SparseGrid, features, weights, bias=None,
+              kernel_size=(3, 3, 3)):
+    """Submanifold sparse conv (output active set = input active set):
+    features (B, V, Cin), weights (K, Cin, Cout) in zyx C-order ->
+    (B, V, Cout), zero at invalid rows."""
+    offs = torch.from_numpy(kernel_offsets(kernel_size)).to(
+        grid.coords.device)
+    cells = grid.coords.long()[:, :, None, :] + offs
+    out = _tap_products(features, _lookup(grid, cells), weights)
+    return _finish(out, bias, grid.valid, features.dtype)
+
+
+def _axis_candidates(i, ks, s, p, n_out):
+    """Per input coordinate, the output coordinates whose receptive field
+    (stride s, kernel ks, padding p) covers it: (..., max_c) candidates and
+    their validity."""
+    lo = -torch.div(-(i + p - ks + 1), s, rounding_mode="floor")
+    hi = torch.div(i + p, s, rounding_mode="floor")
+    max_c = (ks + s - 1) // s + 1
+    cand = lo[..., None] + torch.arange(max_c, device=i.device)
+    ok = (cand <= hi[..., None]) & (cand >= 0) & (cand < n_out)
+    return cand, ok
+
+
+def _candidates(coords, valid, out_shape, kernel_size, stride, padding):
+    """(cz, cy, cx) candidate outputs per axis, each (B, V, m), and `ok`
+    (B, V, mz, my, mx): the output cells each active input reaches."""
+    nz_o, ny_o, nx_o = (int(s) for s in out_shape)
+    c = coords.long()
+    (kz, ky, kx), (sz, sy, sx), (pz, py, px) = kernel_size, stride, padding
+    cz, okz = _axis_candidates(c[..., 0], kz, sz, pz, nz_o)
+    cy, oky = _axis_candidates(c[..., 1], ky, sy, py, ny_o)
+    cx, okx = _axis_candidates(c[..., 2], kx, sx, px, nx_o)
+    ok = (okz[..., :, None, None] & oky[..., None, :, None]
+          & okx[..., None, None, :]) & valid[..., None, None, None]
+    return cz, cy, cx, ok
+
+
+def downsample_active_set(grid: SparseGrid, out_shape, max_out: int,
+                          kernel_size=(3, 3, 3), stride=(2, 2, 2),
+                          padding=(1, 1, 1)):
+    """The spconv active set of a strided conv: output cell o is active iff
+    an active input lies in its receptive field. Returns (coords (B,
+    max_out, 3) int32, valid (B, max_out)), ascending by linear id, the
+    first max_out cells."""
+    nz_o, ny_o, nx_o = (int(s) for s in out_shape)
+    n_cells = nz_o * ny_o * nx_o
+    b = grid.coords.shape[0]
+    cz, cy, cx, ok = _candidates(grid.coords, grid.valid, out_shape,
+                                 kernel_size, stride, padding)
+    lin = ((cz[..., :, None, None] * ny_o + cy[..., None, :, None]) * nx_o
+           + cx[..., None, None, :])
+    lin = torch.where(ok, lin, torch.full_like(lin, n_cells)).reshape(b, -1)
+    lin_sorted, _ = torch.sort(lin, dim=1, stable=True)
+    is_real = lin_sorted < n_cells
+    newseg = torch.cat(
+        [is_real[:, :1],
+         (lin_sorted[:, 1:] != lin_sorted[:, :-1]) & is_real[:, 1:]], dim=1)
+    slot = torch.cumsum(newseg.long(), dim=1) - 1
+    keep = newseg & (slot < max_out)
+    write = torch.where(keep, slot, torch.full_like(slot, max_out))
+    out_lin = torch.zeros(b, max_out + 1, dtype=torch.long,
+                          device=lin.device)
+    out_lin.scatter_(1, write, torch.where(keep, lin_sorted,
+                                           torch.zeros_like(lin_sorted)))
+    out_lin = out_lin[:, :max_out]
+    num_out = torch.clamp(newseg.sum(dim=1), max=max_out)
+    out_valid = (torch.arange(max_out, device=lin.device)[None, :]
+                 < num_out[:, None])
+    z = out_lin // (ny_o * nx_o)
+    rem = out_lin % (ny_o * nx_o)
+    coords = torch.stack([z, rem // nx_o, rem % nx_o], dim=-1)
+    coords = torch.where(out_valid[..., None], coords,
+                         torch.full_like(coords, -1))
+    return coords.to(torch.int32), out_valid
+
+
+def strided_conv(grid_in: SparseGrid, features, grid_out: SparseGrid,
+                 weights, bias=None, kernel_size=(3, 3, 3),
+                 stride=(2, 2, 2), padding=(1, 1, 1)):
+    """Strided sparse conv from grid_in onto grid_out's active set: tap t
+    of output cell o reads input cell stride*o + t - pad. features (B, Vi,
+    Cin) -> (B, Vo, Cout), zero at invalid output rows."""
+    dev = grid_out.coords.device
+    center = np.asarray([(k - 1) // 2 for k in kernel_size])
+    taps = kernel_offsets(kernel_size) + center - np.asarray(padding)
+    cells = (grid_out.coords.long()[:, :, None, :]
+             * torch.as_tensor(stride, device=dev)
+             + torch.from_numpy(taps).to(dev))
+    out = _tap_products(features, _lookup(grid_in, cells), weights)
+    return _finish(out, bias, grid_out.valid, features.dtype)
+
+
+def sparse_to_dense(grid: SparseGrid, features):
+    """(B, V, C) active features -> dense (B, C, nz, ny, nx)."""
+    return coords_to_dense(grid.coords, grid.valid, features, grid.shape)
+
+
+def masked_batch_stats(features, valid):
+    """Mean and biased variance over the valid rows: features (..., C),
+    valid (...) -> ((C,), (C,))."""
+    m = valid[..., None].to(features.dtype)
+    axes = tuple(range(features.ndim - 1))
+    n = torch.clamp(m.sum(), min=1.0)
+    mean = (features * m).sum(axes) / n
+    var = (((features - mean) ** 2) * m).sum(axes) / n
+    return mean, var
+
+
+# ---- windowed mode: guard-banded (y, x, z)-major ids -------------------
 
 
 def yxz_strides(shape):
@@ -126,37 +358,47 @@ def _ids_to_output(out_ids, out_valid, out_shape):
     return ids.to(torch.int32), coords.to(torch.int32), out_valid
 
 
+def _candidate_ids(coords, valid, out_shape, kernel_size, stride,
+                   padding):
+    """(B, V*m) guard-banded output ids of every output cell each active
+    input reaches, yxz_sentinel_start(out_shape) where none."""
+    b = coords.shape[0]
+    cz, cy, cx, ok = _candidates(coords, valid, out_shape, kernel_size,
+                                 stride, padding)
+    stride_x, stride_y = yxz_strides(out_shape)
+    cid = (cy[..., None, :, None] * stride_y
+           + (cx[..., None, None, :] + 1) * stride_x
+           + (cz[..., :, None, None] + 1))
+    sentinel = yxz_sentinel_start(out_shape)
+    return torch.where(ok, cid, torch.full_like(cid, sentinel)).reshape(b, -1)
+
+
+def _rank_select(active, max_out: int):
+    """The first max_out set positions of each row of a (B, N) bool mask,
+    ascending: (positions (B, max_out) int64, garbage where invalid;
+    valid (B, max_out))."""
+    b, dev = active.shape[0], active.device
+    rank = torch.cumsum(active.to(torch.int64), dim=1) - 1
+    take = active & (rank < max_out)
+    slot = torch.where(take, rank, torch.full_like(rank, max_out))
+    pos = torch.arange(active.shape[1], device=dev).expand_as(rank)
+    out_pos = torch.zeros(b, max_out + 1, dtype=torch.int64, device=dev)
+    out_pos.scatter_(1, slot, pos)
+    num_out = torch.clamp(active.sum(dim=1), max=max_out)
+    out_valid = (torch.arange(max_out, device=dev)[None, :]
+                 < num_out[:, None])
+    return out_pos[:, :max_out], out_valid
+
+
 def win_downsample(coords, valid, in_shape, out_shape, max_out: int,
                    kernel_size=(3, 3, 3), stride=(2, 2, 2),
                    padding=(1, 1, 1)):
     """Strided active-set build by candidate expansion + sort + dedup.
     coords (B, V, 3) zyx, valid (B, V) -> (ids, coords, valid) of the
     output level, sorted ascending by output id, fixed size max_out."""
-    nz_o, ny_o, nx_o = (int(s) for s in out_shape)
-    b = coords.shape[0]
-    c = coords.long()
-
-    def axis_candidates(i, ks, s, p, n_out):
-        lo = -torch.div(-(i + p - ks + 1), s, rounding_mode="floor")
-        hi = torch.div(i + p, s, rounding_mode="floor")
-        max_c = (ks + s - 1) // s + 1
-        cand = lo[..., None] + torch.arange(max_c, device=i.device)
-        ok = (cand <= hi[..., None]) & (cand >= 0) & (cand < n_out)
-        return cand, ok
-
-    (kz, ky, kx), (sz, sy, sx), (pz, py, px) = kernel_size, stride, padding
-    cz, okz = axis_candidates(c[..., 0], kz, sz, pz, nz_o)
-    cy, oky = axis_candidates(c[..., 1], ky, sy, py, ny_o)
-    cx, okx = axis_candidates(c[..., 2], kx, sx, px, nx_o)
-    stride_x, stride_y = yxz_strides(out_shape)
-    cid = (cy[..., None, :, None] * stride_y
-           + (cx[..., None, None, :] + 1) * stride_x
-           + (cz[..., :, None, None] + 1))
-    ok = (okz[..., :, None, None] & oky[..., None, :, None]
-          & okx[..., None, None, :]) & valid[..., None, None, None]
+    cid = _candidate_ids(coords, valid, out_shape, kernel_size, stride,
+                         padding)
     sentinel = yxz_sentinel_start(out_shape)
-    cid = torch.where(ok, cid, torch.full_like(cid, sentinel)).reshape(b, -1)
-
     cid_sorted, _ = torch.sort(cid, dim=1)
     is_real = cid_sorted < sentinel
     newseg = torch.cat(
@@ -174,13 +416,29 @@ def win_downsample(coords, valid, in_shape, out_shape, max_out: int,
     return _ids_to_output(out_ids, out_valid, out_shape)
 
 
+def win_downsample_scatter(coords, valid, in_shape, out_shape, max_out: int,
+                           kernel_size=(3, 3, 3), stride=(2, 2, 2),
+                           padding=(1, 1, 1)):
+    """Same contract as win_downsample, without a sort: the candidate ids
+    set a mask over the guard-banded output id space (duplicates coalesce),
+    and the first max_out set ids are ranked out of it."""
+    cid = _candidate_ids(coords, valid, out_shape, kernel_size, stride,
+                         padding)
+    sentinel = yxz_sentinel_start(out_shape)
+    mask = torch.zeros(cid.shape[0], sentinel + 1, dtype=torch.bool,
+                       device=cid.device)
+    mask.scatter_(1, cid, True)
+    out_ids, out_valid = _rank_select(mask[:, :sentinel], max_out)
+    return _ids_to_output(out_ids, out_valid, out_shape)
+
+
 def win_downsample_dense(coords, valid, in_shape, out_shape, max_out: int,
                          kernel_size=(3, 3, 3), stride=(2, 2, 2),
                          padding=(1, 1, 1)):
     """Same contract as win_downsample, by a dense (y, x, z) occupancy grid
     max-pooled over the kernel footprint, then the first max_out active
     cells in flat order (ascending flat (y, x, z) order == ascending id).
-    Costs one dense grid per sample; the backbone uses it at batch <= 2."""
+    Costs one dense grid per sample."""
     nz_i, ny_i, nx_i = (int(s) for s in in_shape)
     nz_o, ny_o, nx_o = (int(s) for s in out_shape)
     b = coords.shape[0]
@@ -194,19 +452,7 @@ def win_downsample_dense(coords, valid, in_shape, out_shape, max_out: int,
     (kz, ky, kx), (sz, sy, sx), (pz, py, px) = kernel_size, stride, padding
     pooled = F.max_pool3d(occ, (ky, kx, kz), (sy, sx, sz), (py, px, pz))
     assert pooled.shape[2:] == (ny_o, nx_o, nz_o), (pooled.shape, out_shape)
-    active = pooled.reshape(b, -1) > 0
-
-    # rank-select: the r-th active cell goes to output slot r
-    rank = torch.cumsum(active.to(torch.int64), dim=1) - 1
-    take = active & (rank < max_out)
-    slot = torch.where(take, rank, torch.full_like(rank, max_out))
-    pos = torch.arange(active.shape[1], device=dev).expand_as(rank)
-    out_pos = torch.zeros(b, max_out + 1, dtype=torch.int64, device=dev)
-    out_pos.scatter_(1, slot, pos)
-    out_pos = out_pos[:, :max_out]
-    num_out = torch.clamp(active.sum(dim=1), max=max_out)
-    out_valid = (torch.arange(max_out, device=dev)[None, :]
-                 < num_out[:, None])
+    out_pos, out_valid = _rank_select(pooled.reshape(b, -1) > 0, max_out)
 
     oy = out_pos // (nx_o * nz_o)
     rem = out_pos % (nx_o * nz_o)
@@ -215,6 +461,73 @@ def win_downsample_dense(coords, valid, in_shape, out_shape, max_out: int,
     stride_x, stride_y = yxz_strides(out_shape)
     out_ids = oy * stride_y + (ox + 1) * stride_x + (oz + 1)
     return _ids_to_output(out_ids, out_valid, out_shape)
+
+
+def windowed_conv(src_ids, src_feats, tgt_ids, weights, deltas,
+                  block: int = 256, window: int = 512, sentinel_start=None):
+    """The reference's XLA windowed conv: for every target t and tap k,
+    ``src_feats[src_ids == tgt_ids[t] + deltas[k]] @ weights[k]`` summed
+    over k, where the matching source row is read only inside the window
+    ``[lo, lo + window)`` of t's block for tap k, lo being the block's first
+    real target plus the delta, searched in the sources and clamped so the
+    window stays inside the list.
+
+    src_ids (B, Vs) ascending, src_feats (B, Vs, Cin) zero at invalid
+    slots, tgt_ids (B, Vt) ascending with Vt % block == 0, weights (K, Cin,
+    Cout), deltas (K,) source-space id deltas (numpy). Returns (out (B, Vt,
+    Cout) in src_feats' dtype, overflow (B,) int64: the (block, tap) pairs
+    with a real target whose neighbour span exceeds the window — any such
+    pair loses neighbours, as the reference's does). The window is
+    searched, not compared: the rows are found by one search over the whole
+    list and kept when they fall inside it."""
+    b, vs, cin = src_feats.shape
+    vt = tgt_ids.shape[1]
+    nb = vt // block
+    assert nb * block == vt, "pad Vt to a multiple of block"
+    window = min(window, vs)
+    dev = src_ids.device
+    d = torch.as_tensor(np.asarray(deltas, np.int64), device=dev)
+    k = d.shape[0]
+    src = src_ids.long().contiguous()
+    tgt = tgt_ids.long()
+    tgt_b = tgt.reshape(b, nb, block)
+    if sentinel_start is not None:
+        real = tgt_b < sentinel_start
+        first = torch.where(real, tgt_b, torch.full_like(tgt_b, INT32_MAX)
+                            ).amin(dim=2)
+        last = torch.where(real, tgt_b, torch.full_like(tgt_b, -INT32_MAX - 1)
+                           ).amax(dim=2)
+        has_real = real.any(dim=2)
+        first = torch.where(has_real, first, torch.zeros_like(first))
+    else:
+        first, last = tgt_b.amin(dim=2), tgt_b.amax(dim=2)
+        has_real = torch.ones_like(first, dtype=torch.bool)
+    lo = torch.searchsorted(src, (first[..., None] + d).reshape(b, -1)
+                            ).reshape(b, nb, k)
+    lo = torch.clamp(lo, max=vs - window)
+    hi = torch.searchsorted(src, (last[..., None] + d).reshape(b, -1),
+                            right=True).reshape(b, nb, k)
+    overflow = (((hi - lo) > window) & has_real[..., None]).sum(dim=(1, 2))
+
+    want = (tgt[..., None] + d).reshape(b, -1)
+    pos = torch.searchsorted(src, want)
+    pos_c = torch.clamp(pos, max=vs - 1)
+    lo_t = lo.repeat_interleave(block, dim=1).reshape(b, -1)
+    hit = ((torch.gather(src, 1, pos_c) == want) & (pos >= lo_t)
+           & (pos < lo_t + window))
+    slot = torch.where(hit, pos_c, torch.full_like(pos_c, vs)
+                       ).reshape(b, vt, k)
+    out = _tap_products(src_feats, slot, weights)
+    return out.to(src_feats.dtype), overflow
+
+
+def subm_conv_windowed(ids, feats, weights, deltas, block: int = 256,
+                       window: int = 512):
+    """Submanifold windowed conv over a (y, x, z)-sorted active list:
+    windowed_conv with the list as source and target. Returns (out,
+    overflow)."""
+    return windowed_conv(ids, feats, ids, weights, deltas, block=block,
+                         window=window)
 
 
 def coords_to_dense(coords, valid, feats, shape):

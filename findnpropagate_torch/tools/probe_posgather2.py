@@ -108,7 +108,7 @@ def l0_ids(dev):
 
     cfg = cfg_mod.cfg_from_yaml_file(str(CFG_FILE))
     ds = synth.SyntheticDataset(cfg_mod.EDict(synth.bench_data_cfg(1, cfg)),
-                                cfg.CLASS_NAMES)
+                                cfg.CLASS_NAMES, training=False)
     batch = ds.batch([0])
     vox = voxelize_mean(
         torch.from_numpy(batch["points"]).to(dev),

@@ -459,12 +459,42 @@ def test_build_dataloader_matches_jax(shard):
 
 
 def test_registry_names_the_missing_datasets():
-    cfg = dict(data_cfg(), DATASET="NuScenesDataset")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        TD.build_dataloader(EDict(cfg), CLASSES, batch_size=1)
+    """The datasets not ported yet raise naming ROADMAP item 14; KITTI and
+    nuScenes are registered (tests/test_torch_kitti.py,
+    test_torch_nuscenes.py)."""
+    for name in ("WaymoDataset", "ONCEDataset", "LyftDataset",
+                 "Argo2Dataset", "CustomDataset", "PandasetDataset"):
+        cfg = dict(data_cfg(), DATASET=name)
+        with pytest.raises(NotImplementedError, match="item 14"):
+            TD.build_dataloader(EDict(cfg), CLASSES, batch_size=1)
+    assert {"SyntheticDataset", "KittiDataset", "NuScenesDataset"} == set(
+        TD.DATASET_REGISTRY)
+
+
+def test_synthetic_evaluation_matches_jax():
     t = TSyn(EDict(data_cfg()), CLASSES)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        t.evaluation([], CLASSES)
+    j = JSyn(JEDict(data_cfg()), CLASSES)
+    rng = np.random.RandomState(0)
+    dets = []
+    for i in range(len(t)):
+        g = t.generate_scene(i)["gt_boxes"]
+        boxes = g + rng.uniform(-0.5, 0.5, g.shape).astype(np.float32)
+        dets.append({"boxes": boxes, "scores": rng.rand(len(g)),
+                     "labels": rng.randint(1, len(CLASSES) + 1, len(g))})
+    got = t.evaluation(dets, CLASSES)
+    assert_same(got, j.evaluation(dets, CLASSES))
+    assert got[1]["mAP"] > 0
+
+
+def test_synthetic_dataset_defaults_to_training_as_the_reference():
+    import inspect
+
+    for cls in (TSyn, JSyn):
+        assert inspect.signature(cls).parameters["training"].default is True
+    t, j = TSyn(EDict(data_cfg(augs=False)), CLASSES), JSyn(
+        JEDict(data_cfg(augs=False)), CLASSES)
+    assert t.training and j.training and t.base_seed == j.base_seed
+    assert_same(t.generate_scene(1), j.generate_scene(1))
 
 
 def test_prefetch_loader_passes_worker_error_and_stops():
@@ -575,9 +605,38 @@ def test_gt_sampling_matches_jax(tmp_path, shared):
     assert sum(len(g["gt_boxes"]) for g in got) > 9
 
 
-def test_road_plane_names_its_item(tmp_path):
-    conf = {"AUG_CONFIG_LIST": [{"NAME": "gt_sampling",
-                                 "USE_ROAD_PLANE": True,
-                                 "DB_INFO_PATH": []}]}
-    with pytest.raises(NotImplementedError, match="item 14"):
-        TAug(conf, CLASSES, root_path=str(tmp_path))
+def test_road_plane_matches_jax(tmp_path):
+    """USE_ROAD_PLANE (ported with KITTI's calibration, ROADMAP item 14):
+    the pasted boxes and their points are set on the scene's road plane,
+    as the reference sets them; a scene without a plane or calib is left
+    as plain gt_sampling leaves it."""
+    infos = write_gt_database(tmp_path)
+    with open(tmp_path / "dbinfos.pkl", "wb") as f:
+        pickle.dump(infos, f)
+    conf = sampling_cfg(False)
+    conf["AUG_CONFIG_LIST"][0]["USE_ROAD_PLANE"] = True
+    calib = {"P2": np.array([[700, 0, 600, 45], [0, 700, 180, 0.2],
+                             [0, 0, 1, 0.003]], np.float32),
+             "R0": np.eye(3, dtype=np.float32),
+             "V2C": np.array([[0, -1, 0, 0], [0, 0, -1, -0.08],
+                              [1, 0, 0, -0.27]], np.float32)}
+    scenes = []
+    for s in range(3):
+        d = make_scene(s)
+        if s < 2:
+            d["calib"] = calib
+            d["road_plane"] = np.array([0.01 * s, -1.0, 0.02, 1.7],
+                                       np.float32)
+        scenes.append(d)
+    np.random.seed(4)
+    jaug = JAug(conf, CLASSES, root_path=str(tmp_path))
+    want = [jaug.forward(copy_scene(d)) for d in scenes]
+    taug = TAug(conf, CLASSES, root_path=str(tmp_path),
+                rng=np.random.RandomState(4))
+    got = [taug.forward(copy_scene(d)) for d in scenes]
+    assert_same(got, want)
+    plain = TAug(sampling_cfg(False), CLASSES, root_path=str(tmp_path),
+                 rng=np.random.RandomState(4))
+    flat = [plain.forward(copy_scene(d)) for d in scenes]
+    assert not np.array_equal(got[0]["gt_boxes"], flat[0]["gt_boxes"])
+    assert_same(got[2]["gt_boxes"], flat[2]["gt_boxes"])

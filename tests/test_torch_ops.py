@@ -49,7 +49,7 @@ DATA_CFG = {
 def test_voxelize_mean_exact(max_voxels):
     """Same coords, counts, mask and bit-equal means, with the cap unhit
     and hit (the same voxels are dropped)."""
-    ds = SyntheticDataset(DATA_CFG, ["car", "pedestrian"])
+    ds = SyntheticDataset(DATA_CFG, ["car", "pedestrian"], training=False)
     batch = ds.batch([0, 1])
     args = (tuple(ds.point_cloud_range), tuple(ds.voxel_size),
             tuple(int(g) for g in ds.grid_size), max_voxels, 10)
@@ -197,7 +197,7 @@ def test_no_silent_cpu_fallback(monkeypatch):
 
     cfg = cfg_from_yaml_file(
         str(ROOT / "tools/cfgs/nuscenes_models/transfusion_lidar.yaml"))
-    ds = SyntheticDataset(DATA_CFG, cfg.CLASS_NAMES)
+    ds = SyntheticDataset(DATA_CFG, cfg.CLASS_NAMES, training=False)
     with pytest.raises(RuntimeError, match="CUDA"):
         build_network(cfg.MODEL, num_class=10, dataset=ds)
     assert findnpropagate_torch.resolve_device("cpu").type == "cpu"

@@ -51,8 +51,9 @@ SYNTH_ST = ROOT / "tools/cfgs/synthetic_models/transfusion_synth_st.yaml"
 NUSC_SEEKER = ROOT / ("tools/cfgs/nuscenes_models/"
                       "nuscenes_box_seeker_proposals.yaml")
 KITTI_SEEKER = ROOT / "tools/cfgs/kitti_models/kitti_box_seeker_proposals.yaml"
-# the windowed posgather backbone of transfusion_lidar.yaml (the ST yamls
-# name the gather backbone, which the port does not run)
+# the windowed posgather backbone of transfusion_lidar.yaml, whose kernels
+# the card runs (the yaml's own gather backbone: test_train_st_runs_the_
+# gather_backbone)
 WINDOWED = ["MODEL.BACKBONE_3D.SUBM_MODE", "windowed",
             "MODEL.BACKBONE_3D.SUBM_IMPL", "posgather",
             "MODEL.BACKBONE_3D.WINDOWED_BLOCK", "512"]
@@ -155,18 +156,43 @@ def test_train_st_runs_warmup_extraction_and_self_training(tmp_path,
         == ["checkpoint_1.pt", "checkpoint_2.pt"]
 
 
-def test_train_st_refuses_the_gather_backbone(tmp_path, monkeypatch):
-    """The ST yaml as written names the gather / XLA backbone: the port
-    refuses it and names the ROADMAP item that ports it."""
+def test_train_st_runs_the_gather_backbone(tmp_path, monkeypatch):
+    """The ST yaml as written names the gather backbone (and the synthetic
+    dataset), which the port runs. One training step through the
+    CLI's main with no --set on MODEL.BACKBONE_3D or DATA_CONFIG.DATASET
+    (2 scenes at batch 2): the backbone runs in gather mode, the loss is
+    finite and the overflow 0."""
+    seed_frustum_store(tmp_path / "frustum")
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        train_st.main(["--cfg_file", str(SYNTH_ST), "--epochs", "1",
-                       "--device", "cpu"])
+    built, steps = [], []
+    build, run = train_st.build_network, train_st.self_training.train_model_st
+
+    def build_spy(*a, **kw):
+        built.append(build(*a, **kw))
+        return built[-1]
+
+    def run_spy(*a, **kw):
+        steps.extend(run(*a, **dict(kw, log_interval=1)))
+        return steps
+
+    monkeypatch.setattr(train_st, "build_network", build_spy)
+    monkeypatch.setattr(train_st.self_training, "train_model_st", run_spy)
+    rc = train_st.main([
+        "--cfg_file", str(SYNTH_ST), "--epochs", "1", "--batch_size", "2",
+        "--pseudo_path", str(tmp_path / "frustum"), "--seed", "0",
+        "--device", "cpu", "--set", "DATA_CONFIG.SYNTHETIC.NUM_SCENES", "2"])
+    assert rc == 0
+    bb = built[0].backbone_3d
+    assert not bb.windowed and bb.impl == "xla"
+    assert len(steps) == 1
+    assert math.isfinite(steps[0]["loss"])
+    assert steps[0]["sparse_window_overflow"] == 0
 
 
 def narrow_detector():
     cfg = narrow_cfg()
-    ds = SyntheticDataset(cfg_mod.EDict(DATA), cfg.CLASS_NAMES)
+    ds = SyntheticDataset(cfg_mod.EDict(DATA), cfg.CLASS_NAMES,
+                          training=False)
     det = build_network(copy.deepcopy(cfg.MODEL), 10, ds, device="cpu")
     init_random_(det, seed=0)
     return det, ds

@@ -83,7 +83,7 @@ def models():
     batch.pop("batch_size")
     variables = jax.tree.map(np.asarray, bench._random_variables(jdet, batch))
 
-    tds = SyntheticDataset(EDict(DATA), cfg.CLASS_NAMES)
+    tds = SyntheticDataset(EDict(DATA), cfg.CLASS_NAMES, training=False)
     tbatch = tds.batch(range(B))
     np.testing.assert_array_equal(tbatch["points"], batch["points"])
     np.testing.assert_array_equal(tbatch["points_mask"],
