@@ -196,7 +196,50 @@ Phases (any failure exits non-zero and prints no result line):
      gather mode with the two gathers sparse_ops does not use (one shared
      zero row, by indexing or as F.embedding's padding_idx; same loss
      within 1e-5);
- 13. a `kernels` JSON line, then the result line
+ 13. CenterPoint — tools/cfgs/nuscenes_models/
+     cbgs_voxel0075_res3d_centerpoint.yaml (SUBM_IMPL pallas, 1440x1440x41
+     grid) and cbgs_voxel01_res3d_centerpoint.yaml (posgather, 1080x1080x41)
+     as written at full width (six head groups, 64 shared channels),
+     weights init_random_(seed 0), bench.py's 200k-point lidar_ring scenes
+     in each yaml's range and voxel size: one batch-4 forward of the yaml
+     as written (its overflow printed: its L0 windows, sized by hand for
+     the reference's TPU kernel, drop neighbours on these scenes), then,
+     with the main path's L0 windows (CP_WIDEN), eval forward +
+     post_process at batch 1 and 4 (finite detections, overflow 0; 16 K3 a
+     forward for
+     0075, 6 K1 and 16 K2 for 01), actives per level and scene beside the
+     yaml's capacities (the levels at their cap printed: there the
+     reference truncates), one warm-up and two timed training steps at the
+     yamls' batch of 4 with their own adam_onecycle and GRAD_NORM_CLIP
+     (finite loss and gradient norm, overflow 0, parameters changed; 16 +
+     15 K3 and 16 K4 a step for 0075, 3 K1, 25 K2, 6 K3 and 16 K4 for 01);
+     every K1-K4 call of one batch-4 forward and one step against its plain
+     version as in phases 2 and 6; a narrow CenterPoint (the 0075 yaml at
+     16 channels, +-6.4 m) on the card and the CPU in gather mode (float32
+     both sides, cuDNN's TF32 off: actives equal, every group's maps within
+     1e-4 relative, decoded boxes within 1e-4 and labels equal but where a
+     score lies within 1e-5 of another candidate's, printed with its
+     margin) and in the yaml's pallas mode (actives equal, maps within
+     phase 4's 3e-2: K3 rounds its operands to bf16); CenterHeadCLIP
+     (512-wide embeddings) in place of the head (the same widened
+     windows), batch 1 (finite loss with
+     emb_loss > 0, decode) and VoxelBackBone8x in place of the backbone
+     (batch-1 forward, 10 K3; one step, 10 + 9 K3 and 10 K4); then the
+     port's CLIs as subprocesses under build/centerpoint/, each exiting 0:
+     findnpropagate_torch/tools/train.py on the 0075 yaml with only
+     DATA_PATH set (phase 12's nuScenes tree, 2 epochs at batch 4: a
+     checkpoint per epoch, finite changing losses; the overflow its log
+     reports printed), its test.py on the
+     newest checkpoint (finite NDS and mAP, the recall telemetry), and
+     test.py on tools/cfgs/nuscenes_models/transfusion_lidar_st.yaml with
+     phase 12's self-trained checkpoint and CLASS_NAMES set to the full
+     ten (the known / unknown recall and AP_B, AP_N, AR_N). Printed with
+     the card's name and power limit: ms/scan at batch 1 and 4, ms/step,
+     peak memory, the CLIs' wall times and, with --profile, the head's
+     share of a batch-4 forward's device time (<file>.cp_<yaml>.txt);
+ 14. a `kernels` JSON line (phase 13 adds, per yaml, each kernel's calls
+     of one batch-4 forward and of one training step, summed), then the
+     result line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 With --before DIR (a checkout of an earlier commit of this repo, e.g.
@@ -1087,9 +1130,11 @@ def k3_window_rows(torch, ws, k3_calls):
 
 
 def check_train_kernels(torch, tp, ws, k2_calls, k3_calls, k4_calls,
-                        before=None):
+                        before=None, k3_forward=3):
     """Every K2 / K3 / K4 launch of one training step against its plain
-    version at the recorded arguments; returns per-call rows."""
+    version at the recorded arguments; returns per-call rows. The first
+    13 K2 and `k3_forward` K3 calls are the step's forward convs, the
+    others its backward."""
     rows = []
     cat = lambda outs: torch.cat(outs, dim=0)          # noqa: E731
     for i, (args, kw) in enumerate(k2_calls):
@@ -1115,7 +1160,8 @@ def check_train_kernels(torch, tp, ws, k2_calls, k3_calls, k4_calls,
         del out, ref
     rows += check_windowed_conv(
         torch, ws, k3_calls,
-        lambda i: "forward" if i < 3 else "transposed", "train ", before)
+        lambda i: "forward" if i < k3_forward else "transposed", "train ",
+        before)
     for i, (args, kw) in enumerate(k4_calls):
         src, feats, tgt, g, lo, deltas, block, window = args
         out = ws.dw_kernel(*args, **kw)
@@ -3755,6 +3801,673 @@ def paper_phase(torch, tp, ws, smi, cfg_mod, synth, models_mod, weights,
     return out
 
 
+# ------------------------------------------------------------- CenterPoint
+
+
+CP_CFGS = {
+    "voxel0075": "tools/cfgs/nuscenes_models/"
+                 "cbgs_voxel0075_res3d_centerpoint.yaml",
+    "voxel01": "tools/cfgs/nuscenes_models/"
+               "cbgs_voxel01_res3d_centerpoint.yaml",
+}
+# per eval forward and per training step: the 0075 yaml's SUBM_IMPL pallas
+# runs every sparse conv through K3 (16 forward, 15 transposed: the input
+# conv needs no input gradient) and K4, as phase 5's pallas-mode step and
+# phase 7's forward; the 01 yaml's posgather runs the main path's K1 / K2
+# forward and phase 5's training launches
+CP_EVAL_LAUNCHES = {"voxel0075": {"positions": 0, "posgather_conv": 0,
+                                  "windowed_conv": 16, "windowed_dw": 0},
+                    "voxel01": EVAL_LAUNCHES}
+CP_TRAIN_LAUNCHES = {"voxel0075": PALLAS_TRAIN_LAUNCHES,
+                     "voxel01": TRAIN_LAUNCHES}
+# VoxelBackBone8x on the 0075 yaml: 10 sparse convs (the input conv, two
+# submanifold convs a stage at L0-L2, the strided convs into L1-L3)
+PLAIN_EVAL_LAUNCHES = {"positions": 0, "posgather_conv": 0,
+                       "windowed_conv": 10, "windowed_dw": 0}
+PLAIN_TRAIN_LAUNCHES = {"positions": 0, "posgather_conv": 0,
+                        "windowed_conv": 19, "windowed_dw": 10}
+# bench.py's scenes need wider L0 windows than the CenterPoint yamls give
+# (sized by hand for the reference's TPU kernel): as written, their L0 ->
+# L1 strided conv (window 2048) and L0 submanifold convs (2048) drop
+# neighbour spans (a batch-4 forward: 42 in the 0075 yaml, 35 in the 01
+# yaml on an NVIDIA H100 80GB HBM3 at 700 W). The gated runs take the main
+# path's L0 windows (CFG_FILE's, sized for these scenes); the yaml as
+# written runs one batch-4 forward whose overflow is printed.
+CP_WIDEN = ("WINDOWED_WINDOW", "WINDOWED_STRIDED_WINDOW")
+CP_BATCHES = (1, 4)
+CP_TRAIN_STEPS = 3           # timed, after a warm-up step
+# the narrow model, card against CPU: in gather mode float32 on both sides
+# (cuDNN's TF32 off), sums in another order; in the yaml's pallas mode K3
+# rounds its operands to bf16 on the card, the CPU's plain version does
+# not (phase 4's bound)
+CP_REF_RTOL = 1e-4
+CP_REF_BF16_RTOL = 3e-2
+CP_BOX_ATOL = 1e-4
+# decoded boxes may differ where two candidate scores lie this close: the
+# top-k and NMS order of near-equal scores follows each side's rounding
+CP_TIE = 1e-5
+CP_CLI_EPOCHS = 2
+CP_CLI_TIMEOUT = 900
+CP_WORK = "build/centerpoint"
+# the evaluation of the self-trained checkpoint covers the full class list
+# (FULL_CLASS_NAMES), so that its unknown classes are scored
+ST_FULL_NAMES = ("car,truck,construction_vehicle,bus,trailer,barrier,"
+                 "motorcycle,bicycle,pedestrian,traffic_cone")
+
+
+def cp_voxel(cfg):
+    return list(next(p["VOXEL_SIZE"] for p in cfg.DATA_CONFIG.DATA_PROCESSOR
+                     if p["NAME"] == "transform_points_to_voxels"))
+
+
+def cp_dataset(cfg_mod, synth, cfg, n, training, **kw):
+    """bench.py's 200k-point lidar_ring scenes in the yaml's range and
+    voxel size."""
+    kw.setdefault("voxel", cp_voxel(cfg))
+    return synth.SyntheticDataset(cfg_mod.EDict(synth.bench_data_cfg(
+        n, cfg, **kw)), cfg.CLASS_NAMES, training=training)
+
+
+def cp_widen(cfg_mod, cfg):
+    """The yaml's L0 windows widened to the main path's (CP_WIDEN);
+    returns {key: (as written, now)}."""
+    main = cfg_mod.cfg_from_yaml_file(str(ROOT / CFG_FILE)).MODEL.BACKBONE_3D
+    bb, changed = cfg.MODEL.BACKBONE_3D, {}
+    per_level = lambda v: list(v) if isinstance(  # noqa: E731
+        v, (list, tuple)) else [v] * 3
+    for key in CP_WIDEN:
+        old = per_level(bb[key])
+        bb[key] = [max(old[0], per_level(main[key])[0])] + old[1:]
+        changed[key] = (old, list(bb[key]))
+    return changed
+
+
+def cp_launch_gate(label, got, want):
+    if got != want:
+        raise AssertionError(f"{label}: launches {got}, want {want}")
+
+
+def cp_forward(torch, det, batch, tp, ws, want, label):
+    """One eval forward + post_process with the launch counts set to 0
+    just before and read just after; its gates."""
+    tp.reset_launches()
+    ws.reset_launches()
+    out = det(batch)
+    dets = det.post_process(out)
+    torch.cuda.synchronize()
+    launches = launches_now(tp, ws)
+    cp_launch_gate(label, launches, want)
+    if int(out["sparse_window_overflow"]) != 0:
+        raise AssertionError(f"{label}: sparse_window_overflow "
+                             f"{int(out['sparse_window_overflow'])}")
+    if not (bool(torch.isfinite(dets.boxes).all())
+            and bool(torch.isfinite(dets.scores).all())
+            and int(dets.count.min()) > 0):
+        raise AssertionError(f"{label}: detections not finite or none "
+                             f"(counts {dets.count.tolist()})")
+    return out, dets, launches
+
+
+def cp_step(torch, step, batch, tp, ws, want, label):
+    """One optimizer step with the launch counts set to 0 just before and
+    read just after; its gates."""
+    tp.reset_launches()
+    ws.reset_launches()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    metrics = step(batch)
+    t1.record()
+    torch.cuda.synchronize()
+    launches = launches_now(tp, ws)
+    cp_launch_gate(label, launches, want)
+    m = {k: float(v) for k, v in metrics.items()}
+    if not (math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
+            and m["grad_norm"] > 0):
+        raise AssertionError(f"{label}: loss {m['loss']} grad_norm "
+                             f"{m['grad_norm']}")
+    if m["sparse_window_overflow"] != 0:
+        raise AssertionError(f"{label}: sparse_window_overflow "
+                             f"{m['sparse_window_overflow']}")
+    return {"ms": t0.elapsed_time(t1), "launches": launches, **m}
+
+
+def cp_actives(torch, det, ds, n, dev):
+    """Actives per level of each of n scenes (batch-1 forwards) beside the
+    capacities the backbone gives its sparse levels: L0 MAX_VOXELS, L1 and
+    L2 LEVEL_CAPACITIES[2] and [3] (rounded up to a block); the dense
+    levels (from DENSE_FROM_LEVEL on) have no cap."""
+    bb = det.backbone_3d
+    block = bb._win_cfg()[0]
+    caps = [det.max_voxels] + [-(-c // block) * block for c in bb.caps[2:4]]
+    dense_from = int(bb.model_cfg.get("DENSE_FROM_LEVEL", 1))
+    per_scene = []
+    with torch.no_grad():
+        for i in range(n):
+            out = det({k: torch.from_numpy(v).to(dev)
+                       for k, v in ds.batch([i]).items()})
+            per_scene.append([int(c) for c in out["sparse_active_counts"]])
+    caps = [c if lvl < dense_from else None for lvl, c in enumerate(caps)]
+    at_cap = [lvl for lvl, c in enumerate(caps) if c is not None and any(
+        s[lvl] >= c for s in per_scene)]
+    return {"per_scene": per_scene, "caps": caps, "at_cap": at_cap,
+            "level_capacities": list(bb.caps)}
+
+
+def cp_head_profile(torch, det, batch, path):
+    """One forward + post_process under the profiler with the head's
+    forward and its decode in ranges of their own: the span of each range
+    on the device's timeline (its kernels and the gaps between them)
+    against the forward's wall time (the head's share of a forward), and
+    the summed kernel time."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    head = det.dense_head
+    fwd, dec = head.forward, head.get_bboxes
+
+    def ranged(name, fn):
+        def run(*a, **kw):
+            with record_function(name):
+                return fn(*a, **kw)
+        return run
+
+    head.forward = ranged("cp_head_forward", fwd)
+    head.get_bboxes = ranged("cp_head_decode", dec)
+    try:
+        det.post_process(det(batch))
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            det.post_process(det(batch))
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        del head.forward, head.get_bboxes
+    avg = prof.key_averages()
+    names = ("cp_head_forward", "cp_head_decode")
+    # the ranges show on the device too, as annotations spanning their
+    # kernels: counted as spans, not as kernels
+    kernel_ms = sum(e.self_device_time_total for e in avg
+                    if e.device_type.name == "CUDA"
+                    and e.key not in names) / 1e3
+    spans = {e.key: e.self_device_time_total / 1e3 for e in avg
+             if e.key in names and e.device_type.name == "CUDA"}
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    Path(path).write_text(avg.table(sort_by="self_cuda_time_total",
+                                    row_limit=50))
+    return {"wall_ms": wall, "kernel_ms": kernel_ms,
+            "busy_share": kernel_ms / wall, "head_span_ms": spans,
+            "head_share_of_wall": sum(spans.values()) / wall}
+
+
+def cp_summary(rows, name, path, launches):
+    """One `kernels` entry of a phase-13 run: the kernel's recorded calls
+    of that run summed (ms, device ms, plain ms, bound, library), their
+    largest error."""
+    mine = [r for r in rows if r["name"] == name]
+    big = max(mine, key=lambda r: r["bound_ms"])
+
+    def total(key):
+        vals = [r.get(key) for r in mine]
+        return None if any(v is None for v in vals) else sum(vals)
+
+    return {"name": name, "route": "cuda", "source": SOURCES[name],
+            "replaces": REPLACES[name], "path": path, "launches": launches,
+            "calls": len(mine),
+            "max_abs_err": max(r["max_abs_err"] for r in mine),
+            "ms": total("ms"), "device_ms": total("device_ms"),
+            "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
+            "bound_by": big["bound_by"],
+            "library_ms": total("library_ms") if name == "positions"
+            else None}
+
+
+def cp_yaml_run(torch, name, mods, smi, args, device="cuda"):
+    """One yaml as written at full width: forwards at batch 1 and 4,
+    training steps at its batch of 4 with its own optimizer, the launches
+    and arguments of one batch-4 forward and one step recorded and every
+    recorded call held against its plain version. Returns (report, rows,
+    kernels entries)."""
+    cfg_mod, models_mod, synth, tp, ws, lap, weights, optimization, \
+        trainer = mods
+    cfg = cfg_mod.cfg_from_yaml_file(str(ROOT / CP_CFGS[name]))
+    dev = torch.device(device)
+    b_max = max(CP_BATCHES)
+    ds = cp_dataset(cfg_mod, synth, cfg, b_max, training=False)
+    batches = {b: {k: torch.from_numpy(v).to(dev)
+                   for k, v in ds.batch(range(b)).items()}
+               for b in CP_BATCHES}
+    rep = {"yaml": CP_CFGS[name], "device": smi, "forward": {}}
+    # the yaml as written: one batch-4 forward, its overflow reported
+    det = models_mod.build_network(copy.deepcopy(cfg.MODEL), 10, ds,
+                                   device=dev)
+    weights.init_random_(det, seed=0)
+    with torch.no_grad():
+        out = det(batches[b_max])
+        dets = det.post_process(out)
+    if not bool(torch.isfinite(dets.boxes).all()):
+        raise AssertionError(f"{name} as written: non-finite boxes")
+    rep["as_written"] = {"overflow": int(out["sparse_window_overflow"]),
+                         "windows": cp_widen(cfg_mod, cfg)}
+    del det, out, dets
+    det = models_mod.build_network(copy.deepcopy(cfg.MODEL), 10, ds,
+                                   device=dev)
+    weights.init_random_(det, seed=0)
+    want = CP_EVAL_LAUNCHES[name]
+    for b in CP_BATCHES:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _, dets, launches = cp_forward(torch, det, batches[b], tp, ws, want,
+                                       f"{name} forward batch {b}")
+        med, times = forward_ms(torch, det, batches[b], args.reps)
+        rep["forward"][b] = {
+            "launches": launches, "ms_per_batch": med,
+            "ms_per_scan": med / b, "times_ms": times,
+            "detections_per_scan": [int(c) for c in dets.count],
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
+    rep["actives"] = cp_actives(torch, det, ds, b_max, dev)
+    with record_positions(torch, tp) as k1_eval, \
+            Recorder(tp, "gather_conv", torch) as k2_eval, \
+            Recorder(ws, "conv_kernel", torch) as k3_eval:
+        cp_forward(torch, det, batches[b_max], tp, ws, want,
+                   f"{name} recorded forward")
+    if args.profile:
+        rep["profile"] = cp_head_profile(
+            torch, det, batches[b_max], f"{args.profile}.cp_{name}.txt")
+    del det, batches
+    torch.cuda.empty_cache()
+
+    # ---- training at the yaml's batch, its adam_onecycle and clip
+    tds = cp_dataset(cfg_mod, synth, cfg, b_max, training=True)
+    det = models_mod.build_network(copy.deepcopy(cfg.MODEL), 10, tds,
+                                   device=dev)
+    weights.init_random_(det, seed=0)
+    det.train()
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in tds.batch(range(int(
+                 cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU))).items()}
+    tx, _ = optimization.build_optimizer(det.parameters(), cfg.OPTIMIZATION,
+                                         1000)
+    step = trainer.make_train_step(det, tx)
+    want = CP_TRAIN_LAUNCHES[name]
+    params = [p.detach().clone() for p in det.parameters()]
+    warm = cp_step(torch, step, batch, tp, ws, want, f"{name} train warm-up")
+    changed = sum(bool((p.detach() != q).any())
+                  for p, q in zip(det.parameters(), params))
+    if changed < 0.9 * len(params):
+        raise AssertionError(f"{name} train: only {changed} of "
+                             f"{len(params)} parameter tensors changed")
+    del params
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    steps = [cp_step(torch, step, batch, tp, ws, want, f"{name} train step")
+             for _ in range(CP_TRAIN_STEPS)]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    with record_positions(torch, tp) as k1_train, \
+            Recorder(tp, "gather_conv", torch) as k2_train, \
+            Recorder(ws, "conv_kernel", torch) as k3_train, \
+            Recorder(ws, "dw_kernel", torch) as k4_train:
+        cp_step(torch, step, batch, tp, ws, want, f"{name} recorded step")
+    rep["train"] = {
+        "batch": len(batch["points"]), "warm_up": warm, "steps": steps,
+        "ms_per_step": sorted(s["ms"] for s in steps)[len(steps) // 2],
+        "losses": [warm["loss"]] + [s["loss"] for s in steps],
+        "peak_mem_gb": peak, "parameters_changed": changed}
+    del det, tx, step, batch
+    torch.cuda.empty_cache()
+
+    # ---- every recorded call against its plain version
+    fwd_rows = check_positions(torch, tp, k1_eval, f"{name} forward ")
+    fwd_rows += check_kernels(torch, tp, [], k2_eval.calls)
+    fwd_rows += check_windowed_conv(torch, ws, k3_eval.calls,
+                                    lambda i: "eval epilogue",
+                                    f"{name} forward ")
+    train_rows = check_positions(torch, tp, k1_train, f"{name} train ")
+    train_rows += check_train_kernels(
+        torch, tp, ws, k2_train.calls, k3_train.calls, k4_train.calls,
+        k3_forward=16 if name == "voxel0075" else 3)
+    log_positions_rows([r for r in fwd_rows + train_rows
+                        if r["name"] == "positions"], f"{name} ")
+    log_conv_rows([r for r in fwd_rows + train_rows
+                   if r["name"] != "positions"])
+    entries = []
+    for rows, path, launches in (
+            (fwd_rows, f"centerpoint {name} forward batch {b_max}",
+             rep["forward"][b_max]["launches"]),
+            (train_rows, f"centerpoint {name} training step batch "
+             f"{rep['train']['batch']}", rep["train"]["steps"][0]["launches"])):
+        for kname in SOURCES:
+            if launches.get(kname):
+                entries.append(cp_summary(rows, kname, path,
+                                          launches[kname]))
+    return rep, fwd_rows + train_rows, entries
+
+
+def cp_candidate_margins(torch, preds_all, k):
+    """Per sample, the sorted top-k scores of every group: the candidates
+    that the decode ranks and NMS orders."""
+    from findnpropagate_torch.models.model_utils.centernet import (
+        topk_heatmap,
+    )
+
+    tops = [topk_heatmap(torch.sigmoid(p["hm"].permute(0, 3, 1, 2)), k)[0]
+            for p in preds_all]
+    return torch.sort(torch.cat(tops, dim=1), dim=1).values
+
+
+def cp_hold_decode(torch, card, cpu, cand, label):
+    """Detections of the card against the CPU's: each detection of either
+    side has one on the other with the same label and a box within
+    CP_BOX_ATOL, unless its score lies within CP_TIE of another candidate
+    score (printed with its margin). Returns (max box error of the matched,
+    the exempted)."""
+    worst, exempt = 0.0, []
+    for side, a, b in (("card", card, cpu), ("cpu", cpu, card)):
+        for i in range(a.boxes.shape[0]):
+            nb = int(b.count[i])
+            scores = cand[i]
+            for j in range(int(a.count[i])):
+                box, lbl = a.boxes[i, j], int(a.labels[i, j])
+                err = (b.boxes[i, :nb] - box).abs().amax(dim=-1)
+                err = torch.where(b.labels[i, :nb] == lbl, err,
+                                  torch.full_like(err, float("inf")))
+                if nb and float(err.min()) <= CP_BOX_ATOL:
+                    worst = max(worst, float(err.min()))
+                    continue
+                s = float(a.scores[i, j])
+                gaps = (scores - s).abs()
+                margin = float(torch.sort(gaps).values[1]) \
+                    if len(gaps) > 1 else float("inf")
+                if margin > CP_TIE:
+                    raise AssertionError(
+                        f"{label}: {side} detection {j} of sample {i} "
+                        f"(label {lbl}, score {s}) has no match and its "
+                        f"nearest candidate score is {margin} away")
+                exempt.append({"side": side, "sample": i, "slot": j,
+                               "label": lbl, "score": s, "margin": margin})
+    for e in exempt:
+        log(f"{label}: near tie, {e}")
+    return worst, exempt
+
+
+def cp_reference(torch, cfg_mod, synth, models_mod, weights, card="cuda"):
+    """A narrow CenterPoint (the 0075 yaml at 16 channels, +-6.4 m, as
+    phase 4 narrows TransFusion) on the card and on the CPU: in gather mode
+    (float32 on both sides, cuDNN's TF32 off) the actives equal, every
+    group's heatmap and regression within CP_REF_RTOL, the decoded boxes
+    and labels equal (cp_hold_decode); in the yaml's pallas mode the
+    actives equal and the maps within CP_REF_BF16_RTOL."""
+    cfg = cfg_mod.cfg_from_yaml_file(str(ROOT / CP_CFGS["voxel0075"]))
+    m = cfg.MODEL
+    m.BACKBONE_3D.update({
+        "MAX_VOXELS": 2048, "LEVEL_CAPACITIES": [2048, 2048, 2048, 1024,
+                                                 1024],
+        "WINDOWED_BLOCK": 512, "CHANNELS": [16, 16, 16, 16, 16],
+        "OUT_CHANNELS": 16, "DENSE_DTYPE": "f32"})
+    m.MAP_TO_BEV.NUM_BEV_FEATURES = 32
+    m.BACKBONE_2D.update({"LAYER_NUMS": [1, 1], "NUM_FILTERS": [16, 32],
+                          "NUM_UPSAMPLE_FILTERS": [16, 16]})
+    m.DENSE_HEAD.SHARED_CONV_CHANNEL = 16
+    ds = cp_dataset(cfg_mod, synth, cfg, 2, training=False,
+                    pcr=[-6.4, -6.4, -5.0, 6.4, 6.4, 3.0],
+                    voxel=[0.2, 0.2, 0.2], max_voxels=2048,
+                    max_points=40000)
+    batch = ds.batch(range(2))
+    k = int(m.DENSE_HEAD.POST_PROCESSING.MAX_OBJ_PER_SAMPLE)
+    res = {}
+    for mode in ("gather", "pallas"):
+        mcfg = copy.deepcopy(m)
+        if mode == "gather":
+            for key in ("SUBM_MODE", "SUBM_IMPL"):
+                mcfg.BACKBONE_3D.pop(key)
+        outs, dets = {}, {}
+        with tf32_off(torch):
+            for dev in (card, "cpu"):
+                det = models_mod.build_network(copy.deepcopy(mcfg), 10, ds,
+                                               device=dev)
+                weights.init_random_(det, seed=1)
+                with torch.no_grad():
+                    outs[dev] = det({key: torch.from_numpy(v).to(dev)
+                                     for key, v in batch.items()})
+                    dets[dev] = det.post_process(outs[dev])
+        g, c = outs[card], outs["cpu"]
+        if not torch.equal(g["sparse_active_counts"].cpu(),
+                           c["sparse_active_counts"]):
+            raise AssertionError(f"centerpoint reference {mode}: active "
+                                 "counts differ")
+        if int(g["sparse_window_overflow"]) or int(
+                c["sparse_window_overflow"]):
+            raise AssertionError(f"centerpoint reference {mode}: overflow")
+        rtol = CP_REF_RTOL if mode == "gather" else CP_REF_BF16_RTOL
+        pairs = {"encoded_spconv_tensor": (g["encoded_spconv_tensor"],
+                                           c["encoded_spconv_tensor"])}
+        for gi, (pg, pc) in enumerate(zip(g["center_preds"],
+                                          c["center_preds"])):
+            pairs.update({f"group{gi}/{key}": (pg[key], pc[key])
+                          for key in pc})
+        errs = {}
+        for key, (a, b) in pairs.items():
+            rel = float((a.cpu() - b).norm() / b.norm().clamp_min(1e-12))
+            errs[key] = rel
+            if not rel <= rtol:
+                raise AssertionError(f"centerpoint reference {mode}: {key} "
+                                     f"rel err {rel}")
+        out = {"spconv_rel_err": errs["encoded_spconv_tensor"],
+               "worst_map_rel_err": max(v for k, v in errs.items()
+                                        if k.startswith("group")),
+               "maps": errs,
+               "actives": [int(v) for v in c["sparse_active_counts"]]}
+        if mode == "gather":
+            got = type(dets["cpu"])(*(t.cpu() for t in dets[card]))
+            cand = cp_candidate_margins(torch, c["center_preds"], k)
+            out["max_box_err"], out["near_ties"] = cp_hold_decode(
+                torch, got, dets["cpu"], cand, "centerpoint reference")
+            out["detections"] = [int(n) for n in dets["cpu"].count]
+        res[mode] = out
+    return res
+
+
+def cp_variants(torch, mods, smi, device="cuda"):
+    """CenterHeadCLIP (512-wide embeddings) and VoxelBackBone8x in place of
+    the 0075 yaml's head and backbone, set from code, at full width: the
+    CLIP head's batch-1 loss (training forward) and decode, the plain
+    backbone's batch-1 forward and one training step."""
+    cfg_mod, models_mod, synth, tp, ws, lap, weights, optimization, \
+        trainer = mods
+    dev = torch.device(device)
+    out = {}
+    for variant in ("CenterHeadCLIP", "VoxelBackBone8x"):
+        cfg = cfg_mod.cfg_from_yaml_file(str(ROOT / CP_CFGS["voxel0075"]))
+        cp_widen(cfg_mod, cfg)
+        if variant == "CenterHeadCLIP":
+            cfg.MODEL.DENSE_HEAD.NAME = variant
+        else:
+            cfg.MODEL.BACKBONE_3D.NAME = variant
+        ds = cp_dataset(cfg_mod, synth, cfg, 2, training=True)
+        batch = {k: torch.from_numpy(v).to(dev)
+                 for k, v in ds.batch(range(1)).items()}
+        det = models_mod.build_network(copy.deepcopy(cfg.MODEL), 10, ds,
+                                       device=dev)
+        weights.init_random_(det, seed=0)
+        rep = {}
+        if variant == "CenterHeadCLIP":
+            det.train()
+            tp.reset_launches()
+            ws.reset_launches()
+            loss, tb = det.loss(batch)
+            torch.cuda.synchronize()
+            rep["train_forward_launches"] = launches_now(tp, ws)
+            rep["loss"] = {k: float(v) for k, v in tb.items()}
+            if not (math.isfinite(float(loss.detach()))
+                    and rep["loss"]["emb_loss"] > 0
+                    and rep["loss"]["sparse_window_overflow"] == 0):
+                raise AssertionError(f"CenterHeadCLIP: loss {rep['loss']}")
+            det.eval()
+            with torch.no_grad():
+                _, dets, rep["eval_launches"] = cp_forward(
+                    torch, det, batch, tp, ws,
+                    CP_EVAL_LAUNCHES["voxel0075"], "CenterHeadCLIP forward")
+            rep["detections"] = int(dets.count[0])
+            rep["embed_dim"] = int(det.dense_head.embed_dim)
+        else:
+            det.eval()
+            with torch.no_grad():
+                _, dets, rep["eval_launches"] = cp_forward(
+                    torch, det, batch, tp, ws, PLAIN_EVAL_LAUNCHES,
+                    "VoxelBackBone8x forward")
+            det.train()
+            tx, _ = optimization.build_optimizer(det.parameters(),
+                                                 cfg.OPTIMIZATION, 1000)
+            rep["step"] = cp_step(torch, trainer.make_train_step(det, tx),
+                                  batch, tp, ws, PLAIN_TRAIN_LAUNCHES,
+                                  "VoxelBackBone8x train step")
+            del tx
+        out[variant] = rep
+        log(f"centerpoint variant {variant} ({smi}), 0075 yaml, batch 1: "
+            f"{rep}")
+        del det, batch
+        torch.cuda.empty_cache()
+    return out
+
+
+def run_cli(module, argv, cwd, label):
+    """`python -m findnpropagate_torch.tools.<module> argv` in `cwd` with
+    this checkout on the path: its wall seconds and output; raises unless
+    it exits 0."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", f"findnpropagate_torch.tools.{module}",
+         *argv], cwd=cwd, env=env, capture_output=True, text=True,
+        timeout=CP_CLI_TIMEOUT)
+    wall = time.perf_counter() - t0
+    (Path(cwd) / f"{label}.log").write_text(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        tail = (proc.stdout + proc.stderr)[-3000:]
+        raise AssertionError(f"{label}: exit {proc.returncode}\n{tail}")
+    return wall, proc.stdout + proc.stderr
+
+
+def cp_cli_phase(torch, smi, paper_root):
+    """The port's train.py on the 0075 yaml (only DATA_PATH set, phase 12's
+    nuScenes tree, CP_CLI_EPOCHS epochs at its batch of 4), its test.py on
+    the newest checkpoint, and test.py on the ST yaml's self-trained
+    checkpoint of phase 12 with the full class list: each a subprocess
+    that must exit 0; the losses finite and changing, the evaluations
+    finite, the ST evaluation with its known / unknown keys."""
+    from findnpropagate_torch import config as cfg_mod
+
+    work = ROOT / CP_WORK
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    (work / "tools").symlink_to(ROOT / "tools")
+    cfg_file = str(ROOT / CP_CFGS["voxel0075"])
+    cfg = cfg_mod.cfg_from_yaml_file(cfg_file)
+    run_dir = work / "output" / cfg.EXP_GROUP_PATH / cfg.TAG / "default"
+    data = ["--set", "DATA_CONFIG.DATA_PATH", str(paper_root)]
+    out = {"device": smi}
+    out["train_s"], log_text = run_cli(
+        "train", ["--cfg_file", cfg_file, "--epochs", str(CP_CLI_EPOCHS),
+                  "--seed", "0", *data], work, "train_cli")
+    losses = [float(t.split("=")[1]) for line in log_text.splitlines()
+              if " it " in line and "loss=" in line
+              for t in line.split() if t.startswith("loss=")]
+    ckpts = sorted(p.name for p in (run_dir / "ckpt").glob(
+        "checkpoint_*.pt"))
+    if (len(ckpts) != CP_CLI_EPOCHS or len(losses) < 2
+            or not all(math.isfinite(v) for v in losses)
+            or len(set(losses)) < 2):
+        raise AssertionError(f"train.py: checkpoints {ckpts}, logged "
+                             f"losses {losses}")
+    out["train_losses"], out["checkpoints"] = losses, ckpts
+    # the yaml as written: the overflow its logged steps report
+    out["train_logged_overflow"] = [
+        float(t.split("=")[1]) for line in log_text.splitlines()
+        if " it " in line for t in line.split()
+        if t.startswith("sparse_window_overflow=")]
+    out["test_s"], test_log = run_cli("test", ["--cfg_file", cfg_file,
+                                               *data], work, "test_cli")
+    out["test_overflow_warnings"] = test_log.count("sparse_window_overflow=")
+    res = json.loads((run_dir / "eval" / "result.json").read_text())
+    if not (math.isfinite(res["NDS"]) and math.isfinite(res["mAP"])
+            and "recall_0.3" in res):
+        raise AssertionError(f"test.py: result {res}")
+    out["test_result"] = {k: v for k, v in res.items()
+                          if k in ("NDS", "mAP") or k.startswith("recall")}
+    # the self-trained checkpoint phase 12 left under its working dir
+    st_work = ROOT / PAPER_WORK
+    st_cfg = cfg_mod.cfg_from_yaml_file(str(ROOT / ST_CFG))
+    st_run = st_work / "output" / st_cfg.EXP_GROUP_PATH / st_cfg.TAG \
+        / "default"
+    out["st_checkpoint"] = str(sorted(
+        (st_run / "ckpt").glob("checkpoint_*.pt"))[-1].relative_to(ROOT))
+    out["st_test_s"], _ = run_cli(
+        "test", ["--cfg_file", str(ROOT / ST_CFG), "--set", "DATA_CONFIG.DATA_PATH", str(paper_root),
+                 "CLASS_NAMES", ST_FULL_NAMES], st_work, "st_test_cli")
+    res = json.loads((st_run / "eval" / "result.json").read_text())
+    keys = ("AP_B", "AP_N", "AR_N", "NDS", "mAP", "recall_known_0.3",
+            "recall_unknown_0.3")
+    if not all(k in res and math.isfinite(res[k]) for k in keys):
+        raise AssertionError(f"test.py on the ST checkpoint: result {res}")
+    out["st_test_result"] = {k: res[k] for k in res
+                             if k in keys or k.startswith("recall")}
+    log(f"CLIs ({smi}): train.py {out['train_s']:.1f} s (losses {losses}, "
+        f"{ckpts}, logged overflow {out['train_logged_overflow']}), test.py "
+        f"{out['test_s']:.1f} s {out['test_result']} (overflow warnings "
+        f"{out['test_overflow_warnings']}); "
+        f"test.py on {out['st_checkpoint']} {out['st_test_s']:.1f} s "
+        f"{out['st_test_result']}")
+    return out
+
+
+def centerpoint_phase(torch, mods, smi, args, paper_root):
+    """Phase 13: CenterPoint on both nuScenes yamls at full width with its
+    kernels held against their plain versions, the narrow model on the
+    card against the CPU, CenterHeadCLIP and VoxelBackBone8x, and the
+    port's train.py and test.py. Returns (report, rows, kernels
+    entries)."""
+    t0 = time.perf_counter()
+    report, rows, entries = {"device": smi}, [], []
+    for name in CP_CFGS:
+        rep, r, e = cp_yaml_run(torch, name, mods, smi, args)
+        report[name], rows, entries = rep, rows + r, entries + e
+        fw, tr = rep["forward"], rep["train"]
+        log(f"centerpoint {name} ({smi}): {rep['yaml']} as written; "
+            + "; ".join(f"batch {b} {fw[b]['ms_per_scan']:.2f} ms/scan "
+                        f"(peak {fw[b]['peak_mem_gb']:.2f} GiB, launches "
+                        f"{fw[b]['launches']}, detections "
+                        f"{fw[b]['detections_per_scan']})" for b in fw)
+            + f"; training batch {tr['batch']} {tr['ms_per_step']:.1f} "
+            f"ms/step (steps {[round(s['ms'], 1) for s in tr['steps']]}), "
+            f"losses {[round(v, 3) for v in tr['losses']]}, peak "
+            f"{tr['peak_mem_gb']:.2f} GiB, launches "
+            f"{tr['steps'][0]['launches']}")
+        log(f"centerpoint {name}: the yaml as written drops "
+            f"{rep['as_written']['overflow']} neighbour spans in a batch-4 "
+            f"forward (sparse_window_overflow); gated runs with the L0 "
+            f"windows (as written, now) {rep['as_written']['windows']}")
+        act = rep["actives"]
+        log(f"centerpoint {name}: actives per level and scene "
+            f"{act['per_scene']} against caps {act['caps']} "
+            f"(LEVEL_CAPACITIES {act['level_capacities']}); levels at "
+            f"their cap: {act['at_cap'] or 'none'}")
+        if "profile" in rep:
+            log(f"centerpoint {name} profile, forward batch "
+                f"{max(CP_BATCHES)}: {rep['profile']}")
+    report["reference"] = cp_reference(torch, mods[0], mods[2], mods[1],
+                                       mods[6])
+    log("centerpoint narrow model, card vs CPU: " + "; ".join(
+        f"{mode}: " + ", ".join(f"{k} {v}" for k, v in r.items()
+                                if k != "maps")
+        for mode, r in report["reference"].items()))
+    report["variants"] = cp_variants(torch, mods, smi)
+    report["cli"] = cp_cli_phase(torch, smi, paper_root)
+    report["phase_s"] = time.perf_counter() - t0
+    log(f"centerpoint phase: {report['phase_s']:.1f} s")
+    return report, rows, entries
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--batches", type=int, nargs="+", default=[1, 8])
@@ -3942,7 +4655,13 @@ def main():
         report["propagate"]["ms_per_step_epoch1"],
         args.profile and args.profile + ".paper")
 
-    # ---- 13. result lines
+    # ---- 13. CenterPoint: both nuScenes yamls, the narrow model against
+    # the CPU, CenterHeadCLIP and VoxelBackBone8x, train.py and test.py
+    report["centerpoint"], cp_rows, cp_entries = centerpoint_phase(
+        torch, mods, smi, args, ROOT / PAPER_WORK / "nuscenes")
+    report["centerpoint_kernel_calls"] = cp_rows
+
+    # ---- 14. result lines
     first_batch = report["main_path"][0]["launches_per_forward"]
     pick = {
         # K1 at L0 (first call); K2 at the L0 16->16 subm conv with the
@@ -4024,6 +4743,9 @@ def main():
             "library_device_ms": r["library_device_ms"],
             "device_ms": r["device_ms"], "call": r["call"],
             "shapes": r["shapes"]})
+    # phase 13: per yaml, each kernel's calls of one batch-4 forward and of
+    # one training step, summed
+    kernels += cp_entries
     report["kernels"] = kernels
     report["device"] = smi
     if args.out:

@@ -1,6 +1,11 @@
-"""VoxelResBackBone8x, eval and training forward — port of
-findnpropagate_tpu/models/backbones_3d/spconv_backbone.py (:84-323,
-:373-782) in every mode of the reference.
+"""VoxelResBackBone8x and VoxelBackBone8x, eval and training forward — port
+of findnpropagate_tpu/models/backbones_3d/spconv_backbone.py (:84-323,
+:373-802) in every mode of the reference. The two differ in their stages
+only: two SparseBasicBlocks each (``blocks{s}_res{b}_conv1`` ...) in the
+residual variant, two submanifold conv + BN + ReLU layers each
+(``blocks{s}_conv{b}``, ``blocks{s}_bn{b}``, no bias) in the plain one;
+``USE_BIAS`` (the residual blocks' conv bias) defaults to the variant's
+residual switch, as in the reference.
 
 A level is one of
   ("sparse", grid, feats) — gather mode (``SUBM_MODE: gather``, the
@@ -114,8 +119,10 @@ class SparseConvParam(nn.Module):
             4, 3, 0, 1, 2).to(dtype)
 
 
-class VoxelResBackBone8x(nn.Module):
-    """Residual sparse backbone (two SparseBasicBlocks per stage)."""
+class _SparseStack(nn.Module):
+    """What both backbone variants share; `residual` picks the stages."""
+
+    residual = True
 
     def __init__(self, model_cfg, input_channels, grid_size):
         super().__init__()
@@ -139,7 +146,7 @@ class VoxelResBackBone8x(nn.Module):
         self.level_shapes = [s1, s2, s3, s4, s_out]
         chans = [int(c) for c in cfg.get("CHANNELS", [16, 16, 32, 64, 128])]
         self.out_channels = int(cfg.get("OUT_CHANNELS", 128))
-        use_bias = bool(cfg.get("USE_BIAS", True))
+        use_bias = bool(cfg.get("USE_BIAS", self.residual))
         c0 = int(cfg.get("MAX_VOXELS", 60000))
         caps = cfg.get("LEVEL_CAPACITIES", None) or [
             c0, c0, c0 // 2, c0 // 4, c0 // 8]
@@ -156,6 +163,11 @@ class VoxelResBackBone8x(nn.Module):
                 self.add_module(f"blocks{s}_down_bn", MaskedBatchNorm(cout))
                 cin = cout
             for b in range(2):
+                if not self.residual:
+                    self.add_module(f"blocks{s}_conv{b}", SparseConvParam(
+                        cin if b == 0 else cout, cout))
+                    self.add_module(f"blocks{s}_bn{b}", MaskedBatchNorm(cout))
+                    continue
                 self.add_module(f"blocks{s}_res{b}_conv1", SparseConvParam(
                     cin, cout, use_bias=use_bias))
                 self.add_module(f"blocks{s}_res{b}_bn1", MaskedBatchNorm(cout))
@@ -380,6 +392,13 @@ class VoxelResBackBone8x(nn.Module):
         return ("dense", y, new_mask)
 
     def _blocks(self, stage, level, ovf_acc, ctx_cache):
+        if not self.residual:
+            for blk in range(2):
+                level = self._subm(level,
+                                   getattr(self, f"blocks{stage}_conv{blk}"),
+                                   getattr(self, f"blocks{stage}_bn{blk}"),
+                                   ovf_acc, ctx_cache)
+            return level
         for blk in range(2):
             kind, a, m = level
             identity = a[3] if kind == "win" else m if kind == "sparse" \
@@ -485,3 +504,17 @@ class VoxelResBackBone8x(nn.Module):
             if ovf_acc else torch.zeros((), dtype=torch.int64,
                                         device=feats.device)
         return batch
+
+
+class VoxelResBackBone8x(_SparseStack):
+    """Residual variant (two SparseBasicBlocks per stage), TransFusion's
+    and CenterPoint's."""
+
+    residual = True
+
+
+class VoxelBackBone8x(_SparseStack):
+    """Plain variant (two submanifold conv layers per stage), SECOND's and
+    CenterPoint's."""
+
+    residual = False

@@ -1,10 +1,13 @@
-"""CenterNet-style heatmap targets — port of `gaussian_radius` and
-`draw_heatmap`, findnpropagate_tpu/models/model_utils/centernet.py:19-82.
-Both take any leading batch axes (the reference vmaps draw_heatmap)."""
+"""CenterNet-style heatmap targets and decode — port of `gaussian_radius`,
+`draw_heatmap` and `topk_heatmap`,
+findnpropagate_tpu/models/model_utils/centernet.py:19-96. All take any
+leading batch axes (the reference vmaps them)."""
 
 from __future__ import annotations
 
 import torch
+
+from ..post_processing import top_k_lower_index_first
 
 
 def gaussian_radius(height, width, min_overlap: float = 0.5):
@@ -56,3 +59,16 @@ def draw_heatmap(centers, radii, class_ids, valid, num_classes: int,
         -3, cls[..., None, None].expand(*lead, m, height, width), g,
         reduce="amax", include_self=True)
     return heatmap[..., :num_classes, :, :]
+
+
+def topk_heatmap(scores, k: int):
+    """(..., C, H, W) scores -> the k best over all classes and cells:
+    (scores (..., k), class_ids, ys, xs, flat cell indices (..., k) int32).
+    Ties go to the lower flat index, as `jax.lax.top_k` orders them: with
+    untrained weights every empty cell has the same score."""
+    c, h, w = scores.shape[-3:]
+    top, idx = top_k_lower_index_first(scores.flatten(-3), k)
+    spatial = idx % (h * w)
+    return (top, (idx // (h * w)).to(torch.int32),
+            (spatial // w).to(torch.int32), (spatial % w).to(torch.int32),
+            spatial.to(torch.int32))

@@ -20,7 +20,11 @@ The same walk covers any module built from these layers under the flax
 names, such as models/frustum_pointnets.py::PointNetInstanceSeg (its
 ``enc0_fc0`` Linear, ``enc0_bn0`` MaskedBatchNorm, ... ``seg_out``): a
 flax variables tree of the JAX PointNetInstanceSeg, params and batch
-statistics, loads into it as it stands.
+statistics, loads into it as it stands; so do CenterHead's
+(``shared_conv``, ``shared_bn``, ``group{i}``) and CenterHeadCLIP's,
+whose flax auto-names (``Conv_0``, ``BatchNorm_0``, ``clip_head``) the
+port's modules carry (its class text features are a buffer outside the
+state dict and no leaf of either tree).
 
 `to_jax_tree(model, what)` is the inverse map: the port's parameters,
 their gradients or its BN statistics as a nested dict of numpy arrays under
