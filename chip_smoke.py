@@ -237,9 +237,46 @@ Phases (any failure exits non-zero and prints no result line):
      the card's name and power limit: ms/scan at batch 1 and 4, ms/step,
      peak memory, the CLIs' wall times and, with --profile, the head's
      share of a batch-4 forward's device time (<file>.cp_<yaml>.txt);
- 14. a `kernels` JSON line (phase 13 adds, per yaml, each kernel's calls
-     of one batch-4 forward and of one training step, summed), then the
-     result line
+ 14. datasets — a raw Waymo tree under build/waymo/data written by the
+     port's waymo_proto encoders (2 train sequences of 20 frames, 1 val of
+     4; each frame one of bench.py's lidar_ring scenes of the sequence's
+     40 objects, the ego moving 1 m a frame, rendered into a TOP lidar of
+     64 x 2650 with two returns and a pixel pose and four side lidars of
+     200 x 600 (facing, 20 m), in spawned processes; 149k-187k points a
+     frame), `create_infos waymo --gt_database` as a subprocess (its gt
+     database holds all three classes), then the three Waymo CenterPoint
+     yamls through WaymoDataset and build_dataloader at full width
+     (centerpoint.yaml: pallas, 1504 x 1504 x 41; centerpoint_4frames.yaml:
+     posgather, SEQUENCE_CONFIG, 4 x 400k points; centerpoint_without_
+     resnet.yaml): as phase 13, one batch-4 forward as written (its
+     overflow, where it drops neighbours, and the actives per level
+     beside the capacities), then with the windows widened (all levels to
+     the main path's, twice that for 4 frames: WAYMO_WIDEN) forwards at
+     batch 1 and 4 and training steps at batch 4 with the yamls'
+     adam_onecycle (one warm-up, two timed; one for without_resnet), each
+     with its launch counts and gates; a training step is gated on the
+     blocks whose real targets overflow (overflow_sites: the reference's
+     counter also counts the input list's padding in a strided conv's
+     transposed direction), the counter's value printed; every K1-K4 call
+     of one batch-4 forward and one step of the first two held against
+     its plain version (K1 bit-equal); the 4-frame stack's points and time
+     channel. train.py (1 epoch) and test.py on centerpoint.yaml as
+     subprocesses with only DATA_PATH set (a checkpoint, finite losses,
+     every LEVEL_1 / LEVEL_2 AP and APH key finite); a raw ONCE tree
+     (ImageSets, per-sequence JSON, lidar_roof bins of 132k-141k points; 8
+     train and 4 val frames), `create_infos once`, train.py and test.py on
+     tools/cfgs/once_models/centerpoint.yaml (its AP keys finite); Lyft
+     (its raw tables through `create_infos lyft`), Custom, Argo2 and
+     Pandaset (info pickles written directly): one batch each through
+     build_dataloader moved to the card, and the evaluation of the ground
+     truth as detections (Lyft and Argo2 mAP 1; Custom's KITTI AP 0 and
+     Pandaset's empty result, as in the JAX package; their simple mAP
+     100/101). Printed with the card's name and power limit: ms/scan at
+     batch 1 and 4, ms/step, peak memory, the loader's host ms per batch,
+     create_infos' seconds per frame, the CLIs' wall seconds;
+ 15. a `kernels` JSON line (phases 13 and 14 add, per yaml, each kernel's
+     calls of one batch-4 forward and of one training step, summed), then
+     the result line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 With --before DIR (a checkout of an earlier commit of this repo, e.g.
@@ -260,6 +297,7 @@ exits non-zero.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
 import cProfile
 import copy
@@ -268,6 +306,7 @@ import inspect
 import io
 import json
 import math
+import multiprocessing
 import os
 import pickle
 import pstats
@@ -3868,18 +3907,83 @@ def cp_dataset(cfg_mod, synth, cfg, n, training, **kw):
         n, cfg, **kw)), cfg.CLASS_NAMES, training=training)
 
 
-def cp_widen(cfg_mod, cfg):
-    """The yaml's L0 windows widened to the main path's (CP_WIDEN);
-    returns {key: (as written, now)}."""
+def cp_widen(cfg_mod, cfg, levels=1, factor=1):
+    """The yaml's windows of the first `levels` levels widened to `factor`
+    times the main path's (CP_WIDEN; L0 alone by default); returns {key:
+    (as written, now)}."""
     main = cfg_mod.cfg_from_yaml_file(str(ROOT / CFG_FILE)).MODEL.BACKBONE_3D
     bb, changed = cfg.MODEL.BACKBONE_3D, {}
     per_level = lambda v: list(v) if isinstance(  # noqa: E731
         v, (list, tuple)) else [v] * 3
     for key in CP_WIDEN:
         old = per_level(bb[key])
-        bb[key] = [max(old[0], per_level(main[key])[0])] + old[1:]
+        bb[key] = [max(a, factor * b) for a, b in zip(
+            old[:levels], per_level(main[key]))] + old[levels:]
         changed[key] = (old, list(bb[key]))
     return changed
+
+
+@contextlib.contextmanager
+def overflow_sites(torch, ws, shapes=()):
+    """Every window check of the backbone's sparse convs run inside, in
+    call order: [kind, window, targets, the counter's blocks, the blocks
+    whose real targets overflow] (tensors). The reference's counter for a
+    differentiable strided conv checks its transposed direction with the
+    sentinel start of the strided base ids, below which the input list's
+    own padding lies: a block of real inputs followed by padding then
+    counts the padding's span. The last column recounts that direction
+    with the input list's own sentinel start (its level among `shapes`)."""
+    import importlib
+
+    from findnpropagate_torch.ops import sparse_ops
+
+    bb = importlib.import_module(
+        "findnpropagate_torch.models.backbones_3d.spconv_backbone")
+    sites = []
+    orig = (bb.compute_positions, bb.windowed_conv, bb.windowed_conv_diff)
+    own = {sparse_ops.strided_sentinel_start(s):
+           sparse_ops.yxz_sentinel_start(s) for s in shapes}
+
+    def positions(src, tgt, deltas, *a, **kw):
+        ctx = orig[0](src, tgt, deltas, *a, **kw)
+        sites.append(["positions", kw.get("window"), tgt.shape[1],
+                      ctx.overflow, ctx.overflow])
+        return ctx
+
+    def conv(src, feats, tgt, w, deltas, *a, **kw):
+        out, ovf = orig[1](src, feats, tgt, w, deltas, *a, **kw)
+        sites.append(["windowed", kw.get("window"), tgt.shape[1], ovf, ovf])
+        return out, ovf
+
+    def conv_diff(src, feats, tgt, w, deltas, block=512, window=1536,
+                  sentinel_start=None, **kw):
+        out, ovf = orig[2](src, feats, tgt, w, deltas, block=block,
+                           window=window, sentinel_start=sentinel_start,
+                           **kw)
+        d = torch.as_tensor(np.asarray(
+            deltas.cpu() if isinstance(deltas, torch.Tensor) else deltas,
+            np.int64))
+        with torch.no_grad():
+            exact = ws.windowed_overflow(
+                src, tgt, d, block, window, sentinel_start=sentinel_start) \
+                + ws.windowed_overflow(
+                    tgt, src, -d, block, window,
+                    sentinel_start=own.get(sentinel_start, sentinel_start))
+        sites.append(["windowed_diff", window, tgt.shape[1], ovf, exact])
+        return out, ovf
+    bb.compute_positions, bb.windowed_conv, bb.windowed_conv_diff = \
+        positions, conv, conv_diff
+    try:
+        yield sites
+    finally:
+        bb.compute_positions, bb.windowed_conv, bb.windowed_conv_diff = orig
+
+
+def dropped(sites):
+    """The sites whose counter is not 0: [kind, window, targets, counter,
+    real]."""
+    return [[k, w, vt, int(o.sum()), int(e.sum())]
+            for k, w, vt, o, e in sites if int(o.sum())]
 
 
 def cp_launch_gate(label, got, want):
@@ -3908,9 +4012,10 @@ def cp_forward(torch, det, batch, tp, ws, want, label):
     return out, dets, launches
 
 
-def cp_step(torch, step, batch, tp, ws, want, label):
+def cp_step(torch, step, batch, tp, ws, want, label, overflow_ok=0):
     """One optimizer step with the launch counts set to 0 just before and
-    read just after; its gates."""
+    read just after; its gates (`overflow_ok`: the overflow counter's
+    value the gate accepts, None for any)."""
     tp.reset_launches()
     ws.reset_launches()
     t0 = torch.cuda.Event(enable_timing=True)
@@ -3926,17 +4031,17 @@ def cp_step(torch, step, batch, tp, ws, want, label):
             and m["grad_norm"] > 0):
         raise AssertionError(f"{label}: loss {m['loss']} grad_norm "
                              f"{m['grad_norm']}")
-    if m["sparse_window_overflow"] != 0:
+    if overflow_ok is not None and m["sparse_window_overflow"] != overflow_ok:
         raise AssertionError(f"{label}: sparse_window_overflow "
                              f"{m['sparse_window_overflow']}")
     return {"ms": t0.elapsed_time(t1), "launches": launches, **m}
 
 
-def cp_actives(torch, det, ds, n, dev):
-    """Actives per level of each of n scenes (batch-1 forwards) beside the
-    capacities the backbone gives its sparse levels: L0 MAX_VOXELS, L1 and
-    L2 LEVEL_CAPACITIES[2] and [3] (rounded up to a block); the dense
-    levels (from DENSE_FROM_LEVEL on) have no cap."""
+def cp_actives(torch, det, batch, n):
+    """Actives per level of each of the first n scenes of `batch` (batch-1
+    forwards) beside the capacities the backbone gives its sparse levels:
+    L0 MAX_VOXELS, L1 and L2 LEVEL_CAPACITIES[2] and [3] (rounded up to a
+    block); the dense levels (from DENSE_FROM_LEVEL on) have no cap."""
     bb = det.backbone_3d
     block = bb._win_cfg()[0]
     caps = [det.max_voxels] + [-(-c // block) * block for c in bb.caps[2:4]]
@@ -3944,8 +4049,7 @@ def cp_actives(torch, det, ds, n, dev):
     per_scene = []
     with torch.no_grad():
         for i in range(n):
-            out = det({k: torch.from_numpy(v).to(dev)
-                       for k, v in ds.batch([i]).items()})
+            out = det({k: v[i:i + 1] for k, v in batch.items()})
             per_scene.append([int(c) for c in out["sparse_active_counts"]])
     caps = [c if lvl < dense_from else None for lvl, c in enumerate(caps)]
     at_cap = [lvl for lvl, c in enumerate(caps) if c is not None and any(
@@ -4023,55 +4127,84 @@ def cp_summary(rows, name, path, launches):
             else None}
 
 
-def cp_yaml_run(torch, name, mods, smi, args, device="cuda"):
-    """One yaml as written at full width: forwards at batch 1 and 4,
-    training steps at its batch of 4 with its own optimizer, the launches
-    and arguments of one batch-4 forward and one step recorded and every
-    recorded call held against its plain version. Returns (report, rows,
+def synthetic_data(cfg_mod, synth):
+    """cp_yaml_run's data by default: bench.py's 200k-point lidar_ring
+    scenes in the yaml's range and voxel size (cp_dataset)."""
+    def data(cfg, training, n):
+        t0 = time.perf_counter()
+        ds = cp_dataset(cfg_mod, synth, cfg, n, training=training)
+        batch = ds.batch(range(n))
+        return ds, batch, (time.perf_counter() - t0) * 1e3
+    return data
+
+
+def cp_yaml_run(torch, name, mods, smi, args, device="cuda", yaml=None,
+                data=None, launches=None, steps=CP_TRAIN_STEPS,
+                label="centerpoint", record=True, widen=(1, 1),
+                exact_gate=False):
+    """One yaml as written at full width: a forward of the yaml as written
+    (its overflow and actives per level), then with the widened L0 windows
+    forwards at batch 1 and 4 and training steps at its batch of 4 with its
+    own optimizer; with `record`, the launches and arguments of one batch-4
+    forward and one step recorded and every recorded call held against its
+    plain version. `yaml`: CP_CFGS[name] by default; `data(cfg, training,
+    n)` -> (dataset, batch of n samples as numpy, the host ms that batch
+    took), bench.py's scenes by default; `launches`:
+    (per forward, per step), CP_EVAL_LAUNCHES / CP_TRAIN_LAUNCHES of `name`
+    by default; `widen`: cp_widen's levels and factor for the gated runs;
+    `exact_gate`: training steps gated on the blocks whose real targets
+    overflow (overflow_sites), not on the counter. Returns (report, rows,
     kernels entries)."""
     cfg_mod, models_mod, synth, tp, ws, lap, weights, optimization, \
         trainer = mods
-    cfg = cfg_mod.cfg_from_yaml_file(str(ROOT / CP_CFGS[name]))
+    yaml = yaml or CP_CFGS[name]
+    cfg = cfg_mod.cfg_from_yaml_file(str(ROOT / yaml))
+    data = data or synthetic_data(cfg_mod, synth)
+    want_eval, want_train = launches or (CP_EVAL_LAUNCHES[name],
+                                         CP_TRAIN_LAUNCHES[name])
+    n_class = len(cfg.CLASS_NAMES)
     dev = torch.device(device)
     b_max = max(CP_BATCHES)
-    ds = cp_dataset(cfg_mod, synth, cfg, b_max, training=False)
-    batches = {b: {k: torch.from_numpy(v).to(dev)
-                   for k, v in ds.batch(range(b)).items()}
-               for b in CP_BATCHES}
-    rep = {"yaml": CP_CFGS[name], "device": smi, "forward": {}}
-    # the yaml as written: one batch-4 forward, its overflow reported
-    det = models_mod.build_network(copy.deepcopy(cfg.MODEL), 10, ds,
+    ds, batch, host_ms = data(cfg, False, b_max)
+    batches = {b: {k: torch.from_numpy(v[:b]).to(dev)
+                   for k, v in batch.items()} for b in CP_BATCHES}
+    rep = {"yaml": yaml, "device": smi, "forward": {},
+           "loader_ms_eval_batch": host_ms,
+           "points_per_scan": [int(v) for v in batch["points_mask"].sum(1)]}
+    # the yaml as written: one batch-4 forward, its overflow and actives
+    det = models_mod.build_network(copy.deepcopy(cfg.MODEL), n_class, ds,
                                    device=dev)
     weights.init_random_(det, seed=0)
-    with torch.no_grad():
+    with torch.no_grad(), overflow_sites(torch, ws) as sites:
         out = det(batches[b_max])
         dets = det.post_process(out)
     if not bool(torch.isfinite(dets.boxes).all()):
         raise AssertionError(f"{name} as written: non-finite boxes")
     rep["as_written"] = {"overflow": int(out["sparse_window_overflow"]),
-                         "windows": cp_widen(cfg_mod, cfg)}
+                         "dropped_at": dropped(sites),
+                         "windows": cp_widen(cfg_mod, cfg, *widen)}
+    rep["actives"] = cp_actives(torch, det, batches[b_max], b_max)
     del det, out, dets
-    det = models_mod.build_network(copy.deepcopy(cfg.MODEL), 10, ds,
+    det = models_mod.build_network(copy.deepcopy(cfg.MODEL), n_class, ds,
                                    device=dev)
     weights.init_random_(det, seed=0)
-    want = CP_EVAL_LAUNCHES[name]
     for b in CP_BATCHES:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        _, dets, launches = cp_forward(torch, det, batches[b], tp, ws, want,
-                                       f"{name} forward batch {b}")
+        _, dets, got = cp_forward(torch, det, batches[b], tp, ws, want_eval,
+                                  f"{label} {name} forward batch {b}")
         med, times = forward_ms(torch, det, batches[b], args.reps)
         rep["forward"][b] = {
-            "launches": launches, "ms_per_batch": med,
+            "launches": got, "ms_per_batch": med,
             "ms_per_scan": med / b, "times_ms": times,
             "detections_per_scan": [int(c) for c in dets.count],
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
-    rep["actives"] = cp_actives(torch, det, ds, b_max, dev)
-    with record_positions(torch, tp) as k1_eval, \
-            Recorder(tp, "gather_conv", torch) as k2_eval, \
-            Recorder(ws, "conv_kernel", torch) as k3_eval:
-        cp_forward(torch, det, batches[b_max], tp, ws, want,
-                   f"{name} recorded forward")
+    if record:
+        with record_positions(torch, tp) as k1_eval, \
+                Recorder(tp, "gather_conv", torch) as k2_eval, \
+                Recorder(ws, "conv_kernel", torch) as k3_eval:
+            cp_forward(torch, det, batches[b_max], tp, ws, want_eval,
+                       f"{label} {name} recorded forward")
     if args.profile:
         rep["profile"] = cp_head_profile(
             torch, det, batches[b_max], f"{args.profile}.cp_{name}.txt")
@@ -4079,20 +4212,30 @@ def cp_yaml_run(torch, name, mods, smi, args, device="cuda"):
     torch.cuda.empty_cache()
 
     # ---- training at the yaml's batch, its adam_onecycle and clip
-    tds = cp_dataset(cfg_mod, synth, cfg, b_max, training=True)
-    det = models_mod.build_network(copy.deepcopy(cfg.MODEL), 10, tds,
+    tds, tbatch, rep["loader_ms_train_batch"] = data(
+        cfg, True, int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU))
+    det = models_mod.build_network(copy.deepcopy(cfg.MODEL), n_class, tds,
                                    device=dev)
     weights.init_random_(det, seed=0)
     det.train()
-    batch = {k: torch.from_numpy(v).to(dev)
-             for k, v in tds.batch(range(int(
-                 cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU))).items()}
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in tbatch.items()}
     tx, _ = optimization.build_optimizer(det.parameters(), cfg.OPTIMIZATION,
                                          1000)
     step = trainer.make_train_step(det, tx)
-    want = CP_TRAIN_LAUNCHES[name]
     params = [p.detach().clone() for p in det.parameters()]
-    warm = cp_step(torch, step, batch, tp, ws, want, f"{name} train warm-up")
+    with overflow_sites(torch, ws, det.backbone_3d.level_shapes) as sites:
+        warm = cp_step(torch, step, batch, tp, ws, want_train,
+                       f"{label} {name} train warm-up", overflow_ok=None)
+    # the gate counts the blocks whose real targets overflow; the counter
+    # (the reference's) must then read the same on every step of the batch
+    real = sum(e for *_, e in dropped(sites))
+    counter = warm["sparse_window_overflow"]
+    if real or (counter and not exact_gate):
+        raise AssertionError(
+            f"{label} {name} train warm-up: sparse_window_overflow "
+            f"{counter}; [kind, window, targets, counter, real] "
+            f"{dropped(sites)}")
+    warm["dropped_at"] = dropped(sites)
     changed = sum(bool((p.detach() != q).any())
                   for p, q in zip(det.parameters(), params))
     if changed < 0.9 * len(params):
@@ -4101,21 +4244,26 @@ def cp_yaml_run(torch, name, mods, smi, args, device="cuda"):
     del params
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    steps = [cp_step(torch, step, batch, tp, ws, want, f"{name} train step")
-             for _ in range(CP_TRAIN_STEPS)]
+    timed = [cp_step(torch, step, batch, tp, ws, want_train,
+                     f"{label} {name} train step", counter)
+             for _ in range(steps)]
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    with record_positions(torch, tp) as k1_train, \
-            Recorder(tp, "gather_conv", torch) as k2_train, \
-            Recorder(ws, "conv_kernel", torch) as k3_train, \
-            Recorder(ws, "dw_kernel", torch) as k4_train:
-        cp_step(torch, step, batch, tp, ws, want, f"{name} recorded step")
+    if record:
+        with record_positions(torch, tp) as k1_train, \
+                Recorder(tp, "gather_conv", torch) as k2_train, \
+                Recorder(ws, "conv_kernel", torch) as k3_train, \
+                Recorder(ws, "dw_kernel", torch) as k4_train:
+            cp_step(torch, step, batch, tp, ws, want_train,
+                    f"{label} {name} recorded step", counter)
     rep["train"] = {
-        "batch": len(batch["points"]), "warm_up": warm, "steps": steps,
-        "ms_per_step": sorted(s["ms"] for s in steps)[len(steps) // 2],
-        "losses": [warm["loss"]] + [s["loss"] for s in steps],
+        "batch": len(batch["points"]), "warm_up": warm, "steps": timed,
+        "ms_per_step": sorted(s["ms"] for s in timed)[len(timed) // 2],
+        "losses": [warm["loss"]] + [s["loss"] for s in timed],
         "peak_mem_gb": peak, "parameters_changed": changed}
     del det, tx, step, batch
     torch.cuda.empty_cache()
+    if not record:
+        return rep, [], []
 
     # ---- every recorded call against its plain version
     fwd_rows = check_positions(torch, tp, k1_eval, f"{name} forward ")
@@ -4126,21 +4274,21 @@ def cp_yaml_run(torch, name, mods, smi, args, device="cuda"):
     train_rows = check_positions(torch, tp, k1_train, f"{name} train ")
     train_rows += check_train_kernels(
         torch, tp, ws, k2_train.calls, k3_train.calls, k4_train.calls,
-        k3_forward=16 if name == "voxel0075" else 3)
+        k3_forward=want_eval["windowed_conv"]
+        or want_train["windowed_conv"] // 2)
     log_positions_rows([r for r in fwd_rows + train_rows
                         if r["name"] == "positions"], f"{name} ")
     log_conv_rows([r for r in fwd_rows + train_rows
                    if r["name"] != "positions"])
     entries = []
-    for rows, path, launches in (
-            (fwd_rows, f"centerpoint {name} forward batch {b_max}",
+    for rows, path, got in (
+            (fwd_rows, f"{label} {name} forward batch {b_max}",
              rep["forward"][b_max]["launches"]),
-            (train_rows, f"centerpoint {name} training step batch "
+            (train_rows, f"{label} {name} training step batch "
              f"{rep['train']['batch']}", rep["train"]["steps"][0]["launches"])):
         for kname in SOURCES:
-            if launches.get(kname):
-                entries.append(cp_summary(rows, kname, path,
-                                          launches[kname]))
+            if got.get(kname):
+                entries.append(cp_summary(rows, kname, path, got[kname]))
     return rep, fwd_rows + train_rows, entries
 
 
@@ -4468,6 +4616,710 @@ def centerpoint_phase(torch, mods, smi, args, paper_root):
     return report, rows, entries
 
 
+# ---------------------------------------------------------------- datasets
+
+
+WAYMO_WORK = "build/waymo"
+ONCE_WORK = "build/once"
+WAYMO_CFGS = {
+    "centerpoint": "tools/cfgs/waymo_models/centerpoint.yaml",
+    "4frames": "tools/cfgs/waymo_models/centerpoint_4frames.yaml",
+    "without_resnet": "tools/cfgs/waymo_models/"
+                      "centerpoint_without_resnet.yaml",
+}
+ONCE_CFG = "tools/cfgs/once_models/centerpoint.yaml"
+# split -> (sequences, frames each): the train SAMPLED_INTERVAL of 5 leaves
+# 8 of the 40 train frames, two batches of 4
+WAYMO_SPLITS = {"train": (2, 20), "val": (1, 4)}
+WAYMO_TOP = (64, 2650)              # beams x columns, two returns
+WAYMO_SIDE = (200, 600)             # FRONT, SIDE_LEFT, SIDE_RIGHT, REAR
+WAYMO_TOP_INCL = (-17.6, 2.4)       # degrees, explicit beam list
+WAYMO_SIDE_INCL = (-90.0, 30.0)     # degrees, min / max only
+WAYMO_SIDE_RANGE = 20.0
+WAYMO_RANGE = 75.2
+WAYMO_RAW_POINTS = 400000           # lidar_ring points rendered per frame
+SENSOR_H = 1.84                     # lidar_ring's sensor above the ground
+# laser name -> (yaw, x, y, z) of its mount on the vehicle
+WAYMO_MOUNTS = {1: (0.02, 0.0, 0.0, SENSOR_H), 2: (0.0, 3.9, 0.0, 0.7),
+                3: (np.pi / 2, 2.9, 0.9, 0.9), 4: (-np.pi / 2, 2.9, -0.9, 0.9),
+                5: (np.pi, -1.1, 0.0, 0.9)}
+WAYMO_SIZES = {"Vehicle": (4.6, 1.95, 1.7), "Pedestrian": (0.8, 0.7, 1.7),
+               "Cyclist": (1.8, 0.7, 1.7), "Sign": (0.1, 0.8, 0.8),
+               "unknown": (1.0, 1.0, 1.0)}
+WAYMO_TYPE = {"unknown": 0, "Vehicle": 1, "Pedestrian": 2, "Sign": 3,
+              "Cyclist": 4}
+WAYMO_OBJECTS = 40
+# ONCE: split -> (sequence id, frames); MAX_POINTS 120000 of the yaml
+ONCE_SPLITS = {"train": ("000076", 8), "val": ("000080", 4)}
+ONCE_POINTS = 150000
+ONCE_SIZES = {"Car": (4.6, 1.95, 1.7), "Bus": (11.0, 2.9, 3.3),
+              "Truck": (7.0, 2.5, 2.8), "Pedestrian": (0.8, 0.7, 1.7),
+              "Cyclist": (1.8, 0.7, 1.7)}
+
+
+def rot_z(yaw):
+    c, s = np.cos(yaw), np.sin(yaw)
+    return np.array([[c, -s, 0.0], [s, c, 0.0], [0.0, 0.0, 1.0]])
+
+
+def waymo_extrinsic(name):
+    yaw, x, y, z = WAYMO_MOUNTS[name]
+    e = np.eye(4)
+    e[:3, :3] = rot_z(yaw)
+    e[:3, 3] = (x, y, z)
+    return e
+
+
+def render_range_image(points, extra, extrinsic, incl_rows, width,
+                       max_range, returns=1, facing=False):
+    """Vehicle-frame points -> `returns` (H, W, 4) range images [range,
+    intensity, elongation, NLZ]: tests/test_waymo_infos.py's
+    _render_range_image vectorised. A point lands on the nearest beam row
+    (incl_rows: row 0 = top beam; points beyond half a row of the span are
+    dropped) and on the column of its azimuth; per pixel the nearest point
+    is the first return and the next the second. `facing` keeps the points
+    in front of the sensor (x > 0 in its frame). Returns (images, the
+    indices of the points drawn)."""
+    h = len(incl_rows)
+    ps = (points - extrinsic[:3, 3]) @ extrinsic[:3, :3]
+    r = np.linalg.norm(ps, axis=1)
+    ok = (r > 1.0) & (r < max_range)
+    if facing:
+        ok &= ps[:, 0] > 0
+    incl = np.arcsin(np.clip(ps[:, 2] / np.maximum(r, 1e-9), -1, 1))
+    asc = np.asarray(incl_rows)[::-1]
+    j = np.clip(np.searchsorted(asc, incl), 1, h - 1)
+    k = np.where(np.abs(incl - asc[j - 1]) <= np.abs(incl - asc[j]),
+                 j - 1, j)
+    ok &= (incl >= asc[0] - (asc[1] - asc[0]) / 2) \
+        & (incl <= asc[-1] + (asc[-1] - asc[-2]) / 2)
+    az = np.arctan2(ps[:, 1], ps[:, 0])
+    az_corr = np.arctan2(extrinsic[1, 0], extrinsic[0, 0])
+    col = np.round(width - 0.5 - (az + az_corr + np.pi) * width
+                   / (2 * np.pi)).astype(np.int64) % width
+    pix = (h - 1 - k) * width + col
+    idx = np.flatnonzero(ok)
+    # by pixel, then by range (r / max_range < 1)
+    order = idx[np.argsort(pix[idx] + r[idx] / max_range, kind="stable")]
+    p = pix[order]
+    starts = np.flatnonzero(np.r_[True, p[1:] != p[:-1]])
+    rank = np.arange(len(p)) - np.repeat(starts, np.diff(np.r_[starts,
+                                                               len(p)]))
+    images, drawn = [], []
+    vals = np.concatenate([r[:, None], extra], axis=1).astype(np.float32)
+    for ret in range(returns):
+        sel = order[rank == ret]
+        img = np.zeros((h * width, 4), np.float32)
+        img[pix[sel]] = vals[sel]
+        images.append(img.reshape(h, width, 4))
+        drawn.append(sel)
+    return images, np.concatenate(drawn)
+
+
+def pose_matrix(yaw, x, y):
+    pose = np.eye(4)
+    pose[:3, :3] = rot_z(yaw)
+    pose[:3, 3] = (x, y, 0.0)
+    return pose
+
+
+def waymo_world(seed, n_objects, pcr):
+    """One sequence's objects in the world frame (the first frame's vehicle
+    frame): names, (n, 7) boxes on the ground, and the Sign and unknown
+    labels the loader drops."""
+    rng = np.random.RandomState(seed)
+    names = [("Vehicle", "Pedestrian", "Cyclist")[rng.randint(3)]
+             for _ in range(n_objects)] + ["Sign", "unknown"]
+    boxes = np.zeros((len(names), 7))
+    margin = 4.0
+    boxes[:, 0] = rng.uniform(pcr[0] + margin, pcr[3] - margin, len(names))
+    boxes[:, 1] = rng.uniform(pcr[1] + margin, pcr[4] - margin, len(names))
+    boxes[:, 3:6] = [WAYMO_SIZES[n] for n in names]
+    boxes[:, 3:6] *= rng.uniform(0.9, 1.1, (len(names), 3))
+    boxes[:, 2] = boxes[:, 5] / 2
+    boxes[:, 6] = rng.uniform(-np.pi, np.pi, len(names))
+    return names, boxes
+
+
+def waymo_frame(args):
+    """One Frame's bytes: bench.py's lidar_ring scene of the sequence's
+    objects seen from the frame's pose, rendered into the TOP lidar (two
+    returns, the pixel pose) and the four side lidars (facing, within
+    WAYMO_SIDE_RANGE); labels with their drawn point counts."""
+    from findnpropagate_torch.datasets import waymo_proto as wp
+    from findnpropagate_torch.datasets.synthetic import lidar_ring_points
+    from findnpropagate_torch.utils.geometry_np import points_in_boxes_mask
+
+    (seq, seed, t, pcr, top, side, raw_points, n_objects) = args
+    names, world = waymo_world(seed, n_objects, pcr)
+    pose = pose_matrix(0.3 + 0.01 * t, 1.0 * t * np.cos(0.3),
+                       1.0 * t * np.sin(0.3))
+    boxes = world.copy()
+    boxes[:, :3] = (world[:, :3] - pose[:3, 3]) @ pose[:3, :3]
+    boxes[:, 6] = world[:, 6] - (0.3 + 0.01 * t)
+    rng = np.random.RandomState(seed)
+    sensor = boxes.astype(np.float32).copy()
+    sensor[:, 2] -= SENSOR_H
+    pts = lidar_ring_points(rng, sensor[:, :7], raw_points)
+    xyz = pts[:, :3].astype(np.float64) + [0.0, 0.0, SENSOR_H]
+    extra = np.stack([2.0 * pts[:, 3], rng.uniform(0, 0.3, len(pts)),
+                      np.where(rng.uniform(size=len(pts)) < 0.02, 1.0,
+                               -1.0)], axis=1)
+    lasers, calibs, drawn = [], [], []
+    top_incl = np.deg2rad(np.linspace(*WAYMO_TOP_INCL, top[0]))
+    side_incl = np.deg2rad(WAYMO_SIDE_INCL)
+    for name in sorted(WAYMO_MOUNTS):
+        extr = waymo_extrinsic(name)
+        if name == wp.LASER_TOP:
+            (r1, r2), d = render_range_image(xyz, extra, extr,
+                                             top_incl[::-1], top[1],
+                                             WAYMO_RANGE, returns=2)
+            rpy = np.zeros((top[0], top[1], 6), np.float32)
+            rpy[..., 2] = 0.3 + 0.01 * t
+            rpy[..., 3:] = pose[:3, 3]
+            lasers.append(wp.encode_laser(
+                name, wp.encode_range_image(r1, pose=rpy),
+                wp.encode_range_image(r2)))
+            calibs.append(wp.encode_laser_calibration(
+                name, extr, beam_inclinations=top_incl))
+        else:
+            incl = np.linspace(side_incl[0], side_incl[1], side[0] + 1)
+            incl = (incl[:-1] + incl[1:]) / 2       # compute_inclination's
+            (r1,), d = render_range_image(xyz, extra, extr, incl[::-1],
+                                          side[1], WAYMO_SIDE_RANGE,
+                                          facing=True)
+            lasers.append(wp.encode_laser(name, wp.encode_range_image(r1)))
+            calibs.append(wp.encode_laser_calibration(
+                name, extr, incl_min=side_incl[0], incl_max=side_incl[1]))
+        drawn.append(d)
+    drawn = np.unique(np.concatenate(drawn))
+    counts = points_in_boxes_mask(xyz[drawn], boxes).sum(axis=1)
+    labels = [wp.encode_label(b[:3], b[3:6], b[6], WAYMO_TYPE[n],
+                              f"{seq}_{i}", num_points=int(c))
+              for i, (b, n, c) in enumerate(zip(boxes, names, counts))]
+    return wp.encode_frame(seq, 1_550_000_000_000_000 + 100_000 * t, pose,
+                           calibs, lasers, labels)
+
+
+def write_waymo_tree(root, splits=None, top=WAYMO_TOP, side=WAYMO_SIDE,
+                     raw_points=WAYMO_RAW_POINTS, n_objects=WAYMO_OBJECTS,
+                     workers=0, pcr=(-WAYMO_RANGE, -WAYMO_RANGE, -2.0,
+                                     WAYMO_RANGE, WAYMO_RANGE, 4.0)):
+    """A raw Waymo tree under `root`: raw_data/<seq>.tfrecord written by
+    the port's waymo_proto encoders, ImageSets/<split>.txt. `splits`:
+    split -> (sequences, frames each). Frames render in `workers` spawned
+    processes (0: in this one). Returns {split: [sequence file names]}."""
+    from findnpropagate_torch.datasets import waymo_proto as wp
+
+    splits = splits or WAYMO_SPLITS
+    (root / "raw_data").mkdir(parents=True, exist_ok=True)
+    (root / "ImageSets").mkdir(exist_ok=True)
+    jobs, seqs = [], {}
+    for si, (split, (n_seq, n_frames)) in enumerate(splits.items()):
+        for k in range(n_seq):
+            seq = f"segment-{1000 * si + k:07d}_with_camera_labels"
+            seqs.setdefault(split, []).append(seq + ".tfrecord")
+            jobs += [(seq, 7000 + 100 * si + k, t, pcr, top, side,
+                      raw_points, n_objects) for t in range(n_frames)]
+    if workers:
+        with concurrent.futures.ProcessPoolExecutor(
+                workers, mp_context=multiprocessing.get_context("spawn")) \
+                as pool:
+            frames = list(pool.map(waymo_frame, jobs))
+    else:
+        frames = [waymo_frame(j) for j in jobs]
+    for split, files in seqs.items():
+        for f in files:
+            wp.write_tfrecord(root / "raw_data" / f,
+                              [fr for j, fr in zip(jobs, frames)
+                               if j[0] + ".tfrecord" == f])
+        (root / "ImageSets" / f"{split}.txt").write_text(
+            "\n".join(files) + "\n")
+    return seqs
+
+
+def write_once_tree(root, splits=None, raw_points=ONCE_POINTS,
+                    n_objects=WAYMO_OBJECTS, pcr=(-75.2, -75.2, -5.0, 75.2,
+                                                  75.2, 3.0)):
+    """A raw ONCE tree under `root`: ImageSets/<split>.txt, per sequence
+    data/<seq>/<seq>.json (meta_info, cam01's calibration, frames with
+    their pose and annos: names, boxes_3d, boxes_2d) and
+    data/<seq>/lidar_roof/<frame>.bin, bench.py's lidar_ring scenes (x y z
+    intensity) with objects of the five ONCE classes. Returns the number
+    of points per frame."""
+    from findnpropagate_torch.datasets.synthetic import lidar_ring_points
+
+    splits = splits or ONCE_SPLITS
+    (root / "ImageSets").mkdir(parents=True, exist_ok=True)
+    counts = []
+    for si, (split, (seq, n_frames)) in enumerate(splits.items()):
+        (root / "ImageSets" / f"{split}.txt").write_text(seq + "\n")
+        lidar = root / "data" / seq / "lidar_roof"
+        lidar.mkdir(parents=True, exist_ok=True)
+        frames = []
+        for t in range(n_frames):
+            rng = np.random.RandomState(9000 + 100 * si + t)
+            names = [list(ONCE_SIZES)[rng.randint(len(ONCE_SIZES))]
+                     for _ in range(n_objects)]
+            boxes = np.zeros((n_objects, 7))
+            boxes[:, 0] = rng.uniform(pcr[0] + 4, pcr[3] - 4, n_objects)
+            boxes[:, 1] = rng.uniform(pcr[1] + 4, pcr[4] - 4, n_objects)
+            boxes[:, 3:6] = [ONCE_SIZES[n] for n in names]
+            boxes[:, 2] = boxes[:, 5] / 2 - SENSOR_H
+            boxes[:, 6] = rng.uniform(-np.pi, np.pi, n_objects)
+            pts = lidar_ring_points(rng, boxes.astype(np.float32),
+                                    raw_points)
+            fid = str(1_616_000_000_000 + 100_000 * (50 * si + t))
+            pts.tofile(lidar / f"{fid}.bin")
+            counts.append(len(pts))
+            frames.append({
+                "frame_id": fid,
+                "pose": [0.0, 0.0, 0.0, 1.0, 1.5 * t, 0.0, 0.0],
+                "annos": {"names": names, "boxes_3d": boxes.tolist(),
+                          "boxes_2d": {"cam01": [[10.0, 10.0, 60.0, 40.0]]
+                                       * n_objects}}})
+        seq_json = {
+            "meta_info": {"weather": "sunny", "period": "morning"},
+            "calib": {"cam01": {
+                "cam_to_velo": np.eye(4).tolist(),
+                "cam_intrinsic": [[900.0, 0, 960], [0, 900.0, 540],
+                                  [0, 0, 1]],
+                "distortion": [0.0] * 7}},
+            "frames": frames}
+        (root / "data" / seq / f"{seq}.json").write_text(
+            json.dumps(seq_json))
+    return counts
+
+
+MISC_CFGS = {
+    "LyftDataset": "tools/cfgs/dataset_configs/lyft_dataset.yaml",
+    "CustomDataset": "tools/cfgs/dataset_configs/custom_dataset.yaml",
+    "Argo2Dataset": "tools/cfgs/dataset_configs/argo2_dataset.yaml",
+    "PandasetDataset": "tools/cfgs/dataset_configs/pandaset_dataset.yaml",
+}
+MISC_WORK = "build/misc"
+# class names per dataset for MISC_SIZES' four kinds in turn (the last
+# kind takes the first name again where three are given); the Lyft tree's
+# categories are nuScenes' general names
+MISC_NAMES = {"LyftDataset": ("vehicle.car", "vehicle.truck",
+                              "human.pedestrian.adult", "vehicle.bicycle"),
+              "CustomDataset": ("Vehicle", "Pedestrian", "Cyclist"),
+              "Argo2Dataset": ("Regular_vehicle", "Pedestrian", "Bicyclist"),
+              "PandasetDataset": ("Car", "Pedestrian", "Bicycle")}
+MISC_SIZES = {"car": (4.6, 1.95, 1.7), "truck": (7.0, 2.5, 2.8),
+              "pedestrian": (0.8, 0.7, 1.7), "bicycle": (1.8, 0.7, 1.3)}
+MISC_FRAMES = 2                 # per split
+MISC_POINTS = 120000
+MISC_SWEEPS = 5                 # lyft_dataset.yaml's MAX_SWEEPS
+
+
+def misc_scenes(n_frames, seed, points, n_objects, reach=40.0):
+    """bench.py's lidar_ring scenes in the lidar frame, objects of
+    MISC_SIZES' four kinds within `reach` metres: [(points (N, 4) float32,
+    boxes (M, 7), kinds)]."""
+    from findnpropagate_torch.datasets.synthetic import lidar_ring_points
+
+    out = []
+    for i in range(n_frames):
+        rng = np.random.RandomState(seed + i)
+        kinds = [list(MISC_SIZES)[rng.randint(len(MISC_SIZES))]
+                 for _ in range(n_objects)]
+        boxes = np.zeros((n_objects, 7))
+        boxes[:, :2] = rng.uniform(-reach, reach, (n_objects, 2))
+        boxes[:, 3:6] = [MISC_SIZES[k] for k in kinds]
+        boxes[:, 2] = boxes[:, 5] / 2 - SENSOR_H
+        boxes[:, 6] = rng.uniform(-np.pi, np.pi, n_objects)
+        out.append((lidar_ring_points(rng, boxes.astype(np.float32), points),
+                    boxes, kinds))
+    return out
+
+
+def write_misc_trees(root, frames=MISC_FRAMES, points=MISC_POINTS,
+                     n_objects=WAYMO_OBJECTS, sweeps=MISC_SWEEPS):
+    """Trees of the four info-pkl datasets under root/<lyft, custom,
+    argo2, pandaset>, `frames` train and `frames` val frames each: Lyft as
+    its raw release (nuScenes-schema tables under trainval/data with
+    chains of `sweeps` - 1 sweeps, ImageSets; its infos come from
+    create_infos lyft), the other three as their info pickles and point
+    files, written directly as tests/test_misc_datasets.py writes them.
+    Returns {dataset: root of its tree}."""
+    from findnpropagate_torch.utils.geometry_np import points_in_boxes_mask
+
+    scenes = misc_scenes(2 * frames, 5100, points, n_objects)
+    roots = {}
+    lyft = root / "lyft" / "trainval"
+    write_nuscenes_tree(lyft, [[(p, b.astype(np.float32), k)
+                                for p, b, k in scenes[:frames]],
+                               [(p, b.astype(np.float32), k)
+                                for p, b, k in scenes[frames:]]],
+                        sweeps, np.random.RandomState(0))
+    (lyft / NUS_VERSION).rename(lyft / "data")
+    (root / "lyft" / "ImageSets").mkdir(exist_ok=True)
+    (root / "lyft" / "ImageSets" / "train.txt").write_text("scene-0000\n")
+    (root / "lyft" / "ImageSets" / "val.txt").write_text("scene-0001\n")
+    roots["LyftDataset"] = lyft
+    for ds in ("CustomDataset", "Argo2Dataset", "PandasetDataset"):
+        names = MISC_NAMES[ds]
+        d = root / ds.replace("Dataset", "").lower()
+        roots[ds] = d
+        for split, part in (("train", scenes[:frames]),
+                            ("val", scenes[frames:])):
+            infos = []
+            for i, (pts, boxes, kinds) in enumerate(part):
+                idx = f"{split}_{i:03d}"
+                pts = pts.copy()
+                pts[:, 2] += SENSOR_H
+                gt = boxes.astype(np.float32).copy()
+                gt[:, 2] += SENSOR_H
+                name = np.array([names[list(MISC_SIZES).index(k)
+                                       % len(names)] for k in kinds],
+                                dtype=object)
+                if ds == "CustomDataset":
+                    (d / "points").mkdir(parents=True, exist_ok=True)
+                    np.save(d / "points" / f"{idx}.npy", pts)
+                    infos.append({"point_cloud": {"lidar_idx": idx},
+                                  "annos": {"name": name,
+                                            "gt_boxes_lidar": gt}})
+                elif ds == "Argo2Dataset":
+                    rel = f"training/velodyne/{idx}.bin"
+                    (d / rel).parent.mkdir(parents=True, exist_ok=True)
+                    pts.tofile(d / rel)
+                    npts = points_in_boxes_mask(pts[:, :3], gt).sum(axis=1)
+                    infos.append({"point_cloud": {"velodyne_path": rel},
+                                  "annos": {"name": name,
+                                            "gt_boxes_lidar": gt,
+                                            "num_points_in_gt":
+                                                npts.astype(np.int32)}})
+                else:
+                    (d / "preprocessed").mkdir(parents=True, exist_ok=True)
+                    np.save(d / "preprocessed" / f"{idx}.npy", pts)
+                    infos.append({"sequence": split, "frame_idx": i,
+                                  "points_path": f"preprocessed/{idx}.npy",
+                                  "gt_boxes": gt, "gt_names": name})
+            prefix = ds.replace("Dataset", "").lower()
+            with open(d / f"{prefix}_infos_{split}.pkl", "wb") as f:
+                pickle.dump(infos, f)
+    return roots
+
+
+def misc_cfg(cfg_mod, ds, root):
+    """The dataset's yaml with its tree's DATA_PATH (and, for Lyft, the
+    sweeps the tree has)."""
+    cfg = cfg_mod.cfg_from_yaml_file(str(ROOT / MISC_CFGS[ds]))
+    cfg.DATA_PATH = str(root)
+    return cfg
+
+
+def gt_as_detections(ds):
+    """Each info's ground truth as detections, scored 1 to 0.5, with its
+    names and its labels (1-indexed into the dataset's class names, 0 for
+    the others); boxes the evaluation drops for holding no point are left
+    out."""
+    dets = []
+    for info in ds.infos:
+        annos = info.get("annos", info)
+        boxes = np.asarray(annos.get("gt_boxes_lidar",
+                                     annos.get("gt_boxes")))[:, :7]
+        names = np.asarray(annos.get("name", annos.get("gt_names")))
+        if annos.get("num_points_in_gt") is not None:
+            keep = np.asarray(annos["num_points_in_gt"]) > 0
+            boxes, names = boxes[keep], names[keep]
+        dets.append({"boxes": boxes.astype(np.float32),
+                     "scores": np.linspace(1.0, 0.5, len(boxes)),
+                     "name": names,
+                     "labels": np.array([ds.class_names.index(n) + 1
+                                         if n in ds.class_names else 0
+                                         for n in names], np.int64)})
+    return dets
+
+
+# per yaml: (launches a forward, launches a step), as phase 13's
+WAYMO_LAUNCHES = {
+    "centerpoint": (CP_EVAL_LAUNCHES["voxel0075"], PALLAS_TRAIN_LAUNCHES),
+    "4frames": (EVAL_LAUNCHES, TRAIN_LAUNCHES),
+    "without_resnet": (PLAIN_EVAL_LAUNCHES, PLAIN_TRAIN_LAUNCHES),
+}
+WAYMO_TRAIN_STEPS = 2           # timed, after a warm-up step
+# the gated runs' windows (cp_widen's levels, factor): the main path's at
+# every level; twice those for four stacked frames, whose training batch
+# drops neighbours at the main path's L0 -> L1 strided window (4608: 2 + 3
+# blocks, both directions, on an NVIDIA H100 80GB HBM3 at 700 W)
+WAYMO_WIDEN = {"centerpoint": (3, 1), "4frames": (3, 2),
+               "without_resnet": (3, 1)}
+# create_infos writes waymo_processed_data/, the yamls read this tag
+WAYMO_TAG = "waymo_processed_data_v0_5_0"
+WAYMO_CLASSES = ("Vehicle", "Pedestrian", "Cyclist")
+DS_CLI_EPOCHS = 1
+
+
+def tree_data(TD, root, stats):
+    """cp_yaml_run's data from a dataset tree: the yaml's dataset with
+    DATA_PATH `root` through the port's build_dataloader (no prefetch), its
+    first batch; per call, the samples' point counts before collation
+    (stats[training])."""
+    def data(cfg, training, n):
+        cfg.DATA_CONFIG.DATA_PATH = str(root)
+        ds, loader, _ = TD.build_dataloader(
+            cfg.DATA_CONFIG, list(cfg.CLASS_NAMES), batch_size=n,
+            training=training, seed=0, prefetch=0)
+        counts = stats.setdefault(training, [])
+        collate = ds.collate_batch
+
+        def counted(samples):
+            counts.extend(len(s["points"]) for s in samples)
+            return collate(samples)
+        ds.collate_batch = counted
+        t0 = time.perf_counter()
+        batch = next(iter(loader))
+        ms = (time.perf_counter() - t0) * 1e3
+        del ds.collate_batch
+        batch.pop("frame_id")
+        batch.pop("batch_size")
+        return ds, batch, ms
+    return data
+
+
+def train_test_clis(cfg_mod, work, data, yaml, label):
+    """train.py (DS_CLI_EPOCHS epoch) and test.py on its checkpoint, the
+    yaml as written with only DATA_CONFIG.DATA_PATH set, as subprocesses in
+    `work`: their wall seconds, the logged losses and overflow, the
+    checkpoints and the evaluation's result; raises unless both exit 0,
+    the losses are finite and a checkpoint is written."""
+    if not (work / "tools").exists():
+        (work / "tools").symlink_to(ROOT / "tools")
+    cfg_file = str(ROOT / yaml)
+    cfg = cfg_mod.cfg_from_yaml_file(cfg_file)
+    run_dir = work / "output" / cfg.EXP_GROUP_PATH / cfg.TAG / "default"
+    setting = ["--set", "DATA_CONFIG.DATA_PATH", str(data)]
+    out = {}
+    out["train_s"], log_text = run_cli(
+        "train", ["--cfg_file", cfg_file, "--epochs", str(DS_CLI_EPOCHS),
+                  "--seed", "0", *setting], work, f"{label}_train_cli")
+    lines = [line for line in log_text.splitlines() if " it " in line]
+    out["train_losses"] = [float(t.split("=")[1]) for line in lines
+                           for t in line.split() if t.startswith("loss=")]
+    out["train_logged_overflow"] = [
+        float(t.split("=")[1]) for line in lines for t in line.split()
+        if t.startswith("sparse_window_overflow=")]
+    out["checkpoints"] = sorted(p.name for p in (run_dir / "ckpt").glob(
+        "checkpoint_*.pt"))
+    if not (out["checkpoints"] and out["train_losses"] and all(
+            math.isfinite(v) for v in out["train_losses"])):
+        raise AssertionError(f"{label} train.py: checkpoints "
+                             f"{out['checkpoints']}, losses "
+                             f"{out['train_losses']}")
+    out["test_s"], test_log = run_cli("test", ["--cfg_file", cfg_file,
+                                               *setting], work,
+                                      f"{label}_test_cli")
+    out["test_overflow_warnings"] = test_log.count("sparse_window_overflow=")
+    out["result"] = json.loads((run_dir / "eval" / "result.json").read_text())
+    return out
+
+
+def waymo_phase(torch, mods, smi, args, TD, device="cuda"):
+    """Phase 14's Waymo part: the raw tree (write_waymo_tree in spawned
+    processes), create_infos waymo --gt_database as a subprocess, the
+    three Waymo CenterPoint yamls through WaymoDataset on it, and train.py
+    / test.py on centerpoint.yaml. Returns (report, rows, entries)."""
+    cfg_mod = mods[0]
+    work = ROOT / WAYMO_WORK
+    shutil.rmtree(work, ignore_errors=True)
+    data_root = work / "data"
+    rep = {}
+    t0 = time.perf_counter()
+    seqs = write_waymo_tree(data_root, workers=min(8, os.cpu_count() or 1))
+    rep["write_s"] = time.perf_counter() - t0
+    n_frames = sum(n * f for n, f in WAYMO_SPLITS.values())
+    wall, _ = run_cli("create_infos", ["waymo", "--data_path",
+                                       str(data_root), "--gt_database"],
+                      work, "create_infos_waymo")
+    rep["create_infos_s"] = wall
+    rep["create_infos_s_per_frame"] = wall / n_frames
+    (data_root / WAYMO_TAG).symlink_to("waymo_processed_data")
+    with open(data_root / "waymo_dbinfos_train.pkl", "rb") as f:
+        db = pickle.load(f)
+    rep["gt_database"] = {k: len(v) for k, v in db.items()}
+    if not set(WAYMO_CLASSES) <= set(db):
+        raise AssertionError(f"waymo gt database: {rep['gt_database']}")
+    frames = []
+    for split, files in seqs.items():
+        for f in files:
+            seq = f[:-len(".tfrecord")]
+            with open(data_root / "waymo_processed_data" / seq
+                      / f"{seq}.pkl", "rb") as fh:
+                frames += [sum(i["num_points_of_each_lidar"])
+                           for i in pickle.load(fh)]
+    rep["points_per_frame"] = [min(frames), max(frames)]
+    log(f"waymo tree ({smi}): {n_frames} frames written in "
+        f"{rep['write_s']:.1f} s, {min(frames)}-{max(frames)} points a "
+        f"frame; create_infos waymo --gt_database {wall:.1f} s "
+        f"({rep['create_infos_s_per_frame']:.3f} s a frame), gt database "
+        f"{rep['gt_database']}")
+
+    rows, entries = [], []
+    for name, yaml in WAYMO_CFGS.items():
+        stats = {}
+        r, rw, e = cp_yaml_run(
+            torch, name, mods, smi, types.SimpleNamespace(
+                reps=args.reps, profile=None), device=device, yaml=yaml,
+            data=tree_data(TD, data_root, stats),
+            launches=WAYMO_LAUNCHES[name],
+            steps=WAYMO_TRAIN_STEPS if name != "without_resnet" else 1,
+            label="waymo", record=name != "without_resnet",
+            widen=WAYMO_WIDEN[name], exact_gate=True)
+        r["points_before_collation"] = stats
+        rep[name], rows, entries = r, rows + rw, entries + e
+        fw, tr = r["forward"], r["train"]
+        log(f"waymo {name} ({smi}): {yaml} as written; "
+            + "; ".join(f"batch {b} {fw[b]['ms_per_scan']:.2f} ms/scan "
+                        f"(peak {fw[b]['peak_mem_gb']:.2f} GiB, launches "
+                        f"{fw[b]['launches']})" for b in fw)
+            + f"; training batch {tr['batch']} {tr['ms_per_step']:.1f} "
+            f"ms/step, losses {[round(v, 3) for v in tr['losses']]}, peak "
+            f"{tr['peak_mem_gb']:.2f} GiB, launches "
+            f"{tr['warm_up']['launches']}; loader host ms per batch: eval "
+            f"{r['loader_ms_eval_batch']:.1f}, train "
+            f"{r['loader_ms_train_batch']:.1f}; points per scan "
+            f"{r['points_per_scan']} (before collation {stats})")
+        act = r["actives"]
+        log(f"waymo {name}: as written, {r['as_written']['overflow']} "
+            f"neighbour spans dropped in a batch-4 forward ([kind, window, "
+            f"targets, counter, real]: {r['as_written']['dropped_at']}); "
+            f"the training batch's counter "
+            f"{tr['warm_up']['sparse_window_overflow']} "
+            f"({tr['warm_up']['dropped_at']}); windows "
+            f"(as written, gated runs) {r['as_written']['windows']}; actives "
+            f"per level and scene {act['per_scene']} against caps "
+            f"{act['caps']} (LEVEL_CAPACITIES {act['level_capacities']}); "
+            f"levels at their cap: {act['at_cap'] or 'none'}")
+    # the 4-frame yaml's stacked sweeps: the time channel of the last val
+    # frame (earlier ones repeat frame 0 for the sweeps before it)
+    stats = {}
+    cfg = cfg_mod.cfg_from_yaml_file(str(ROOT / WAYMO_CFGS["4frames"]))
+    _, batch, _ = tree_data(TD, data_root, stats)(cfg, False, 4)
+    t = batch["points"][3, batch["points_mask"][3], -1]
+    rep["4frames"]["time_channel"] = {
+        f"{v:.1f}": int((np.round(t, 1) == np.round(v, 1)).sum())
+        for v in np.unique(np.round(t, 1))}
+    if len(rep["4frames"]["time_channel"]) != 4:
+        raise AssertionError(f"4frames: time channel "
+                             f"{rep['4frames']['time_channel']}")
+    log(f"waymo 4frames: stacked points {stats[False]}, points per time "
+        f"lag (s) {rep['4frames']['time_channel']}")
+
+    cli = train_test_clis(cfg_mod, work, data_root,
+                          WAYMO_CFGS["centerpoint"], "waymo")
+    keys = [f"OBJECT_TYPE_TYPE_{c.upper()}_LEVEL_{lvl}/{m}"
+            for c in WAYMO_CLASSES for lvl in (1, 2) for m in ("AP", "APH")]
+    if not all(k in cli["result"] and math.isfinite(cli["result"][k])
+               for k in keys):
+        raise AssertionError(f"waymo test.py: result {cli['result']}")
+    rep["cli"] = cli
+    log(f"waymo CLIs ({smi}): train.py {cli['train_s']:.1f} s (losses "
+        f"{cli['train_losses']}, {cli['checkpoints']}, logged overflow "
+        f"{cli['train_logged_overflow']}), test.py {cli['test_s']:.1f} s "
+        f"(overflow warnings {cli['test_overflow_warnings']}) "
+        f"{cli['result']}")
+    return rep, rows, entries
+
+
+def once_phase(torch, mods, smi):
+    """Phase 14's ONCE part: the raw tree, create_infos once, train.py and
+    test.py on tools/cfgs/once_models/centerpoint.yaml, as subprocesses."""
+    cfg_mod = mods[0]
+    work = ROOT / ONCE_WORK
+    shutil.rmtree(work, ignore_errors=True)
+    data_root = work / "data"
+    rep = {"points_per_frame": write_once_tree(data_root)}
+    rep["create_infos_s"], _ = run_cli(
+        "create_infos", ["once", "--data_path", str(data_root)], work,
+        "create_infos_once")
+    cli = train_test_clis(cfg_mod, work, data_root, ONCE_CFG, "once")
+    res = cli["result"]
+    if not (res and "AP_mean/overall" in res
+            and all(math.isfinite(v) for v in res.values())):
+        raise AssertionError(f"once test.py: result {res}")
+    rep["cli"] = cli
+    log(f"once ({smi}): {sum(f for _, f in ONCE_SPLITS.values())} frames "
+        f"of {min(rep['points_per_frame'])}-{max(rep['points_per_frame'])} "
+        f"points; create_infos once {rep['create_infos_s']:.1f} s; "
+        f"train.py {cli['train_s']:.1f} s (losses {cli['train_losses']}, "
+        f"logged overflow {cli['train_logged_overflow']}), test.py "
+        f"{cli['test_s']:.1f} s {res} (the CLI's detections carry no names: "
+        f"once_eval scores none of them)")
+    return rep
+
+
+def misc_phase(torch, smi, cfg_mod, TD, device="cuda"):
+    """Phase 14's Lyft, Custom, Argo2 and Pandaset part: their trees
+    (Lyft's infos through create_infos lyft), one training batch of each
+    through build_dataloader moved to the card, and each evaluation of the
+    ground truth as detections: Lyft and Argo2 mAP 1, Custom's KITTI AP 0
+    (its infos carry no 2D boxes) and Pandaset's empty result, as in the
+    JAX package, their simple mAP perfect (100 / 101)."""
+    from findnpropagate_torch.tools import create_infos
+
+    work = ROOT / MISC_WORK
+    shutil.rmtree(work, ignore_errors=True)
+    roots = write_misc_trees(work)
+    create_infos.main(["lyft", "--data_path", str(roots["LyftDataset"]),
+                       "--max_sweeps", str(MISC_SWEEPS)])
+    out = {}
+    for name, root in roots.items():
+        cfg = misc_cfg(cfg_mod, name, root)
+        names = list(MISC_NAMES[name])
+        ds, loader, _ = TD.build_dataloader(cfg, names, batch_size=2,
+                                            training=True, prefetch=0)
+        t0 = time.perf_counter()
+        batch = next(iter(loader))
+        host_ms = (time.perf_counter() - t0) * 1e3
+        card = {k: torch.from_numpy(v).to(device) for k, v in batch.items()
+                if isinstance(v, np.ndarray)}
+        n_pts = [int(v) for v in card["points_mask"].sum(1)]
+        n_gt = [int(v) for v in (card["gt_boxes"][..., 7] > 0).sum(1)]
+        if not (bool(torch.isfinite(card["points"]).all()) and min(n_pts)
+                and min(n_gt)):
+            raise AssertionError(f"{name}: batch points {n_pts} gt {n_gt}")
+        tds = type(ds)(cfg, names, training=False)
+        dets = gt_as_detections(tds)
+        _, res = tds.evaluation(copy.deepcopy(dets), names)
+        _, simple = tds.evaluation(copy.deepcopy(dets), names,
+                                   eval_metric="simple")
+        ok = {"LyftDataset": lambda: abs(res["mAP"] - 1.0) < 1e-9,
+              "Argo2Dataset": lambda: abs(res["mAP"] - 1.0) < 1e-9,
+              "CustomDataset": lambda: all(v == 0.0 for v in res.values()),
+              "PandasetDataset": lambda: res == {}}[name]()
+        if name in ("CustomDataset", "PandasetDataset"):
+            ok = ok and abs(simple["mAP"] - 100 / 101) < 1e-9
+        if not ok:
+            raise AssertionError(f"{name}: evaluation of the ground truth "
+                                 f"{res} (simple {simple})")
+        out[name] = {"points": n_pts, "gt": n_gt, "loader_ms": host_ms,
+                     "mAP": res.get("mAP", res.get("mAP_3d_moderate_R40")),
+                     "simple_mAP": simple["mAP"]}
+    log(f"misc datasets ({smi}): " + "; ".join(
+        f"{k} batch points {v['points']} gt {v['gt']} loader "
+        f"{v['loader_ms']:.1f} ms, ground truth scored {v['mAP']} (simple "
+        f"{v['simple_mAP']:.4f})" for k, v in out.items()))
+    return out
+
+
+def datasets_phase(torch, mods, smi, args, device="cuda"):
+    """Phase 14: Waymo, ONCE and the misc datasets. Returns (report, rows,
+    kernels entries)."""
+    from findnpropagate_torch import datasets as TD
+
+    t0 = time.perf_counter()
+    report = {"device": smi}
+    report["waymo"], rows, entries = waymo_phase(torch, mods, smi, args, TD,
+                                                 device)
+    report["once"] = once_phase(torch, mods, smi)
+    report["misc"] = misc_phase(torch, smi, mods[0], TD, device)
+    report["phase_s"] = time.perf_counter() - t0
+    log(f"datasets phase: {report['phase_s']:.1f} s")
+    return report, rows, entries
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--batches", type=int, nargs="+", default=[1, 8])
@@ -4661,7 +5513,13 @@ def main():
         torch, mods, smi, args, ROOT / PAPER_WORK / "nuscenes")
     report["centerpoint_kernel_calls"] = cp_rows
 
-    # ---- 14. result lines
+    # ---- 14. datasets: Waymo (three yamls, create_infos, the CLIs), ONCE
+    # (create_infos and the CLIs), Lyft, Custom, Argo2, Pandaset
+    report["datasets"], ds_rows, ds_entries = datasets_phase(
+        torch, mods, smi, args)
+    report["datasets_kernel_calls"] = ds_rows
+
+    # ---- 15. result lines
     first_batch = report["main_path"][0]["launches_per_forward"]
     pick = {
         # K1 at L0 (first call); K2 at the L0 16->16 subm conv with the
@@ -4743,9 +5601,9 @@ def main():
             "library_device_ms": r["library_device_ms"],
             "device_ms": r["device_ms"], "call": r["call"],
             "shapes": r["shapes"]})
-    # phase 13: per yaml, each kernel's calls of one batch-4 forward and of
-    # one training step, summed
-    kernels += cp_entries
+    # phases 13 and 14: per yaml, each kernel's calls of one batch-4
+    # forward and of one training step, summed
+    kernels += cp_entries + ds_entries
     report["kernels"] = kernels
     report["device"] = smi
     if args.out:

@@ -2,9 +2,9 @@
 
 Host side stays numpy (augmentation, filtering, padding); voxelization runs
 on the device inside the model. The loader is a plain python iterator over
-fixed-shape numpy batches. Of the reference's datasets SyntheticDataset,
-KittiDataset and NuScenesDataset are ported; the others (Waymo, ONCE,
-Lyft, Argo2 and the misc datasets) raise (ROADMAP.md queue 1 item 14).
+fixed-shape numpy batches. DATASET_REGISTRY holds every dataset of the
+JAX package: Synthetic, KITTI, nuScenes, Waymo (single- and multi-frame),
+ONCE, Lyft, Custom, Argo2 and Pandaset.
 """
 
 from __future__ import annotations
@@ -15,13 +15,27 @@ import threading
 import numpy as np
 
 from .kitti import KittiDataset
+from .misc_datasets import (
+    Argo2Dataset,
+    CustomDataset,
+    LyftDataset,
+    PandasetDataset,
+)
 from .nuscenes import NuScenesDataset
+from .once import ONCEDataset
 from .synthetic import SyntheticDataset
+from .waymo import WaymoDataset
 
 DATASET_REGISTRY = {
     "SyntheticDataset": SyntheticDataset,
     "KittiDataset": KittiDataset,
     "NuScenesDataset": NuScenesDataset,
+    "WaymoDataset": WaymoDataset,
+    "ONCEDataset": ONCEDataset,
+    "LyftDataset": LyftDataset,
+    "CustomDataset": CustomDataset,
+    "Argo2Dataset": Argo2Dataset,
+    "PandasetDataset": PandasetDataset,
 }
 
 
@@ -137,12 +151,7 @@ def build_dataloader(dataset_cfg, class_names, batch_size, dist=False,
     augmentation steps DataAugmentor does not define, such as the
     pseudo-label steps of openvocab/self_training.py::
     register_pseudo_hooks."""
-    name = dataset_cfg["DATASET"]
-    if name not in DATASET_REGISTRY:
-        raise NotImplementedError(
-            f"dataset {name!r} is not ported yet (ROADMAP.md queue 1 item "
-            "14); the port has " + ", ".join(DATASET_REGISTRY))
-    dataset = DATASET_REGISTRY[name](
+    dataset = DATASET_REGISTRY[dataset_cfg["DATASET"]](
         dataset_cfg=dataset_cfg,
         class_names=class_names,
         training=training,

@@ -7,14 +7,30 @@ dataset tree — port of tools/create_infos.py (numpy only, no device).
     python -m findnpropagate_torch.tools.create_infos nuscenes
         --data_path data/nuscenes [--version v1.0-trainval]
         [--max_sweeps 10] [--with_cam] [--gt_database] [--classes NAME ...]
+    python -m findnpropagate_torch.tools.create_infos waymo
+        --data_path data/waymo [--sampled_interval 1] [--single_return]
+        [--gt_database] [--classes NAME ...]
+    python -m findnpropagate_torch.tools.create_infos once
+        --data_path data/once
+    python -m findnpropagate_torch.tools.create_infos lyft
+        --data_path data/lyft/trainval [--max_sweeps 10]
+    python -m findnpropagate_torch.tools.create_infos pandaset
+        --data_path data/pandaset
+    python -m findnpropagate_torch.tools.create_infos argo2
+        --data_path data/argo2/sensor
 
 KITTI reads velodyne / label_2 / calib / ImageSets and writes
 kitti_infos_<split>.pkl (and with --gt_database gt_database/ and
 kitti_dbinfos_train.pkl); nuScenes reads the release's JSON tables of
 `--version` without the devkit and writes
 nuscenes_infos_<max_sweeps>sweeps_<split>.pkl (and nuscenes_dbinfos_
-train.pkl). The reference's other datasets (lyft, pandaset, argo2, once,
-waymo) are not ported yet (ROADMAP.md queue 1 item 14).
+train.pkl). Waymo decodes raw_data/<seq>.tfrecord (the sequences of
+ImageSets/<split>.txt) into waymo_processed_data/<seq>/ (%04d.npy points
+and <seq>.pkl infos; with --gt_database gt_database_train/ and
+waymo_dbinfos_train.pkl); ONCE reads data/<seq>/<seq>.json and writes
+once_infos_<split>.pkl (no gt database); Lyft reads nuScenes-schema tables
+and writes lyft_infos_<split>.pkl; Pandaset and Argo2 read pandas pickles
+and feather files and need pandas.
 """
 
 from __future__ import annotations
@@ -29,6 +45,9 @@ DATASETS = ("kitti", "nuscenes", "lyft", "pandaset", "argo2", "once",
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("dataset", choices=DATASETS)
+    ap.add_argument("--sampled_interval", type=int, default=1)
+    ap.add_argument("--single_return", action="store_true",
+                    help="waymo: first lidar return only")
     ap.add_argument("--data_path", required=True)
     ap.add_argument("--save_path", default=None)
     ap.add_argument("--version", default="v1.0-trainval")
@@ -54,10 +73,30 @@ def main(argv=None):
         out = create_nuscenes_infos(
             args.data_path, args.save_path, version=args.version,
             max_sweeps=args.max_sweeps, with_cam=args.with_cam)
+    elif args.dataset == "waymo":
+        from ..datasets.waymo_infos import (
+            create_waymo_gt_database,
+            create_waymo_infos,
+        )
+
+        create_waymo_infos(
+            args.data_path, args.save_path,
+            sampled_interval=args.sampled_interval,
+            use_two_returns=not args.single_return)
+        if args.gt_database:
+            create_waymo_gt_database(args.data_path, args.save_path,
+                                     used_classes=args.classes)
+        return 0
     else:
-        raise NotImplementedError(
-            f"create_infos {args.dataset}: not ported yet (ROADMAP.md queue "
-            "1 item 14); the port has kitti and nuscenes")
+        from ..datasets import misc_infos
+
+        if args.dataset == "lyft":
+            misc_infos.create_lyft_infos(args.data_path, args.save_path,
+                                         max_sweeps=args.max_sweeps)
+        else:
+            getattr(misc_infos, f"create_{args.dataset}_infos")(
+                args.data_path, args.save_path)
+        return 0
     if args.gt_database and "train" in out:
         create_groundtruth_database(args.data_path, out["train"],
                                     args.save_path,

@@ -459,16 +459,15 @@ def test_build_dataloader_matches_jax(shard):
 
 
 def test_registry_names_the_missing_datasets():
-    """The datasets not ported yet raise naming ROADMAP item 14; KITTI and
-    nuScenes are registered (tests/test_torch_kitti.py,
-    test_torch_nuscenes.py)."""
-    for name in ("WaymoDataset", "ONCEDataset", "LyftDataset",
-                 "Argo2Dataset", "CustomDataset", "PandasetDataset"):
-        cfg = dict(data_cfg(), DATASET=name)
-        with pytest.raises(NotImplementedError, match="item 14"):
-            TD.build_dataloader(EDict(cfg), CLASSES, batch_size=1)
-    assert {"SyntheticDataset", "KittiDataset", "NuScenesDataset"} == set(
-        TD.DATASET_REGISTRY)
+    """Every dataset of the JAX package's registry is in the port's, none
+    missing, each the port's own class of the same name (KITTI and
+    nuScenes: tests/test_torch_kitti.py, test_torch_nuscenes.py; Waymo,
+    ONCE and the rest: test_torch_waymo.py, test_torch_once.py,
+    test_torch_misc_datasets.py)."""
+    assert set(TD.DATASET_REGISTRY) == set(JD.DATASET_REGISTRY)
+    for name, cls in TD.DATASET_REGISTRY.items():
+        assert cls.__name__ == name
+        assert cls.__module__.startswith("findnpropagate_torch.datasets.")
 
 
 def test_synthetic_evaluation_matches_jax():

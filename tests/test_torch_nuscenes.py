@@ -197,8 +197,9 @@ def test_create_infos_cli(tmp_path):
     assert_same(got, pickle.loads(want["train"].read_bytes()))
     db = pickle.loads((root / "nuscenes_dbinfos_train.pkl").read_bytes())
     assert set(db) <= {"car", "truck"} and db
-    with pytest.raises(NotImplementedError, match="item 14"):
-        create_infos.main(["waymo", "--data_path", str(root)])
+    # the waymo mode on a tree without raw_data/ finds no sequence
+    assert create_infos.main(["waymo", "--data_path", str(root)]) == 0
+    assert not (root / "waymo_processed_data").exists()
 
 
 def dataset_cfg(root, max_sweeps=3, cbgs=True, gt_sampling=True):
