@@ -274,9 +274,36 @@ Phases (any failure exits non-zero and prints no result line):
      100/101). Printed with the card's name and power limit: ms/scan at
      batch 1 and 4, ms/step, peak memory, the loader's host ms per batch,
      create_infos' seconds per frame, the CLIs' wall seconds;
- 15. a `kernels` JSON line (phases 13 and 14 add, per yaml, each kernel's
-     calls of one batch-4 forward and of one training step, summed), then
-     the result line
+ 15. anchor heads — PointPillar and SECOND at full width with
+     init_random_(seed 0) weights: a raw KITTI tree under
+     build/anchor/kitti/data (8 train and 4 val frames, each one of
+     bench.py's lidar_ring scenes of KITTI_POINTS points with 12 Cars,
+     Pedestrians and Cyclists in the camera's view, labelled through phase
+     9's calibration), `create_infos kitti --gt_database`, then
+     tools/cfgs/kitti_models/pointpillar.yaml and second.yaml as written
+     through KittiDataset: forwards + post_process at batch 1 and 4 (no
+     K1-K4 launch, finite detections; ms/scan, the decode's share, peak
+     memory), a warm-up and two timed training steps at batch 4 with the
+     yaml's adam_onecycle (finite loss and gradient norm, matched anchors
+     > 0, parameters changed), and one second.yaml step with SUBM_IMPL:
+     posgather and the main path's windows (every K1-K4 launched, each
+     call against its plain version, K1 bit-equal); train.py (1 epoch) and
+     test.py on both yamls as subprocesses with only DATA_PATH set, the two
+     chains side by side (a checkpoint, finite losses, every KITTI AP key
+     finite). tools/cfgs/lyft_models/cbgs_second_multihead.yaml through
+     LyftDataset on phase 14's tree: a batch-4 forward as written (its
+     overflow and actives per level beside LEVEL_CAPACITIES printed), with
+     every level's windows at least the main path's a gated batch-4
+     forward (6 K1 and 16 K2, overflow 0, each call against its plain
+     version), and a training step, which must raise the multi-head yamls'
+     code-weight error (a trait of the reference, ROADMAP.md section 3).
+     On phase 12's nuScenes tree cbgs_pp_multihead.yaml (a batch-4 forward),
+     centerpoint_pillar.yaml and cbgs_dyn_pp_centerpoint.yaml (a batch-4
+     forward and a warm-up and a timed training step); on phase 14's Waymo
+     tree pointpillar_1x.yaml (the same, 1.31 M anchors, peak memory);
+ 16. a `kernels` JSON line (phases 13, 14 and 15 add, per yaml, each
+     kernel's calls of one batch-4 forward or of one training step,
+     summed), then the result line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 With --before DIR (a checkout of an earlier commit of this repo, e.g.
@@ -3987,7 +4014,8 @@ def dropped(sites):
 
 
 def cp_launch_gate(label, got, want):
-    if got != want:
+    """`got` must equal `want` (any counts where `want` is None)."""
+    if want is not None and got != want:
         raise AssertionError(f"{label}: launches {got}, want {want}")
 
 
@@ -4001,7 +4029,8 @@ def cp_forward(torch, det, batch, tp, ws, want, label):
     torch.cuda.synchronize()
     launches = launches_now(tp, ws)
     cp_launch_gate(label, launches, want)
-    if int(out["sparse_window_overflow"]) != 0:
+    # a detector without a sparse backbone has no overflow to report
+    if int(out.get("sparse_window_overflow", 0)) != 0:
         raise AssertionError(f"{label}: sparse_window_overflow "
                              f"{int(out['sparse_window_overflow'])}")
     if not (bool(torch.isfinite(dets.boxes).all())
@@ -4031,7 +4060,8 @@ def cp_step(torch, step, batch, tp, ws, want, label, overflow_ok=0):
             and m["grad_norm"] > 0):
         raise AssertionError(f"{label}: loss {m['loss']} grad_norm "
                              f"{m['grad_norm']}")
-    if overflow_ok is not None and m["sparse_window_overflow"] != overflow_ok:
+    if overflow_ok is not None and m.get("sparse_window_overflow",
+                                         0) != overflow_ok:
         raise AssertionError(f"{label}: sparse_window_overflow "
                              f"{m['sparse_window_overflow']}")
     return {"ms": t0.elapsed_time(t1), "launches": launches, **m}
@@ -5320,6 +5350,513 @@ def datasets_phase(torch, mods, smi, args, device="cuda"):
     return report, rows, entries
 
 
+
+# ---------------------------------------------------------------- phase 15
+
+ANCHOR_WORK = "build/anchor"
+ANCHOR_KITTI = {"pointpillar": "tools/cfgs/kitti_models/pointpillar.yaml",
+                "second": "tools/cfgs/kitti_models/second.yaml"}
+ANCHOR_LYFT = "tools/cfgs/lyft_models/cbgs_second_multihead.yaml"
+# phase 12's nuScenes tree: yaml and whether a training step is taken
+ANCHOR_NUS = {
+    "cbgs_pp_multihead": (
+        "tools/cfgs/nuscenes_models/cbgs_pp_multihead.yaml", False),
+    "centerpoint_pillar": (
+        "tools/cfgs/nuscenes_models/centerpoint_pillar.yaml", True),
+    "cbgs_dyn_pp_centerpoint": (
+        "tools/cfgs/nuscenes_models/cbgs_dyn_pp_centerpoint.yaml", True)}
+ANCHOR_WAYMO = "tools/cfgs/waymo_models/pointpillar_1x.yaml"
+ANCHOR_BATCHES = (1, 4)
+ANCHOR_REPS = 3                  # timed forwards after 2 warm-ups
+ANCHOR_TRAIN_STEPS = 2           # timed KITTI steps after a warm-up step
+KITTI_CLASSES = ("Car", "Pedestrian", "Cyclist")
+KITTI_SPLITS = {"train": 8, "val": 4}
+KITTI_OBJECTS = 12
+KITTI_IMAGE = (1242, 375)
+NO_LAUNCHES = {"positions": 0, "posgather_conv": 0, "windowed_conv": 0,
+               "windowed_dw": 0}
+# trait (a): the multi-head yamls' 8 to 11 code weights meet the 7-wide
+# coder, as in the reference
+TRAIT_A = "code_weights holds"
+
+
+def write_kitti_tree(root, splits=None, points=KITTI_POINTS,
+                     n_objects=KITTI_OBJECTS):
+    """A raw KITTI tree: training/{velodyne,label_2,calib} and ImageSets
+    train / val. Each frame one of bench.py's lidar_ring scenes of
+    `points` points with `n_objects` Cars, Pedestrians and Cyclists in
+    front of the car (synthetic.SIZE_PRIORS' sizes, within the camera's
+    view), labelled in the rect frame through phase 9's calibration, their
+    2D boxes the projected corners clipped to the image. Returns the
+    frames' point counts."""
+    from findnpropagate_torch.datasets.synthetic import (
+        SIZE_PRIORS,
+        lidar_ring_points,
+    )
+    from findnpropagate_torch.utils.calibration_kitti import Calibration
+    from findnpropagate_torch.utils.geometry_np import boxes_to_corners_3d
+
+    splits = splits or KITTI_SPLITS
+    for d in ("velodyne", "label_2", "calib"):
+        (root / "training" / d).mkdir(parents=True, exist_ok=True)
+    (root / "ImageSets").mkdir(parents=True, exist_ok=True)
+    r0 = np.eye(3, dtype=np.float32)
+    calib = Calibration({"P2": np.array(KITTI_P2, np.float32), "R0": r0,
+                         "Tr_velo2cam": np.array(KITTI_V2C, np.float32)})
+    flat = lambda a: " ".join(f"{v:.6g}" for v in np.ravel(a))  # noqa: E731
+    counts, start = [], 0
+    for split, n in splits.items():
+        ids = [f"{start + i:06d}" for i in range(n)]
+        start += n
+        (root / "ImageSets" / f"{split}.txt").write_text("\n".join(ids)
+                                                         + "\n")
+        for fid in ids:
+            rng = np.random.RandomState(7000 + int(fid))
+            names = [KITTI_CLASSES[rng.randint(3)] for _ in range(n_objects)]
+            boxes = np.zeros((n_objects, 7), np.float32)
+            boxes[:, 0] = rng.uniform(6, 50, n_objects)
+            boxes[:, 1] = rng.uniform(-0.6, 0.6, n_objects) * boxes[:, 0]
+            for i, nm in enumerate(names):
+                mean, std = SIZE_PRIORS[nm]
+                boxes[i, 3:6] = np.abs(rng.normal(mean, std))
+            boxes[:, 2] = boxes[:, 5] / 2 - SENSOR_H
+            boxes[:, 6] = rng.uniform(-np.pi, np.pi, n_objects)
+            pts = lidar_ring_points(rng, boxes, points)
+            pts.astype(np.float32).tofile(root / "training" / "velodyne"
+                                          / f"{fid}.bin")
+            counts.append(len(pts))
+            (root / "training" / "calib" / f"{fid}.txt").write_text(
+                f"P0: {flat(np.zeros(12))}\nP1: {flat(np.zeros(12))}\n"
+                f"P2: {flat(KITTI_P2)}\nP3: {flat(np.zeros(12))}\n"
+                f"R0_rect: {flat(r0)}\nTr_velo_to_cam: {flat(KITTI_V2C)}\n")
+            bottom = boxes[:, :3].copy()
+            bottom[:, 2] -= boxes[:, 5] / 2
+            loc = calib.lidar_to_rect(bottom)
+            corners = calib.lidar_to_img(
+                boxes_to_corners_3d(boxes).reshape(-1, 3))[0].reshape(
+                n_objects, 8, 2)
+            lo = np.clip(corners.min(1), 0, np.array(KITTI_IMAGE) - 1)
+            hi = np.clip(corners.max(1), 0, np.array(KITTI_IMAGE) - 1)
+            lines = []
+            for i, nm in enumerate(names):
+                ry = -boxes[i, 6] - np.pi / 2
+                ry = (ry + np.pi) % (2 * np.pi) - np.pi
+                alpha = ry - np.arctan2(loc[i, 0], loc[i, 2])
+                lines.append(
+                    f"{nm} 0.00 0 {alpha:.3f} {lo[i, 0]:.2f} {lo[i, 1]:.2f} "
+                    f"{hi[i, 0]:.2f} {hi[i, 1]:.2f} {boxes[i, 5]:.3f} "
+                    f"{boxes[i, 4]:.3f} {boxes[i, 3]:.3f} {loc[i, 0]:.3f} "
+                    f"{loc[i, 1]:.3f} {loc[i, 2]:.3f} {ry:.3f}")
+            (root / "training" / "label_2" / f"{fid}.txt").write_text(
+                "\n".join(lines) + "\n")
+    return counts
+
+
+def cycled_data(TD, root):
+    """The data of a yaml on a dataset tree: its dataset with DATA_PATH
+    `root` (build_dataloader, no prefetch) and a batch of n of its samples,
+    taken in turn where the split holds fewer; (dataset, batch of numpy
+    arrays, the host ms the batch took)."""
+    def data(cfg, training, n):
+        cfg.DATA_CONFIG.DATA_PATH = str(root)
+        ds, _, _ = TD.build_dataloader(
+            cfg.DATA_CONFIG, list(cfg.CLASS_NAMES), batch_size=n,
+            training=training, seed=0, prefetch=0)
+        if not len(ds):
+            raise AssertionError(f"{root}: no {('test', 'train')[training]}"
+                                 " samples")
+        t0 = time.perf_counter()
+        batch = ds.collate_batch([ds[i % len(ds)] for i in range(n)])
+        ms = (time.perf_counter() - t0) * 1e3
+        return ds, {k: v for k, v in batch.items()
+                    if isinstance(v, np.ndarray)}, ms
+    return data
+
+
+def on_card(torch, batch, dev):
+    return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+
+
+def forward_decode_ms(torch, det, batch, reps):
+    """`reps` forwards + post_process after 2 warm-ups, each split by CUDA
+    events into the forward and the decode: (median ms of the whole,
+    median ms of the decode, median share of the decode, all wholes)."""
+    whole, decode, share = [], [], []
+    for i in range(reps + 2):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        out = det(batch)
+        ev[1].record()
+        det.post_process(out)
+        ev[2].record()
+        torch.cuda.synchronize()
+        if i >= 2:
+            whole.append(ev[0].elapsed_time(ev[2]))
+            decode.append(ev[1].elapsed_time(ev[2]))
+            share.append(decode[-1] / whole[-1])
+    med = lambda v: sorted(v)[len(v) // 2]         # noqa: E731
+    return med(whole), med(decode), med(share), whole
+
+
+def anchor_forwards(torch, det, data, cfg, tp, ws, want, label, batches,
+                    dev):
+    """Eval forwards + post_process of the yaml at each batch size: the
+    launch gate, finite detections, ms/scan, the decode's share, peak
+    memory."""
+    _, batch, host_ms = data(cfg, False, max(batches))
+    out = {"loader_ms": host_ms}
+    for b in batches:
+        bt = on_card(torch, {k: v[:b] for k, v in batch.items()}, dev)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _, dets, got = cp_forward(torch, det, bt, tp, ws, want,
+                                  f"{label} forward batch {b}")
+        med, dec, share, times = forward_decode_ms(torch, det, bt,
+                                                   ANCHOR_REPS)
+        out[b] = {"launches": got, "ms_per_batch": med, "ms_per_scan": med / b,
+                  "times_ms": times, "decode_ms": dec, "decode_share": share,
+                  "detections_per_scan": [int(c) for c in dets.count],
+                  "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
+    return out
+
+
+def matched(torch, det, gt_boxes):
+    """Foreground anchors of an anchor head's assignment (ground truths of
+    the batch for a CenterHead)."""
+    head = det.dense_head
+    if hasattr(head, "tools"):
+        with torch.no_grad():
+            labels = head.tools.assign(gt_boxes)["box_cls_labels"]
+        return int((labels > 0).sum())
+    return int((gt_boxes[..., -1] > 0).sum())
+
+
+def anchor_train(torch, mods, cfg, data, label, steps, dev, want=None,
+                 record=False):
+    """Training at the yaml's batch with its own optimizer (adam_onecycle)
+    and clip: one warm-up step (its launches `want`, any where None),
+    `steps` timed ones (each with the warm-up's launches), finite loss and
+    gradient norm,
+    overflow 0, matched anchors > 0, parameters changed; with `record`,
+    the K1-K4 calls of one more step. Returns (report, recorded calls)."""
+    cfg_mod, models_mod, synth, tp, ws, lap, weights, optimization, \
+        trainer = mods
+    ds, tbatch, host_ms = data(cfg, True, int(
+        cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU))
+    det = models_mod.build_network(copy.deepcopy(cfg.MODEL),
+                                   len(cfg.CLASS_NAMES), ds, device=dev)
+    weights.init_random_(det, seed=0)
+    det.train()
+    batch = on_card(torch, tbatch, dev)
+    n_matched = matched(torch, det, batch["gt_boxes"])
+    if n_matched <= 0:
+        raise AssertionError(f"{label}: no anchor matched")
+    tx, _ = optimization.build_optimizer(det.parameters(), cfg.OPTIMIZATION,
+                                         1000)
+    step = trainer.make_train_step(det, tx)
+    params = [p.detach().clone() for p in det.parameters()]
+    warm = cp_step(torch, step, batch, tp, ws, want,
+                   f"{label} train warm-up")
+    changed = sum(bool((p.detach() != q).any())
+                  for p, q in zip(det.parameters(), params))
+    if changed < 0.9 * len(params):
+        raise AssertionError(f"{label}: only {changed} of {len(params)} "
+                             "parameter tensors changed")
+    del params
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    timed = [cp_step(torch, step, batch, tp, ws, warm["launches"],
+                     f"{label} train step") for _ in range(steps)]
+    rep = {"batch": len(tbatch["points"]), "loader_ms": host_ms,
+           "matched_anchors": n_matched, "warm_up": warm, "steps": timed,
+           "ms_per_step": sorted(s["ms"] for s in timed)[len(timed) // 2],
+           "losses": [warm["loss"]] + [s["loss"] for s in timed],
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "parameters_changed": changed}
+    calls = None
+    if record:
+        with record_positions(torch, tp) as k1, \
+                Recorder(tp, "gather_conv", torch) as k2, \
+                Recorder(ws, "conv_kernel", torch) as k3, \
+                Recorder(ws, "dw_kernel", torch) as k4:
+            cp_step(torch, step, batch, tp, ws, warm["launches"],
+                    f"{label} recorded step")
+        calls = (k1, k2.calls, k3.calls, k4.calls)
+    del det, tx, step, batch
+    torch.cuda.empty_cache()
+    return rep, calls
+
+
+def kitti_second_posgather(cfg_mod, cfg):
+    """second.yaml with SUBM_IMPL: posgather (SUBM_MODE windowed) and the
+    main path's windows and block."""
+    cfg = copy.deepcopy(cfg)
+    main = cfg_mod.cfg_from_yaml_file(str(ROOT / CFG_FILE)).MODEL.BACKBONE_3D
+    bb = cfg.MODEL.BACKBONE_3D
+    bb.SUBM_MODE, bb.SUBM_IMPL = "windowed", "posgather"
+    for key in ("WINDOWED_BLOCK", "WINDOWED_WINDOW",
+                "WINDOWED_STRIDED_WINDOW"):
+        bb[key] = copy.deepcopy(main[key])
+    return cfg
+
+
+def kitti_run(torch, mods, smi, name, root, dev):
+    """One KITTI yaml as written through KittiDataset on the tree at
+    `root`: forwards at batch 1 and 4, training steps at batch 4; for
+    second.yaml also one step with SUBM_IMPL: posgather, every K1-K4 call
+    of it held against its plain version. Returns (report, rows,
+    kernels entries)."""
+    from findnpropagate_torch import datasets as TD
+
+    cfg_mod, models_mod, synth, tp, ws, lap, weights, optimization, \
+        trainer = mods
+    cfg = cfg_mod.cfg_from_yaml_file(str(ROOT / ANCHOR_KITTI[name]))
+    data = cycled_data(TD, root)
+    ds, _, _ = data(cfg, False, 1)
+    det = models_mod.build_network(copy.deepcopy(cfg.MODEL),
+                                   len(cfg.CLASS_NAMES), ds, device=dev)
+    weights.init_random_(det, seed=0)
+    rep = {"yaml": ANCHOR_KITTI[name], "device": smi,
+           "anchors": int(det.dense_head.tools.anchors.shape[0]),
+           "forward": anchor_forwards(torch, det, data, cfg, tp, ws,
+                                      NO_LAUNCHES, f"kitti {name}",
+                                      ANCHOR_BATCHES, dev)}
+    del det
+    rep["train"], _ = anchor_train(torch, mods, cfg, data, f"kitti {name}",
+                                   ANCHOR_TRAIN_STEPS, dev, NO_LAUNCHES)
+    if name != "second":
+        return rep, [], []
+    pcfg = kitti_second_posgather(cfg_mod, cfg)
+    rep["posgather_step"], calls = anchor_train(
+        torch, mods, pcfg, data, "kitti second posgather", 1, dev,
+        record=True)
+    got = rep["posgather_step"]["warm_up"]["launches"]
+    if not all(got[k] > 0 for k in NO_LAUNCHES):
+        raise AssertionError(f"kitti second posgather step: launches {got}"
+                             ", want every K1-K4")
+    k1, k2, k3, k4 = calls
+    rows = check_positions(torch, tp, k1, "kitti second posgather train ")
+    rows += check_train_kernels(torch, tp, ws, k2, k3, k4,
+                                k3_forward=len(k3) // 2)
+    log_positions_rows([r for r in rows if r["name"] == "positions"],
+                       "kitti second posgather ")
+    log_conv_rows([r for r in rows if r["name"] != "positions"])
+    path = (f"anchor kitti second (SUBM_IMPL posgather) training step "
+            f"batch {rep['posgather_step']['batch']}")
+    entries = [cp_summary(rows, k, path, got[k]) for k in NO_LAUNCHES]
+    return rep, rows, entries
+
+
+def kitti_phase(torch, mods, smi, dev):
+    """Phase 15's KITTI part: the tree (write_kitti_tree), its infos and gt
+    database (create_infos kitti --gt_database), pointpillar.yaml and
+    second.yaml in process (kitti_run), then train.py (1 epoch) and test.py
+    on both as subprocesses, the two chains side by side. Returns (report,
+    rows, entries)."""
+    from findnpropagate_torch.tools import create_infos
+
+    cfg_mod = mods[0]
+    work = ROOT / ANCHOR_WORK / "kitti"
+    shutil.rmtree(work, ignore_errors=True)
+    root = work / "data"
+    t0 = time.perf_counter()
+    counts = write_kitti_tree(root)
+    create_infos.main(["kitti", "--data_path", str(root), "--gt_database"])
+    rep = {"points_per_frame": [min(counts), max(counts)],
+           "tree_s": time.perf_counter() - t0}
+    with open(root / "kitti_dbinfos_train.pkl", "rb") as f:
+        rep["gt_database"] = {k: len(v) for k, v in pickle.load(f).items()}
+    if set(rep["gt_database"]) != set(KITTI_CLASSES):
+        raise AssertionError(f"kitti gt database: {rep['gt_database']}")
+    rows, entries = [], []
+    for name in ANCHOR_KITTI:
+        rep[name], rw, e = kitti_run(torch, mods, smi, name, root, dev)
+        rows, entries = rows + rw, entries + e
+        fw, tr = rep[name]["forward"], rep[name]["train"]
+        log(f"kitti {name} ({smi}): {ANCHOR_KITTI[name]} as written, "
+            f"{rep[name]['anchors']} anchors; " + "; ".join(
+                f"batch {b} {fw[b]['ms_per_scan']:.2f} ms/scan, decode "
+                f"{fw[b]['decode_ms']:.2f} ms ({100 * fw[b]['decode_share']:.1f}"
+                f" % of a forward), detections {fw[b]['detections_per_scan']}"
+                f", peak {fw[b]['peak_mem_gb']:.2f} GiB"
+                for b in ANCHOR_BATCHES)
+            + f"; training batch {tr['batch']} {tr['ms_per_step']:.1f} "
+            f"ms/step, losses {[round(v, 3) for v in tr['losses']]}, "
+            f"{tr['matched_anchors']} anchors matched, peak "
+            f"{tr['peak_mem_gb']:.2f} GiB; loader host ms {fw['loader_ms']:.1f}"
+            f" (eval batch {max(ANCHOR_BATCHES)}), {tr['loader_ms']:.1f} "
+            "(training batch)")
+    ps = rep["second"]["posgather_step"]
+    log(f"kitti second SUBM_IMPL posgather ({smi}): warm-up step "
+        f"{ps['warm_up']['ms']:.1f} ms, step {ps['ms_per_step']:.1f} ms, "
+        f"launches {ps['warm_up']['launches']}, losses "
+        f"{[round(v, 3) for v in ps['losses']]}")
+
+    def chain(name):
+        return name, train_test_clis(cfg_mod, work, root, ANCHOR_KITTI[name],
+                                     f"kitti_{name}")
+    (work / "tools").symlink_to(ROOT / "tools")     # before both chains
+    with concurrent.futures.ThreadPoolExecutor(len(ANCHOR_KITTI)) as pool:
+        clis = dict(pool.map(chain, list(ANCHOR_KITTI)))
+    for name, cli in clis.items():
+        res = cli["result"]
+        if not ("mAP_3d_moderate_R40" in res and all(
+                math.isfinite(v) for v in res.values())):
+            raise AssertionError(f"kitti {name} test.py: result {res}")
+        rep[name]["cli"] = cli
+        log(f"kitti {name} CLIs ({smi}; the two yamls' chains side by "
+            f"side): train.py {cli['train_s']:.1f} s (losses "
+            f"{cli['train_losses']}, {cli['checkpoints']}), test.py "
+            f"{cli['test_s']:.1f} s, mAP_3d_moderate_R40 "
+            f"{res['mAP_3d_moderate_R40']}, {len(res)} keys all finite")
+    return rep, rows, entries
+
+
+def lyft_phase(torch, mods, smi, dev, root):
+    """cbgs_second_multihead.yaml through LyftDataset on phase 14's tree:
+    a batch-4 forward as written (its overflow, actives per level beside
+    LEVEL_CAPACITIES), then with every level's windows at least the main
+    path's a batch-4 forward whose K1 / K2 calls are held against their
+    plain versions, and a training step, which raises trait (a)'s error.
+    Returns (report, rows, entries)."""
+    from findnpropagate_torch import datasets as TD
+
+    cfg_mod, models_mod, synth, tp, ws, lap, weights, optimization, \
+        trainer = mods
+    cfg = cfg_mod.cfg_from_yaml_file(str(ROOT / ANCHOR_LYFT))
+    data = cycled_data(TD, root)
+    ds, batch, host_ms = data(cfg, False, max(ANCHOR_BATCHES))
+    b4 = on_card(torch, batch, dev)
+    n_class = len(cfg.CLASS_NAMES)
+    det = models_mod.build_network(copy.deepcopy(cfg.MODEL), n_class, ds,
+                                   device=dev)
+    weights.init_random_(det, seed=0)
+    with torch.no_grad(), overflow_sites(torch, ws) as sites:
+        out = det(b4)
+        dets = det.post_process(out)
+    if not bool(torch.isfinite(dets.boxes).all()):
+        raise AssertionError("lyft as written: non-finite boxes")
+    rep = {"yaml": ANCHOR_LYFT, "device": smi, "loader_ms": host_ms,
+           "points_per_scan": [int(v) for v in b4["points_mask"].sum(1)],
+           "as_written": {"overflow": int(out["sparse_window_overflow"]),
+                          "dropped_at": dropped(sites),
+                          "windows": cp_widen(cfg_mod, cfg, 3, 1)},
+           "actives": cp_actives(torch, det, b4, len(batch["points"]))}
+    del det, out, dets
+    det = models_mod.build_network(copy.deepcopy(cfg.MODEL), n_class, ds,
+                                   device=dev)
+    weights.init_random_(det, seed=0)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with record_positions(torch, tp) as k1, \
+            Recorder(tp, "gather_conv", torch) as k2:
+        _, dets, got = cp_forward(torch, det, b4, tp, ws, EVAL_LAUNCHES,
+                                  "lyft forward batch 4")
+    med, dec, share, _ = forward_decode_ms(torch, det, b4, ANCHOR_REPS)
+    rep["forward"] = {"launches": got, "ms_per_scan": med / len(
+        batch["points"]), "decode_ms": dec, "decode_share": share,
+        "detections_per_scan": [int(c) for c in dets.count],
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
+    rows = check_positions(torch, tp, k1, "lyft forward ")
+    rows += check_kernels(torch, tp, [], k2.calls)
+    log_positions_rows([r for r in rows if r["name"] == "positions"],
+                       "lyft ")
+    log_conv_rows([r for r in rows if r["name"] != "positions"])
+    path = "anchor lyft cbgs_second_multihead forward batch 4"
+    entries = [cp_summary(rows, k, path, got[k])
+               for k in ("positions", "posgather_conv")]
+    # trait (a): a training step raises. Phase 14's tree names its objects
+    # with nuScenes' general names ("vehicle.car"), none of the yaml's
+    # classes, and the training loader resamples a frame without a ground
+    # truth until it finds one: the step takes the eval batch, as the error
+    # comes before the assignment reads a box
+    tx, _ = optimization.build_optimizer(det.parameters(), cfg.OPTIMIZATION,
+                                         1000)
+    try:
+        trainer.make_train_step(det, tx)(b4)
+    except ValueError as e:
+        if TRAIT_A not in str(e):
+            raise
+        rep["train_raises"] = str(e)
+    else:
+        raise AssertionError("lyft: a training step did not raise trait "
+                             "(a)'s error")
+    del det, tx
+    torch.cuda.empty_cache()
+    act = rep["actives"]
+    log(f"lyft ({smi}): {ANCHOR_LYFT} as written, points per scan "
+        f"{rep['points_per_scan']}: {rep['as_written']['overflow']} "
+        f"neighbour spans dropped in a batch-4 forward ([kind, window, "
+        f"targets, counter, real]: {rep['as_written']['dropped_at']}); "
+        f"windows (as written, gated forward) "
+        f"{rep['as_written']['windows']}; actives per level and scene "
+        f"{act['per_scene']} against caps {act['caps']} (LEVEL_CAPACITIES "
+        f"{act['level_capacities']}); levels at their cap: "
+        f"{act['at_cap'] or 'none'}; gated forward "
+        f"{rep['forward']['ms_per_scan']:.2f} ms/scan at batch 4, decode "
+        f"{rep['forward']['decode_ms']:.2f} ms "
+        f"({100 * rep['forward']['decode_share']:.1f} %), launches {got}, peak "
+        f"{rep['forward']['peak_mem_gb']:.2f} GiB; a training step raises: "
+        f"{rep['train_raises']}")
+    return rep, rows, entries
+
+
+def plain_yaml_run(torch, mods, smi, yaml, root, dev, train, label):
+    """A yaml whose path launches none of K1-K4 on a dataset tree: a
+    batch-4 forward + post_process (timed, the decode's share, peak
+    memory) and, with `train`, a warm-up and one timed training step."""
+    from findnpropagate_torch import datasets as TD
+
+    cfg_mod, models_mod, *_, weights, _, _ = mods
+    cfg = cfg_mod.cfg_from_yaml_file(str(ROOT / yaml))
+    data = cycled_data(TD, root)
+    ds, _, _ = data(cfg, False, 1)
+    det = models_mod.build_network(copy.deepcopy(cfg.MODEL),
+                                   len(cfg.CLASS_NAMES), ds, device=dev)
+    weights.init_random_(det, seed=0)
+    rep = {"yaml": yaml, "device": smi, "forward": anchor_forwards(
+        torch, det, data, cfg, mods[3], mods[4], NO_LAUNCHES, label,
+        (max(ANCHOR_BATCHES),), dev)}
+    del det
+    if train:
+        rep["train"], _ = anchor_train(torch, mods, cfg, data, label, 1,
+                                       dev, NO_LAUNCHES)
+    fw = rep["forward"][max(ANCHOR_BATCHES)]
+    tr = rep.get("train")
+    log(f"{label} ({smi}): {yaml} as written, batch "
+        f"{max(ANCHOR_BATCHES)} {fw['ms_per_scan']:.2f} ms/scan, decode "
+        f"{fw['decode_ms']:.2f} ms ({100 * fw['decode_share']:.1f} %), "
+        f"detections {fw['detections_per_scan']}, peak "
+        f"{fw['peak_mem_gb']:.2f} GiB" + (
+            f"; training batch {tr['batch']} {tr['ms_per_step']:.1f} "
+            f"ms/step (warm-up {tr['warm_up']['ms']:.1f}), losses "
+            f"{[round(v, 3) for v in tr['losses']]}, {tr['matched_anchors']}"
+            f" matched, peak {tr['peak_mem_gb']:.2f} GiB" if tr else ""))
+    return rep
+
+
+def anchor_phase(torch, mods, smi, dev="cuda"):
+    """Phase 15: the anchor heads and pillar VFEs on the yamls as written
+    (KITTI tree of its own; Lyft and Waymo on phase 14's trees, nuScenes
+    on phase 12's). Returns (report, rows, kernels entries)."""
+    t0 = time.perf_counter()
+    rep = {"device": smi}
+    rep["kitti"], rows, entries = kitti_phase(torch, mods, smi, dev)
+    rep["lyft"], rw, e = lyft_phase(torch, mods, smi, dev,
+                                    ROOT / MISC_WORK / "lyft" / "trainval")
+    rows, entries = rows + rw, entries + e
+    for name, (yaml, train) in ANCHOR_NUS.items():
+        rep[name] = plain_yaml_run(torch, mods, smi, yaml,
+                                   ROOT / PAPER_WORK / "nuscenes", dev, train,
+                                   f"nuscenes {name}")
+    rep["waymo_pointpillar_1x"] = plain_yaml_run(
+        torch, mods, smi, ANCHOR_WAYMO, ROOT / WAYMO_WORK / "data", dev,
+        True, "waymo pointpillar_1x")
+    rep["phase_s"] = time.perf_counter() - t0
+    log(f"anchor phase: {rep['phase_s']:.1f} s")
+    return rep, rows, entries
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--batches", type=int, nargs="+", default=[1, 8])
@@ -5519,7 +6056,12 @@ def main():
         torch, mods, smi, args)
     report["datasets_kernel_calls"] = ds_rows
 
-    # ---- 15. result lines
+    # ---- 15. anchor heads and pillar VFEs: KITTI (pointpillar, second,
+    # a posgather step, train.py / test.py), Lyft, nuScenes, Waymo
+    report["anchor"], an_rows, an_entries = anchor_phase(torch, mods, smi)
+    report["anchor_kernel_calls"] = an_rows
+
+    # ---- 16. result lines
     first_batch = report["main_path"][0]["launches_per_forward"]
     pick = {
         # K1 at L0 (first call); K2 at the L0 16->16 subm conv with the
@@ -5601,9 +6143,9 @@ def main():
             "library_device_ms": r["library_device_ms"],
             "device_ms": r["device_ms"], "call": r["call"],
             "shapes": r["shapes"]})
-    # phases 13 and 14: per yaml, each kernel's calls of one batch-4
+    # phases 13, 14 and 15: per yaml, each kernel's calls of one batch-4
     # forward and of one training step, summed
-    kernels += cp_entries + ds_entries
+    kernels += cp_entries + ds_entries + an_entries
     report["kernels"] = kernels
     report["device"] = smi
     if args.out:

@@ -1,0 +1,11 @@
+"""The ported 2D backbones and BEV projections by their yaml NAME."""
+
+from .base_bev_backbone import BaseBEVBackbone
+from .map_to_bev import HeightCompression, PointPillarScatter
+
+BACKBONE_2D_REGISTRY = {"BaseBEVBackbone": BaseBEVBackbone}
+
+MAP_TO_BEV_REGISTRY = {
+    "PointPillarScatter": PointPillarScatter,
+    "HeightCompression": HeightCompression,
+}

@@ -1,10 +1,14 @@
 """The ported dense heads by their yaml NAME."""
 
+from .anchor_head import AnchorHeadSingle
+from .anchor_head_multi import AnchorHeadMulti
 from .center_head import CenterHead
 from .center_head_clip import CenterHeadCLIP
 from .transfusion_head import TransFusionHead
 
 DENSE_HEAD_REGISTRY = {
+    "AnchorHeadSingle": AnchorHeadSingle,
+    "AnchorHeadMulti": AnchorHeadMulti,
     "CenterHead": CenterHead,
     "CenterHeadCLIP": CenterHeadCLIP,
     "TransFusionHead": TransFusionHead,

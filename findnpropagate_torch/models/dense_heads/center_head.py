@@ -23,11 +23,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ...ops.nms import nms_bev
 from ...utils import losses as L
 from ..blocks import BN_EPS, BatchNorm2d
 from ..model_utils.centernet import draw_heatmap, gaussian_radius, topk_heatmap
-from ..post_processing import Detections
+from ..post_processing import nms_detections
 from .transfusion_head import SeparateHead
 
 
@@ -39,21 +38,12 @@ def _gather_rows(x, idx):
 
 
 def _nms_detections(boxes, scores, labels, ok, nms_cfg, thresh, pre, post):
-    """Class-agnostic rotated NMS of (B, N) candidates, the invalid ones
-    never selected; fixed-size Detections with zeros in the empty slots."""
-    idx, num = nms_bev(boxes, scores, float(nms_cfg.get("NMS_THRESH", thresh)),
-                       pre_maxsize=int(nms_cfg.get("NMS_PRE_MAXSIZE", pre)),
-                       post_maxsize=int(nms_cfg.get("NMS_POST_MAXSIZE", post)),
-                       valid_mask=ok)
-    good = idx >= 0
-    safe = torch.clamp(idx, min=0).long()
-    ob = torch.where(good[..., None], _gather_rows(boxes, safe),
-                     torch.zeros((), dtype=boxes.dtype, device=boxes.device))
-    os_ = torch.where(good, torch.gather(scores, 1, safe),
-                      torch.zeros_like(scores[:, :1]))
-    ol = torch.where(good, torch.gather(labels, 1, safe),
-                     torch.zeros_like(labels[:, :1]))
-    return Detections(ob, os_, ol.to(torch.int32), num)
+    """Class-agnostic rotated NMS of (B, N) candidates with the head's
+    NMS_CONFIG (defaults `thresh`, `pre`, `post`)."""
+    return nms_detections(
+        boxes, scores, labels, ok, float(nms_cfg.get("NMS_THRESH", thresh)),
+        int(nms_cfg.get("NMS_PRE_MAXSIZE", pre)),
+        int(nms_cfg.get("NMS_POST_MAXSIZE", post)))
 
 
 class CenterHead(nn.Module):

@@ -1,6 +1,6 @@
-"""Fixed-size final detections and the recall record — port of
-`Detections` and `recall_record` of findnpropagate_tpu/models/
-post_processing.py:22-31, 67-105."""
+"""Fixed-size final detections, the generic post-processing and the recall
+record — port of `Detections`, `post_process` and `recall_record` of
+findnpropagate_tpu/models/post_processing.py:22-105."""
 
 from __future__ import annotations
 
@@ -8,6 +8,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..ops.nms import nms_bev
 from ..ops.rotated_iou import boxes_iou3d
 
 
@@ -16,6 +17,40 @@ class Detections(NamedTuple):
     scores: torch.Tensor  # (B, D)
     labels: torch.Tensor  # (B, D) int32, 1-indexed; 0 for empty slots
     count: torch.Tensor   # (B,) int32
+
+
+def nms_detections(boxes, scores, labels, valid, nms_thresh, pre: int,
+                   post: int):
+    """Class-agnostic rotated NMS of (B, N) candidates, the invalid ones
+    never selected: fixed-size Detections with zeros in the empty slots."""
+    idx, num = nms_bev(boxes, scores, nms_thresh, pre_maxsize=pre,
+                       post_maxsize=post, valid_mask=valid)
+    good = idx >= 0
+    safe = torch.clamp(idx, min=0).long()
+    ob = torch.gather(boxes, 1, safe[..., None].expand(
+        *safe.shape, boxes.shape[-1]))
+    ob = torch.where(good[..., None], ob, torch.zeros_like(ob))
+    os_ = torch.where(good, torch.gather(scores, 1, safe),
+                      torch.zeros_like(scores[:, :1]))
+    ol = torch.where(good, torch.gather(labels, 1, safe),
+                     torch.zeros_like(labels[:, :1]))
+    return Detections(ob, os_, ol.to(torch.int32), num)
+
+
+def post_process(batch_cls_preds, batch_box_preds, nms_thresh,
+                 score_thresh: float = 0.1, nms_pre: int = 1024,
+                 nms_post: int = 256, normalized: bool = False):
+    """The class-agnostic POST_PROCESSING.NMS_CONFIG path: sigmoid (unless
+    `normalized`), the best class's score and 1-indexed label per box, and
+    per sample rotated NMS of the boxes scored >= score_thresh.
+    batch_cls_preds (B, N, C), batch_box_preds (B, N, 7+)."""
+    scores_all = batch_cls_preds if normalized \
+        else torch.sigmoid(batch_cls_preds)
+    scores = scores_all.amax(dim=-1)
+    labels = torch.argmax(scores_all, dim=-1).to(torch.int32) + 1
+    return nms_detections(batch_box_preds, scores, labels,
+                          scores >= score_thresh, nms_thresh, nms_pre,
+                          nms_post)
 
 
 def top_k_lower_index_first(x, k: int):

@@ -1,6 +1,7 @@
-"""Greedy BEV NMS — port of `_greedy_suppress`, `nms_bev`,
-`_iou_normal_matrix` and `nms_normal_bev` of findnpropagate_tpu/ops/nms.py
-:24-119.
+"""Greedy BEV NMS — port of findnpropagate_tpu/ops/nms.py
+(`_greedy_suppress`, `nms_bev`, `_iou_normal_matrix`, `nms_normal_bev`
+:24-119, `class_agnostic_nms` :125, `multi_classes_nms` :142,
+`circle_nms` :169).
 
 Outputs are fixed-size, as in the reference: (indices padded with -1,
 number kept). Leading batch axes broadcast, so the seeker runs one call
@@ -113,3 +114,54 @@ def nms_normal_bev(boxes, scores, thresh, pre_maxsize: int = 1024,
     IoU, heading ignored. Shapes and outputs as `nms_bev`."""
     return _nms(boxes, scores, thresh, pre_maxsize, post_maxsize,
                 valid_mask, _iou_normal_matrix)
+
+
+def _take(x, idx):
+    """x (..., N) at idx (..., K) padded with -1: 0 in the padded slots."""
+    got = torch.gather(x, -1, torch.clamp(idx, min=0).long())
+    return torch.where(idx >= 0, got, torch.zeros_like(got))
+
+
+def class_agnostic_nms(box_scores, box_preds, nms_thresh, score_thresh=None,
+                       pre_maxsize: int = 1024, post_maxsize: int = 256):
+    """Rotated NMS of every box whatever its class, those scored below
+    `score_thresh` never selected. Returns (indices padded with -1, their
+    scores (0 in the padded slots), number kept)."""
+    valid = None if score_thresh is None else box_scores >= score_thresh
+    idx, num = nms_bev(box_preds, box_scores, nms_thresh,
+                       pre_maxsize=pre_maxsize, post_maxsize=post_maxsize,
+                       valid_mask=valid)
+    return idx, _take(box_scores, idx), num
+
+
+def multi_classes_nms(cls_scores, box_preds, nms_thresh, score_thresh=None,
+                      pre_maxsize: int = 512, post_maxsize: int = 128):
+    """One rotated NMS per class, the classes run as one batch. cls_scores
+    (N, C), box_preds (N, 7+). Returns (indices (C, post) padded with -1,
+    their scores (C, post), 0-indexed labels (C, post), counts (C,))."""
+    scores = cls_scores.transpose(0, 1)                       # (C, N)
+    boxes = box_preds.expand(scores.shape[0], *box_preds.shape)
+    idx, sel_scores, num = class_agnostic_nms(
+        scores, boxes, nms_thresh, score_thresh, pre_maxsize, post_maxsize)
+    labels = torch.arange(scores.shape[0], device=scores.device)[:, None] \
+        .expand(idx.shape)
+    return idx, sel_scores, labels, num
+
+
+def circle_nms(centers, scores, radius, post_maxsize: int = 83):
+    """CenterPoint's circle NMS: in descending score order, a kept centre
+    suppresses every later one within squared distance `radius`. centers
+    (N, D), scores (N,). Returns (indices (min(post, N),) int32 padded with
+    -1, number kept)."""
+    n = centers.shape[0]
+    top, order = _top_k(scores, n)
+    c = centers[order]
+    d2 = ((c[:, None, :] - c[None, :, :]) ** 2).sum(dim=-1)
+    keep = _suppress(d2 < radius, torch.ones(n, dtype=torch.bool,
+                                               device=scores.device))
+    keep_scores = torch.where(keep, top, torch.full_like(top, NEG_INF))
+    sel_scores, sel = _top_k(keep_scores, min(post_maxsize, n))
+    good = sel_scores > NEG_INF / 2
+    kept = order[sel].to(torch.int32)
+    return (torch.where(good, kept, torch.full_like(kept, -1)),
+            good.sum().to(torch.int32))

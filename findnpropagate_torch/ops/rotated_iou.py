@@ -1,7 +1,8 @@
-"""Rotated BEV overlap and IoU — port of `boxes_overlap_bev`,
-`_height_overlap`, `boxes_iou_bev` and `boxes_iou3d` of
-findnpropagate_tpu/ops/rotated_iou.py:31-168 (the corners come from
-utils/geometry.py).
+"""Rotated BEV overlap and IoU — port of
+findnpropagate_tpu/ops/rotated_iou.py (`boxes_overlap_bev`,
+`boxes_aligned_overlap_bev` :132, `_height_overlap`, `boxes_iou_bev`,
+`boxes_iou3d`, `boxes_aligned_iou3d` :169, `boxes_nearest_bev_iou` :184,
+`limit_period_half` :209; the corners come from utils/geometry.py).
 
 The convex intersection of two rotated rectangles, branch-free, with the
 reference's fixed 24 candidates per pair: 16 edge-pair crossings, 4 corners
@@ -14,9 +15,11 @@ matching cost is one call.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
-from ..utils.geometry import boxes_to_corners_bev
+from ..utils.geometry import boxes_to_corners_bev, limit_period
 
 _EPS = 1e-8
 
@@ -77,12 +80,25 @@ def pair_intersection_area(corners_a, corners_b):
     return torch.where(num_valid >= 3, area, torch.zeros_like(area))
 
 
+# pairs a block of rows of boxes_overlap_bev may hold: its 24 candidates of
+# 2 floats and their sort keys take ~1 KB a pair
+BLOCK_PAIRS = 1 << 21
+
+
 def boxes_overlap_bev(boxes_a, boxes_b):
     """(..., N, 7), (..., M, 7) -> (..., N, M) rotated BEV intersection
-    areas."""
+    areas, in blocks of rows of at most BLOCK_PAIRS pairs (the reference's
+    row blocks: the NMS of 4096 anchor boxes a sample, batch 4, would
+    otherwise hold tens of GB of candidates)."""
     ca = boxes_to_corners_bev(boxes_a[..., :7])[..., :, None, :, :]
     cb = boxes_to_corners_bev(boxes_b[..., :7])[..., None, :, :, :]
-    return pair_intersection_area(ca, cb)
+    lead = math.prod(torch.broadcast_shapes(ca.shape[:-4], cb.shape[:-4]))
+    rows = max(1, BLOCK_PAIRS // max(1, lead * cb.shape[-3]))
+    if ca.shape[-4] <= rows:
+        return pair_intersection_area(ca, cb)
+    return torch.cat([pair_intersection_area(ca[..., i:i + rows, :, :, :],
+                                             cb)
+                      for i in range(0, ca.shape[-4], rows)], dim=-2)
 
 
 def _height_overlap(boxes_a, boxes_b):
@@ -111,3 +127,66 @@ def boxes_iou3d(boxes_a, boxes_b):
     vol_a = (boxes_a[..., 3] * boxes_a[..., 4] * boxes_a[..., 5])[..., :, None]
     vol_b = (boxes_b[..., 3] * boxes_b[..., 4] * boxes_b[..., 5])[..., None, :]
     return overlap_3d / torch.clamp(vol_a + vol_b - overlap_3d, min=1e-6)
+
+
+def boxes_aligned_overlap_bev(boxes_a, boxes_b):
+    """(..., 7), (..., 7) -> (...) rotated BEV intersection areas, pair by
+    pair."""
+    return pair_intersection_area(boxes_to_corners_bev(boxes_a[..., :7]),
+                                  boxes_to_corners_bev(boxes_b[..., :7]))
+
+
+def boxes_aligned_iou3d(boxes_a, boxes_b):
+    """(..., 7), (..., 7) -> (...) 3D IoU, pair by pair."""
+    a_top = boxes_a[..., 2] + boxes_a[..., 5] / 2
+    a_bot = boxes_a[..., 2] - boxes_a[..., 5] / 2
+    b_top = boxes_b[..., 2] + boxes_b[..., 5] / 2
+    b_bot = boxes_b[..., 2] - boxes_b[..., 5] / 2
+    overlap_h = torch.clamp(torch.minimum(a_top, b_top)
+                            - torch.maximum(a_bot, b_bot), min=0.0)
+    overlap_3d = boxes_aligned_overlap_bev(boxes_a, boxes_b) * overlap_h
+    vol_a = boxes_a[..., 3] * boxes_a[..., 4] * boxes_a[..., 5]
+    vol_b = boxes_b[..., 3] * boxes_b[..., 4] * boxes_b[..., 5]
+    return overlap_3d / torch.clamp(vol_a + vol_b - overlap_3d, min=1e-6)
+
+
+def limit_period_half(val):
+    """Wrap to [-pi/2, pi/2): offset 0.5, period pi."""
+    return limit_period(val, 0.5, math.pi)
+
+
+def _nearest_bev(boxes):
+    """(..., 7) -> x1, y1, x2, y2 (...) of the axis-aligned box at the
+    nearest cardinal heading (dx and dy swap past pi/4)."""
+    rot = limit_period_half(boxes[..., 6]).abs()
+    swap = rot > math.pi / 4
+    dx = torch.where(swap, boxes[..., 4], boxes[..., 3])
+    dy = torch.where(swap, boxes[..., 3], boxes[..., 4])
+    x, y = boxes[..., 0], boxes[..., 1]
+    return x - dx / 2, y - dy / 2, x + dx / 2, y + dy / 2
+
+
+def boxes_nearest_bev_iou(boxes_a, boxes_b):
+    """(..., N, 7), (..., M, 7) -> (..., N, M) "nearest BEV" IoU: each box
+    snapped to its nearest cardinal heading, then the plain 2D IoU, rounded
+    as the reference rounds it (the anchor assignment's force-matching
+    compares these values for equality). The reference's compiled float32
+    arithmetic (XLA on the CPU) fuses the product of b's area into the sum
+    of the two areas, one rounding for both (an FMA); the port forms that
+    sum in float64, exact, and rounds it once to float32, which gives the
+    FMA's value on the CPU and on CUDA alike. Each axis is worked
+    separately, so no (N, M, 2) intermediate is built."""
+    ax1, ay1, ax2, ay2 = _nearest_bev(boxes_a)
+    bx1, by1, bx2, by2 = _nearest_bev(boxes_b)
+    w = torch.clamp(torch.minimum(ax2[..., :, None], bx2[..., None, :])
+                    - torch.maximum(ax1[..., :, None], bx1[..., None, :]),
+                    min=0.0)
+    h = torch.clamp(torch.minimum(ay2[..., :, None], by2[..., None, :])
+                    - torch.maximum(ay1[..., :, None], by1[..., None, :]),
+                    min=0.0)
+    overlap = w * h
+    del w, h
+    area_a = ((ax2 - ax1) * (ay2 - ay1))[..., :, None].double()
+    area_b = ((bx2 - bx1).double() * (by2 - by1).double())[..., None, :]
+    areas = (area_a + area_b).to(overlap.dtype)
+    return overlap / torch.clamp(areas - overlap, min=_EPS)

@@ -75,10 +75,11 @@ def make_train_step(detector, tx, seed: int = 17, accum_steps: int = 1):
 
 def make_eval_step(detector, with_overflow=False):
     """Returns eval_step(batch) -> Detections (with ``with_overflow``:
-    (Detections, sparse_window_overflow)). The forward and post_process run
-    under no_grad with the module in eval mode (dropout off, BN on its
-    running statistics), and the module is put back in the mode it was in,
-    so a training loop can call it between steps."""
+    (Detections, sparse_window_overflow), 0 without a sparse backbone).
+    The forward and post_process run under no_grad with the module in eval
+    mode (dropout off, BN on its running statistics), and the module is put
+    back in the mode it was in, so a training loop can call it between
+    steps."""
 
     def eval_step(batch):
         was_training = detector.training
@@ -91,7 +92,9 @@ def make_eval_step(detector, with_overflow=False):
             detector.train(was_training)
         if not with_overflow:
             return dets
-        return dets, out["sparse_window_overflow"]
+        # a detector without a sparse backbone has no window to overflow
+        return dets, out.get("sparse_window_overflow", torch.zeros(
+            (), dtype=torch.int32, device=dets.count.device))
 
     return eval_step
 

@@ -1,5 +1,5 @@
 """Core 3D box / point geometry — port of
-findnpropagate_tpu/utils/geometry.py:18-141.
+findnpropagate_tpu/utils/geometry.py:18-141 (`limit_period` :35 too).
 
 Boxes are (..., 7+C) = [x, y, z, dx, dy, dz, heading, ...] with (x, y, z)
 the box centre in the LiDAR frame and the heading about +z. Leading batch
@@ -27,6 +27,14 @@ CORNER_TEMPLATE = np.array(
     ],
     dtype=np.float32,
 ) / 2.0
+
+
+def limit_period(val, offset: float = 0.5, period: float = np.pi):
+    """Wrap `val` into [-offset*period, (1-offset)*period). The period is a
+    tensor on val's device, so that CUDA divides as the CPU does (a host
+    scalar divisor becomes a multiplication by its reciprocal there)."""
+    period = torch.full((), period, dtype=val.dtype, device=val.device)
+    return val - torch.floor(val / period + offset) * period
 
 
 def rotate_points_along_z(points, angle):

@@ -24,7 +24,12 @@ statistics, loads into it as it stands; so do CenterHead's
 (``shared_conv``, ``shared_bn``, ``group{i}``) and CenterHeadCLIP's,
 whose flax auto-names (``Conv_0``, ``BatchNorm_0``, ``clip_head``) the
 port's modules carry (its class text features are a buffer outside the
-state dict and no leaf of either tree).
+state dict and no leaf of either tree); PillarVFE's auto-named
+``PFNLayer_{i}/Dense_0`` and ``MaskedBatchNorm_0``, the dynamic VFEs'
+``pfn{i}_dense`` / ``pfn{i}_bn``, AnchorHeadSingle's ``conv_cls`` /
+``conv_box`` / ``conv_dir`` and AnchorHeadMulti's ``shared_conv``,
+``shared_bn``, ``h{i}_mid{j}``, ``h{i}_mid{j}_bn`` and ``h{i}_cls`` /
+``_box`` / ``_dir`` (the anchors are non-persistent buffers, no leaf).
 
 `to_jax_tree(model, what)` is the inverse map: the port's parameters,
 their gradients or its BN statistics as a nested dict of numpy arrays under
