@@ -16,7 +16,11 @@ Phases (any failure exits non-zero and prints no result line):
      blocks of sentinels at the end, a dead block in the middle, Cout 10
      and 3, Cin 4, batch 1 and 4; for K3 also a transposed 128->64 strided
      conv with its window staged and not, and epilogue rows of real
-     targets without neighbours) against their plain versions, K1 on each
+     targets without neighbours; `wide_corners`: K3 and K4 at tap groups
+     of one (2D (1, 3, 3) kernels, submanifold and (1, 2, 2)-strided) and
+     of five (5x5x5 stride 2, 32->64 and 64->128), K2 / K3 / K4 at 128->256
+     and 256->256, K3 also transposed, the channel slices' launches
+     printed) against their plain versions, K1 on each
      of them and on its own corners (tap windows with tap overflow,
      windows too large to stage, no sentinel); then a batch-1 forward of
      the main path records the arguments of every call of K1
@@ -301,7 +305,29 @@ Phases (any failure exits non-zero and prints no result line):
      centerpoint_pillar.yaml and cbgs_dyn_pp_centerpoint.yaml (a batch-4
      forward and a warm-up and a timed training step); on phase 14's Waymo
      tree pointpillar_1x.yaml (the same, 1.31 M anchors, peak memory);
- 16. a `kernels` JSON line (phases 13, 14 and 15 add, per yaml, each
+ 16. VoxelNeXt, VoxelNeXt2D, PillarNet and TransFusionHeadAM (VN_RUNS):
+     nuScenes cbgs_voxel0075_voxelnext / voxelnext / the double flip and
+     cbgs_pillar0075_res2d_centerpoint on phase 12's tree, Waymo
+     voxelnext_ioubranch_large / voxelnext2d_ioubranch / pillarnet on
+     phase 14's, KITTI pillarnet on phase 15's, Argo2 voxelnext and
+     transfusion_lidar.yaml with TransFusionHeadAM on bench.py's
+     lidar_ring scenes; init_random_(seed 0). Each yaml as written (XLA
+     windowed mode: a batch-4 forward, no K1-K4 launch, its overflow
+     printed), then in pallas mode (blocks of 512, as the reference's
+     Pallas path requires, and the main path's windows at every level;
+     the AM head on the main path's posgather backbone): forwards at the
+     run's batches (K3 only; AM: K1 and K2), a warm-up and a timed
+     training step at batch 4 with the yaml's optimizer (K3 and K4; AM:
+     K1-K4; finite loss and gradient norm, overflow 0, parameters
+     changed), and for the 3D VoxelNeXt yamls a posgather forward (K1,
+     K2 at the 3x3x3 strided convs, K3 at the rest); every K1-K4 call
+     of the batch-4 forwards and the timed steps held against its plain
+     version (K1 bit-equal, K2-K4 within their tolerances), timed once;
+     then train.py (1 epoch) and test.py on the KITTI PillarNet yaml with
+     only DATA_PATH set (a checkpoint, finite losses and AP keys). Printed
+     with the card's name and power limit: ms/scan, the decode's share,
+     ms/step, peak memory, the CLIs' wall seconds;
+ 17. a `kernels` JSON line (phases 13, 14, 15 and 16 add, per yaml, each
      kernel's calls of one batch-4 forward or of one training step,
      summed), then the result line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -647,7 +673,150 @@ def corner_phase(torch, tp, ws, so, block=1024):
             f"{err2:.3g} (tol {tol2:.3g}), K3 err {k3.err:.3g} (tol "
             f"{k3.tol:.3g}), K4 err {err4:.3g} (tol {tol4:.3g})")
     return rows + k3_corners(torch, ws, so, rng, block) \
+        + wide_corners(torch, tp, ws, so, block) \
         + k1_corners(torch, tp, so, block)
+
+
+def k2_err(torch, out, ref, label):
+    """(max abs error, tolerance) of a K2 output against plain; raises
+    beyond K2_RTOL of the output's scale or on a non-finite value."""
+    torch.cuda.synchronize()
+    err = float((out - ref).abs().max())
+    tol = K2_RTOL * max(float(ref.abs().max()), 1e-3)
+    if not (err <= tol and bool(torch.isfinite(out).all())):
+        raise AssertionError(f"{label}: K2 err {err} > {tol}")
+    return err, tol
+
+
+def k4_check(torch, ws, label, call):
+    """`call` (one windowed_dw) with its K4 launches recorded, held
+    against the plain version (K4_RTOL) and rerun (the same bits)."""
+    with Recorder(ws, "dw_kernel", torch) as rec:
+        dw = call()
+    (args, ckw), = rec.calls
+    ref = ws.windowed_dw_plain(*args, compute_dtype=ckw["compute_dtype"])
+    torch.cuda.synchronize()
+    err = float((dw - ref).abs().max())
+    tol = K4_RTOL * max(float(ref.abs().max()), 1e-3)
+    if not (err <= tol and bool(torch.isfinite(dw).all())):
+        raise AssertionError(f"{label}: K4 err {err} > {tol}")
+    if not torch.equal(dw, ws.dw_kernel(*args, **ckw)):
+        raise AssertionError(f"{label}: K4 differs between runs")
+    return err, tol
+
+
+def strided_level(so, coords, valid, shape, kernel, stride, padding, cap):
+    """The output level of a strided conv over (coords, valid) and its
+    base ids and deltas in the input id space."""
+    out_shape = tuple((n + 2 * p - k) // s + 1 for n, k, s, p in zip(
+        shape, kernel, stride, padding))
+    oi, oc, ov = so.win_downsample(coords, valid, shape, out_shape, cap,
+                                   kernel_size=kernel, stride=stride,
+                                   padding=padding)
+    base = so.strided_base_ids(oc, ov, stride, shape, out_shape)
+    return base, so.strided_deltas(kernel, stride, padding, shape)
+
+
+WIDE_CORNERS = [
+    # name, grid, kernel, stride, padding, actives, rows, batch, Cin, Cout,
+    # window
+    ("2D (1,3,3) subm, S=1", (1, 96, 96), (1, 3, 3), None, None, 4000,
+     4096, 2, 32, 64, 2048),
+    ("2D (1,3,3) stride (1,2,2), S=1", (1, 96, 96), (1, 3, 3), (1, 2, 2),
+     (0, 1, 1), 4000, 4096, 2, 64, 128, 4096),
+    ("5x5x5 stride 2, S=5", (9, 64, 64), (5, 5, 5), (2, 2, 2), (2, 2, 2),
+     6000, 8192, 2, 32, 64, 8192),
+    ("5x5x5 stride 2, S=5, 64->128", (9, 48, 48), (5, 5, 5), (2, 2, 2),
+     (2, 2, 2), 4000, 4096, 1, 64, 128, 8192),
+    ("3x3x3 stride 2, 128->256", (9, 48, 48), (3, 3, 3), (2, 2, 2),
+     (1, 1, 1), 4000, 4096, 2, 128, 256, 6144),
+    ("3x3x3 subm, 256->256", (9, 40, 40), (3, 3, 3), None, None, 3000,
+     4096, 2, 256, 256, 4096),
+]
+
+
+def wide_corners(torch, tp, ws, so, block):
+    """K3 and K4 at the tap groups and K2, K3 and K4 at the channel
+    counts that the VoxelNeXt / PillarNet paths add (numpy seed 2): groups
+    of one tap on a 2D level, (1, 3, 3) kernels, submanifold and stride
+    (1, 2, 2); groups of five of a 5x5x5 stride-2 conv; 128 -> 256 and
+    256 -> 256 (K2 where the kernel is 3x3x3, K3 also in the transposed
+    direction, whose transposed 5x5x5 and 256 -> 128 convs need Cin
+    slices). Each against its plain version; the launches per call
+    printed (channel slices)."""
+    from findnpropagate_torch.ops.posgather import (
+        flip_transpose_weights, tap_groups)
+
+    rng = np.random.RandomState(2)
+    rows = []
+    for (name, shape, kernel, stride, padding, n, cap, b, cin, cout,
+         window) in WIDE_CORNERS:
+        ids, feats, coords, valid = corner_scene(torch, so, rng, shape, n,
+                                                 cap, b, cin)
+        k = int(np.prod(kernel))
+        w = torch.from_numpy(rng.standard_normal(
+            (k, cin, cout)).astype("float32") * (1.0 / math.sqrt(
+                k * cin))).cuda()
+        if stride is None:
+            tgt, deltas = ids, so.yxz_offset_deltas(kernel, shape)
+            sent = so.yxz_sentinel_start(shape)
+        else:
+            tgt, deltas = strided_level(so, coords, valid, shape, kernel,
+                                        stride, padding, cap)
+            sent = so.strided_sentinel_start(shape)
+        taps = tap_groups(deltas)[1]
+        epi = dict(scale=torch.from_numpy(rng.uniform(
+            0.5, 1.5, cout).astype("float32")).cuda(),
+            shift=torch.from_numpy(rng.standard_normal(
+                cout).astype("float32")).cuda(), relu=True)
+        row = {"case": name, "batch": b, "cin": cin, "cout": cout,
+               "taps": taps}
+        ws.reset_launches()
+        k3 = check_k3(torch, ws, name, lambda: ws.windowed_conv(
+            ids, feats, tgt, w, deltas, block=block, window=window,
+            sentinel_start=sent, **epi))
+        row.update(k3_err=k3.err, k3_tol=k3.tol, overflow=k3.ovf,
+                   k3_launches=ws.LAUNCHES["windowed_conv"])
+        g = torch.from_numpy(rng.standard_normal(
+            (b, tgt.shape[1], cout)).astype("float32")).cuda()
+        ws.reset_launches()
+        err4, tol4 = k4_check(torch, ws, name, lambda: ws.windowed_dw(
+            ids, feats, tgt, g, deltas, block=block, window=window))
+        row.update(k4_err=err4, k4_tol=tol4,
+                   k4_launches=ws.LAUNCHES["windowed_dw"])
+        ws.reset_launches()
+        kt = check_k3(torch, ws, f"{name} transposed",
+                      lambda: ws.windowed_conv(
+                          tgt, g, ids, flip_transpose_weights(w),
+                          np.ascontiguousarray(-deltas[::-1]), block=block,
+                          window=window))
+        row.update(k3t_err=kt.err, k3t_tol=kt.tol,
+                   k3t_launches=ws.LAUNCHES["windowed_conv"])
+        if kernel[0] == 3:
+            lp = check_level(torch, tp, (ids, tgt, deltas),
+                             dict(block=block, window=window,
+                                  sentinel_start=sent), f"corner {name}")[0]
+            tp.reset_launches()
+            with Recorder(tp, "gather_conv", torch) as rec:
+                out = tp.posgather_conv(ids, feats, tgt, w, lp,
+                                        sentinel_start=sent, **epi)
+            (args, ckw), = rec.calls
+            err2, tol2 = k2_err(torch, out, tp.posgather_conv_plain(
+                *args, **ckw)[..., :cout], name)
+            row.update(k2_err=err2, k2_tol=tol2,
+                       k2_launches=tp.LAUNCHES["posgather_conv"])
+        if k3.ovf or kt.ovf:
+            raise AssertionError(f"corner {name}: overflow {k3.ovf} "
+                                 f"{kt.ovf}")
+        rows.append(row)
+        log(f"corner {name:32s} batch {b} {cin}->{cout} taps {taps}: "
+            + ", ".join(f"{key} {val:.3g}" if isinstance(val, float)
+                        else f"{key} {val}" for key, val in row.items()
+                        if key not in ("case", "batch", "cin", "cout",
+                                       "taps")))
+    ws.reset_launches()
+    tp.reset_launches()
+    return rows
 
 
 K1_CORNERS = [
@@ -1285,9 +1454,12 @@ def load_before(path):
     def conv_kernel(*args, centres=None, **kw):
         # the host-side centres, where that checkout's K3 takes them (else
         # it reads the deltas back from the device, which cannot be
-        # captured in a CUDA graph)
+        # captured in a CUDA graph); checkouts before tap groups of any
+        # size take the three-tap middles alone
         if "centres" in inspect.signature(bws.conv_kernel).parameters:
             kw["centres"] = centres
+            if centres is not None and not hasattr(bws, "conv_slices"):
+                kw["centres"] = centres[0]
         return bws.conv_kernel(*args, **kw)
     return types.SimpleNamespace(
         conv_kernel=conv_kernel, gather_conv=btp.gather_conv,
@@ -5857,6 +6029,331 @@ def anchor_phase(torch, mods, smi, dev="cuda"):
     return rep, rows, entries
 
 
+# ---- phase 16: VoxelNeXt, VoxelNeXt2D, PillarNet, TransFusionHeadAM
+
+VN_WORK = "build/voxelnext"
+# label: (yaml, data tree, batches of the kernels' mode, a training step,
+# a posgather-mode forward). Trees: phase 12's nuScenes, phase 14's Waymo,
+# phase 15's KITTI; "ring": bench.py's lidar_ring scenes in the yaml's
+# range and voxel size (Argo2's infos need pandas, which the card's
+# machine lacks; the AM head on the main path's data)
+VN_RUNS = {
+    "nus voxelnext 0075": (
+        "tools/cfgs/nuscenes_models/cbgs_voxel0075_voxelnext.yaml",
+        "nuscenes", (1, 4), True, True),
+    "nus voxelnext": ("tools/cfgs/nuscenes_models/voxelnext.yaml",
+                      "nuscenes", (4,), False, True),
+    "nus voxelnext doubleflip": (
+        "tools/cfgs/nuscenes_models/cbgs_voxel0075_voxelnext_doubleflip.yaml",
+        "nuscenes", (4,), False, False),
+    "argo2 voxelnext": ("tools/cfgs/argo2_models/cbgs_voxel01_voxelnext.yaml",
+                        "ring", (4,), False, False),
+    "waymo voxelnext large": (
+        "tools/cfgs/waymo_models/voxelnext_ioubranch_large.yaml", "waymo",
+        (1, 4), True, True),
+    "waymo voxelnext2d": ("tools/cfgs/waymo_models/voxelnext2d_ioubranch.yaml",
+                          "waymo", (4,), True, False),
+    "waymo pillarnet": ("tools/cfgs/waymo_models/pillarnet.yaml", "waymo",
+                        (4,), True, False),
+    "nus pillarnet": (
+        "tools/cfgs/nuscenes_models/cbgs_pillar0075_res2d_centerpoint.yaml",
+        "nuscenes", (4,), True, False),
+    "kitti pillarnet": ("tools/cfgs/kitti_models/pillarnet.yaml", "kitti",
+                        (), True, False),
+    "transfusion AM": (CFG_FILE, "ring", (1, 4), True, False),
+}
+VN_BATCH = 4                  # the as-written forward and the steps
+VN_BLOCK = 512                # the kernels' modes: blocks of 512 ids
+VN_TREES = {"nuscenes": ROOT / PAPER_WORK / "nuscenes",
+            "waymo": ROOT / WAYMO_WORK / "data",
+            "kitti": ROOT / ANCHOR_WORK / "kitti" / "data"}
+
+
+def vn_cfg(cfg_mod, label, impl=None):
+    """The run's yaml as written, or in SUBM_IMPL `impl` with the kernels'
+    block (the reference's Pallas path asserts block % 512 == 0, so the
+    head's block follows: it must divide the BEV list) and every level's
+    windows at least the main path's (cp_widen). The AM run is
+    transfusion_lidar.yaml with TransFusionHeadAM, whose own mode is the
+    main path's posgather."""
+    cfg = cfg_mod.cfg_from_yaml_file(str(ROOT / VN_RUNS[label][0]))
+    cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU = VN_BATCH
+    if label == "transfusion AM":
+        cfg.MODEL.DENSE_HEAD.NAME = "TransFusionHeadAM"
+        return cfg
+    if impl is not None:
+        bb = cfg.MODEL.BACKBONE_3D
+        bb.SUBM_IMPL = impl
+        bb.WINDOWED_BLOCK = VN_BLOCK
+        if "WINDOWED_BLOCK" in cfg.MODEL.DENSE_HEAD:
+            cfg.MODEL.DENSE_HEAD.WINDOWED_BLOCK = VN_BLOCK
+        bb.setdefault("WINDOWED_STRIDED_WINDOW", 4 * int(
+            bb.get("WINDOWED_WINDOW", 1024)))
+        cp_widen(cfg_mod, cfg, 3, 1)
+    return cfg
+
+
+def vn_data(cfg_mod, synth, tree):
+    """data(cfg, training, n) of a run's tree."""
+    from findnpropagate_torch import datasets as TD
+
+    if tree == "ring":
+        return synthetic_data(cfg_mod, synth)
+    return cycled_data(TD, VN_TREES[tree])
+
+
+def hold_calls(torch, tp, ws, k1, k2, k3, k4, label):
+    """Every recorded K1-K4 call of a run against its plain version on the
+    card: K1 bit for bit in its five fields (check_level), K2 / K3 / K4
+    within K2_RTOL / K3_RTOL / K4_RTOL of the output's scale (K4 also the
+    same bits twice), each call timed once after its first run and its
+    plain version once, with its bound. Returns per-call rows."""
+    rows = []
+    cat = lambda outs: torch.cat(outs, dim=0)          # noqa: E731
+    for i, (args, kw) in enumerate(k1):
+        _, ref, given = check_level(torch, tp, args, kw,
+                                    f"{label} K1 call {i}")
+        bound_ms, bound_by = bound_entry(*positions_bound(ref, args[1],
+                                                          given[7]))
+        rows.append({"name": "positions", "call": i, "max_abs_err": 0.0,
+                     "ms": timing.ms(lambda: tp.compute_positions(
+                         *args, **kw), 1),
+                     "plain_ms": timing.ms(lambda: tp.compute_positions_plain(
+                         *args, **kw), 1, warm=0),
+                     "bound_ms": bound_ms, "bound_by": bound_by})
+    for i, (args, kw) in enumerate(k2):
+        out = tp.gather_conv(*args, **kw)
+        plain = lambda: per_sample(                     # noqa: E731
+            tp.posgather_conv_plain, args, kw, (0, 1, 2, 3, 4, 5), cat)
+        err, tol = k2_err(torch, out, plain(), f"{label} K2 call {i}")
+        t_b, t_o, hits = conv_bound(tp, args, kw)
+        bound_ms, bound_by = bound_entry(t_b, t_o)
+        rows.append({"name": "posgather_conv", "call": i,
+                     "cin": args[1].shape[2], "cout": args[7].shape[1],
+                     "hits": hits, "max_abs_err": err, "tolerance": tol,
+                     "ms": timing.ms(lambda: tp.gather_conv(*args, **kw), 1),
+                     "plain_ms": timing.ms(plain, 1, warm=0),
+                     "bound_ms": bound_ms, "bound_by": bound_by})
+    for i, (args, kw) in enumerate(k3):
+        src, feats, tgt, lo, deltas, w_flat, block, window = args
+        out = ws.conv_kernel(*args, **kw)
+        plain = lambda: per_sample(                     # noqa: E731
+            ws.windowed_conv_plain, args, plain_kw(kw), (0, 1, 2, 3), cat)
+        err, tol = k3_err(torch, out, plain(), f"{label} K3 call {i}")
+        hits = windowed_hits(torch, ws, src, tgt, lo, deltas, block, window)
+        cin, cout = feats.shape[2], w_flat.shape[1]
+        nbytes = (4 * (src.numel() + tgt.numel() + lo.numel()
+                       + deltas.numel() + feats.numel())
+                  + 2 * w_flat.numel() + 4 * tgt.numel() * cout)
+        bound_ms, bound_by = bound_entry(nbytes / HBM_BYTES_PER_S,
+                                         2 * cin * cout * hits / BF16_FLOPS)
+        rows.append({"name": "windowed_conv", "call": i, "cin": cin,
+                     "cout": cout, "taps": int(deltas.shape[0]),
+                     "epilogue": kw.get("scale") is not None, "hits": hits,
+                     "max_abs_err": err, "tolerance": tol,
+                     "ms": timing.ms(lambda: ws.conv_kernel(*args, **kw), 1),
+                     "plain_ms": timing.ms(plain, 1, warm=0),
+                     "bound_ms": bound_ms, "bound_by": bound_by})
+    for i, (args, kw) in enumerate(k4):
+        src, feats, tgt, g, lo, deltas, block, window = args
+        out = ws.dw_kernel(*args, **kw)
+        plain = lambda: per_sample(                     # noqa: E731
+            ws.windowed_dw_plain, args,
+            {"compute_dtype": kw["compute_dtype"]}, (0, 1, 2, 3, 4),
+            lambda outs: torch.stack(outs).sum(dim=0))
+        ref = plain()
+        torch.cuda.synchronize()
+        err = float((out - ref).abs().max())
+        tol = K4_RTOL * max(float(ref.abs().max()), 1e-3)
+        if not (err <= tol and bool(torch.isfinite(out).all())
+                and torch.equal(out, ws.dw_kernel(*args, **kw))):
+            raise AssertionError(f"{label} K4 call {i}: err {err} > {tol} "
+                                 "or two runs differ")
+        hits = windowed_hits(torch, ws, src, tgt, lo, deltas, block, window)
+        cin, cout = feats.shape[2], g.shape[2]
+        nbytes = 4 * (src.numel() + tgt.numel() + lo.numel() + feats.numel()
+                      + g.numel() + deltas.numel() * (1 + cin * cout))
+        bound_ms, bound_by = bound_entry(nbytes / HBM_BYTES_PER_S,
+                                         2 * cin * cout * hits / BF16_FLOPS)
+        rows.append({"name": "windowed_dw", "call": i, "cin": cin,
+                     "cout": cout, "taps": int(deltas.shape[0]),
+                     "hits": hits, "max_abs_err": err, "tolerance": tol,
+                     "ms": timing.ms(lambda: ws.dw_kernel(*args, **kw), 1),
+                     "plain_ms": timing.ms(plain, 1, warm=0),
+                     "bound_ms": bound_ms, "bound_by": bound_by})
+    return rows
+
+
+@contextlib.contextmanager
+def record_kernels(torch, tp, ws):
+    """The K1-K4 calls made inside, in call order."""
+    with record_positions(torch, tp) as k1, \
+            Recorder(tp, "gather_conv", torch) as k2, \
+            Recorder(ws, "conv_kernel", torch) as k3, \
+            Recorder(ws, "dw_kernel", torch) as k4:
+        yield k1, k2.calls, k3.calls, k4.calls
+
+
+def vn_gate(label, got, need):
+    """Each kernel in `need` launched, none other."""
+    bad = {k: v for k, v in got.items() if (v > 0) != (k in need)}
+    if bad:
+        raise AssertionError(f"{label}: launches {got}, want {need} only")
+
+
+def vn_entries(rows, path, launches):
+    return [cp_summary(rows, k, path, launches[k]) for k in launches
+            if launches[k] and any(r["name"] == k for r in rows)]
+
+
+def vn_forwards(torch, mods, cfg, data, label, batches, need, dev):
+    """Eval forwards + post_process at each batch size with the launch
+    gate (`need`: the kernels the mode launches), the batch-4 forward's
+    calls recorded and held against plain. Returns (report, rows,
+    entries)."""
+    cfg_mod, models_mod, synth, tp, ws, lap, weights, *_ = mods
+    ds, batch, host_ms = data(cfg, False, max(batches))
+    det = models_mod.build_network(copy.deepcopy(cfg.MODEL),
+                                   len(cfg.CLASS_NAMES), ds, device=dev)
+    weights.init_random_(det, seed=0)
+    rep, rows, entries = {"loader_ms": host_ms}, [], []
+    for b in batches:
+        bt = on_card(torch, {k: v[:b] for k, v in batch.items()}, dev)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with record_kernels(torch, tp, ws) as calls:
+            out, dets, got = cp_forward(torch, det, bt, tp, ws, None,
+                                        f"{label} forward batch {b}")
+        vn_gate(f"{label} forward batch {b}", got, need)
+        med, dec, share, times = forward_decode_ms(torch, det, bt,
+                                                   ANCHOR_REPS)
+        rep[b] = {"launches": got, "ms_per_scan": med / b, "times_ms": times,
+                  "decode_ms": dec, "decode_share": share,
+                  "overflow": int(out.get("sparse_window_overflow", 0)),
+                  "detections_per_scan": [int(c) for c in dets.count],
+                  "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
+        if b == max(batches) and need:
+            rows = hold_calls(torch, tp, ws, *calls, f"{label} forward")
+            entries = vn_entries(rows, f"{label} forward batch {b}", got)
+        del out, dets, calls
+    del det
+    torch.cuda.empty_cache()
+    return rep, rows, entries
+
+
+def vn_step(torch, mods, cfg, data, label, need, dev):
+    """One warm-up and one timed training step at VN_BATCH with the yaml's
+    optimizer and clip (anchor_train's gates: finite loss and gradient
+    norm, overflow 0, parameters changed), the timed step's calls recorded
+    and held against plain. Returns (report, rows, entries)."""
+    with record_kernels(torch, mods[3], mods[4]) as calls:
+        rep, _ = anchor_train(torch, mods, cfg, data, label, 1, dev)
+    got = rep["steps"][0]["launches"]
+    vn_gate(f"{label} step", got, need)
+    # the warm-up's calls, then the timed step's: hold the timed step's
+    calls = [c[len(c) // 2:] for c in calls]
+    rows = hold_calls(torch, mods[3], mods[4], *calls, f"{label} step")
+    del calls
+    return rep, rows, vn_entries(rows, f"{label} training step batch "
+                                 f"{rep['batch']}", got)
+
+
+def vn_run(torch, mods, smi, label, dev):
+    """One run of VN_RUNS: the yaml as written (a batch-4 forward, its
+    overflow printed), then its kernels' mode (pallas; the AM head on the
+    main path's posgather backbone) at its batches and its training step,
+    and a posgather-mode forward where the reference routes the 3x3x3
+    strided convs to K1 / K2. Returns (report, rows, entries)."""
+    cfg_mod, models_mod, synth, tp, ws, *_ = mods
+    yaml, tree, batches, step, posgather = VN_RUNS[label]
+    data = vn_data(cfg_mod, synth, tree)
+    rep = {"yaml": yaml, "device": smi}
+    rows, entries = [], []
+    am = label == "transfusion AM"
+    if not am and batches:
+        cfg = vn_cfg(cfg_mod, label)
+        rep["as_written"], _, _ = vn_forwards(
+            torch, mods, cfg, data, f"{label} as written", (VN_BATCH,), (),
+            dev)
+    kcfg = vn_cfg(cfg_mod, label, None if am else "pallas")
+    # the AM head's posgather backbone: K1, K2 at eval, K1-K4 in training
+    need = ("positions", "posgather_conv") if am else ("windowed_conv",)
+    if batches:
+        rep["kernels_mode"], rw, e = vn_forwards(torch, mods, kcfg, data,
+                                                 label, batches, need, dev)
+        rows, entries = rows + rw, entries + e
+    if step:
+        rep["step"], rw, e = vn_step(
+            torch, mods, kcfg, data, label, ("windowed_conv", "windowed_dw")
+            + (("positions", "posgather_conv") if am else ()), dev)
+        rows, entries = rows + rw, entries + e
+    if posgather:
+        pcfg = vn_cfg(cfg_mod, label, "posgather")
+        rep["posgather"], rw, e = vn_forwards(
+            torch, mods, pcfg, data, f"{label} posgather", (VN_BATCH,),
+            ("positions", "posgather_conv", "windowed_conv"), dev)
+        rows, entries = rows + rw, entries + e
+    parts = [f"{label} ({smi}): {yaml}"]
+    if "as_written" in rep:
+        aw = rep["as_written"][VN_BATCH]
+        parts.append(f"as written batch {VN_BATCH} {aw['ms_per_scan']:.2f} "
+                     f"ms/scan, overflow {aw['overflow']}")
+    for key, name in (("kernels_mode", "AM (posgather)" if am else "pallas"),
+                      ("posgather", "posgather")):
+        for b, r in rep.get(key, {}).items():
+            if b == "loader_ms":
+                continue
+            parts.append(
+                f"{name} batch {b} {r['ms_per_scan']:.2f} ms/scan, decode "
+                f"{100 * r['decode_share']:.1f} %, launches {r['launches']}, "
+                f"detections {r['detections_per_scan']}, peak "
+                f"{r['peak_mem_gb']:.2f} GiB")
+    if "step" in rep:
+        st = rep["step"]
+        parts.append(f"step batch {st['batch']} {st['ms_per_step']:.1f} ms "
+                     f"(warm-up {st['warm_up']['ms']:.1f}), launches "
+                     f"{st['steps'][0]['launches']}, losses "
+                     f"{[round(v, 3) for v in st['losses']]}, peak "
+                     f"{st['peak_mem_gb']:.2f} GiB")
+    worst = {}
+    for r in rows:
+        worst[r["name"]] = max(worst.get(r["name"], 0.0),
+                               r["max_abs_err"] / max(r.get("tolerance", 1),
+                                                      1e-30))
+    parts.append(f"{len(rows)} recorded calls against plain, worst "
+                 f"err / tolerance {worst}")
+    log("; ".join(parts))
+    return rep, rows, entries
+
+
+def voxelnext_phase(torch, mods, smi, dev="cuda"):
+    """Phase 16: VN_RUNS in turn, then train.py / test.py on the KITTI
+    PillarNet yaml as written. Returns (report, rows, entries)."""
+    t0 = time.perf_counter()
+    rep, rows, entries = {"device": smi}, [], []
+    for label in VN_RUNS:
+        rep[label], rw, e = vn_run(torch, mods, smi, label, dev)
+        rows, entries = rows + rw, entries + e
+    work = ROOT / VN_WORK
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    cli = train_test_clis(mods[0], work, VN_TREES["kitti"],
+                          VN_RUNS["kitti pillarnet"][0], "kitti_pillarnet")
+    res = cli["result"]
+    if not ("mAP_3d_moderate_R40" in res and all(
+            math.isfinite(v) for v in res.values())):
+        raise AssertionError(f"kitti pillarnet test.py: result {res}")
+    rep["kitti pillarnet"]["cli"] = cli
+    log(f"kitti pillarnet CLIs ({smi}): train.py {cli['train_s']:.1f} s "
+        f"(losses {cli['train_losses']}, {cli['checkpoints']}), test.py "
+        f"{cli['test_s']:.1f} s, mAP_3d_moderate_R40 "
+        f"{res['mAP_3d_moderate_R40']}, {len(res)} keys all finite")
+    rep["phase_s"] = time.perf_counter() - t0
+    log(f"phase 16 ({smi}): {rep['phase_s']:.1f} s, {len(rows)} kernel "
+        "calls held against plain")
+    return rep, rows, entries
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--batches", type=int, nargs="+", default=[1, 8])
@@ -6061,7 +6558,13 @@ def main():
     report["anchor"], an_rows, an_entries = anchor_phase(torch, mods, smi)
     report["anchor_kernel_calls"] = an_rows
 
-    # ---- 16. result lines
+    # ---- 16. VoxelNeXt, VoxelNeXt2D, PillarNet (also train.py / test.py
+    # on KITTI) and TransFusionHeadAM
+    report["voxelnext"], vn_rows, vn_entries_ = voxelnext_phase(
+        torch, mods, smi)
+    report["voxelnext_kernel_calls"] = vn_rows
+
+    # ---- 17. result lines
     first_batch = report["main_path"][0]["launches_per_forward"]
     pick = {
         # K1 at L0 (first call); K2 at the L0 16->16 subm conv with the
@@ -6145,7 +6648,7 @@ def main():
             "shapes": r["shapes"]})
     # phases 13, 14 and 15: per yaml, each kernel's calls of one batch-4
     # forward and of one training step, summed
-    kernels += cp_entries + ds_entries + an_entries
+    kernels += cp_entries + ds_entries + an_entries + vn_entries_
     report["kernels"] = kernels
     report["device"] = smi
     if args.out:

@@ -1,9 +1,10 @@
 """The ported 2D backbones and BEV projections by their yaml NAME."""
 
-from .base_bev_backbone import BaseBEVBackbone
+from .base_bev_backbone import BaseBEVBackbone, BaseBEVBackboneV1
 from .map_to_bev import HeightCompression, PointPillarScatter
 
-BACKBONE_2D_REGISTRY = {"BaseBEVBackbone": BaseBEVBackbone}
+BACKBONE_2D_REGISTRY = {"BaseBEVBackbone": BaseBEVBackbone,
+                        "BaseBEVBackboneV1": BaseBEVBackboneV1}
 
 MAP_TO_BEV_REGISTRY = {
     "PointPillarScatter": PointPillarScatter,

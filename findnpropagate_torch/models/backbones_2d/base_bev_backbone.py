@@ -1,5 +1,5 @@
-"""BaseBEVBackbone — port of
-findnpropagate_tpu/models/backbones_2d/base_bev_backbone.py:17-85.
+"""BaseBEVBackbone and BaseBEVBackboneV1 — port of
+findnpropagate_tpu/models/backbones_2d/base_bev_backbone.py:17-120.
 
 Per level: a (strided) ConvBNReLU plus LAYER_NUMS[i] ConvBNReLUs, then a
 DeconvBNReLU to a common stride (an upsample for UPSAMPLE_STRIDES >= 1, a
@@ -8,6 +8,13 @@ are given); the levels concatenate on channels, and a last upsample stride
 beyond the levels' adds one more DeconvBNReLU (``deblock_extra``). NCHW;
 float32, or bf16 at eval under ``DTYPE: bf16`` (weights and BN statistics
 stay float32), with the output cast back to float32.
+
+BaseBEVBackboneV1 (PillarNet's) reads the two dense maps of
+``multi_scale_2d_features`` instead: ``x_conv4_dense`` (or ``x_conv4``) and
+``x_conv5``; block i runs LAYER_NUMS[i] ConvBNReLUs over map i and a
+DeconvBNReLU to a common stride, and the blocks concatenate on channels.
+Its input channels are the two maps' (the sparse backbone's
+``multi_scale_channels``).
 """
 
 from __future__ import annotations
@@ -70,4 +77,37 @@ class BaseBEVBackbone(nn.Module):
         if hasattr(self, "deblock_extra"):
             x = self.deblock_extra(x)
         batch["spatial_features_2d"] = x.float()
+        return batch
+
+
+class BaseBEVBackboneV1(nn.Module):
+    def __init__(self, model_cfg, input_channels):
+        super().__init__()
+        cfg = model_cfg
+        layer_nums = [int(n) for n in cfg.get("LAYER_NUMS", []) or []]
+        num_filters = [int(f) for f in cfg.get("NUM_FILTERS", []) or []]
+        ups = cfg.get("UPSAMPLE_STRIDES", []) or []
+        num_up = [int(u) for u in cfg.get("NUM_UPSAMPLE_FILTERS", []) or []]
+        self.layer_nums = layer_nums
+        for i, (n, f) in enumerate(zip(layer_nums, num_filters)):
+            c = int(input_channels[i])
+            for k in range(n):
+                self.add_module(f"block{i}_conv{k}", ConvBNReLU(c, f))
+                c = f
+            self.add_module(f"deblock{i}", DeconvBNReLU(c, num_up[i],
+                                                        stride=ups[i]))
+        self.num_bev_features = sum(num_up)
+
+    def forward(self, batch):
+        ms = batch["multi_scale_2d_features"]
+        srcs = [ms["x_conv4_dense"] if "x_conv4_dense" in ms
+                else ms["x_conv4"], ms["x_conv5"]]
+        ups = []
+        for i, n in enumerate(self.layer_nums):
+            x = srcs[i]
+            for k in range(n):
+                x = getattr(self, f"block{i}_conv{k}")(x)
+            ups.append(getattr(self, f"deblock{i}")(x))
+        batch["spatial_features_2d"] = torch.cat(ups, dim=1) \
+            if len(ups) > 1 else ups[0]
         return batch

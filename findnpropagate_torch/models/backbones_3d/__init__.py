@@ -1,8 +1,15 @@
 """The ported sparse 3D backbones by their yaml NAME."""
 
 from .spconv_backbone import VoxelBackBone8x, VoxelResBackBone8x
+from .spconv_backbone_2d import PillarBackBone8x, PillarRes18BackBone8x
+from .spconv_backbone_voxelnext import VoxelResBackBone8xVoxelNeXt
+from .spconv_backbone_voxelnext2d import VoxelResBackBone8xVoxelNeXt2D
 
 BACKBONE_3D_REGISTRY = {
     "VoxelBackBone8x": VoxelBackBone8x,
     "VoxelResBackBone8x": VoxelResBackBone8x,
+    "VoxelResBackBone8xVoxelNeXt": VoxelResBackBone8xVoxelNeXt,
+    "VoxelResBackBone8xVoxelNeXt2D": VoxelResBackBone8xVoxelNeXt2D,
+    "PillarBackBone8x": PillarBackBone8x,
+    "PillarRes18BackBone8x": PillarRes18BackBone8x,
 }

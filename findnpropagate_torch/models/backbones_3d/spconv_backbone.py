@@ -7,6 +7,12 @@ residual variant, two submanifold conv + BN + ReLU layers each
 ``USE_BIAS`` (the residual blocks' conv bias) defaults to the variant's
 residual switch, as in the reference.
 
+The stages are built by `_make_stage` (per-stage kernels, block counts
+and down kernels), which the VoxelNeXt, VoxelNeXt2D and PillarNet
+backbones share; the posgather kernels take only 3-deep kernels, and the
+submanifold convs only where the caller passes a positions cache, as in
+the reference.
+
 A level is one of
   ("sparse", grid, feats) — gather mode (``SUBM_MODE: gather``, the
       default): the active list in the voxelizer's order with its lookup
@@ -136,7 +142,38 @@ class _SparseStack(nn.Module):
         if self.downsample not in ("auto", *DOWNSAMPLE):
             raise ValueError(f"DOWNSAMPLE_IMPL {self.downsample!r}")
         self.fuse = bool(cfg.get("FUSE_BN_EPILOGUE", True))
-        nx, ny, nz = (int(g) for g in grid_size)
+        self.stage_blocks = {}
+        self._build(int(input_channels), tuple(int(g) for g in grid_size))
+
+    def _make_stage(self, s, cin, cout, down, num_blocks=2,
+                    kernel=(3, 3, 3), down_kernel=None, use_bias=False):
+        """Stage `s`'s modules under the reference's names: an opening
+        strided conv ``blocks{s}_down`` (+ BN) when `down`, then
+        `num_blocks` SparseBasicBlocks (residual) or conv + BN layers."""
+        if down:
+            self.add_module(f"blocks{s}_down", SparseConvParam(
+                cin, cout, kernel=down_kernel or kernel))
+            self.add_module(f"blocks{s}_down_bn", MaskedBatchNorm(cout))
+            cin = cout
+        for b in range(num_blocks):
+            if not self.residual:
+                self.add_module(f"blocks{s}_conv{b}", SparseConvParam(
+                    cin if b == 0 else cout, cout, kernel=kernel))
+                self.add_module(f"blocks{s}_bn{b}", MaskedBatchNorm(cout))
+                continue
+            self.add_module(f"blocks{s}_res{b}_conv1", SparseConvParam(
+                cin, cout, kernel=kernel, use_bias=use_bias))
+            self.add_module(f"blocks{s}_res{b}_bn1", MaskedBatchNorm(cout))
+            self.add_module(f"blocks{s}_res{b}_conv2", SparseConvParam(
+                cout, cout, kernel=kernel, use_bias=use_bias))
+            self.add_module(f"blocks{s}_res{b}_bn2", MaskedBatchNorm(cout))
+        self.stage_blocks[s] = num_blocks
+
+    def _build(self, input_channels, grid_size):
+        """The 8x stack: input conv, four stages, the (3, 1, 1) output
+        conv over z."""
+        cfg = self.model_cfg
+        nx, ny, nz = grid_size
         s1 = (nz + 1, ny, nx)
         s2 = tuple(conv_out_dim(n, 3, 2, 1) for n in s1)
         s3 = tuple(conv_out_dim(n, 3, 2, 1) for n in s2)
@@ -158,22 +195,7 @@ class _SparseStack(nn.Module):
         for s, (cin, cout, down) in enumerate(
                 [(c1, c1, False), (c1, c2, True), (c2, c3, True),
                  (c3, c4, True)], start=1):
-            if down:
-                self.add_module(f"blocks{s}_down", SparseConvParam(cin, cout))
-                self.add_module(f"blocks{s}_down_bn", MaskedBatchNorm(cout))
-                cin = cout
-            for b in range(2):
-                if not self.residual:
-                    self.add_module(f"blocks{s}_conv{b}", SparseConvParam(
-                        cin if b == 0 else cout, cout))
-                    self.add_module(f"blocks{s}_bn{b}", MaskedBatchNorm(cout))
-                    continue
-                self.add_module(f"blocks{s}_res{b}_conv1", SparseConvParam(
-                    cin, cout, use_bias=use_bias))
-                self.add_module(f"blocks{s}_res{b}_bn1", MaskedBatchNorm(cout))
-                self.add_module(f"blocks{s}_res{b}_conv2", SparseConvParam(
-                    cout, cout, use_bias=use_bias))
-                self.add_module(f"blocks{s}_res{b}_bn2", MaskedBatchNorm(cout))
+            self._make_stage(s, cin, cout, down, use_bias=use_bias)
         self.w_out = SparseConvParam(c4, self.out_channels, kernel=(3, 1, 1))
         self.bn_out = MaskedBatchNorm(self.out_channels)
 
@@ -250,6 +272,14 @@ class _SparseStack(nn.Module):
         ones = m.new_ones(m.shape[0], m.shape[1], 1)
         return ("dense", x, sparse_to_dense(a, ones)[:, 0] > 0)
 
+    def _posgather_ctx(self, ctx_cache, kernel):
+        """Whether a submanifold conv runs on the posgather kernels: in
+        posgather mode, for a 3-deep kernel, where the caller shares a
+        positions cache (VoxelNeXt's convs pass none) — the reference's
+        dispatch."""
+        return (self.impl == "posgather" and ctx_cache is not None
+                and kernel[0] == 3)
+
     def _level_ctx(self, ctx_cache, ids, shape, lvl_i, kernel, ovf_acc):
         key = (id(ids), tuple(kernel))
         if key not in ctx_cache:
@@ -324,7 +354,7 @@ class _SparseStack(nn.Module):
             ids, coords, valid, feats = a
             lvl_i = self._level_index(m)
             ctx = self._level_ctx(ctx_cache, ids, m, lvl_i, kernel, ovf_acc) \
-                if self.impl == "posgather" else None
+                if self._posgather_ctx(ctx_cache, kernel) else None
             out = self._sparse_conv(
                 ids, feats, ids, wmod, bnmod, ctx,
                 yxz_offset_deltas(kernel, m), self._win_cfg(lvl_i)[1],
@@ -373,7 +403,8 @@ class _SparseStack(nn.Module):
             sent = strided_sentinel_start(in_shape)
             deltas = strided_deltas(kernel, stride, padding, in_shape)
             ctx = None
-            if self.impl == "posgather" and not self.training:
+            if self.impl == "posgather" and not self.training \
+                    and kernel[0] == 3:
                 ctx = compute_positions(ids, base, deltas, block=block,
                                         window=swindow, sentinel_start=sent)
                 ovf_acc.append(ctx.overflow.sum())
@@ -392,14 +423,15 @@ class _SparseStack(nn.Module):
         return ("dense", y, new_mask)
 
     def _blocks(self, stage, level, ovf_acc, ctx_cache):
+        n_blocks = self.stage_blocks[stage]
         if not self.residual:
-            for blk in range(2):
+            for blk in range(n_blocks):
                 level = self._subm(level,
                                    getattr(self, f"blocks{stage}_conv{blk}"),
                                    getattr(self, f"blocks{stage}_bn{blk}"),
                                    ovf_acc, ctx_cache)
             return level
-        for blk in range(2):
+        for blk in range(n_blocks):
             kind, a, m = level
             identity = a[3] if kind == "win" else m if kind == "sparse" \
                 else a

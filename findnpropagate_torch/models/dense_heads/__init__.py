@@ -5,6 +5,8 @@ from .anchor_head_multi import AnchorHeadMulti
 from .center_head import CenterHead
 from .center_head_clip import CenterHeadCLIP
 from .transfusion_head import TransFusionHead
+from .transfusion_head_am import TransFusionHeadAM
+from .voxelnext_head import VoxelNeXtHead
 
 DENSE_HEAD_REGISTRY = {
     "AnchorHeadSingle": AnchorHeadSingle,
@@ -12,4 +14,6 @@ DENSE_HEAD_REGISTRY = {
     "CenterHead": CenterHead,
     "CenterHeadCLIP": CenterHeadCLIP,
     "TransFusionHead": TransFusionHead,
+    "TransFusionHeadAM": TransFusionHeadAM,
+    "VoxelNeXtHead": VoxelNeXtHead,
 }

@@ -3,20 +3,28 @@ findnpropagate_tpu/models/detectors/detector3d.py (`DetectorModule`
 :79-280 with `_voxelize` :245-262, `loss` :305-319, `post_process`
 :321-374, the head branches of `build_detector` :400-460).
 
-The topology voxelize -> VFE -> (sparse 3D backbone) -> map to BEV ->
-BaseBEVBackbone -> dense head runs over a dict batch, each module taken
+The topology voxelize -> VFE -> (sparse 3D backbone) -> (map to BEV) ->
+(2D backbone) -> dense head runs over a dict batch, each module taken
 from its registry by the yaml's NAME:
   * VFE: MeanVFE folds into `voxelize_mean`; the pillar and dynamic VFEs
     read the (V, T, C) bucket of `voxelize` (the dynamic ones its coords
     and the raw points);
-  * BACKBONE_3D (optional): VoxelResBackBone8x, VoxelBackBone8x;
-  * MAP_TO_BEV: HeightCompression, PointPillarScatter;
-  * DENSE_HEAD: TransFusionHead, CenterHead, CenterHeadCLIP,
-    AnchorHeadSingle, AnchorHeadMulti.
-That is TransFusion-LiDAR, CenterPoint (voxel and pillar), PointPillar and
-SECOND / SECONDNet. `post_process` decodes the head's outputs into
-fixed-size Detections: TransFusion its queries, the CenterPoint heads
-their heatmaps, the anchor heads through the generic class-agnostic
+  * BACKBONE_3D (optional): VoxelResBackBone8x, VoxelBackBone8x,
+    VoxelResBackBone8xVoxelNeXt, VoxelResBackBone8xVoxelNeXt2D,
+    PillarRes18BackBone8x, PillarBackBone8x;
+  * MAP_TO_BEV (optional): HeightCompression, PointPillarScatter;
+  * BACKBONE_2D (optional): BaseBEVBackbone, BaseBEVBackboneV1 (whose
+    inputs are the sparse backbone's two dense maps);
+  * DENSE_HEAD: TransFusionHead, TransFusionHeadAM, CenterHead,
+    CenterHeadCLIP, AnchorHeadSingle, AnchorHeadMulti, VoxelNeXtHead
+    (which reads the backbone's sparse BEV list: no map to BEV and no 2D
+    backbone).
+That is TransFusion-LiDAR (and its anchor-matching head), CenterPoint
+(voxel and pillar), PointPillar, SECOND / SECONDNet, VoxelNeXt (3D and
+2D) and PillarNet. `post_process` decodes the head's outputs into
+fixed-size Detections: TransFusion its queries, the CenterPoint and
+VoxelNeXt heads their heatmaps, the anchor heads through the generic
+class-agnostic
 `post_processing.post_process` (POST_PROCESSING.NMS_CONFIG; its
 MULTI_CLASSES_NMS and OUTPUT_RAW_SCORE are not read, as in the
 reference). The forward keeps gradients when the module is in training
@@ -40,13 +48,13 @@ from ..post_processing import post_process
 from ..vfe import VFE_REGISTRY
 
 DETECTORS = ("TransFusion", "CenterPoint", "PointPillar", "SECOND",
-             "SECONDNet")
+             "SECONDNet", "VoxelNeXt", "PillarNet")
 _PORTED = {"VFE": ("MeanVFE", *VFE_REGISTRY),
            "BACKBONE_3D": tuple(BACKBONE_3D_REGISTRY),
            "MAP_TO_BEV": tuple(MAP_TO_BEV_REGISTRY),
            "BACKBONE_2D": tuple(BACKBONE_2D_REGISTRY),
            "DENSE_HEAD": tuple(DENSE_HEAD_REGISTRY)}
-_OPTIONAL = ("BACKBONE_3D",)
+_OPTIONAL = ("BACKBONE_3D", "MAP_TO_BEV", "BACKBONE_2D")
 _NOT_PORTED = ("PFE", "POINT_HEAD", "ROI_HEAD", "IMAGE_BACKBONE", "NECK",
                "VTRANSFORM", "FUSER")
 
@@ -59,8 +67,9 @@ def _not_ported(what):
 class DetectorModule(nn.Module):
     """batch dict {points (B, P, F), points_mask (B, P)} in, batch dict
     with the head's outputs (``transfusion_preds``, ``center_preds``,
-    ``center_clip_preds`` or the anchor heads' ``batch_cls_preds`` /
-    ``batch_box_preds``) and the backbone telemetry out."""
+    ``center_clip_preds``, ``voxelnext_preds`` or the anchor heads'
+    ``batch_cls_preds`` / ``batch_box_preds``) and the backbone telemetry
+    out."""
 
     def __init__(self, model_cfg, num_class, class_names, grid_size,
                  voxel_size, point_cloud_range, num_point_features,
@@ -96,18 +105,30 @@ class DetectorModule(nn.Module):
             self.backbone_3d = BACKBONE_3D_REGISTRY[
                 cfg["BACKBONE_3D"]["NAME"]](cfg["BACKBONE_3D"], in_ch,
                                             self.grid_size)
-        self.map_to_bev = MAP_TO_BEV_REGISTRY[cfg["MAP_TO_BEV"]["NAME"]](
-            cfg["MAP_TO_BEV"], self.grid_size)
-        self.backbone_2d = BACKBONE_2D_REGISTRY[cfg["BACKBONE_2D"]["NAME"]](
-            cfg["BACKBONE_2D"], self.map_to_bev.num_bev_features)
+        self.map_to_bev = self.backbone_2d = None
+        if "MAP_TO_BEV" in cfg:
+            self.map_to_bev = MAP_TO_BEV_REGISTRY[cfg["MAP_TO_BEV"]["NAME"]](
+                cfg["MAP_TO_BEV"], self.grid_size)
+        if "BACKBONE_2D" in cfg:
+            bb2 = cfg["BACKBONE_2D"]
+            if self.map_to_bev is not None:
+                bb2_in = self.map_to_bev.num_bev_features
+            elif bb2["NAME"] == "BaseBEVBackboneV1":
+                bb2_in = self.backbone_3d.multi_scale_channels
+            else:
+                bb2_in = int(bb2.get("INPUT_CHANNELS", 64))
+            self.backbone_2d = BACKBONE_2D_REGISTRY[bb2["NAME"]](bb2, bb2_in)
+        # fully sparse heads (VoxelNeXt) read the 3D backbone's output
+        head_in = (self.backbone_2d if self.backbone_2d is not None
+                   else self.backbone_3d).num_bev_features
         head = cfg["DENSE_HEAD"]
         kw = {}
         if head["NAME"] == "CenterHead" and head.get(
                 "PREDICT_BOXES_WHEN_TRAINING"):
             kw["predict_boxes_when_training"] = True
         self.dense_head = DENSE_HEAD_REGISTRY[head["NAME"]](
-            head, self.backbone_2d.num_bev_features, num_class, class_names,
-            self.point_cloud_range, self.voxel_size, self.grid_size, **kw)
+            head, head_in, num_class, class_names, self.point_cloud_range,
+            self.voxel_size, self.grid_size, **kw)
 
     def _voxelize(self, batch):
         args = (batch["points"], batch["points_mask"], self.point_cloud_range,
@@ -152,13 +173,15 @@ class DetectorModule(nn.Module):
     @torch.no_grad()
     def post_process(self, out_batch, max_det: int = 256):
         """Detections of the head's outputs: TransFusion decodes its
-        queries (max_det slots), the CenterPoint heads their heatmaps, the
+        queries (max_det slots), the CenterPoint and VoxelNeXt heads their
+        heatmaps, the
         anchor heads' boxes go through rotated NMS (NMS_POST_MAXSIZE
         slots)."""
         if "transfusion_preds" in out_batch:
             return self.dense_head.get_bboxes(out_batch["transfusion_preds"],
                                               max_det=max_det)
-        if "center_preds" in out_batch or "center_clip_preds" in out_batch:
+        if "center_preds" in out_batch or "center_clip_preds" in out_batch \
+                or "voxelnext_preds" in out_batch:
             return self.dense_head.get_bboxes(out_batch)
         pc = self.post_cfg
         nms_cfg = pc["NMS_CONFIG"]

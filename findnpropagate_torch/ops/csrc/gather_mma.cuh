@@ -1,5 +1,5 @@
 // What the gather-and-multiply kernels share (K2 in posgather.cu, K3 and K4
-// in windowed_sparse.cu): the search, the three z-probes of a tap group, the
+// in windowed_sparse.cu): the search, the S z-probes of a tap group, the
 // asynchronous 16-byte gather of bf16 source rows into a shared-memory tile,
 // the tensor-core primitives (ldmatrix, mma.sync m16n8k16 bf16 -> f32), the
 // body of the convs (K2, K3): the ring of gathered group tiles times the
@@ -9,9 +9,14 @@
 // window_product_kernel stages the window once per block and has a body of
 // its own.
 //
-// Tile layout. A gather tile holds, per target row, the 3*Cin bf16 channels
-// of one (dy, dx) tap group: [z-1 | z | z+1] x Cin, a row every
-// 3*Cin*2 + 16 bytes. The 16 bytes of padding make the row stride an odd
+// Tap groups. A kernel's taps in zyx C-order are G (dy, dx) groups of S
+// consecutive ids, S the kernel's z size: 3 for a 3x3x3 kernel (9 groups),
+// 5 for 5x5x5 (25 groups), 1 for the (1, 3, 3) kernels of a 2D level (9
+// groups of one). Tap zi * G + g has the id delta centres[g] + zi - S/2.
+//
+// Tile layout. A gather tile holds, per target row, the S*Cin bf16
+// channels of one tap group: [z-S/2 | ... | z+S/2] x Cin, a row every
+// S*Cin*2 + 16 bytes. The 16 bytes of padding make the row stride an odd
 // number of 16-byte units, so the eight row addresses of every ldmatrix
 // 8x8 block fall into eight different bank groups (no conflicts), with or
 // without .trans.
@@ -35,23 +40,34 @@ __device__ __forceinline__ int lower_bound(const int* __restrict__ a, int n,
   return lo;
 }
 
-// The three z-neighbours of one (target, tap group), given the rank of the
+// The S z-neighbours of one (target, tap group), given the rank of the
 // group's centre id in the window win[0:window) (win = src + lo_b) and
-// whether the centre itself is there: z-1 sits at rank-1, z at rank (only on
-// a hit), z+1 at rank+hit. Each is accepted only if the id there is exactly
-// the one wanted; rows[zi * stride + r] gets the source row, or -1. Returns
-// whether any of the three was found.
-__device__ __forceinline__ int resolve_probes(const int* __restrict__ win,
-                                              int window, int lo_b, int rank,
-                                              int hit, int centre, int* rows,
-                                              int stride, int r) {
+// whether the centre itself is there. The ids are unique and ascending, so
+// an id centre - k (k <= S/2) lies among the S/2 places below the rank and
+// centre + k among the S/2 places from rank + hit up: for S = 3, z-1 at
+// rank-1, z at rank (only on a hit), z+1 at rank+hit. A probe is accepted
+// only if the id there is exactly the one wanted; rows[zi * stride + r] gets
+// the source row, or -1. Returns whether any of the S was found. S is a
+// template argument, so the probes unroll.
+template <int S>
+__device__ __forceinline__ int resolve_probes_s(const int* __restrict__ win,
+                                                int window, int lo_b,
+                                                int rank, int hit, int centre,
+                                                int* rows, int stride, int r) {
+  constexpr int h = S / 2;
   int found = 0;
 #pragma unroll
-  for (int zi = 0; zi < 3; ++zi) {
-    const int j = zi == 0 ? rank - 1 : (zi == 1 ? rank : rank + hit);
+  for (int zi = 0; zi < S; ++zi) {
+    const int dz = zi - h;
     int s = -1;
-    if (j >= 0 && j < window && (zi != 1 || hit)) {
-      if (win[j] == centre + (zi - 1)) s = lo_b + j;
+    if (dz == 0) {
+      if (hit && rank < window && win[rank] == centre) s = lo_b + rank;
+    } else {
+#pragma unroll
+      for (int k = 0; k < h; ++k) {
+        const int j = dz < 0 ? rank - 1 - k : rank + hit + k;
+        if (j >= 0 && j < window && win[j] == centre + dz) s = lo_b + j;
+      }
     }
     rows[zi * stride + r] = s;
     found |= s >= 0;
@@ -81,21 +97,23 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
-__host__ __device__ __forceinline__ int tile_stride(int cin) {
-  return 3 * cin * 2 + 16;
+// Bytes per row of a gather tile of `taps` x cin bf16 channels.
+__host__ __device__ __forceinline__ int tile_stride(int cin, int taps) {
+  return taps * cin * 2 + 16;
 }
 
-// Start the gather of one group's tile: ROWS targets x [3][cin] bf16 into
-// `tile` (shared-memory address), from the sample's bf16 features; rows is
-// resolve_probes' output ([3][ROWS]); misses become zeros. cin % 8 == 0.
+// Start the gather of one group's tile: ROWS targets x [taps][cin] bf16
+// into `tile` (shared-memory address), from the sample's bf16 features;
+// rows is resolve_probes' output ([taps][ROWS]); misses become zeros.
+// cin % 8 == 0.
 template <int ROWS>
 __device__ __forceinline__ void gather_tile(uint32_t tile,
                                             const __nv_bfloat16* __restrict__ f,
-                                            const int* rows, int cin, int tid,
-                                            int n_threads) {
+                                            const int* rows, int cin, int taps,
+                                            int tid, int n_threads) {
   const int cpr = cin >> 3;                 // 16-byte pieces per source row
-  const int stride = tile_stride(cin);
-  const int n = 3 * ROWS * cpr;
+  const int stride = tile_stride(cin, taps);
+  const int n = taps * ROWS * cpr;
   for (int c = tid; c < n; c += n_threads) {
     const int cc = c % cpr, t = c / cpr;
     const int r = t % ROWS, zi = t / ROWS;
@@ -145,7 +163,7 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
 // ---- the conv of one tile of kConvTile targets x all Cout (K2, K3)
 //
 // kConvThreads / 32 warps, one per 16 target rows, each with NT = Cout / 8
-// n-tiles of m16n8k16 accumulators. The weights are (G*3*Cin, Cout) bf16
+// n-tiles of m16n8k16 accumulators. The weights are (G*S*Cin, Cout) bf16
 // packed in mma fragment order ([g][k-slab of 16][n-tile of 8][lane][4],
 // lane l holding rows 2(l%4), 2(l%4)+1, 2(l%4)+8, 2(l%4)+9 of column l/4):
 // in shared memory at w_sm, all groups when `resident`, else one group per
@@ -154,27 +172,28 @@ constexpr int kConvTile = 128;
 constexpr int kConvThreads = kConvTile * 2;
 
 // acc += sum over the tap groups g in `mask` (ascending) of the gathered
-// tile of rows[g] (kConvTile x 3Cin) times W_g. With two stages, group g's
+// tile of rows[g] (kConvTile x S*Cin, S = taps) times W_g. With two stages, group g's
 // successor is in flight while g multiplies. Every thread of the block
 // calls it with the same mask; it leaves no copy pending.
 template <int NT>
 __device__ __forceinline__ void conv_tile(
     float (&acc)[NT][4], unsigned mask, const unsigned char* __restrict__ w,
     const unsigned char* w_sm, uint32_t a_sa,
-    const __nv_bfloat16* __restrict__ f, const int* rows, int cin,
+    const __nv_bfloat16* __restrict__ f, const int* rows, int cin, int taps,
     int resident, int stages, int tid) {
   const int warp = tid >> 5, lane = tid & 31;
-  const int ks_n = 3 * cin / 16;
-  const int wg_bytes = 3 * cin * NT * 8 * 2;
-  const int a_stride = tile_stride(cin);
+  const int ks_n = taps * cin / 16;
+  const int wg_bytes = taps * cin * NT * 8 * 2;
+  const int a_stride = tile_stride(cin, taps);
   const int a_bytes = kConvTile * a_stride;
   const uint32_t w_sa = smem_addr(w_sm);
 
   // one cp.async group per tap group: its gather tile and, unless all
   // weights are resident, its weights
   auto start_group = [&](int g, int st) {
-    gather_tile<kConvTile>(a_sa + st * a_bytes, f, rows + g * 3 * kConvTile,
-                           cin, tid, kConvThreads);
+    gather_tile<kConvTile>(a_sa + st * a_bytes, f,
+                           rows + g * taps * kConvTile, cin, taps, tid,
+                           kConvThreads);
     if (!resident)
       copy_async(w_sa + st * wg_bytes, w + (size_t)g * wg_bytes, wg_bytes,
                  tid, kConvThreads);
@@ -219,10 +238,13 @@ __device__ __forceinline__ void conv_tile(
 }
 
 // The tile's outputs from acc: out and tgt point at its first row (Cout
-// floats a row); optionally *scale + shift, ReLU, and zero where the target
-// id is >= sentinel. 8 bytes per lane: a 32-byte sector per row and warp.
-template <int NT>
-__device__ __forceinline__ void store_tile(
+// floats a row); with kAccumulate, acc is first added to what out holds
+// (the sum of the earlier input-channel slices of the same conv); then
+// optionally *scale + shift, ReLU, and zero where the target id is >=
+// sentinel. 8 bytes per lane: a 32-byte sector per row and warp.
+// store_tile picks the variant once per tile, outside the stores.
+template <int NT, bool kAccumulate>
+__device__ __forceinline__ void store_tile_as(
     const float (&acc)[NT][4], float* __restrict__ out,
     const int* __restrict__ tgt, const float* __restrict__ scale,
     const float* __restrict__ shift, int epilogue, int relu, int sentinel,
@@ -237,7 +259,13 @@ __device__ __forceinline__ void store_tile(
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) {
       const int col = nt * 8 + col0;
+      float2* o = reinterpret_cast<float2*>(out + (size_t)r * cout + col);
       float v0 = acc[nt][half * 2], v1 = acc[nt][half * 2 + 1];
+      if (kAccumulate) {
+        const float2 prev = *o;
+        v0 += prev.x;
+        v1 += prev.y;
+      }
       if (epilogue) {
         v0 = v0 * scale[col] + shift[col];
         v1 = v1 * scale[col + 1] + shift[col + 1];
@@ -247,10 +275,23 @@ __device__ __forceinline__ void store_tile(
         }
         if (masked) v0 = v1 = 0.f;
       }
-      *reinterpret_cast<float2*>(out + (size_t)r * cout + col) =
-          make_float2(v0, v1);
+      *o = make_float2(v0, v1);
     }
   }
+}
+
+template <int NT>
+__device__ __forceinline__ void store_tile(
+    const float (&acc)[NT][4], float* __restrict__ out,
+    const int* __restrict__ tgt, const float* __restrict__ scale,
+    const float* __restrict__ shift, int epilogue, int relu, int sentinel,
+    int accumulate, int tid) {
+  if (accumulate)
+    store_tile_as<NT, true>(acc, out, tgt, scale, shift, epilogue, relu,
+                            sentinel, tid);
+  else
+    store_tile_as<NT, false>(acc, out, tgt, scale, shift, epilogue, relu,
+                             sentinel, tid);
 }
 
 // Zeros over a tile's kConvTile x cout outputs (cout % 4 == 0).
@@ -269,10 +310,10 @@ constexpr int kSmemMax = 227 * 1024;      // dynamic shared memory per block
 
 // Shared memory: [weights: all g_n groups when resident, else `stages` of
 // one group][`stages` gather tiles][extra bytes of the kernel's own].
-inline int conv_smem(int g_n, int cin, int cout, int resident, int stages,
-                     int extra) {
-  return (resident ? g_n : stages) * 3 * cin * cout * 2
-      + stages * kConvTile * tile_stride(cin) + extra;
+inline int conv_smem(int g_n, int taps, int cin, int cout, int resident,
+                     int stages, int extra) {
+  return (resident ? g_n : stages) * taps * cin * cout * 2
+      + stages * kConvTile * tile_stride(cin, taps) + extra;
 }
 
 struct ConvPlan {
@@ -282,12 +323,12 @@ struct ConvPlan {
 // All groups' weights resident where they fit in kResidentMax, two stages
 // where they fit in kSmemMax, else one; smem > kSmemMax when not even that
 // fits (the caller refuses the launch).
-inline ConvPlan conv_plan(int g_n, int cin, int cout, int extra) {
+inline ConvPlan conv_plan(int g_n, int taps, int cin, int cout, int extra) {
   ConvPlan p;
-  p.resident = g_n * 3 * cin * cout * 2 <= kResidentMax;
-  p.stages =
-      conv_smem(g_n, cin, cout, p.resident, 2, extra) <= kSmemMax ? 2 : 1;
-  p.smem = conv_smem(g_n, cin, cout, p.resident, p.stages, extra);
+  p.resident = g_n * taps * cin * cout * 2 <= kResidentMax;
+  p.stages = conv_smem(g_n, taps, cin, cout, p.resident, 2, extra)
+      <= kSmemMax ? 2 : 1;
+  p.smem = conv_smem(g_n, taps, cin, cout, p.resident, p.stages, extra);
   return p;
 }
 

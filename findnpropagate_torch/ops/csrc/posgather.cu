@@ -347,12 +347,12 @@ conv_kernel(const int* __restrict__ src,
             const float* __restrict__ scale, const float* __restrict__ shift,
             float* __restrict__ out, int batch, int vs, int vt, int nb,
             int g_n, int block, int window, int cin, int epilogue, int relu,
-            int sentinel, int resident, int stages) {
+            int sentinel, int accumulate, int resident, int stages) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int cout = NT * 8;
   const int tid = threadIdx.x;
   const int wg_bytes = 3 * cin * cout * 2;
-  const int a_bytes = kTile * fp::tile_stride(cin);
+  const int a_bytes = kTile * fp::tile_stride(cin, 3);
   const int w_bytes = (resident ? g_n : stages) * wg_bytes;
   const uint32_t a_sa = fp::smem_addr(smem) + w_bytes;
   int* rows = reinterpret_cast<int*>(smem + w_bytes + stages * a_bytes);
@@ -386,9 +386,9 @@ conv_kernel(const int* __restrict__ src,
       const int g = p / kTile, r = p - g * kTile;
       const int pv = pos[((size_t)b * g_n + g) * vt + t0 + r];
       const int hit = pv >= 0;
-      fp::resolve_probes(win, window, lo_b, hit ? pv : ~pv, hit,
-                         tgtb[t0 + r] + gdeltas[g], rows + g * 3 * kTile,
-                         kTile, r);
+      fp::resolve_probes_s<3>(win, window, lo_b, hit ? pv : ~pv, hit,
+                              tgtb[t0 + r] + gdeltas[g],
+                              rows + g * 3 * kTile, kTile, r);
     }
     __syncthreads();
 
@@ -399,9 +399,9 @@ conv_kernel(const int* __restrict__ src,
       for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
     fp::conv_tile<NT>(
         acc, (1u << g_n) - 1u, w, smem, a_sa, feats + (size_t)b * vs * cin,
-        rows, cin, resident, stages, tid);
+        rows, cin, 3, resident, stages, tid);
     fp::store_tile<NT>(acc, outb, tgtb + t0, scale, shift, epilogue, relu,
-                       sentinel, tid);
+                       sentinel, accumulate, tid);
   }
 }
 
@@ -411,9 +411,9 @@ int launch_conv(const int* src, const void* feats, const int* tgt,
                 const int* gdeltas, const void* w, const float* scale,
                 const float* shift, float* out, int batch, int vs, int vt,
                 int nb, int g_n, int block, int window, int cin, int epilogue,
-                int relu, int sentinel, cudaStream_t stream) {
+                int relu, int sentinel, int accumulate, cudaStream_t stream) {
   // the rows: g_n x 3 x kTile int
-  const fp::ConvPlan plan = fp::conv_plan(g_n, cin, NT * 8,
+  const fp::ConvPlan plan = fp::conv_plan(g_n, 3, cin, NT * 8,
                                           g_n * 3 * kTile * 4);
   if (plan.smem > fp::kSmemMax) return (int)cudaErrorInvalidValue;
   int slots = 0;
@@ -424,7 +424,7 @@ int launch_conv(const int* src, const void* feats, const int* tgt,
   conv_kernel<NT><<<grid, kThreads, plan.smem, stream>>>(
       src, (const __nv_bfloat16*)feats, tgt, pos, lo, has_real, gdeltas,
       (const unsigned char*)w, scale, shift, out, batch, vs, vt, nb, g_n,
-      block, window, cin, epilogue, relu, sentinel, plan.resident,
+      block, window, cin, epilogue, relu, sentinel, accumulate, plan.resident,
       plan.stages);
   return (int)cudaGetLastError();
 }
@@ -511,20 +511,23 @@ int fp_positions(const int* src, const int* tgt, const int* lo,
 // [g][k-slab of 16][n-tile of 8][lane][4], lane l holding rows 2(l%4),
 // 2(l%4)+1, 2(l%4)+8, 2(l%4)+9 of column l/4. Cin % 16 == 0 and <= 128;
 // Cout a power of two in [8, 128]; block % 128 == 0; Vt % block == 0
-// (checked by the caller).
+// (checked by the caller). Wider convs are tiles of these: one call per
+// (Cout slice, Cin slice), out being the Cout slice's own (B, Vt, Cout)
+// buffer; `accumulate` adds the products to what out holds (the earlier
+// Cin slices), and the epilogue goes with the last Cin slice only.
 int fp_posgather_conv(const int* src, const void* feats, const int* tgt,
                       const int* pos, const int* lo, const int* has_real,
                       const int* gdeltas, const void* w, const float* scale,
                       const float* shift, float* out, int batch, int vs,
                       int vt, int nb, int g_n, int block, int window,
                       int cin, int cout, int epilogue, int relu,
-                      int sentinel, void* stream) {
+                      int sentinel, int accumulate, void* stream) {
 #define FP_CONV_CASE(NT)                                                    \
   case NT * 8:                                                              \
     return launch_conv<NT>(src, feats, tgt, pos, lo, has_real, gdeltas, w,  \
                            scale, shift, out, batch, vs, vt, nb, g_n,       \
                            block, window, cin, epilogue, relu, sentinel,    \
-                           (cudaStream_t)stream)
+                           accumulate, (cudaStream_t)stream)
   switch (cout) {
     FP_CONV_CASE(1);
     FP_CONV_CASE(2);

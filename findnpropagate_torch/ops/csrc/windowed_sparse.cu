@@ -18,10 +18,12 @@
 //    card's ridge at 16 channels (bytes, and the latency of the search ->
 //    row loads), near it from 64 on (operations). Design: K2's body on the
 //    tensor cores (gather_mma.cuh conv_tile / store_tile) with the ranks
-//    searched in the kernel instead of read from K1. The 27 taps are 9
-//    (dy, dx) groups of three consecutive ids: one binary search of the
-//    group's centre in the block's window slice gives z-1 / z / z+1 with
-//    K2's exact-id probes (9 searches per target instead of 27; the TPU
+//    searched in the kernel instead of read from K1. The K taps are G
+//    (dy, dx) groups of S consecutive ids (S, the kernel's z size, a
+//    template argument: 27 taps are 9 groups of three, 125 are 25 of five,
+//    a 2D (1, 3, 3) kernel's 9 taps 9 groups of one): one binary search of
+//    the group's middle in the block's window slice gives its S taps with
+//    K2's exact-id probes (G searches per target instead of K; the TPU
 //    aligns ids by a one-hot compare of the whole window instead). Tiles of
 //    128 targets (one target block's window each) x all Cout; 8 warps of 16
 //    rows with mma.sync m16n8k16 accumulators; A fragments by ldmatrix from
@@ -49,19 +51,19 @@
 //    Cout) f32 from bf16 operands.
 //    Bound: operations at 64 channels (2*Cin*Cout flop per neighbour found
 //    against Cin*2 + Cout*2 bytes read), bytes and search latency at 16 and
-//    32. Design: the K taps are K/3 (dy, dx) groups of three consecutive
-//    ids (z-1, z, z+1), so one search of the group's centre id in the
-//    target block's window gives all three rows (the probes of K2, with the
-//    same exact-id checks and window edges, so the neighbours kept and
-//    dropped are those of a per-tap search). The grid is (group) x (chunk
-//    of targets) x (sample), chunks sized for about three blocks per SM. A
-//    256-thread block keeps its group's 3Cin x Cout f32 sum in tensor-core
-//    accumulators (3 x WN m16n8k16 tiles per warp, up to 96 registers per
-//    thread) and walks its chunk in tiles of 64 targets with the target
-//    axis as the product's depth: dW_g += A^T (3Cin x 64) . G (64 x Cout),
-//    both read with ldmatrix.trans from [target][channel] tiles. The tiles
-//    (gathered rows, zero on a miss, and the g rows once for all three
-//    taps) arrive by 16-byte cp.async from bf16 copies that the wrapper
+//    32. Design: the K taps are K/S (dy, dx) groups of S consecutive ids
+//    (S in {1, 3, 5}, a template argument), so one search of the group's
+//    middle id in the target block's window gives all S rows (the probes of
+//    K2, with the same exact-id checks and window edges, so the neighbours
+//    kept and dropped are those of a per-tap search). The grid is (group)
+//    x (chunk of targets) x (sample), chunks sized for about three blocks
+//    per SM. A 256-thread block keeps its group's S Cin x Cout f32 sum in
+//    tensor-core accumulators (S x WN m16n8k16 tiles per warp, up to 96
+//    registers per thread; the wrapper's channel slices keep it there) and
+//    walks its chunk in tiles of 64 targets with the target axis as the
+//    product's depth: dW_g += A^T (S Cin x 64) . G (64 x Cout), both read
+//    with ldmatrix.trans from [target][channel] tiles. The tiles (gathered
+//    rows, zero on a miss, and the g rows once for all S taps) arrive by 16-byte cp.async from bf16 copies that the wrapper
 //    makes, in a two-stage ring: tile i+1 is searched and in flight while
 //    tile i multiplies. A tile without any neighbour is skipped. The TPU
 //    keeps dW resident across a sequential grid; here each block writes one
@@ -82,10 +84,14 @@ constexpr int kThreads = fp::kConvThreads;  // both kernels: 8 warps
 constexpr int kDwTile = 64;      // targets per weight-gradient tile
 
 // Shared memory of the conv: [weights: all groups, or `stages` of one
-// group][`stages` gather tiles][rows: g_n x 3 x kTile int][live-group
-// mask, 16 bytes][window: `window` ids, when staged].
-template <int NT>
-__global__ void __launch_bounds__(kThreads, 2)
+// group][`stages` gather tiles][rows: g_n x taps x kTile int][live-group
+// mask, 16 bytes][window: `window` ids, when staged]. At Cout 128 (NT 16)
+// the registers are not capped at 128 (the S-tap probes and the
+// accumulating store spill there), so such a block may hold an SM alone;
+// most 3D convs of that width need more than half an SM's shared memory
+// and did so anyway.
+template <int NT, int S>
+__global__ void __launch_bounds__(kThreads, NT >= 16 ? 1 : 2)
 windowed_conv_kernel(const int* __restrict__ src,
                      const __nv_bfloat16* __restrict__ feats,
                      const int* __restrict__ tgt, const int* __restrict__ lo,
@@ -93,19 +99,20 @@ windowed_conv_kernel(const int* __restrict__ src,
                      const unsigned char* __restrict__ w,
                      const float* __restrict__ scale,
                      const float* __restrict__ shift, float* __restrict__ out,
-                     int vs, int vt, int nb, int g_n, int block, int window,
-                     int cin, int epilogue, int relu, int sentinel,
-                     int resident, int stages, int stage_window, int n_tiles,
-                     int tiles_per_block) {
+                     int vs, int vt, int nb, int g_n, int block,
+                     int window, int cin, int epilogue, int relu,
+                     int sentinel, int accumulate, int resident, int stages,
+                     int stage_window, int n_tiles, int tiles_per_block) {
   constexpr int cout = NT * 8;
+  constexpr int taps = S;
   extern __shared__ __align__(16) unsigned char smem[];
   const int tid = threadIdx.x;
-  const int wg_bytes = 3 * cin * cout * 2;
-  const int a_bytes = kTile * fp::tile_stride(cin);
+  const int wg_bytes = taps * cin * cout * 2;
+  const int a_bytes = kTile * fp::tile_stride(cin, taps);
   const int w_bytes = (resident ? g_n : stages) * wg_bytes;
   const uint32_t a_sa = fp::smem_addr(smem) + w_bytes;
   int* rows = reinterpret_cast<int*>(smem + w_bytes + stages * a_bytes);
-  unsigned* live = reinterpret_cast<unsigned*>(rows + g_n * 3 * kTile);
+  unsigned* live = reinterpret_cast<unsigned*>(rows + g_n * taps * kTile);
   int* win_sm = reinterpret_cast<int*>(live + 4);
 
   if (resident) {     // published by the first tile's barrier
@@ -151,9 +158,9 @@ windowed_conv_kernel(const int* __restrict__ src,
       const int centre = tgtb[t0 + r] + centres[g];
       const int rank = fp::lower_bound(win, window, centre);
       const int hit = rank < window && win[rank] == centre;
-      const int found = fp::resolve_probes(win, window, lo_b, rank, hit,
-                                           centre, rows + g * 3 * kTile,
-                                           kTile, r);
+      const int found = fp::resolve_probes_s<S>(
+          win, window, lo_b, rank, hit, centre, rows + g * taps * kTile,
+          kTile, r);
       if (__any_sync(0xffffffffu, found) && (tid & 31) == 0)
         atomicOr(live, 1u << g);
     }
@@ -166,33 +173,34 @@ windowed_conv_kernel(const int* __restrict__ src,
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
     fp::conv_tile<NT>(acc, mask, w, smem, a_sa, feats + (size_t)b * vs * cin,
-                      rows, cin, resident, stages, tid);
+                      rows, cin, taps, resident, stages, tid);
     // conv_tile ends on a barrier unless no group was live; then this one
     // keeps the next tile's reset of `live` behind every read of it
     if (mask == 0u) __syncthreads();
     fp::store_tile<NT>(acc, outb, tgtb + t0, scale, shift, epilogue, relu,
-                       sentinel, tid);
+                       sentinel, accumulate, tid);
   }
 }
 
-template <int NT>
+template <int NT, int S>
 int launch_conv(const int* src, const void* feats, const int* tgt,
                 const int* lo, const int* centres, const void* w,
                 const float* scale, const float* shift, float* out,
                 int batch, int vs, int vt, int nb, int g_n, int block,
                 int window, int cin, int epilogue, int relu, int sentinel,
-                int resident, int stages, int stage_window,
+                int accumulate, int resident, int stages, int stage_window,
                 cudaStream_t stream) {
-  // the caller's plan, with the rows (g_n x 3 x kTile int), the live-group
-  // mask (16 bytes) and the staged window slice
+  constexpr int taps = S;
+  // the caller's plan, with the rows (g_n x taps x kTile int), the
+  // live-group mask (16 bytes) and the staged window slice
   const int smem = fp::conv_smem(
-      g_n, cin, NT * 8, resident, stages,
-      g_n * 3 * kTile * 4 + 16 + (stage_window ? window * 4 : 0));
+      g_n, taps, cin, NT * 8, resident, stages,
+      g_n * taps * kTile * 4 + 16 + (stage_window ? window * 4 : 0));
   if (smem > fp::kSmemMax
-      || (resident && g_n * 3 * cin * NT * 8 * 2 > fp::kResidentMax))
+      || (resident && g_n * taps * cin * NT * 8 * 2 > fp::kResidentMax))
     return (int)cudaErrorInvalidValue;
   int slots = 0;
-  cudaError_t err = fp::persistent_slots(windowed_conv_kernel<NT>, smem,
+  cudaError_t err = fp::persistent_slots(windowed_conv_kernel<NT, S>, smem,
                                          &slots);
   if (err != cudaSuccess) return (int)err;
   // persistent blocks, each a contiguous run of tiles (so a run shares
@@ -200,20 +208,21 @@ int launch_conv(const int* src, const void* feats, const int* tgt,
   const int n_tiles = batch * (vt / kTile);
   const int per_block = (n_tiles + slots - 1) / slots;
   const int grid = (n_tiles + per_block - 1) / per_block;
-  windowed_conv_kernel<NT><<<grid, kThreads, smem, stream>>>(
+  windowed_conv_kernel<NT, S><<<grid, kThreads, smem, stream>>>(
       src, (const __nv_bfloat16*)feats, tgt, lo, centres,
       (const unsigned char*)w, scale, shift, out, vs, vt, nb, g_n, block,
-      window, cin, epilogue, relu, sentinel, resident, stages, stage_window,
-      n_tiles, per_block);
+      window, cin, epilogue, relu, sentinel, accumulate, resident, stages,
+      stage_window, n_tiles, per_block);
   return (int)cudaGetLastError();
 }
 
-// Shared memory: two stages of [gather tile: kDwTile x (3Cin + 8) bf16]
-// [g tile: kDwTile x (Cout + 8) bf16], then rows: 2 x 3 x kDwTile int.
-// Warps: cin/16 along the 3Cin axis (3 m-tiles each) x cout/(8 WN) along
-// Cout (WN n-tiles each); warps beyond that product only gather.
-template <int WN>
-__global__ void __launch_bounds__(kThreads, WN >= 8 ? 1 : 2)
+// Shared memory: two stages of [gather tile: kDwTile x (S Cin + 8) bf16]
+// [g tile: kDwTile x (Cout + 8) bf16], then rows: 2 x S x kDwTile int.
+// Warps: cin/16 along the S Cin axis (S m-tiles each) x cout/(8 WN) along
+// Cout (WN n-tiles each); warps beyond that product only gather. S * WN * 4
+// accumulators a thread: one block per SM from 80 on.
+template <int S, int WN>
+__global__ void __launch_bounds__(kThreads, S * WN >= 20 ? 1 : 2)
 windowed_dw_kernel(const int* __restrict__ src,
                    const __nv_bfloat16* __restrict__ feats,
                    const int* __restrict__ tgt,
@@ -227,7 +236,7 @@ windowed_dw_kernel(const int* __restrict__ src,
   const int grp = blockIdx.x, ch = blockIdx.y, b = blockIdx.z;
   const int g_n = gridDim.x, n_chunks = gridDim.y;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int a_stride = fp::tile_stride(cin);
+  const int a_stride = fp::tile_stride(cin, S);
   const int g_stride = cout * 2 + 16;
   const int a_bytes = kDwTile * a_stride, g_bytes = kDwTile * g_stride;
   const uint32_t sa = fp::smem_addr(smem);
@@ -245,15 +254,15 @@ windowed_dw_kernel(const int* __restrict__ src,
   const int tile_lo = ch * tiles_per_chunk;
   const int tile_hi = min(n_tiles, tile_lo + tiles_per_chunk);
 
-  float acc[3][WN][4];
+  float acc[S][WN][4];
 #pragma unroll
-  for (int i = 0; i < 3; ++i)
+  for (int i = 0; i < S; ++i)
 #pragma unroll
     for (int j = 0; j < WN; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
 
-  // search one tile's targets, resolve their three probes into rows[st];
+  // search one tile's targets, resolve their S probes into rows[st];
   // true (for every thread) if any neighbour was found
   auto resolve = [&](int tile, int st) {
     int found = 0;
@@ -264,14 +273,14 @@ windowed_dw_kernel(const int* __restrict__ src,
       const int centre = tgtb[t] + centre_d;
       const int r = fp::lower_bound(win, window, centre);
       const int hit = r < window && win[r] == centre;
-      found = fp::resolve_probes(win, window, lo_b, r, hit, centre,
-                                 rows + st * 3 * kDwTile, kDwTile, tid);
+      found = fp::resolve_probes_s<S>(win, window, lo_b, r, hit, centre,
+                                      rows + st * S * kDwTile, kDwTile, tid);
     }
     return __syncthreads_or(found);
   };
   auto start_tile = [&](int tile, int st) {
     const uint32_t a_sa = sa + st * (a_bytes + g_bytes);
-    fp::gather_tile<kDwTile>(a_sa, fb, rows + st * 3 * kDwTile, cin, tid,
+    fp::gather_tile<kDwTile>(a_sa, fb, rows + st * S * kDwTile, cin, S, tid,
                              kThreads);
     const int cpr = cout >> 3;
     const __nv_bfloat16* gt = gb + (size_t)tile * kDwTile * cout;
@@ -303,10 +312,10 @@ windowed_dw_kernel(const int* __restrict__ src,
       const uint32_t g_sa = a_sa + a_bytes;
 #pragma unroll
       for (int kt = 0; kt < kDwTile / 16; ++kt) {
-        uint32_t a[3][4];
+        uint32_t a[S][4];
 #pragma unroll
-        for (int i = 0; i < 3; ++i) {
-          const int c0 = (wmi * 3 + i) * 16;
+        for (int i = 0; i < S; ++i) {
+          const int c0 = (wmi * S + i) * 16;
           fp::ldmatrix_x4_trans(
               a[i], a_sa
               + (kt * 16 + (lane & 7) + ((lane >> 4) << 3)) * a_stride
@@ -321,7 +330,7 @@ windowed_dw_kernel(const int* __restrict__ src,
               + (kt * 16 + (lane & 7) + (((lane >> 3) & 1) << 3)) * g_stride
               + (n0 + (lane >> 4) * 8) * 2);
 #pragma unroll
-          for (int i = 0; i < 3; ++i) {
+          for (int i = 0; i < S; ++i) {
             fp::mma_bf16(acc[i][j], a[i], bq[0], bq[1]);
             fp::mma_bf16(acc[i][j + 1], a[i], bq[2], bq[3]);
           }
@@ -334,14 +343,14 @@ windowed_dw_kernel(const int* __restrict__ src,
 
   if (active) {
     float* p = partial
-        + (((size_t)b * n_chunks + ch) * g_n + grp) * (size_t)(3 * cin) * cout;
+        + (((size_t)b * n_chunks + ch) * g_n + grp) * (size_t)(S * cin) * cout;
 #pragma unroll
-    for (int i = 0; i < 3; ++i)
+    for (int i = 0; i < S; ++i)
 #pragma unroll
       for (int j = 0; j < WN; ++j)
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
-          const int row = (wmi * 3 + i) * 16 + (lane >> 2) + half * 8;
+          const int row = (wmi * S + i) * 16 + (lane >> 2) + half * 8;
           const int col = (wni * WN + j) * 8 + (lane & 3) * 2;
           *reinterpret_cast<float2*>(p + (size_t)row * cout + col) =
               make_float2(acc[i][j][half * 2], acc[i][j][half * 2 + 1]);
@@ -350,37 +359,39 @@ windowed_dw_kernel(const int* __restrict__ src,
 }
 
 // dw[zi * g_n + grp][c][o] = sum over the partials, in their order, of
-// partial[.][grp][zi * cin + c][o].
+// partial[.][grp][zi * cin + c][o], zi < taps.
 __global__ void dw_reduce_kernel(const float* __restrict__ partial,
                                  float* __restrict__ dw, int n_partials,
-                                 int g_n, int cin, int cout) {
-  const int n = g_n * 3 * cin * cout;
+                                 int g_n, int taps, int cin, int cout) {
+  const int n = g_n * taps * cin * cout;
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= n) return;
   const int o = e % cout, c = (e / cout) % cin, k = e / (cout * cin);
   const int zi = k / g_n, grp = k - zi * g_n;
-  const float* p = partial + ((size_t)grp * 3 * cin + zi * cin + c) * cout + o;
+  const float* p =
+      partial + ((size_t)grp * taps * cin + zi * cin + c) * cout + o;
   float s = 0.f;
   for (int i = 0; i < n_partials; ++i) s += p[(size_t)i * n];
   dw[e] = s;
 }
 
-template <int WN>
+template <int S, int WN>
 int launch_dw(const int* src, const void* feats, const int* tgt,
               const void* g, const int* lo, const int* centres,
               float* partial, int batch, int vs, int vt, int nb, int g_n,
               int block, int window, int cin, int cout, int n_chunks,
               cudaStream_t stream) {
-  const int smem = 2 * kDwTile * ((3 * cin * 2 + 16) + (cout * 2 + 16))
-      + 2 * 3 * kDwTile * 4;
+  const int smem = 2 * kDwTile * ((S * cin * 2 + 16) + (cout * 2 + 16))
+      + 2 * S * kDwTile * 4;
+  if (smem > fp::kSmemMax) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      windowed_dw_kernel<WN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      windowed_dw_kernel<S, WN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (err != cudaSuccess) return (int)err;
   const int n_tiles = vt / kDwTile;
   const int tiles_per_chunk = (n_tiles + n_chunks - 1) / n_chunks;
   dim3 grid(g_n, n_chunks, batch);
-  windowed_dw_kernel<WN><<<grid, kThreads, smem, stream>>>(
+  windowed_dw_kernel<S, WN><<<grid, kThreads, smem, stream>>>(
       src, (const __nv_bfloat16*)feats, tgt, (const __nv_bfloat16*)g, lo,
       centres, partial, vs, vt, nb, block, window, cin, cout,
       tiles_per_chunk);
@@ -392,71 +403,81 @@ int launch_dw(const int* src, const void* feats, const int* tgt,
 extern "C" {
 
 // out (B, Vt, Cout) f32 from src ids (B, Vs), feats (B, Vs, Cin) bf16, tgt
-// ids (B, Vt), lo (B, nb) window starts, centres (G,) the tap groups' dz = 0
-// deltas (tap zi * G + g is centres[g] + zi - 1), w the (G*3*Cin, Cout)
-// bf16 weights (row g*3Cin + zi*Cin + c) packed in mma fragment order as
-// for fp_posgather_conv. A ring of `stages` (1 or 2), the weights
-// `resident` or streamed, the window slice staged in shared memory or not
-// (`stage_window`): the caller's plan, refused here if it does not fit.
-// Cin % 16 == 0 and <= 128; Cout a power of two in [8, 128]; G <= 32;
-// block % 128 == 0; Vt % block == 0; window % 4 == 0 and Vs % 4 == 0
-// (checked by the caller).
+// ids (B, Vt), lo (B, nb) window starts, centres (G,) the tap groups'
+// middle deltas (tap zi * G + g is centres[g] + zi - taps / 2), w the
+// (G*taps*Cin, Cout) bf16 weights (row g*taps*Cin + zi*Cin + c) packed in
+// mma fragment order as for fp_posgather_conv. A ring of `stages` (1 or 2),
+// the weights `resident` or streamed, the window slice staged in shared
+// memory or not (`stage_window`): the caller's plan, refused here if it does
+// not fit. Cin % 16 == 0 and <= 128; Cout a power of two in [8, 128]; taps
+// in {1, 3, 5}; G <= 32; block % 128 == 0; Vt % block == 0; window % 4 == 0
+// and Vs % 4 == 0 (checked by the caller). Wider convs are tiles of these:
+// one call per (Cout slice, Cin slice), out being the Cout slice's own
+// buffer; `accumulate` adds the products to what out holds (the earlier
+// Cin slices), and the epilogue goes with the last Cin slice only.
 int fp_windowed_conv(const int* src, const void* feats, const int* tgt,
                      const int* lo, const int* centres, const void* w,
                      const float* scale, const float* shift, float* out,
                      int batch, int vs, int vt, int nb, int g_n, int block,
                      int window, int cin, int cout, int epilogue, int relu,
                      int sentinel, int stages, int resident,
-                     int stage_window, void* stream) {
-  if (g_n < 1 || g_n > 32 || (stages != 1 && stages != 2))
+                     int stage_window, int taps, int accumulate,
+                     void* stream) {
+  if (g_n < 1 || g_n > 32 || (stages != 1 && stages != 2)
+      || (taps != 1 && taps != 3 && taps != 5))
     return (int)cudaErrorInvalidValue;
-#define FP_K3_CASE(NT)                                                       \
-  case NT * 8:                                                               \
-    return launch_conv<NT>(src, feats, tgt, lo, centres, w, scale, shift,    \
-                           out, batch, vs, vt, nb, g_n, block, window, cin,  \
-                           epilogue, relu, sentinel, resident, stages,       \
-                           stage_window, (cudaStream_t)stream)
-  switch (cout) {
-    FP_K3_CASE(1);
-    FP_K3_CASE(2);
-    FP_K3_CASE(4);
-    FP_K3_CASE(8);
-    FP_K3_CASE(16);
-  }
+#define FP_K3_CASE(NT, S)                                                    \
+  if (cout == NT * 8 && taps == S)                                           \
+    return launch_conv<NT, S>(src, feats, tgt, lo, centres, w, scale, shift, \
+                              out, batch, vs, vt, nb, g_n, block, window,    \
+                              cin, epilogue, relu, sentinel, accumulate,     \
+                              resident, stages, stage_window,                \
+                              (cudaStream_t)stream)
+#define FP_K3_TAPS(NT) FP_K3_CASE(NT, 1); FP_K3_CASE(NT, 3); FP_K3_CASE(NT, 5)
+  FP_K3_TAPS(1);
+  FP_K3_TAPS(2);
+  FP_K3_TAPS(4);
+  FP_K3_TAPS(8);
+  FP_K3_TAPS(16);
+#undef FP_K3_TAPS
 #undef FP_K3_CASE
   return (int)cudaErrorInvalidValue;
 }
 
-// dw (3G, Cin, Cout) f32, tap k = zi * G + group, from feats (B, Vs, Cin)
-// bf16 and g (B, Vt, Cout) bf16, through partial (B * n_chunks, G, 3Cin,
-// Cout) f32 scratch; centres (G,) are the groups' dz = 0 deltas. Cin in
-// {16, 32, 64, 128}; Cout a power of two in [16, 256]; Cin * Cout <= 8192;
-// block % 64 == 0; Vt % block == 0 (checked by the caller).
+// dw (taps G, Cin, Cout) f32, tap k = zi * G + group, from feats (B, Vs,
+// Cin) bf16 and g (B, Vt, Cout) bf16, through partial (B * n_chunks, G,
+// taps Cin, Cout) f32 scratch; centres (G,) are the groups' middle deltas.
+// taps in {1, 3, 5}; Cin in {16, 32, 64, 128}; Cout a power of two in
+// [16, 256]; Cin * Cout <= 8192, <= 4096 at taps 5 (the accumulators a
+// thread holds); block % 64 == 0; Vt % block == 0 (checked by the caller).
+// Wider gradients are tiles of these, one call per (Cin slice, Cout slice).
 int fp_windowed_dw(const int* src, const void* feats, const int* tgt,
                    const void* g, const int* lo, const int* centres,
                    float* partial, float* dw, int batch, int vs, int vt,
                    int nb, int g_n, int block, int window, int cin, int cout,
-                   int n_chunks, void* stream) {
+                   int n_chunks, int taps, void* stream) {
   const int wm = cin / 16, nt = cout / 8;
   int wn = 8 / wm < nt / 2 ? 8 / wm : nt / 2;
   if (wm < 1 || wm > 8 || wn < 1) return (int)cudaErrorInvalidValue;
   int status = (int)cudaErrorInvalidValue;
-#define FP_DW_CASE(WN)                                                       \
-  case WN:                                                                   \
-    status = launch_dw<WN>(src, feats, tgt, g, lo, centres, partial, batch,  \
-                           vs, vt, nb, g_n, block, window, cin, cout,        \
-                           n_chunks, (cudaStream_t)stream);                  \
-    break
-  switch (nt / wn) {
-    FP_DW_CASE(2);
-    FP_DW_CASE(4);
-    FP_DW_CASE(8);
-  }
+#define FP_DW_CASE(S, WN)                                                    \
+  if (taps == S && nt / wn == WN)                                            \
+    status = launch_dw<S, WN>(src, feats, tgt, g, lo, centres, partial,      \
+                              batch, vs, vt, nb, g_n, block, window, cin,    \
+                              cout, n_chunks, (cudaStream_t)stream)
+  FP_DW_CASE(1, 2);
+  FP_DW_CASE(1, 4);
+  FP_DW_CASE(1, 8);
+  FP_DW_CASE(3, 2);
+  FP_DW_CASE(3, 4);
+  FP_DW_CASE(3, 8);
+  FP_DW_CASE(5, 2);
+  FP_DW_CASE(5, 4);
 #undef FP_DW_CASE
   if (status != 0) return status;
-  const int n = g_n * 3 * cin * cout;
+  const int n = g_n * taps * cin * cout;
   dw_reduce_kernel<<<(n + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
-      partial, dw, batch * n_chunks, g_n, cin, cout);
+      partial, dw, batch * n_chunks, g_n, taps, cin, cout);
   return (int)cudaGetLastError();
 }
 

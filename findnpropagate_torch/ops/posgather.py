@@ -59,26 +59,58 @@ def reset_launches():
         LAUNCHES[k] = 0
 
 
+TAP_RUNS = (5, 3, 1)     # group sizes the windowed kernels take
+MAX_TAP_GROUPS = 32      # K3 / K4: groups of one kernel (a 32-bit mask)
+
+
+def _runs_of(d, size):
+    """The group middles of tap deltas `d` read as groups of `size`
+    consecutive ids (tap zi * G + g is middle g plus zi - size // 2), or
+    None where they are not."""
+    g = d.shape[0] // size
+    if d.ndim != 1 or g == 0 or d.shape[0] != size * g:
+        return None
+    mid = d[(size // 2) * g:(size // 2 + 1) * g]
+    for zi in range(size):
+        if not np.all(d[zi * g:(zi + 1) * g] == mid + zi - size // 2):
+            return None
+    return mid.astype(np.int32)
+
+
 def group_center_deltas(deltas27):
-    """K zyx-C-order tap deltas -> the K/3 group-centre (dz=0) deltas: tap
-    zi * K/3 + g is the centre of group g plus zi - 1. Raises ValueError
-    where the taps are not such groups of three consecutive ids."""
-    d = np.asarray(deltas27)
-    g = d.shape[0] // 3
-    centers = d[g:2 * g]
-    if d.ndim != 1 or d.shape[0] != 3 * g or g == 0 \
-            or not (np.all(d[0:g] == centers - 1)
-                    and np.all(d[2 * g:] == centers + 1)):
+    """K zyx-C-order tap deltas -> the K/3 group-centre (dz=0) deltas of
+    the posgather kernels: tap zi * K/3 + g is the centre of group g plus
+    zi - 1. Raises ValueError where the taps are not such groups of three
+    consecutive ids."""
+    mid = _runs_of(np.asarray(deltas27), 3)
+    if mid is None:
         raise ValueError("tap deltas are not groups of three consecutive "
                          "ids (z-1, z, z+1): a kernel size of 3 along z, "
                          "taps in zyx C-order, is needed")
-    return centers.astype(np.int32)
+    return mid
 
 
-def reorder_weights_groups(weights27):
-    """(K, Cin, Cout) zyx-C-order -> (K/3, 3, Cin, Cout) grouped [g, zi]."""
+def tap_groups(deltas):
+    """(middles, size) of the windowed kernels' tap groups: the largest
+    size in TAP_RUNS whose groups of consecutive ids the taps form, with at
+    most MAX_TAP_GROUPS groups — 3 for a 3x3x3 kernel, 5 for 5x5x5, 1 for
+    the (1, 3, 3) kernels of a 2D level. Raises ValueError where none
+    does."""
+    d = np.asarray(deltas)
+    for size in TAP_RUNS:
+        mid = _runs_of(d, size)
+        if mid is not None and mid.shape[0] <= MAX_TAP_GROUPS:
+            return mid, size
+    raise ValueError(f"{d.shape[0]} tap deltas are not groups of "
+                     f"{TAP_RUNS} consecutive ids with at most "
+                     f"{MAX_TAP_GROUPS} groups")
+
+
+def reorder_weights_groups(weights27, size=3):
+    """(K, Cin, Cout) zyx-C-order -> (K/size, size, Cin, Cout) grouped
+    [g, zi]."""
     k, cin, cout = weights27.shape
-    return weights27.reshape(3, k // 3, cin, cout).permute(1, 0, 2, 3)
+    return weights27.reshape(size, k // size, cin, cout).permute(1, 0, 2, 3)
 
 
 @dataclass(frozen=True)
@@ -147,7 +179,7 @@ def _lib():
             + [ctypes.c_void_p]
         lib.fp_level_positions.restype = ctypes.c_int
         lib.fp_posgather_conv.argtypes = [ctypes.c_void_p] * 11 \
-            + [ctypes.c_int] * 12 + [ctypes.c_void_p]
+            + [ctypes.c_int] * 13 + [ctypes.c_void_p]
         lib.fp_posgather_conv.restype = ctypes.c_int
     return lib
 
@@ -297,11 +329,22 @@ def pack_weights_mma(w_flat):
         r // MMA_K, cout // MMA_N, 32, 4).contiguous()
 
 
+CONV_SLICE = 128         # K2 / K3: channels of one launch, in and out
+
+
+def channel_slices(n, width):
+    """[(start, stop)] of `n` channels in slices of at most `width`."""
+    return [(c, min(c + width, n)) for c in range(0, n, width)]
+
+
 def gather_conv(src_ids, feats, tgt_ids, pos, lo, has_real, gdeltas,
                 w_flat, block: int, window: int, scale=None, shift=None,
                 relu=False, sentinel=None, compute_dtype=torch.float32):
     """K2 wrapper: the CUDA kernel (bf16 operands, f32 sums on the tensor
-    cores) for CUDA tensors, the plain version for CPU tensors."""
+    cores) for CUDA tensors, the plain version for CPU tensors. Up to 256
+    channels in and out: a conv wider than CONV_SLICE runs as one launch
+    per (Cout slice, Cin slice), the Cin slices of a Cout slice summed in
+    its output buffer by the kernel, the epilogue with the last."""
     if not _check_device(src_ids, feats, tgt_ids, pos, lo, has_real,
                          gdeltas, w_flat):
         return posgather_conv_plain(
@@ -313,7 +356,7 @@ def gather_conv(src_ids, feats, tgt_ids, pos, lo, has_real, gdeltas,
     g_n, cin = gdeltas.shape[0], feats.shape[2]
     cout = w_flat.shape[1]
     cout_p = max(8, 1 << (cout - 1).bit_length())
-    if cin % 16 or cin > 128 or cout_p > 128 or block % CONV_TILE \
+    if cin % 16 or cin > 256 or cout_p > 256 or block % CONV_TILE \
             or vt % block or window > src_ids.shape[1]:
         raise ValueError(f"unsupported posgather conv shape cin={cin} "
                          f"cout={cout} block={block} vt={vt} window={window}")
@@ -340,16 +383,28 @@ def gather_conv(src_ids, feats, tgt_ids, pos, lo, has_real, gdeltas,
         w = torch.nn.functional.pad(w, (0, cout_p - cout))
         scale = torch.nn.functional.pad(scale, (0, cout_p - cout))
         shift = torch.nn.functional.pad(shift, (0, cout_p - cout))
-    w = pack_weights_mma(w)
-    scale, shift = scale.contiguous(), shift.contiguous()
+    w = w.reshape(g_n * 3, cin, cout_p)
     out = torch.empty(b, vt, cout_p, dtype=torch.float32, device=feats.device)
-    _build.check(_lib().fp_posgather_conv(
-        _ptr(src_ids), _ptr(feats), _ptr(tgt_ids), _ptr(pos), _ptr(lo),
-        _ptr(has_real), _ptr(gdeltas), _ptr(w), _ptr(scale), _ptr(shift),
-        _ptr(out), b, src_ids.shape[1], vt, nb, g_n, block, window,
-        cin, cout_p, int(epilogue), int(relu),
-        int(sentinel) if epilogue else 0, _stream()), "fp_posgather_conv")
-    LAUNCHES["posgather_conv"] += 1
+    cin_slices = channel_slices(cin, CONV_SLICE)
+    for o0, o1 in channel_slices(cout_p, CONV_SLICE):
+        dst = out if o1 - o0 == cout_p else torch.empty(
+            b, vt, o1 - o0, dtype=torch.float32, device=feats.device)
+        sc, sh = scale[o0:o1].contiguous(), shift[o0:o1].contiguous()
+        for i0, i1 in cin_slices:
+            f = feats if i1 - i0 == cin else feats[..., i0:i1].contiguous()
+            wt = pack_weights_mma(w[:, i0:i1, o0:o1].reshape(
+                g_n * 3 * (i1 - i0), o1 - o0))
+            last = i1 == cin
+            _build.check(_lib().fp_posgather_conv(
+                _ptr(src_ids), _ptr(f), _ptr(tgt_ids), _ptr(pos), _ptr(lo),
+                _ptr(has_real), _ptr(gdeltas), _ptr(wt), _ptr(sc), _ptr(sh),
+                _ptr(dst), b, src_ids.shape[1], vt, nb, g_n, block, window,
+                i1 - i0, o1 - o0, int(epilogue and last), int(relu),
+                int(sentinel) if epilogue and last else 0, int(i0 > 0),
+                _stream()), "fp_posgather_conv")
+            LAUNCHES["posgather_conv"] += 1
+        if dst is not out:
+            out[..., o0:o1] = dst
     return out[..., :cout] if cout_p != cout else out
 
 

@@ -18,7 +18,9 @@ Windowed mode: guard-banded (y, x, z)-major ids, `yxz_linear_ids` (:262),
 sorted by output id — `win_downsample` (sort + dedup, :439),
 `win_downsample_dense` (occupancy max-pool + rank select, :559) and
 `win_downsample_scatter` (candidate mask + rank select, :622), three routes
-to one active set; `coords_to_dense` (:791). `windowed_conv` (:300) and
+to one active set; `coords_to_dense` (:791); `bev_merge` (:727), the
+multi-scale collapse of VoxelNeXt's levels onto one sorted (1, ny, nx)
+list. `windowed_conv` (:300) and
 `subm_conv_windowed` (:385) are the reference's XLA windowed conv
 (``SUBM_IMPL: xla``): a target reads tap k's neighbour only inside its
 block's window of the source list, and the blocks whose neighbour span
@@ -528,6 +530,87 @@ def subm_conv_windowed(ids, feats, weights, deltas, block: int = 256,
     overflow)."""
     return windowed_conv(ids, feats, ids, weights, deltas, block=block,
                          window=window)
+
+
+def bev_merge(coords_list, valid_list, feats_list, scales, bev_shape,
+              max_out: int):
+    """VoxelNeXt's multi-scale sparse BEV collapse: each level's (y, x)
+    coords scaled by its entry of `scales` into the (ny, nx) grid, z
+    dropped, and the features of coinciding cells summed. coords (B, V_i,
+    3) zyx, valid (B, V_i), feats (B, V_i, C) per level. Returns (ids
+    (B, max_out) int32, coords (B, max_out, 3) zyx with z = 0, valid,
+    feats (B, max_out, C)) sorted by the (1, ny, nx) guard-banded id
+    ``y * stride_y + (x + 1) * stride_x + 1`` — `yxz_linear_ids` at z = 0
+    — the first max_out cells kept, sentinels after them.
+
+    The candidates are concatenated in the levels' order and sorted
+    stably, so a cell's contributions stand in that order and are summed
+    left to right, as the reference's sequential scatter-add sums them;
+    the sum is taken by shifted adds over the sorted list (a cell has at
+    most as many contributions as the longest run of one id), the same
+    bits on every device."""
+    ny, nx = (int(s) for s in bev_shape)
+    shape2d = (1, ny, nx)
+    stride_x, stride_y = yxz_strides(shape2d)
+    sentinel = yxz_sentinel_start(shape2d)
+    all_ids, all_feats = [], []
+    for coords, valid, feats, s in zip(coords_list, valid_list, feats_list,
+                                       scales):
+        y = coords[..., 1].long() * int(s)
+        x = coords[..., 2].long() * int(s)
+        inside = valid & (y >= 0) & (y < ny) & (x >= 0) & (x < nx)
+        ids = y * stride_y + (x + 1) * stride_x + 1
+        all_ids.append(torch.where(inside, ids, torch.full_like(ids,
+                                                                sentinel)))
+        all_feats.append(torch.where(inside[..., None], feats,
+                                     torch.zeros_like(feats)))
+    ids = torch.cat(all_ids, dim=1)
+    feats = torch.cat(all_feats, dim=1)
+    b, n, c = feats.shape
+    ids_s, order = torch.sort(ids, dim=1, stable=True)
+    feats_s = torch.gather(feats, 1, order[..., None].expand(-1, -1, c))
+    is_real = ids_s < sentinel
+    newseg = torch.cat([is_real[:, :1],
+                        (ids_s[:, 1:] != ids_s[:, :-1]) & is_real[:, 1:]],
+                       dim=1)
+    seg = torch.cumsum(newseg.long(), dim=1)
+    key = seg + (n + 1) * torch.arange(b, device=ids.device)[:, None]
+    runs = torch.bincount(key[is_real])
+    longest = int(runs.max()) if runs.numel() else 1
+    total = feats_s
+    for k in range(1, longest):
+        same = torch.zeros_like(is_real)
+        same[:, :n - k] = (ids_s[:, k:] == ids_s[:, :n - k]) \
+            & is_real[:, :n - k]
+        nxt = torch.zeros_like(feats_s)
+        nxt[:, :n - k] = feats_s[:, k:]
+        total = total + torch.where(same[..., None], nxt,
+                                    torch.zeros_like(nxt))
+    slot = seg - 1
+    in_cap = is_real & (slot < max_out) & (slot >= 0) & newseg
+    write = torch.where(in_cap, slot, torch.full_like(slot, max_out))
+    out_feats = feats.new_zeros(b, max_out + 1, c)
+    out_feats.scatter_(1, write[..., None].expand(-1, -1, c),
+                       torch.where(in_cap[..., None], total,
+                                   torch.zeros_like(total)))
+    out_ids = torch.full((b, max_out + 1), INT32_MAX, dtype=torch.int64,
+                         device=ids.device)
+    out_ids.scatter_(1, write, torch.where(in_cap, ids_s,
+                                           torch.full_like(ids_s, INT32_MAX)))
+    out_feats, out_ids = out_feats[:, :max_out], out_ids[:, :max_out]
+    num_out = torch.clamp(newseg.sum(dim=1), max=max_out)
+    slots = torch.arange(max_out, device=ids.device)
+    out_valid = slots[None, :] < num_out[:, None]
+    oy = out_ids // stride_y
+    ox = (out_ids % stride_y) // stride_x - 1
+    out_coords = torch.where(
+        out_valid[..., None], torch.stack([torch.zeros_like(oy), oy, ox],
+                                          dim=-1),
+        torch.full_like(oy, -1)[..., None]).to(torch.int32)
+    out_ids = torch.where(out_valid, out_ids, sentinel + slots[None, :])
+    return (out_ids.to(torch.int32), out_coords, out_valid,
+            torch.where(out_valid[..., None], out_feats,
+                        torch.zeros_like(out_feats)))
 
 
 def coords_to_dense(coords, valid, feats, shape):

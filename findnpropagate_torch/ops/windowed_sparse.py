@@ -5,19 +5,25 @@ findnpropagate_tpu/ops/pallas_sparse.py (`windowed_conv_pallas` :532,
 
 Two kernels carry it (ops/csrc/windowed_sparse.cu), both on the tensor
 cores, and both search once per (target, (dy, dx) tap group) and take the
-group's three z-taps from that one rank (`group_probe_rows` is the same
-route in plain PyTorch), so the taps must be groups of three consecutive ids
-(`posgather.group_center_deltas`); the wrappers raise where they are not:
+group's S z-taps from that one rank (`group_probe_rows` is the same route
+in plain PyTorch), so the taps must be G <= 32 groups of S consecutive ids,
+S the kernel's z size in {5, 3, 1} (`posgather.tap_groups`: 25 groups of
+five for 5x5x5, 9 of three for 3x3x3, 9 of one for the (1, 3, 3) kernels
+of a 2D level); the wrappers raise where they are not:
   * K3 `windowed_conv` — for each target and tap k, the source row whose id
     equals ``tgt + delta_k`` inside the target block's window
     ``src_ids[lo_b : lo_b + window)``, times ``W[k]``, summed over the taps,
     with the optional scale/shift(+ReLU) epilogue that also zeroes rows whose
     target id is >= ``sentinel``. The wrapper hands the kernel one bf16 copy
     of the features and the weights in group order packed for the mma
-    fragments (`posgather.pack_weights_mma`), and picks its ring and window
-    staging (`conv_plan`);
+    fragments (`posgather.pack_weights_mma`), and picks its channel slices
+    (`conv_slices`), ring and window staging (`conv_plan`);
   * K4 `windowed_dw` — ``dW[k] = sum_targets gathered_k^T . g`` over the
-    whole batch, (K, Cin, Cout) float32.
+    whole batch, (K, Cin, Cout) float32, in channel slices (`dw_slices`).
+
+Up to 256 channels in and out: a conv whose widths do not fit one block's
+shared memory (or K4's accumulators) runs as one launch per channel slice,
+each counted; K3 sums the Cin slices of a Cout slice in its output buffer.
 
 Each has a plain PyTorch version beside it (`windowed_conv_plain`,
 `windowed_dw_plain`). A wrapper takes the plain version only for a tensor
@@ -50,22 +56,25 @@ import torch
 
 from . import _build
 from .posgather import (
+    CONV_SLICE,
     _check_device,
     _check_ids,
     _check_shape,
     _ptr,
     _stream,
+    channel_slices,
     flip_transpose_weights,
-    group_center_deltas,
     pack_weights_mma,
     reorder_weights_groups,
+    tap_groups,
 )
 
 ALIGN = 512
 LAUNCHES = {"windowed_conv": 0, "windowed_dw": 0}
 DW_TILE = 64             # targets per tile of the K4 kernel
 DW_BLOCKS = 2 * 132      # blocks its grid aims at: two per SM of an H100
-MAX_DW_ACC = 8192        # Cin * Cout: 3x that many f32 sums in registers
+MAX_DW_ACC = 8192        # Cin * Cout of a K4 launch (S * that f32 sums
+MAX_DW_ACC5 = 4096       # in registers); at S = 5
 CONV_TILE = 128          # targets per K3 tile
 RESIDENT_MAX = 112 * 1024   # K3 keeps all groups' weights up to this
 SMEM_MAX = 227 * 1024       # shared memory of one block on an H100
@@ -80,10 +89,10 @@ def _lib():
     lib = _build.load("windowed_sparse")
     if lib.fp_windowed_conv.argtypes is None:
         lib.fp_windowed_conv.argtypes = [ctypes.c_void_p] * 9 \
-            + [ctypes.c_int] * 15 + [ctypes.c_void_p]
+            + [ctypes.c_int] * 17 + [ctypes.c_void_p]
         lib.fp_windowed_conv.restype = ctypes.c_int
         lib.fp_windowed_dw.argtypes = [ctypes.c_void_p] * 8 \
-            + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+            + [ctypes.c_int] * 11 + [ctypes.c_void_p]
         lib.fp_windowed_dw.restype = ctypes.c_int
     return lib
 
@@ -199,17 +208,22 @@ def neighbour_rows(src_ids, tgt_ids, lo, deltas, block: int, window: int):
     return rows, found
 
 
-def group_probe_rows(src_ids, tgt_ids, lo, centres, block: int, window: int):
-    """`neighbour_rows` for taps that are G groups of three consecutive
-    ids, by the K4 kernel's route: one search per (target, group) for the
-    centre id ``tgt + centres[g]``, then z-1 at rank-1, z at rank (on a hit)
-    and z+1 at rank+hit, each kept only where the id there is exactly the
-    one wanted and the probe lies inside the window. Returns (rows, found),
-    each (B, 3G, Vt) with tap ``zi * G + g``; found is the same as
-    `neighbour_rows` gives for those taps, and rows agree where found."""
+def group_probe_rows(src_ids, tgt_ids, lo, centres, block: int, window: int,
+                     taps: int = 3):
+    """`neighbour_rows` for taps that are G groups of `taps` consecutive
+    ids, by the kernels' route: one search per (target, group) for the
+    middle id ``tgt + centres[g]``, then the middle at that rank (on a
+    hit), ``middle - k`` among the taps // 2 places below the rank and
+    ``middle + k`` among the taps // 2 places from rank + hit up (for three
+    taps: z-1 at rank-1, z at rank, z+1 at rank+hit), each kept only where
+    the id there is exactly the one wanted and the probe lies inside the
+    window. Returns (rows, found), each (B, taps*G, Vt) with tap
+    ``zi * G + g``; found is the same as `neighbour_rows` gives for those
+    taps, and rows agree where found."""
     b, vt = tgt_ids.shape
     nb = vt // block
     g_n = centres.shape[0]
+    h = taps // 2
     lo_l = lo.long()[..., None]
     idx = lo_l + torch.arange(window, device=tgt_ids.device)
     win = torch.gather(src_ids.long()[:, None, :].expand(
@@ -220,18 +234,31 @@ def group_probe_rows(src_ids, tgt_ids, lo, centres, block: int, window: int):
     hit = (r < window) & (
         torch.gather(win, 2, torch.clamp(r, max=window - 1)) == want)
     rows, found = [], []
-    for zi, j in ((0, r - 1), (1, r), (2, r + hit.long())):
-        jc = torch.clamp(j, 0, window - 1)
-        ok = (j >= 0) & (j < window) \
-            & (torch.gather(win, 2, jc) == want + (zi - 1))
-        rows.append(jc + lo_l)
-        found.append(ok & hit if zi == 1 else ok)
+    for zi in range(taps):
+        dz = zi - h
+        if dz == 0:
+            places = [r]
+        elif dz < 0:
+            places = [r - 1 - k for k in range(h)]
+        else:
+            places = [r + hit.long() + k for k in range(h)]
+        row = torch.zeros_like(r)
+        ok_any = torch.zeros_like(hit)
+        for j in places:
+            jc = torch.clamp(j, 0, window - 1)
+            ok = (j >= 0) & (j < window) \
+                & (torch.gather(win, 2, jc) == want + dz)
+            row = torch.where(ok, jc, row)
+            ok_any = ok_any | ok
+        rows.append(torch.where(ok_any, row,
+                                torch.clamp(places[0], 0, window - 1)) + lo_l)
+        found.append(ok_any & hit if dz == 0 else ok_any)
 
-    def taps(parts):
-        x = torch.stack(parts, dim=1).reshape(b, 3, nb, g_n, block)
-        return x.permute(0, 1, 3, 2, 4).reshape(b, 3 * g_n, vt)
+    def by_tap(parts):
+        x = torch.stack(parts, dim=1).reshape(b, taps, nb, g_n, block)
+        return x.permute(0, 1, 3, 2, 4).reshape(b, taps * g_n, vt)
 
-    return taps(rows), taps(found)
+    return by_tap(rows), by_tap(found)
 
 
 def _gather_rows(feats, rows, found):
@@ -268,25 +295,61 @@ def windowed_conv_plain(src_ids, feats, tgt_ids, lo, deltas, w_flat,
     return out
 
 
-def conv_smem(cin, cout, window, g_n, stages, resident, stage_window):
+def conv_smem(cin, cout, window, g_n, stages, resident, stage_window,
+              taps=3):
     """Shared-memory bytes of one K3 block (the kernel's own layout)."""
-    return ((g_n if resident else stages) * 6 * cin * cout
-            + stages * CONV_TILE * (6 * cin + 16) + g_n * 3 * CONV_TILE * 4
-            + 16 + (4 * window if stage_window else 0))
+    return ((g_n if resident else stages) * 2 * taps * cin * cout
+            + stages * CONV_TILE * (2 * taps * cin + 16)
+            + g_n * taps * CONV_TILE * 4 + 16
+            + (4 * window if stage_window else 0))
 
 
-def conv_plan(cin, cout, window, g_n=9):
+def _plan(cin, cout, window, g_n, taps):
+    """K3's plan for one launch's widths, or None where nothing fits."""
+    resident = g_n * 2 * taps * cin * cout <= RESIDENT_MAX
+    for stages in (2, 1):
+        if conv_smem(cin, cout, window, g_n, stages, resident, False,
+                     taps) <= SMEM_MAX:
+            return stages, resident, conv_smem(
+                cin, cout, window, g_n, stages, resident, True,
+                taps) <= SMEM_MAX
+    return None
+
+
+def conv_plan(cin, cout, window, g_n=9, taps=3):
     """K3's plan for padded widths: (stages, resident, stage_window). All
     groups' weights resident up to RESIDENT_MAX; a two-stage ring where it
     fits (not at Cin 128 with streamed weights); the window slice in shared
     memory where the rest leaves room for it."""
-    resident = g_n * 6 * cin * cout <= RESIDENT_MAX
-    for stages in (2, 1):
-        if conv_smem(cin, cout, window, g_n, stages, resident,
-                     False) <= SMEM_MAX:
-            return stages, resident, conv_smem(
-                cin, cout, window, g_n, stages, resident, True) <= SMEM_MAX
-    raise ValueError(f"no K3 plan fits cin={cin} cout={cout}")
+    plan = _plan(cin, cout, window, g_n, taps)
+    if plan is None:
+        raise ValueError(f"no K3 plan fits cin={cin} cout={cout} "
+                         f"taps={taps} groups={g_n}")
+    return plan
+
+
+def conv_slices(cin, cout, window, g_n=9, taps=3):
+    """(Cin slice, Cout slice) of K3's launches for padded widths: the
+    fewest launches whose plan fits, Cout slices at most CONV_SLICE and a
+    power of two, Cin slices a multiple of 16 at most CONV_SLICE that
+    divides Cin; among equals the wider Cout slice."""
+    best = None
+    for co in (128, 64, 32, 16, 8):
+        if co > cout or cout % co:
+            continue
+        for n_in in (1, 2, 4, 8, 16):
+            ci = cin // n_in
+            if cin % n_in or ci % 16 or ci > CONV_SLICE:
+                continue
+            if _plan(ci, co, window, g_n, taps) is not None:
+                launches = n_in * (cout // co)
+                if best is None or launches < best[0]:
+                    best = (launches, ci, co)
+                break
+    if best is None:
+        raise ValueError(f"no K3 slices fit cin={cin} cout={cout} "
+                         f"taps={taps} groups={g_n}")
+    return best[1], best[2]
 
 
 def conv_kernel(src_ids, feats, tgt_ids, lo, deltas, w_flat, block: int,
@@ -294,12 +357,13 @@ def conv_kernel(src_ids, feats, tgt_ids, lo, deltas, w_flat, block: int,
                 sentinel=None, compute_dtype=torch.float32, centres=None):
     """K3 wrapper: the CUDA kernel (bf16 operands, f32 sums on the tensor
     cores) for CUDA tensors, the plain version for CPU tensors. The kernel
-    wants taps in groups of three consecutive ids (it reads the centres as
-    ``deltas[G:2G]`` on the device); the wrapper raises where they are not,
-    checked on `centres` (``group_center_deltas(deltas)``) where the caller
+    wants taps in groups of consecutive ids (it reads the middles as
+    ``deltas[h*G:(h+1)*G]`` on the device); the wrapper raises where they
+    are not, checked on `centres` (``tap_groups(deltas)``) where the caller
     has them on the host, else on a copy of the deltas, which waits for the
     stream. It pads Cin to a multiple of 16 and Cout to a power of two from
-    8, and takes the kernel's ring and window staging from `conv_plan`."""
+    8 (at most 256 each), and takes the kernel's channel slices from
+    `conv_slices` and its ring and window staging from `conv_plan`."""
     if not _check_device(src_ids, feats, tgt_ids, lo, deltas, w_flat):
         return windowed_conv_plain(src_ids, feats, tgt_ids, lo, deltas,
                                    w_flat, block, window, scale, shift, relu,
@@ -311,7 +375,7 @@ def conv_kernel(src_ids, feats, tgt_ids, lo, deltas, w_flat, block: int,
     cout = w_flat.shape[1]
     cin_p = -(-cin // 16) * 16
     cout_p = max(8, 1 << (cout - 1).bit_length())
-    if cin_p > 128 or cout_p > 128 or block % CONV_TILE or vt % block \
+    if cin_p > 256 or cout_p > 256 or block % CONV_TILE or vt % block \
             or window > vs or window % 4 or vs % 4:
         raise ValueError(f"unsupported windowed conv shape cin={cin} "
                          f"cout={cout} taps={k} block={block} vt={vt} "
@@ -322,11 +386,14 @@ def conv_kernel(src_ids, feats, tgt_ids, lo, deltas, w_flat, block: int,
                            ("w_flat", w_flat, (k * cin, cout))):
         _check_shape(name, t, shape)
     if centres is None:
-        centres = group_center_deltas(deltas.cpu().numpy())
+        centres = tap_groups(deltas.cpu().numpy())
+    centres, taps = centres
     g_n = len(centres)
-    if 3 * g_n != k:
-        raise ValueError(f"{g_n} tap group centres for {k} taps")
-    stages, resident, stage_window = conv_plan(cin_p, cout_p, window, g_n)
+    if taps * g_n != k:
+        raise ValueError(f"{g_n} tap groups of {taps} for {k} taps")
+    cin_t, cout_t = conv_slices(cin_p, cout_p, window, g_n, taps)
+    stages, resident, stage_window = conv_plan(cin_t, cout_t, window, g_n,
+                                               taps)
     epilogue = scale is not None
     if epilogue:
         _check_shape("scale", scale, (cout,))
@@ -339,21 +406,33 @@ def conv_kernel(src_ids, feats, tgt_ids, lo, deltas, w_flat, block: int,
     if cin_p != cin:
         feats = torch.nn.functional.pad(feats, (0, cin_p - cin))
     w = reorder_weights_groups(w_flat.to(torch.bfloat16).reshape(
-        k, cin, cout))                                      # (G,3,Cin,Cout)
+        k, cin, cout), taps)                             # (G,S,Cin,Cout)
     w = torch.nn.functional.pad(w, pad_c + (0, cin_p - cin))
-    w = pack_weights_mma(w.reshape(k * cin_p, cout_p))
     scale = torch.nn.functional.pad(scale, pad_c).contiguous()
     shift = torch.nn.functional.pad(shift, pad_c).contiguous()
     feats = feats.contiguous()
+    mids = deltas[(taps // 2) * g_n:(taps // 2 + 1) * g_n]
     out = torch.empty(b, vt, cout_p, dtype=torch.float32, device=feats.device)
-    _build.check(_lib().fp_windowed_conv(
-        _ptr(src_ids), _ptr(feats), _ptr(tgt_ids), _ptr(lo),
-        _ptr(deltas[g_n:2 * g_n]), _ptr(w), _ptr(scale), _ptr(shift),
-        _ptr(out), b, vs, vt, vt // block, g_n, block, window, cin_p, cout_p,
-        int(epilogue), int(relu), int(sentinel) if epilogue else 0, stages,
-        int(resident), int(stage_window), _stream()),
-        "fp_windowed_conv")
-    LAUNCHES["windowed_conv"] += 1
+    for o0, o1 in channel_slices(cout_p, cout_t):
+        dst = out if cout_t == cout_p else torch.empty(
+            b, vt, cout_t, dtype=torch.float32, device=feats.device)
+        sc, sh = scale[o0:o1].contiguous(), shift[o0:o1].contiguous()
+        for i0, i1 in channel_slices(cin_p, cin_t):
+            f = feats if cin_t == cin_p else feats[..., i0:i1].contiguous()
+            wt = pack_weights_mma(w[:, :, i0:i1, o0:o1].reshape(
+                k * cin_t, cout_t))
+            last = i1 == cin_p
+            _build.check(_lib().fp_windowed_conv(
+                _ptr(src_ids), _ptr(f), _ptr(tgt_ids), _ptr(lo), _ptr(mids),
+                _ptr(wt), _ptr(sc), _ptr(sh), _ptr(dst), b, vs, vt,
+                vt // block, g_n, block, window, cin_t, cout_t,
+                int(epilogue and last), int(relu),
+                int(sentinel) if epilogue and last else 0, stages,
+                int(resident), int(stage_window), taps, int(i0 > 0),
+                _stream()), "fp_windowed_conv")
+            LAUNCHES["windowed_conv"] += 1
+        if dst is not out:
+            out[..., o0:o1] = dst
     return out[..., :cout] if cout_p != cout else out
 
 
@@ -380,11 +459,12 @@ def _prepare(src_ids, feats, tgt_ids, deltas, block, window):
 
 
 def _host_centres(deltas, feats):
-    """The tap groups' centres, taken on the host where the deltas are
-    there and the kernels will run (else None: the wrappers take them)."""
+    """The tap groups (middles, size), taken on the host where the deltas
+    are there and the kernels will run (else None: the wrappers take
+    them)."""
     if feats.is_cuda and not (isinstance(deltas, torch.Tensor)
                               and deltas.is_cuda):
-        return group_center_deltas(np.asarray(deltas))
+        return tap_groups(np.asarray(deltas))
     return None
 
 
@@ -444,17 +524,29 @@ def dw_chunks(n_tiles: int, g_n: int, batch: int):
     return max(1, min(n_tiles, DW_BLOCKS // (g_n * batch)))
 
 
+def dw_slices(cin, cout, taps=3):
+    """(Cin slice, Cout slice) of K4's launches for widths padded to powers
+    of two from 16: Cin slices of at most 128 (eight warps of 16 channels),
+    Cout slices as wide as the accumulators allow (Cin * Cout at most
+    MAX_DW_ACC, MAX_DW_ACC5 at five taps, Cout at most 256)."""
+    ci = min(cin, 128)
+    limit = MAX_DW_ACC5 if taps == 5 else MAX_DW_ACC
+    co = min(cout, 256, max(16, limit // ci))
+    return ci, co
+
+
 def dw_kernel(src_ids, feats, tgt_ids, g, lo, deltas, block: int,
               window: int, compute_dtype=torch.float32, centres=None):
     """K4 wrapper: the CUDA kernel (bf16 operands, f32 sums on the tensor
     cores; per-chunk partial sums combined in a fixed order, so the result
     is the same from run to run) for CUDA tensors, the plain version for CPU
-    tensors. The kernel wants taps in groups of three consecutive ids and
-    channel counts that are powers of two from 16 on: the wrapper pads the
-    channels with zeros and raises where the taps do not group. `centres`
-    are `group_center_deltas(deltas)` where the caller has them (it has the
-    deltas on the host); without them the deltas are copied back from the
-    device, which waits for the stream."""
+    tensors. The kernel wants taps in groups of consecutive ids and channel
+    counts that are powers of two from 16 on: the wrapper pads the channels
+    with zeros (at most 256 each), runs one launch per (Cin, Cout) slice of
+    `dw_slices`, and raises where the taps do not group. `centres` are
+    `tap_groups(deltas)` where the caller has them (it has the deltas on
+    the host); without them the deltas are copied back from the device,
+    which waits for the stream."""
     if not _check_device(src_ids, feats, tgt_ids, g, lo, deltas):
         return windowed_dw_plain(src_ids, feats, tgt_ids, g, lo, deltas,
                                  block, window, compute_dtype)
@@ -464,8 +556,8 @@ def dw_kernel(src_ids, feats, tgt_ids, g, lo, deltas, block: int,
     k, cin, cout = deltas.shape[0], feats.shape[2], g.shape[2]
     cin_p = max(16, 1 << (cin - 1).bit_length())
     cout_p = max(16, 1 << (cout - 1).bit_length())
-    if cin_p * cout_p > MAX_DW_ACC or cin_p > 128 or cout_p > 256 \
-            or block % DW_TILE or vt % block or window > src_ids.shape[1]:
+    if cin_p > 256 or cout_p > 256 or block % DW_TILE or vt % block \
+            or window > src_ids.shape[1]:
         raise ValueError(f"unsupported windowed dW shape cin={cin} "
                          f"cout={cout} block={block} vt={vt} window={window}")
     _check_ids(src_ids=src_ids, tgt_ids=tgt_ids, lo=lo, deltas=deltas)
@@ -474,25 +566,37 @@ def dw_kernel(src_ids, feats, tgt_ids, g, lo, deltas, block: int,
                            ("g", g, (b, vt, cout))):
         _check_shape(name, t, shape)
     if centres is None:
-        centres = group_center_deltas(deltas.cpu().numpy())
+        centres = tap_groups(deltas.cpu().numpy())
+    centres, taps = centres
     centres = torch.as_tensor(centres, dtype=torch.int32,
                               device=feats.device)
     g_n = centres.shape[0]
+    if taps * g_n != k:
+        raise ValueError(f"{g_n} tap groups of {taps} for {k} taps")
     feats = torch.nn.functional.pad(feats.to(torch.bfloat16),
                                     (0, cin_p - cin)).contiguous()
     g = torch.nn.functional.pad(g.to(torch.bfloat16),
                                 (0, cout_p - cout)).contiguous()
+    cin_t, cout_t = dw_slices(cin_p, cout_p, taps)
     n_chunks = dw_chunks(vt // DW_TILE, g_n, b)
-    partial = torch.empty(b * n_chunks, g_n, 3 * cin_p, cout_p,
+    partial = torch.empty(b * n_chunks, g_n, taps * cin_t, cout_t,
                           dtype=torch.float32, device=feats.device)
     dw = torch.empty(k, cin_p, cout_p, dtype=torch.float32,
                      device=feats.device)
-    _build.check(_lib().fp_windowed_dw(
-        _ptr(src_ids), _ptr(feats), _ptr(tgt_ids), _ptr(g), _ptr(lo),
-        _ptr(centres), _ptr(partial), _ptr(dw), b, src_ids.shape[1], vt,
-        vt // block, g_n, block, window, cin_p, cout_p, n_chunks, _stream()),
-        "fp_windowed_dw")
-    LAUNCHES["windowed_dw"] += 1
+    for i0, i1 in channel_slices(cin_p, cin_t):
+        f = feats if cin_t == cin_p else feats[..., i0:i1].contiguous()
+        for o0, o1 in channel_slices(cout_p, cout_t):
+            gt = g if cout_t == cout_p else g[..., o0:o1].contiguous()
+            dst = dw if (cin_t, cout_t) == (cin_p, cout_p) else torch.empty(
+                k, cin_t, cout_t, dtype=torch.float32, device=feats.device)
+            _build.check(_lib().fp_windowed_dw(
+                _ptr(src_ids), _ptr(f), _ptr(tgt_ids), _ptr(gt), _ptr(lo),
+                _ptr(centres), _ptr(partial), _ptr(dst), b,
+                src_ids.shape[1], vt, vt // block, g_n, block, window,
+                cin_t, cout_t, n_chunks, taps, _stream()), "fp_windowed_dw")
+            LAUNCHES["windowed_dw"] += 1
+            if dst is not dw:
+                dw[:, i0:i1, o0:o1] = dst
     return dw[:, :cin, :cout]
 
 

@@ -29,7 +29,13 @@ state dict and no leaf of either tree); PillarVFE's auto-named
 ``pfn{i}_dense`` / ``pfn{i}_bn``, AnchorHeadSingle's ``conv_cls`` /
 ``conv_box`` / ``conv_dir`` and AnchorHeadMulti's ``shared_conv``,
 ``shared_bn``, ``h{i}_mid{j}``, ``h{i}_mid{j}_bn`` and ``h{i}_cls`` /
-``_box`` / ``_dir`` (the anchors are non-persistent buffers, no leaf).
+``_box`` / ``_dir`` (the anchors are non-persistent buffers, no leaf);
+the VoxelNeXt / PillarNet backbones' ``blocks{s}_...``, ``w_out``,
+``w_shared`` and PillarNet's dense ``conv5_down`` / ``conv5_res_{i}_{j}``,
+BaseBEVBackboneV1's ``block{i}_conv{k}`` / ``deblock{i}``, VoxelNeXtHead's
+``group{g}`` / ``{name}_conv{i}`` / ``{name}_bn{i}`` / ``{name}_out``, and
+TransFusionHeadAM's, whose four scalar parameters are leaves of the head
+itself (named by its FLAX_LEAVES; its anchor vectors are buffers).
 
 `to_jax_tree(model, what)` is the inverse map: the port's parameters,
 their gradients or its BN statistics as a nested dict of numpy arrays under
@@ -68,6 +74,11 @@ def _leaves(model):
     mha_children = set()
     for name, mod in model.named_modules():
         path = name.split(".") if name else []
+        for leaf in getattr(mod, "FLAX_LEAVES", ()):
+            # a module's own parameters that are flax leaves of its scope
+            # (TransFusionHeadAM's match scales and biases)
+            t = getattr(mod, leaf)
+            add("params", path + [leaf], t.shape, same, t)
         if isinstance(mod, MultiHeadAttention):
             h, dh = mod.num_heads, mod.head_dim
             for child in ("query", "key", "value"):

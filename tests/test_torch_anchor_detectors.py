@@ -241,8 +241,8 @@ BUILDS = ("kitti_models/pointpillar", "kitti_models/second",
 LEAF_CHECKS = ("kitti_models/pointpillar", "kitti_models/second_multihead",
                "nuscenes_models/cbgs_dyn_pp_centerpoint")
 NOT_PORTED = ("kitti_models/pv_rcnn", "kitti_models/PartA2",
-              "kitti_models/second_iou", "kitti_models/pillarnet",
-              "kitti_models/CaDDN", "waymo_models/voxelnext2d_ioubranch")
+              "kitti_models/second_iou", "kitti_models/voxel_rcnn_car",
+              "kitti_models/CaDDN", "waymo_models/pv_rcnn_plusplus")
 
 
 def yaml_dataset(cfg):

@@ -430,3 +430,67 @@ def test_cuda_wrapper_hands_the_kernel_bf16_rows_and_packed_weights(
                        src_t[:, :960], lp.pos[:, :, :960], lp.lo,
                        lp.has_real, lp.gdeltas, torch.zeros(27 * 16, 8),
                        96, 960, compute_dtype=torch.bfloat16)
+
+
+@pytest.mark.parametrize("cin,cout", [(128, 256), (256, 256), (256, 10)])
+def test_cuda_branch_channel_slices_match_plain(monkeypatch, cin, cout):
+    """The CUDA branch of the K2 wrapper on CPU tensors against a library
+    that computes what the kernel computes from its arguments (tensors in
+    place of pointers): convs wider than 128 channels in or out run as one
+    launch per (Cout slice, Cin slice), each counted, the Cin slices summed
+    in the slice's buffer (`accumulate`) and the epilogue with the last;
+    the result equals the plain version at the same bf16 operands (f32
+    sums in another order: 1e-5 of the output's scale)."""
+    from test_torch_windowed_sparse import make_case, unpack_mma
+
+    calls = []
+
+    class Emu:
+        def fp_posgather_conv(self, src, feats, tgt, pos, lo, has_real,
+                              gdeltas, w, scale, shift, out, b, vs, vt, nb,
+                              g_n, block, window, ci, co, epi, relu, sent,
+                              acc, stream):
+            calls.append((ci, co, epi, acc))
+            res = TP.posgather_conv_plain(
+                src, feats.float(), tgt, pos, lo, has_real, gdeltas,
+                unpack_mma(w).float(), block, window)
+            if acc:
+                res = res + out
+            if epi:
+                res = torch.relu(res * scale + shift) if relu \
+                    else res * scale + shift
+                res = res * (tgt < sent)[..., None]
+            out.copy_(res * has_real.bool().repeat_interleave(
+                block, dim=1)[..., None])
+            return 0
+
+    monkeypatch.setattr(TP, "_check_device", lambda *t: True)
+    monkeypatch.setattr(TP, "_lib", lambda: Emu())
+    monkeypatch.setattr(TP, "_stream", lambda: None)
+    monkeypatch.setattr(TP, "_ptr", lambda t: t)
+    c = make_case(seed=8, n_active=700, shape=(9, 24, 24), c_in=cin,
+                  c_out=cout)
+    src = torch.from_numpy(c["src"])[None]
+    lp = TP.compute_positions_plain(src, src, c["deltas"], block=512,
+                                    window=1024, sentinel_start=c["sent"])
+    rng = np.random.RandomState(3)
+    scale = torch.from_numpy(rng.uniform(0.5, 1.5, cout).astype(np.float32))
+    shift = torch.from_numpy(rng.standard_normal(cout).astype(np.float32))
+    w_flat = TP.reorder_weights_groups(torch.from_numpy(c["w"])).reshape(
+        27 * cin, cout)
+    args = (src, torch.from_numpy(c["feats"])[None], src, lp.pos, lp.lo,
+            lp.has_real, lp.gdeltas, w_flat, 512, lp.window)
+    epi = dict(scale=scale, shift=shift, relu=True, sentinel=c["sent"],
+               compute_dtype=torch.bfloat16)
+    TP.reset_launches()
+    got = TP.gather_conv(*args, **epi)
+    want = TP.posgather_conv_plain(*args, **epi)
+    n_in, n_out = -(-cin // 128), -(-max(8, cout) // 128)
+    assert TP.LAUNCHES["posgather_conv"] == len(calls) == n_in * n_out
+    cout_p = max(8, 1 << (cout - 1).bit_length())
+    assert calls == [(min(cin, 128), min(cout_p, 128), int(i == n_in - 1),
+                      int(i > 0)) for _ in range(n_out) for i in range(n_in)]
+    assert got.shape == want.shape == (1, 1024, cout)
+    assert float((got - want).abs().max()) <= 1e-5 * float(
+        want.abs().max())
+    TP.reset_launches()

@@ -379,14 +379,18 @@ def test_dw_cuda_wrapper_groups_pads_and_sizes_the_scratch(monkeypatch):
     n_chunks = ws.dw_chunks(1024 // ws.DW_TILE, 9, 2)
     assert partial.shape == (2 * n_chunks, 9, 48, 16)
     assert k_dw.shape == (27, 16, 16) and dw.shape == (27, 8, 10)
-    # (..., B, Vs, Vt, nb, G, block, window, cin, cout, n_chunks, stream)
-    assert a[8:18] == (2, 1024, 1024, 2, 9, BLOCK, window, 16, 16, n_chunks)
+    # (..., B, Vs, Vt, nb, G, block, window, cin, cout, n_chunks, taps,
+    #  stream)
+    assert a[8:19] == (2, 1024, 1024, 2, 9, BLOCK, window, 16, 16, n_chunks,
+                       3)
     assert ws.LAUNCHES["windowed_dw"] == 1
+    # 33 taps: no groups of 5 or 3 consecutive ids, too many groups of one
     with pytest.raises(ValueError, match="consecutive"):
-        ws.dw_kernel(src, feats, tgt, g, lo, deltas.flip(0)[:26].contiguous(),
+        ws.dw_kernel(src, feats, tgt, g, lo,
+                     torch.cat([deltas.flip(0), deltas[:6]]).contiguous(),
                      BLOCK, window, compute_dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="unsupported"):
-        ws.dw_kernel(src, feats.repeat(1, 1, 32), tgt, g, lo, deltas, BLOCK,
+    with pytest.raises(ValueError, match="unsupported"):    # Cin 264
+        ws.dw_kernel(src, feats.repeat(1, 1, 33), tgt, g, lo, deltas, BLOCK,
                      window, compute_dtype=torch.bfloat16)
     ws.reset_launches()
 
@@ -485,16 +489,296 @@ def test_conv_cuda_wrapper_groups_packs_and_pads(monkeypatch):
     assert torch.equal(k_shift[:10], shift) and not k_shift[10:].any()
     assert k_out.shape == (1, 1024, 16) and out.shape == (1, 1024, 10)
     # (..., B, Vs, Vt, nb, G, block, window, cin, cout, epilogue, relu,
-    #  sentinel, stages, resident, stage_window, stream)
-    assert a[9:24] == (1, 1024, 1024, 2, 9, BLOCK, window, 16, 16, 1, 1,
-                       c["sent"], *map(int, ws.conv_plan(16, 16, window)))
+    #  sentinel, stages, resident, stage_window, taps, accumulate, stream)
+    assert a[9:26] == (1, 1024, 1024, 2, 9, BLOCK, window, 16, 16, 1, 1,
+                       c["sent"], *map(int, ws.conv_plan(16, 16, window)),
+                       3, 0)
     assert ws.LAUNCHES["windowed_conv"] == 1
+    # 33 taps: no groups of 5 or 3 consecutive ids, too many groups of one
     with pytest.raises(ValueError, match="consecutive"):
-        ws.conv_kernel(src, feats, tgt, lo, deltas.flip(0).contiguous(),
-                       w_flat, BLOCK, window, compute_dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="unsupported"):
-        ws.conv_kernel(src, feats.repeat(1, 1, 33), tgt, lo, deltas,
-                       w_flat.repeat(33, 1), BLOCK, window,
+        ws.conv_kernel(src, feats, tgt, lo,
+                       torch.cat([deltas.flip(0), deltas[:6]]).contiguous(),
+                       w_flat.repeat(2, 1)[:33 * 4], BLOCK, window,
+                       compute_dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="unsupported"):    # Cin 260
+        ws.conv_kernel(src, feats.repeat(1, 1, 65), tgt, lo, deltas,
+                       w_flat.repeat(65, 1), BLOCK, window,
                        compute_dtype=torch.bfloat16)
     assert ws.LAUNCHES["windowed_conv"] == 1
+    ws.reset_launches()
+
+
+# ------------------------------------------- tap groups of 5 and 1, 256 ch
+
+
+def tap_case(kind, seed=6, c_in=8, c_out=16):
+    """A conv of the VoxelNeXt / PillarNet paths on a small level: "k5" a
+    5x5x5 stride-2 conv (25 tap groups of five), "2d" a (1, 3, 3)
+    submanifold conv on a (1, ny, nx) level (9 groups of one), "2d-strided"
+    its (1, 2, 2)-strided conv (padding (0, 1, 1))."""
+    shape = (9, 40, 40) if kind == "k5" else (1, 48, 48)
+    c = make_case(seed, 1200 if kind == "k5" else 900, shape=shape,
+                  c_in=c_in, c_out=c_out)
+    if kind == "2d":
+        c.update(w=np.random.RandomState(seed).standard_normal(
+            (9, c_in, c_out)).astype(np.float32) * 0.1,
+            deltas=so.yxz_offset_deltas((1, 3, 3), shape))
+        return c
+    kernel, stride, pad = ((5, 5, 5), (2, 2, 2), (2, 2, 2)) if kind == "k5" \
+        else ((1, 3, 3), (1, 2, 2), (0, 1, 1))
+    out_shape = tuple((n + 2 * p - k) // s + 1 for n, k, s, p in zip(
+        shape, kernel, stride, pad))
+    coords = np.full((1, c["src"].shape[0], 3), -1, np.int32)
+    coords[0, :c["n"]] = c["coords"]
+    valid = torch.zeros(1, c["src"].shape[0], dtype=torch.bool)
+    valid[0, :c["n"]] = True
+    _, oc, ov = so.win_downsample(torch.from_numpy(coords), valid, shape,
+                                  out_shape, 1024, kernel_size=kernel,
+                                  stride=stride, padding=pad)
+    base = so.strided_base_ids(oc, ov, stride, shape, out_shape)
+    k = int(np.prod(kernel))
+    c.update(tgt=base[0].numpy(), w=np.random.RandomState(seed)
+             .standard_normal((k, c_in, c_out)).astype(np.float32) * 0.1,
+             deltas=so.strided_deltas(kernel, stride, pad, shape),
+             sent=so.strided_sentinel_start(shape))
+    return c
+
+
+def transposed(c, g):
+    """The transposed call of a case: lists swapped, taps reversed and
+    negated, weights flipped and transposed (the pairs in group order)."""
+    from findnpropagate_torch.ops.posgather import flip_transpose_weights
+
+    return dict(src=c["tgt"], tgt=c["src"], feats=g,
+                w=flip_transpose_weights(torch.from_numpy(c["w"])).numpy(),
+                deltas=np.ascontiguousarray(-c["deltas"][::-1]))
+
+
+@pytest.mark.parametrize("kind,taps,groups", [
+    ("k5", 5, 25), ("2d", 1, 9), ("2d-strided", 1, 9)])
+def test_tap_groups_of_five_and_one(kind, taps, groups):
+    """A 5x5x5 kernel's taps are 25 groups of five consecutive ids, a 2D
+    (1, 3, 3) kernel's 9 groups of one (x-neighbours are nz + 2 = 3 ids
+    apart, no runs of three); the transposed direction's reversed and
+    negated taps group the same way with the middles reversed and
+    negated, and the weights in group order pair each tap with its own
+    kernel row in both directions."""
+    from findnpropagate_torch.ops.posgather import (
+        flip_transpose_weights, reorder_weights_groups, tap_groups)
+
+    c = tap_case(kind)
+    mids, size = tap_groups(c["deltas"])
+    assert (size, mids.shape[0]) == (taps, groups)
+    t_mids, t_size = tap_groups(-c["deltas"][::-1])
+    assert t_size == taps
+    np.testing.assert_array_equal(t_mids, -mids[::-1])
+    h = taps // 2
+    for d, w in ((c["deltas"], torch.from_numpy(c["w"])),
+                 (-c["deltas"][::-1],
+                  flip_transpose_weights(torch.from_numpy(c["w"])))):
+        m, _ = tap_groups(d)
+        grouped = reorder_weights_groups(w, taps)      # (G, S, Cin, Cout)
+        for g in range(groups):
+            for zi in range(taps):
+                k = zi * groups + g
+                assert d[k] == m[g] + zi - h
+                assert torch.equal(grouped[g, zi], w[k])
+
+
+@pytest.mark.parametrize("kind", ["k5", "2d", "2d-strided"])
+@pytest.mark.parametrize("direction", ["forward", "transposed"])
+def test_group_probe_rows_at_five_and_one_taps(kind, direction):
+    """The kernels' route (one search per (target, group), the S taps from
+    its rank) finds exactly the rows of one search per tap."""
+    from findnpropagate_torch.ops.posgather import tap_groups
+
+    c = tap_case(kind)
+    if direction == "transposed":
+        c = transposed(c, np.zeros((c["tgt"].shape[0], 16), np.float32))
+    src, feats, tgt, deltas, lo, window = _prepared(c, 2048)
+    mids, size = tap_groups(c["deltas"])
+    rows_k, found_k = ws.neighbour_rows(src, tgt, lo, deltas, BLOCK, window)
+    rows_g, found_g = ws.group_probe_rows(src, tgt, lo, torch.from_numpy(
+        mids), BLOCK, window, taps=size)
+    assert torch.equal(found_g, found_k) and int(found_k.sum()) > 1000
+    assert torch.equal(rows_g[found_k], rows_k[found_k])
+
+
+@pytest.mark.parametrize("kind", ["k5", "2d", "2d-strided"])
+def test_five_and_one_tap_convs_match_pallas(kind):
+    """K3 (forward and transposed) and K4 at these tap sets: the port's
+    plain versions against the JAX package's Pallas kernels in interpret
+    mode at float32 (1e-4 forward, 2e-3 weight gradient)."""
+    c = tap_case(kind)
+    want, ovf_j = jax_conv(c, 2048, sentinel_start=c["sent"])
+    got, ovf = port_conv(c, 2048, sentinel_start=c["sent"])
+    assert ovf == ovf_j == 0 and np.abs(want).max() > 0.1
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+    g = np.random.RandomState(1).standard_normal(
+        (c["tgt"].shape[0], 16)).astype(np.float32)
+    tc = transposed(c, g)
+    want, _ = jax_conv(tc, 2048)
+    got, _ = port_conv(tc, 2048)
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+    want = np.asarray(windowed_dw_pallas(
+        j(c["src"]), j(c["feats"]), j(c["tgt"]), j(g), j(c["deltas"]),
+        block=BLOCK, window=2048, compute_dtype=jnp.float32, interpret=True))
+    got = ws.windowed_dw(t(c["src"]), t(c["feats"]), t(c["tgt"]), t(g),
+                         c["deltas"], block=BLOCK, window=2048).numpy()
+    np.testing.assert_allclose(got, want, rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.parametrize("cin,cout,g_n,taps,window,slices,launches", [
+    (32, 64, 25, 5, 7680, (32, 64), 1),       # Waymo large L1->L2, k5
+    (64, 32, 25, 5, 7680, (64, 32), 1),       # its transposed
+    (64, 128, 25, 5, 6656, (64, 128), 1),     # L2->L3, k5
+    (128, 64, 25, 5, 6656, (64, 64), 2),      # its transposed: Cin slices
+    (128, 256, 9, 3, 4096, (128, 128), 2),    # L3->L4, 256 out
+    (256, 256, 9, 3, 4096, (128, 128), 4),    # L4 submanifold
+    (256, 128, 9, 3, 4096, (128, 128), 2),    # L3->L4 transposed
+    (64, 128, 9, 1, 4096, (64, 128), 1),      # 2D strided
+    (256, 256, 9, 1, 4096, (128, 128), 4)])   # 2D at 256
+def test_conv_slices_fit_one_block(cin, cout, g_n, taps, window, slices,
+                                   launches):
+    """K3's channel slices at the new tap sets and widths: the fewest
+    launches whose plan fits in one block's shared memory."""
+    ci, co = ws.conv_slices(cin, cout, window, g_n, taps)
+    assert (ci, co) == slices and (cin // ci) * (cout // co) == launches
+    plan = ws.conv_plan(ci, co, window, g_n, taps)
+    assert ws.conv_smem(ci, co, window, g_n, *plan, taps) <= ws.SMEM_MAX
+    with pytest.raises(ValueError):
+        ws.conv_plan(cin * 4, cout * 4, window, g_n, taps)
+
+
+@pytest.mark.parametrize("cin,cout,taps,want", [
+    (16, 16, 3, (16, 16)), (64, 128, 3, (64, 128)), (128, 64, 3, (128, 64)),
+    (64, 128, 5, (64, 64)), (128, 64, 5, (128, 32)), (32, 64, 5, (32, 64)),
+    (256, 256, 3, (128, 64)), (256, 256, 1, (128, 64)),
+    (128, 256, 3, (128, 64))])
+def test_dw_slices(cin, cout, taps, want):
+    """K4's channel slices: Cin at most 128 (eight warps), Cin * Cout at
+    most 8192 accumulators a block, 4096 at five taps."""
+    ci, co = ws.dw_slices(cin, cout, taps)
+    assert (ci, co) == want
+    assert ci * co <= (ws.MAX_DW_ACC5 if taps == 5 else ws.MAX_DW_ACC)
+
+
+def unpack_mma(packed):
+    """The inverse of posgather.pack_weights_mma: (R/16, C/8, 32, 4) ->
+    (R, C)."""
+    ks, nt = packed.shape[:2]
+    return packed.reshape(ks, nt, 8, 4, 2, 2).permute(
+        0, 4, 3, 5, 1, 2).reshape(ks * 16, nt * 8)
+
+
+class _EmuLib:
+    """Stands in for the CUDA library and computes what the C entries
+    compute from their arguments (tensors in place of pointers): K3 from
+    the packed weights (rows g*S*Cin + zi*Cin + c) and the taps rebuilt
+    from the group middles (tap zi*G + g is middle g + zi - S/2), adding
+    to the buffer with `accumulate`, then the epilogue; K4 the (S*G, Cin,
+    Cout) gradient into its buffer. Keeps each call's integers."""
+
+    def __init__(self):
+        self.calls = []
+
+    @staticmethod
+    def _deltas(mids, taps):
+        return torch.cat([mids + zi - taps // 2 for zi in range(taps)])
+
+    def fp_windowed_conv(self, src, feats, tgt, lo, mids, w, scale, shift,
+                         out, b, vs, vt, nb, g_n, block, window, cin, cout,
+                         epi, relu, sent, stages, resident, stage_window,
+                         taps, acc, stream):
+        self.calls.append(("conv", cin, cout, epi, acc, taps, g_n))
+        wf = unpack_mma(w).float().reshape(g_n, taps, cin, cout)
+        wf = wf.permute(1, 0, 2, 3).reshape(taps * g_n * cin, cout)
+        res = ws.windowed_conv_plain(src, feats.float(), tgt, lo,
+                                     self._deltas(mids, taps), wf, block,
+                                     window)
+        if acc:
+            res = res + out
+        if epi:
+            res = res * scale + shift
+            res = torch.relu(res) if relu else res
+            res = res * (tgt < sent)[..., None]
+        out.copy_(res)
+        return 0
+
+    def fp_windowed_dw(self, src, feats, tgt, g, lo, centres, partial, dw,
+                       b, vs, vt, nb, g_n, block, window, cin, cout,
+                       n_chunks, taps, stream):
+        self.calls.append(("dw", cin, cout, taps, g_n))
+        assert partial.shape == (b * n_chunks, g_n, taps * cin, cout)
+        dw.copy_(ws.windowed_dw_plain(src, feats.float(), tgt, g.float(),
+                                      lo, self._deltas(centres, taps),
+                                      block, window))
+        return 0
+
+
+@pytest.mark.parametrize("kind,cin,cout,direction", [
+    ("k5", 32, 64, "forward"), ("k5", 64, 128, "transposed"),
+    ("2d-strided", 64, 128, "forward"), ("2d", 256, 256, "forward"),
+    ("k5", 16, 256, "forward")])
+def test_cuda_branch_slices_and_groups_match_plain(monkeypatch, kind, cin,
+                                                   cout, direction):
+    """The CUDA branches of the K3 and K4 wrappers on CPU tensors against
+    a library that computes what the kernels compute: the group order of
+    the weights and taps at five and one taps, the channel slices (Cin
+    slices summed in the output buffer, the epilogue with the last), the
+    launches counted one per slice, and the results equal to the plain
+    versions at the same bf16 operands (f32 sums in another order: 1e-5
+    of the output's scale)."""
+    fake = _EmuLib()
+    monkeypatch.setattr(ws, "_check_device", lambda *a: True)
+    monkeypatch.setattr(ws, "_lib", lambda: fake)
+    monkeypatch.setattr(ws, "_stream", lambda: None)
+    monkeypatch.setattr(ws, "_ptr", lambda x: x)
+    c = tap_case(kind, c_in=cin, c_out=cout)
+    if direction == "transposed":
+        g = np.random.RandomState(2).standard_normal(
+            (c["tgt"].shape[0], cout)).astype(np.float32)
+        c = transposed(c, g)
+        c["sent"] = None
+    src, feats, tgt, deltas, lo, window = _prepared(c, 2048)
+    k, ci, co = c["w"].shape
+    w_flat = torch.from_numpy(c["w"]).reshape(k * ci, co)
+    rng = np.random.RandomState(4)
+    epi = {} if c["sent"] is None else dict(
+        scale=torch.from_numpy(rng.uniform(0.5, 1.5, co).astype(np.float32)),
+        shift=torch.from_numpy(rng.standard_normal(co).astype(np.float32)),
+        relu=True, sentinel=c["sent"])
+    ws.reset_launches()
+    got = ws.conv_kernel(src, feats, tgt, lo, deltas, w_flat, BLOCK, window,
+                         compute_dtype=torch.bfloat16, **epi)
+    want = ws.windowed_conv_plain(src, feats, tgt, lo, deltas, w_flat, BLOCK,
+                                  window, compute_dtype=torch.bfloat16,
+                                  **epi)
+    from findnpropagate_torch.ops.posgather import tap_groups
+
+    mids, taps = tap_groups(c["deltas"])
+    cin_p = -(-ci // 16) * 16
+    cout_p = max(8, 1 << (co - 1).bit_length())
+    ci_t, co_t = ws.conv_slices(cin_p, cout_p, window, len(mids), taps)
+    n_in, n_out = cin_p // ci_t, cout_p // co_t
+    convs = [x for x in fake.calls if x[0] == "conv"]
+    assert ws.LAUNCHES["windowed_conv"] == len(convs) == n_in * n_out
+    # (cin, cout, epilogue, accumulate, taps, groups) of each launch
+    assert convs == [("conv", ci_t, co_t, int(bool(epi)) * (i == n_in - 1),
+                      int(i > 0), taps, len(mids))
+                     for _ in range(n_out) for i in range(n_in)]
+    assert (n_in > 1 or n_out > 1) == (cin > 128 or cout > 128
+                                       or direction == "transposed")
+    scale = max(float(want.abs().max()), 1e-3)
+    assert float((got - want).abs().max()) <= 1e-5 * scale
+    g = torch.from_numpy(np.random.RandomState(5).standard_normal(
+        (1, tgt.shape[1], co)).astype(np.float32))
+    dw = ws.dw_kernel(src, feats, tgt, g, lo, deltas, BLOCK, window,
+                      compute_dtype=torch.bfloat16)
+    ref = ws.windowed_dw_plain(src, feats, tgt, g, lo, deltas, BLOCK, window,
+                               compute_dtype=torch.bfloat16)
+    assert dw.shape == ref.shape == (k, ci, co)
+    np.testing.assert_allclose(dw.numpy(), ref.numpy(), rtol=1e-5, atol=1e-5)
+    assert ws.LAUNCHES["windowed_dw"] == len(
+        [x for x in fake.calls if x[0] == "dw"])
     ws.reset_launches()
