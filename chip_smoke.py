@@ -327,9 +327,36 @@ Phases (any failure exits non-zero and prints no result line):
      only DATA_PATH set (a checkpoint, finite losses and AP keys). Printed
      with the card's name and power limit: ms/scan, the decode's share,
      ms/step, peak memory, the CLIs' wall seconds;
- 17. a `kernels` JSON line (phases 13, 14, 15 and 16 add, per yaml, each
-     kernel's calls of one batch-4 forward or of one training step,
-     summed), then the result line
+ 17. the voxel two-stage detectors (TS_RUNS): SECONDNetIoU, VoxelRCNN,
+     PVRCNN and PVRCNNPlusPlus on their 11 yamls at full width,
+     init_random_(seed 0) — kitti second_iou / voxel_rcnn_car / pv_rcnn on
+     phase 15's KITTI tree, the seven Waymo yamls on phase 14's Waymo tree
+     (the 2-frame yaml through its SEQUENCE_CONFIG), once and custom
+     pv_rcnn on phase 14's ONCE and Custom trees. Each yaml as written (a
+     batch-4 forward, no K1-K4 launch, overflow 0, finite detections, then
+     one timed forward), then with SUBM_IMPL posgather, blocks of 512 and the main path's windows (twice
+     them for the 2-frame stack): forwards + post_process at batch 1 and
+     4 (K1 and K2 launched, no K3 / K4, overflow 0, finite detections;
+     ms/scan, the decode's share, peak memory), every
+     K1 / K2 call of the batch-4 forward held against its plain version
+     (K1 bit-equal; every K1 call of phases 16 and 17 also beside
+     torch.searchsorted, its library call). On second_iou,
+     voxel_rcnn_car, KITTI pv_rcnn and Waymo pv_rcnn_plusplus a warm-up
+     and a timed training step at batch 4 in posgather mode with the
+     yaml's optimizer (every K1-K4 launched, each call of the timed step
+     against plain; finite loss and gradient norm, overflow 0, parameters
+     changed), then one training-mode forward: the ROI sampler's fg / bg
+     counts, the proposal layer's ms with the TRAIN (up to 9000
+     candidates) and TEST NMS_CONFIG, and the keypoint sampling's ms
+     (FPS, or sector FPS). Then train.py (1 epoch) and test.py on
+     kitti_models/voxel_rcnn_car.yaml with only DATA_PATH set (a
+     checkpoint, finite losses, every KITTI AP key finite). Cut to fit
+     its time: one timed forward per batch size after the launch-gated
+     one, one timed training step after the warm-up, training only on the
+     four representatives;
+ 18. a `kernels` JSON line (phases 13-17 add, per yaml, each kernel's
+     calls of one batch-4 forward or of one training step, summed), then
+     the result line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 With --before DIR (a checkout of an earlier commit of this repo, e.g.
@@ -5649,12 +5676,12 @@ def on_card(torch, batch, dev):
     return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
 
 
-def forward_decode_ms(torch, det, batch, reps):
-    """`reps` forwards + post_process after 2 warm-ups, each split by CUDA
-    events into the forward and the decode: (median ms of the whole,
+def forward_decode_ms(torch, det, batch, reps, warm=2):
+    """`reps` forwards + post_process after `warm` warm-ups, each split by
+    CUDA events into the forward and the decode: (median ms of the whole,
     median ms of the decode, median share of the decode, all wholes)."""
     whole, decode, share = [], [], []
-    for i in range(reps + 2):
+    for i in range(reps + warm):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
         ev[0].record()
         out = det(batch)
@@ -5662,7 +5689,8 @@ def forward_decode_ms(torch, det, batch, reps):
         det.post_process(out)
         ev[2].record()
         torch.cuda.synchronize()
-        if i >= 2:
+        del out
+        if i >= warm:
             whole.append(ev[0].elapsed_time(ev[2]))
             decode.append(ev[1].elapsed_time(ev[2]))
             share.append(decode[-1] / whole[-1])
@@ -6107,7 +6135,8 @@ def hold_calls(torch, tp, ws, k1, k2, k3, k4, label):
     card: K1 bit for bit in its five fields (check_level), K2 / K3 / K4
     within K2_RTOL / K3_RTOL / K4_RTOL of the output's scale (K4 also the
     same bits twice), each call timed once after its first run and its
-    plain version once, with its bound. Returns per-call rows."""
+    plain version once, with its bound, and K1's library call (k1_library:
+    torch.searchsorted, its ranks checked) once. Returns per-call rows."""
     rows = []
     cat = lambda outs: torch.cat(outs, dim=0)          # noqa: E731
     for i, (args, kw) in enumerate(k1):
@@ -6120,7 +6149,9 @@ def hold_calls(torch, tp, ws, k1, k2, k3, k4, label):
                          *args, **kw), 1),
                      "plain_ms": timing.ms(lambda: tp.compute_positions_plain(
                          *args, **kw), 1, warm=0),
-                     "bound_ms": bound_ms, "bound_by": bound_by})
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "library_ms": timing.ms(k1_library(
+                         torch, given[0], given[1], ref), 1)})
     for i, (args, kw) in enumerate(k2):
         out = tp.gather_conv(*args, **kw)
         plain = lambda: per_sample(                     # noqa: E731
@@ -6206,11 +6237,12 @@ def vn_entries(rows, path, launches):
             if launches[k] and any(r["name"] == k for r in rows)]
 
 
-def vn_forwards(torch, mods, cfg, data, label, batches, need, dev):
+def vn_forwards(torch, mods, cfg, data, label, batches, need, dev,
+                reps=ANCHOR_REPS, warm=2):
     """Eval forwards + post_process at each batch size with the launch
     gate (`need`: the kernels the mode launches), the batch-4 forward's
-    calls recorded and held against plain. Returns (report, rows,
-    entries)."""
+    calls recorded and held against plain; `reps` timed forwards after
+    `warm` more. Returns (report, rows, entries)."""
     cfg_mod, models_mod, synth, tp, ws, lap, weights, *_ = mods
     ds, batch, host_ms = data(cfg, False, max(batches))
     det = models_mod.build_network(copy.deepcopy(cfg.MODEL),
@@ -6225,17 +6257,20 @@ def vn_forwards(torch, mods, cfg, data, label, batches, need, dev):
             out, dets, got = cp_forward(torch, det, bt, tp, ws, None,
                                         f"{label} forward batch {b}")
         vn_gate(f"{label} forward batch {b}", got, need)
-        med, dec, share, times = forward_decode_ms(torch, det, bt,
-                                                   ANCHOR_REPS)
-        rep[b] = {"launches": got, "ms_per_scan": med / b, "times_ms": times,
-                  "decode_ms": dec, "decode_share": share,
+        rep[b] = {"launches": got,
                   "overflow": int(out.get("sparse_window_overflow", 0)),
-                  "detections_per_scan": [int(c) for c in dets.count],
-                  "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
+                  "detections_per_scan": [int(c) for c in dets.count]}
+        # the gated forward's outputs go before the timed ones are made
+        del out, dets
+        med, dec, share, times = forward_decode_ms(torch, det, bt, reps,
+                                                   warm)
+        rep[b].update(ms_per_scan=med / b, times_ms=times, decode_ms=dec,
+                      decode_share=share, peak_mem_gb=torch.cuda
+                      .max_memory_allocated() / 2 ** 30)
         if b == max(batches) and need:
             rows = hold_calls(torch, tp, ws, *calls, f"{label} forward")
             entries = vn_entries(rows, f"{label} forward batch {b}", got)
-        del out, dets, calls
+        del calls
     del det
     torch.cuda.empty_cache()
     return rep, rows, entries
@@ -6350,6 +6385,216 @@ def voxelnext_phase(torch, mods, smi, dev="cuda"):
         f"{res['mAP_3d_moderate_R40']}, {len(res)} keys all finite")
     rep["phase_s"] = time.perf_counter() - t0
     log(f"phase 16 ({smi}): {rep['phase_s']:.1f} s, {len(rows)} kernel "
+        "calls held against plain")
+    return rep, rows, entries
+
+
+
+# ---- phase 17: the voxel two-stage detectors
+
+TS_WORK = "build/two_stage"
+# label: (yaml, tree, a training step). Trees: phase 15's KITTI, phase
+# 14's Waymo, ONCE and Custom
+TS_RUNS = {
+    "kitti second_iou": ("tools/cfgs/kitti_models/second_iou.yaml", "kitti",
+                         True),
+    "kitti voxel_rcnn_car": ("tools/cfgs/kitti_models/voxel_rcnn_car.yaml",
+                             "kitti", True),
+    "kitti pv_rcnn": ("tools/cfgs/kitti_models/pv_rcnn.yaml", "kitti", True),
+    "waymo pv_rcnn": ("tools/cfgs/waymo_models/pv_rcnn.yaml", "waymo",
+                      False),
+    "waymo pv_rcnn_plusplus": (
+        "tools/cfgs/waymo_models/pv_rcnn_plusplus.yaml", "waymo", True),
+    "waymo pv_rcnn_plusplus_resnet": (
+        "tools/cfgs/waymo_models/pv_rcnn_plusplus_resnet.yaml", "waymo",
+        False),
+    "waymo pv_rcnn_plusplus_resnet_2frames": (
+        "tools/cfgs/waymo_models/pv_rcnn_plusplus_resnet_2frames.yaml",
+        "waymo", False),
+    "waymo pv_rcnn_with_centerhead_rpn": (
+        "tools/cfgs/waymo_models/pv_rcnn_with_centerhead_rpn.yaml", "waymo",
+        False),
+    "waymo voxel_rcnn_with_centerhead_dyn_voxel": (
+        "tools/cfgs/waymo_models/voxel_rcnn_with_centerhead_dyn_voxel.yaml",
+        "waymo", False),
+    "once pv_rcnn": ("tools/cfgs/once_models/pv_rcnn.yaml", "once", False),
+    "custom pv_rcnn": ("tools/cfgs/custom_models/pv_rcnn.yaml", "custom",
+                       False),
+}
+TS_TREES = {"kitti": ROOT / ANCHOR_WORK / "kitti" / "data",
+            "waymo": ROOT / WAYMO_WORK / "data",
+            "once": ROOT / ONCE_WORK / "data",
+            "custom": ROOT / MISC_WORK / "custom"}
+TS_BATCH = 4                  # the forwards' largest batch and the steps'
+TS_BLOCK = 512                # posgather mode: blocks of 512 ids
+# the main path's windows times this factor (the 2-frame stack holds twice
+# the points, as phase 14's 4-frame run widened its own)
+TS_WIDEN = {"waymo pv_rcnn_plusplus_resnet_2frames": 2}
+TS_CLI = "tools/cfgs/kitti_models/voxel_rcnn_car.yaml"
+TS_EVAL = ("positions", "posgather_conv")
+TS_TRAIN = ("positions", "posgather_conv", "windowed_conv", "windowed_dw")
+
+
+def ts_cfg(cfg_mod, label, posgather=False):
+    """The run's yaml as written (BATCH_SIZE_PER_GPU TS_BATCH), or with
+    SUBM_IMPL posgather (SUBM_MODE windowed), blocks of TS_BLOCK and every
+    level's windows the main path's (times TS_WIDEN)."""
+    cfg = cfg_mod.cfg_from_yaml_file(str(ROOT / TS_RUNS[label][0]))
+    cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU = TS_BATCH
+    if posgather:
+        main = cfg_mod.cfg_from_yaml_file(
+            str(ROOT / CFG_FILE)).MODEL.BACKBONE_3D
+        bb = cfg.MODEL.BACKBONE_3D
+        bb.SUBM_MODE, bb.SUBM_IMPL = "windowed", "posgather"
+        bb.WINDOWED_BLOCK = TS_BLOCK
+        f = TS_WIDEN.get(label, 1)
+        for key in CP_WIDEN:
+            bb[key] = [f * int(v) for v in main[key]]
+    return cfg
+
+
+def ts_probe(torch, mods, cfg, data, label, dev):
+    """One training-mode forward (no gradient) of a representative: the
+    ROI sampler's fg / bg / interval counts, and on the first stage's
+    outputs of that forward the proposal layer's ms (TRAIN and TEST
+    NMS_CONFIG, both through the greedy NMS on the host) and, with a PFE,
+    its keypoint sampling's ms (FPS, or PV-RCNN++'s sector FPS)."""
+    from findnpropagate_torch.models.roi_heads.roi_head_template import (
+        proposal_layer,
+    )
+
+    cfg_mod, models_mod, synth, tp, ws, lap, weights, *_ = mods
+    ds, tbatch, _ = data(cfg, True, TS_BATCH)
+    det = models_mod.build_network(copy.deepcopy(cfg.MODEL),
+                                   len(cfg.CLASS_NAMES), ds, device=dev)
+    weights.init_random_(det, seed=0)
+    det.train()
+    cap = {}
+    stage = det.roi_proposal if det.roi_proposal is not None \
+        else det.roi_head
+    hooks = [stage.register_forward_pre_hook(
+        lambda m, a: cap.setdefault("roi", dict(a[0])))]
+    if det.pfe is not None:
+        hooks.append(det.pfe.register_forward_pre_hook(
+            lambda m, a: cap.setdefault("pfe", dict(a[0]))))
+    with torch.no_grad():
+        out = det(on_card(torch, tbatch, dev))
+    for h in hooks:
+        h.remove()
+    t = out["rcnn_targets"]
+    labels = t["rcnn_cls_labels"]
+    rep = {"fg": [int(v) for v in t["reg_valid_mask"].sum(1)],
+           "bg": [int(v) for v in (labels == 0).sum(1)],
+           "interval": [int(v) for v in ((labels > 0) & (labels < 1)).sum(1)],
+           "candidates": int(cap["roi"]["batch_box_preds"].shape[1])}
+    nms = det.roi_head.model_cfg["NMS_CONFIG"]
+    with torch.no_grad():
+        for mode in ("TRAIN", "TEST"):
+            rep[f"proposal_{mode.lower()}_ms"] = timing.ms(
+                lambda: proposal_layer(cap["roi"]["batch_cls_preds"],
+                                       cap["roi"]["batch_box_preds"],
+                                       nms[mode]), 1)
+            rep[f"proposal_{mode.lower()}_pre"] = min(
+                int(nms[mode]["NMS_PRE_MAXSIZE"]), rep["candidates"])
+        if det.pfe is not None:
+            rep["keypoints"] = int(det.pfe.model_cfg["NUM_KEYPOINTS"])
+            rep["sampling"] = str(det.pfe.model_cfg.get("SAMPLE_METHOD",
+                                                        "FPS"))
+            rep["fps_ms"] = timing.ms(lambda: det.pfe.keypoints(cap["pfe"]),
+                                      1)
+    del det, out, cap
+    torch.cuda.empty_cache()
+    return rep
+
+
+def ts_run(torch, mods, smi, label, dev):
+    """One run of TS_RUNS: the yaml as written (a batch-4 forward, no K1-K4
+    launch, overflow 0), its posgather forwards at batch 1 and 4 (K1 and K2
+    only, overflow 0, the batch-4 calls held against plain), and for a
+    representative a warm-up and a timed training step at batch 4 (every
+    K1-K4 launched, the timed step's calls held against plain) and
+    ts_probe. Returns (report, rows, entries)."""
+    from findnpropagate_torch import datasets as TD
+
+    cfg_mod = mods[0]
+    yaml, tree, train = TS_RUNS[label]
+    data = cycled_data(TD, TS_TREES[tree])
+    rep = {"yaml": yaml, "device": smi}
+    rep["as_written"], _, _ = vn_forwards(
+        torch, mods, ts_cfg(cfg_mod, label), data, f"{label} as written",
+        (TS_BATCH,), (), dev, reps=1, warm=0)
+    pcfg = ts_cfg(cfg_mod, label, posgather=True)
+    rep["posgather"], rows, entries = vn_forwards(
+        torch, mods, pcfg, data, f"{label} posgather", (1, TS_BATCH),
+        TS_EVAL, dev, reps=1, warm=0)
+    if train:
+        rep["step"], rw, e = vn_step(torch, mods, pcfg, data, label,
+                                     TS_TRAIN, dev)
+        rows, entries = rows + rw, entries + e
+        rep["probe"] = ts_probe(torch, mods, pcfg, data, label, dev)
+    aw = rep["as_written"][TS_BATCH]
+    parts = [f"{label} ({smi}): {yaml}; as written batch {TS_BATCH} "
+             f"{aw['ms_per_scan']:.2f} ms/scan, overflow {aw['overflow']}, "
+             f"decode {100 * aw['decode_share']:.1f} %, peak "
+             f"{aw['peak_mem_gb']:.2f} GiB"]
+    for b, r in rep["posgather"].items():
+        if b == "loader_ms":
+            continue
+        parts.append(
+            f"posgather batch {b} {r['ms_per_scan']:.2f} ms/scan, decode "
+            f"{100 * r['decode_share']:.1f} %, launches {r['launches']}, "
+            f"overflow {r['overflow']}, detections "
+            f"{r['detections_per_scan']}, peak {r['peak_mem_gb']:.2f} GiB")
+    if train:
+        st, pr = rep["step"], rep["probe"]
+        parts.append(
+            f"step batch {st['batch']} {st['ms_per_step']:.1f} ms (warm-up "
+            f"{st['warm_up']['ms']:.1f}), launches "
+            f"{st['steps'][0]['launches']}, losses "
+            f"{[round(v, 3) for v in st['losses']]}, peak "
+            f"{st['peak_mem_gb']:.2f} GiB; ROI sampler fg {pr['fg']} bg "
+            f"{pr['bg']} interval {pr['interval']}; proposal layer over "
+            f"{pr['candidates']} boxes: TRAIN (pre {pr['proposal_train_pre']})"
+            f" {pr['proposal_train_ms']:.1f} ms, TEST (pre "
+            f"{pr['proposal_test_pre']}) {pr['proposal_test_ms']:.1f} ms"
+            + (f"; {pr['sampling']} of {pr['keypoints']} keypoints "
+               f"{pr['fps_ms']:.1f} ms" if "fps_ms" in pr else ""))
+    worst = {}
+    for r in rows:
+        worst[r["name"]] = max(worst.get(r["name"], 0.0),
+                               r["max_abs_err"] / max(r.get("tolerance", 1),
+                                                      1e-30))
+    parts.append(f"{len(rows)} recorded calls against plain, worst "
+                 f"err / tolerance {worst}")
+    log("; ".join(parts))
+    return rep, rows, entries
+
+
+def two_stage_phase(torch, mods, smi, dev="cuda"):
+    """Phase 17: TS_RUNS in turn, then train.py (1 epoch) and test.py on
+    kitti_models/voxel_rcnn_car.yaml as written with only DATA_PATH set.
+    Returns (report, rows, entries)."""
+    t0 = time.perf_counter()
+    rep, rows, entries = {"device": smi}, [], []
+    for label in TS_RUNS:
+        rep[label], rw, e = ts_run(torch, mods, smi, label, dev)
+        rows, entries = rows + rw, entries + e
+    work = ROOT / TS_WORK
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    cli = train_test_clis(mods[0], work, TS_TREES["kitti"], TS_CLI,
+                          "kitti_voxel_rcnn_car")
+    res = cli["result"]
+    if not ("mAP_3d_moderate_R40" in res and all(
+            math.isfinite(v) for v in res.values())):
+        raise AssertionError(f"kitti voxel_rcnn_car test.py: result {res}")
+    rep["cli"] = cli
+    log(f"kitti voxel_rcnn_car CLIs ({smi}): train.py {cli['train_s']:.1f} s"
+        f" (losses {cli['train_losses']}, {cli['checkpoints']}), test.py "
+        f"{cli['test_s']:.1f} s, mAP_3d_moderate_R40 "
+        f"{res['mAP_3d_moderate_R40']}, {len(res)} keys all finite")
+    rep["phase_s"] = time.perf_counter() - t0
+    log(f"phase 17 ({smi}): {rep['phase_s']:.1f} s, {len(rows)} kernel "
         "calls held against plain")
     return rep, rows, entries
 
@@ -6564,7 +6809,13 @@ def main():
         torch, mods, smi)
     report["voxelnext_kernel_calls"] = vn_rows
 
-    # ---- 17. result lines
+    # ---- 17. the voxel two-stage detectors (SECONDNetIoU, VoxelRCNN,
+    # PVRCNN, PVRCNNPlusPlus), train.py / test.py on voxel_rcnn_car
+    report["two_stage"], ts_rows, ts_entries = two_stage_phase(torch, mods,
+                                                               smi)
+    report["two_stage_kernel_calls"] = ts_rows
+
+    # ---- 18. result lines
     first_batch = report["main_path"][0]["launches_per_forward"]
     pick = {
         # K1 at L0 (first call); K2 at the L0 16->16 subm conv with the
@@ -6646,9 +6897,10 @@ def main():
             "library_device_ms": r["library_device_ms"],
             "device_ms": r["device_ms"], "call": r["call"],
             "shapes": r["shapes"]})
-    # phases 13, 14 and 15: per yaml, each kernel's calls of one batch-4
-    # forward and of one training step, summed
-    kernels += cp_entries + ds_entries + an_entries + vn_entries_
+    # phases 13-17: per yaml, each kernel's calls of one batch-4 forward
+    # and of one training step, summed
+    kernels += cp_entries + ds_entries + an_entries + vn_entries_ \
+        + ts_entries
     report["kernels"] = kernels
     report["device"] = smi
     if args.out:

@@ -50,7 +50,10 @@ follow the conv. The strided active sets are built by
 the reference left them to XLA; ``DENSE_CHUNK`` runs the dense tail at
 eval over that many batch chunks (windowed mode, DENSE_FROM_LEVEL 2).
 
-Outputs keep the reference's telemetry in every mode:
+Outputs the four stages' levels as ``multi_scale_3d_features``
+(``x_conv1`` ... ``x_conv4``, each in its mode's form above, its active
+list in the reference's order), and keep the reference's telemetry in
+every mode:
 ``sparse_active_counts`` (actives per level over the batch) and
 ``sparse_window_overflow`` (dropped-neighbour conditions; 0 = exact, and
 always 0 in gather mode).
@@ -105,6 +108,19 @@ DOWNSAMPLE = {"dense": win_downsample_dense, "sort": win_downsample,
 
 def conv_out_dim(n, k, s, p):
     return (n + 2 * p - k) // s + 1
+
+
+def _masked_bn_relu(y, mask, bnmod, relu):
+    """A dense conv's tail: zero outside `mask`, masked BN, ReLU. Without
+    autograd (eval) it works in place on the conv's fresh output, so the
+    dense levels of a wide grid (ONCE / Custom PV-RCNN: 752 x 752 x 21
+    cells of 64 channels a sample at stride 4) hold one tensor, not four."""
+    if torch.is_grad_enabled():
+        y = torch.where(mask[:, None], y, torch.zeros_like(y))
+        y = bnmod(y, mask)
+        return torch.relu(y) if relu else y
+    y = bnmod(y.masked_fill_(~mask[:, None], 0), mask, inplace=True)
+    return y.relu_() if relu else y
 
 
 class SparseConvParam(nn.Module):
@@ -190,6 +206,8 @@ class _SparseStack(nn.Module):
         self.caps = [int(c) for c in caps]
 
         _, c1, c2, c3, c4 = chans
+        self.level_channels = {"x_conv1": c1, "x_conv2": c2, "x_conv3": c3,
+                               "x_conv4": c4}
         self.w_input = SparseConvParam(input_channels, c1)
         self.bn_input = MaskedBatchNorm(c1)
         for s, (cin, cout, down) in enumerate(
@@ -363,9 +381,7 @@ class _SparseStack(nn.Module):
         w = wmod.dense_weight(a.dtype)
         b = wmod.bias.to(a.dtype) if wmod.bias is not None else None
         y = F.conv3d(a, w, b, padding=tuple((k - 1) // 2 for k in kernel))
-        y = torch.where(m[:, None], y, torch.zeros_like(y))
-        y = bnmod(y, m)
-        return ("dense", torch.relu(y) if relu else y, m)
+        return ("dense", _masked_bn_relu(y, m, bnmod, relu), m)
 
     def _down(self, level, wmod, bnmod, out_shape, cap, ovf_acc,
               stride=(2, 2, 2), padding=(1, 1, 1), dense_out=False):
@@ -418,9 +434,7 @@ class _SparseStack(nn.Module):
         y = F.conv3d(a, w, b, stride=stride, padding=padding)
         new_mask = F.max_pool3d(m[:, None].float(), kernel, stride,
                                 padding)[:, 0] > 0
-        y = torch.where(new_mask[:, None], y, torch.zeros_like(y))
-        y = torch.relu(bnmod(y, new_mask))
-        return ("dense", y, new_mask)
+        return ("dense", _masked_bn_relu(y, new_mask, bnmod, True), new_mask)
 
     def _blocks(self, stage, level, ovf_acc, ctx_cache):
         n_blocks = self.stage_blocks[stage]
@@ -455,9 +469,13 @@ class _SparseStack(nn.Module):
                 level = ("sparse", a, torch.where(
                     a.valid[..., None], out, torch.zeros_like(out)))
             else:
-                out = torch.relu(a + identity)
-                level = ("dense", torch.where(m[:, None], out,
-                                              torch.zeros_like(out)), m)
+                if torch.is_grad_enabled():
+                    out = torch.relu(a + identity)
+                    out = torch.where(m[:, None], out, torch.zeros_like(out))
+                else:   # a is the block's own fresh output
+                    out = a.add_(identity).relu_().masked_fill_(
+                        ~m[:, None], 0)
+                level = ("dense", out, m)
         return level
 
     def _dense_tail(self, level, ovf_acc, ctx_cache, dense_from):
@@ -524,6 +542,9 @@ class _SparseStack(nn.Module):
 
         batch["encoded_spconv_tensor"] = level[1].float()
         batch["encoded_spconv_tensor_stride"] = 8
+        batch["multi_scale_3d_features"] = {
+            "x_conv1": lvl1, "x_conv2": lvl2, "x_conv3": lvl3,
+            "x_conv4": lvl4}
 
         def count(lv):
             kind, a, m = lv

@@ -68,9 +68,10 @@ class MaskedBatchNorm(nn.Module):
         k = torch.rsqrt(self.var + self.eps) * self.scale
         return k, self.bias - self.mean * k
 
-    def forward(self, x, valid, channels_last=False):
+    def forward(self, x, valid, channels_last=False, inplace=False):
         """x (B, C, *spatial) with valid (B, *spatial) bool, or, with
-        channels_last, x (B, V, C) with valid (B, V)."""
+        channels_last, x (B, V, C) with valid (B, V). `inplace` (eval, no
+        autograd): a float32 x is overwritten with the result."""
         cdim = x.ndim - 1 if channels_last else 1
         shape = [1] * x.ndim
         shape[cdim] = -1
@@ -89,6 +90,9 @@ class MaskedBatchNorm(nn.Module):
                 + self.bias.view(shape)
         else:
             k, s = self.affine()
+            if inplace and x.dtype == torch.float32 and not self.training:
+                return x.mul_(k.view(shape)).add_(s.view(shape)) \
+                    .masked_fill_(~m, 0)
             y = x.float() * k.view(shape) + s.view(shape)
         return torch.where(m, y, torch.zeros_like(y)).to(x.dtype)
 

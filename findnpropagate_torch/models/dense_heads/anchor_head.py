@@ -233,11 +233,13 @@ class AnchorHeadSingle(nn.Module):
 
 def decode_into(head, batch, dir_preds):
     """The decoded boxes into the batch, as the reference's heads write
-    them (at eval, and in training with predict_boxes_when_training, where
-    nothing differentiates them: no gradient is kept)."""
+    them (at eval, and in training with predict_boxes_when_training). In
+    training no gradient is kept unless the head's `boxes_need_grad` is
+    set: a two-stage detector's ROI losses differentiate through them."""
     if head.training and not head.predict_boxes_when_training:
         return batch
-    with torch.no_grad() if head.training else contextlib.nullcontext():
+    keep = not head.training or getattr(head, "boxes_need_grad", False)
+    with contextlib.nullcontext() if keep else torch.no_grad():
         batch["batch_box_preds"] = decode_boxes(
             head.model_cfg, head.box_coder, head.tools.anchors,
             batch["box_preds"], dir_preds)

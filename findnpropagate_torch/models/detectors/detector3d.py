@@ -19,20 +19,39 @@ from its registry by the yaml's NAME:
     CenterHeadCLIP, AnchorHeadSingle, AnchorHeadMulti, VoxelNeXtHead
     (which reads the backbone's sparse BEV list: no map to BEV and no 2D
     backbone).
+  * PFE (optional): VoxelSetAbstraction, keypoint features from the raw
+    points, the BEV map and the backbone's levels;
+  * POINT_HEAD (optional): PointHeadSimple over the keypoints;
+  * ROI_HEAD (optional): SECONDHead, PVRCNNHead, VoxelRCNNHead, which
+    refine the first stage's boxes (its head then decodes boxes in
+    training too, and with an ROI head those boxes keep their gradient:
+    the JAX package differentiates the ROI losses through the ROIs into
+    the first stage). With ``PROPOSAL_BEFORE_PFE`` (PV-RCNN++,
+    `RoIProposalStage`) the proposals and the ROI sampling run right
+    after the dense head, before the PFE, which samples its keypoints
+    near them.
 That is TransFusion-LiDAR (and its anchor-matching head), CenterPoint
 (voxel and pillar), PointPillar, SECOND / SECONDNet, VoxelNeXt (3D and
-2D) and PillarNet. `post_process` decodes the head's outputs into
-fixed-size Detections: TransFusion its queries, the CenterPoint and
+2D), PillarNet, and the two-stage SECONDNetIoU, VoxelRCNN, PVRCNN and
+PVRCNNPlusPlus (`RoIProposalStage` :38-76, the assembly and module order
+:129-136, :200-243, the two-stage decode :339-355 and the TwoStageTools
+loss :519-575). `post_process` decodes the head's outputs into
+fixed-size Detections: a two-stage detector through
+`post_processing.post_process_two_stage` (the ROI head's scores, the
+ROIs' labels), TransFusion its queries, the CenterPoint and
 VoxelNeXt heads their heatmaps, the anchor heads through the generic
 class-agnostic
 `post_processing.post_process` (POST_PROCESSING.NMS_CONFIG; its
 MULTI_CLASSES_NMS and OUTPUT_RAW_SCORE are not read, as in the
 reference). The forward keeps gradients when the module is in training
 mode (`.train()`), where every BN uses and records batch statistics;
-`loss(batch, generator)` runs it so and returns the head's loss and its
+`loss(batch, generator)` runs it so and returns the head's loss (a
+two-stage detector adds the ROI head's and the point head's) and its
 `tb` dictionary, with the sparse backbone's ``sparse_window_overflow``
-where there is one. Other detectors and modules raise NotImplementedError
-(ROADMAP.md, queue 1 item 15).
+where there is one. The ROI sampling's uniform draws come from the
+generator, or from ``batch["roi_draws"]`` (B, NMS_POST_MAXSIZE) where the
+caller gives them. Other detectors and modules raise NotImplementedError
+naming their ROADMAP.md item (queue 1 item 15).
 """
 
 from __future__ import annotations
@@ -43,25 +62,64 @@ from torch import nn
 from ...ops.voxelize import voxelize, voxelize_mean
 from ..backbones_2d import BACKBONE_2D_REGISTRY, MAP_TO_BEV_REGISTRY
 from ..backbones_3d import BACKBONE_3D_REGISTRY
+from ..backbones_3d.spconv_backbone import _SparseStack
 from ..dense_heads import DENSE_HEAD_REGISTRY
-from ..post_processing import post_process
+from ..dense_heads.point_head_simple import PointHeadSimple, point_head_loss
+from ..pfe import PFE_REGISTRY
+from ..post_processing import post_process, post_process_two_stage
+from ..roi_heads import ROI_HEAD_REGISTRY
+from ..roi_heads import NOT_PORTED as ROI_HEADS_NOT_PORTED
+from ..roi_heads.pvrcnn_head import pvrcnn_rcnn_loss
+from ..roi_heads.roi_head_template import RoIHeadTemplate
+from ..roi_heads.second_head import rcnn_iou_loss
 from ..vfe import VFE_REGISTRY
 
 DETECTORS = ("TransFusion", "CenterPoint", "PointPillar", "SECOND",
-             "SECONDNet", "VoxelNeXt", "PillarNet")
+             "SECONDNet", "VoxelNeXt", "PillarNet", "SECONDNetIoU",
+             "VoxelRCNN", "PVRCNN", "PVRCNNPlusPlus")
+TWO_STAGE = ("SECONDNetIoU", "VoxelRCNN", "PVRCNN", "PVRCNNPlusPlus")
 _PORTED = {"VFE": ("MeanVFE", *VFE_REGISTRY),
            "BACKBONE_3D": tuple(BACKBONE_3D_REGISTRY),
            "MAP_TO_BEV": tuple(MAP_TO_BEV_REGISTRY),
            "BACKBONE_2D": tuple(BACKBONE_2D_REGISTRY),
-           "DENSE_HEAD": tuple(DENSE_HEAD_REGISTRY)}
-_OPTIONAL = ("BACKBONE_3D", "MAP_TO_BEV", "BACKBONE_2D")
-_NOT_PORTED = ("PFE", "POINT_HEAD", "ROI_HEAD", "IMAGE_BACKBONE", "NECK",
-               "VTRANSFORM", "FUSER")
+           "DENSE_HEAD": tuple(DENSE_HEAD_REGISTRY),
+           "PFE": tuple(PFE_REGISTRY),
+           "POINT_HEAD": ("PointHeadSimple",),
+           "ROI_HEAD": tuple(ROI_HEAD_REGISTRY)}
+_OPTIONAL = ("BACKBONE_3D", "MAP_TO_BEV", "BACKBONE_2D", "PFE",
+             "POINT_HEAD", "ROI_HEAD")
+_TWO_STAGE_KEYS = ("PFE", "POINT_HEAD", "ROI_HEAD")
+_NOT_PORTED = ("IMAGE_BACKBONE", "NECK", "VTRANSFORM", "FUSER")
+# the items of ROADMAP.md queue 1 that port the names still refused
+_ITEMS = {**ROI_HEADS_NOT_PORTED, "PartA2Net": "15.5", "PointRCNN": "15.5",
+          "PointHeadBox": "15.5", "PointIntraPartOffsetHead": "15.5",
+          "VoxelBackBone8xFocal": "15.6", "CaDDN": "15.7",
+          "BevFusion": "15.7", "ImageVFE": "15.7", "MPPNet": "15.8",
+          "MPPNetE2E": "15.8"}
 
 
-def _not_ported(what):
+def _not_ported(what, name=None):
+    item = _ITEMS.get(name, "15")
     return NotImplementedError(f"{what} is not ported yet (ROADMAP.md queue "
-                               "1 item 15)")
+                               f"1 item {item})")
+
+
+class RoIProposalStage(RoIHeadTemplate):
+    """PV-RCNN++'s proposal layer and ROI sampling before the PFE: writes
+    rois / roi_labels / roi_valid (roi_scores at eval, the sampling's
+    targets as roi_targets in training) into the batch, for the PFE's
+    proposal-centric keypoints and the ROI head, which takes them as they
+    are. No parameters."""
+
+    def forward(self, batch, generator=None):
+        rois, scores, labels, valid, targets = self.proposals(batch,
+                                                              generator)
+        batch.update(rois=rois, roi_labels=labels, roi_valid=valid)
+        if self.training:
+            batch["roi_targets"] = targets
+        else:
+            batch["roi_scores"] = scores
+        return batch
 
 
 class DetectorModule(nn.Module):
@@ -76,13 +134,18 @@ class DetectorModule(nn.Module):
                  max_voxels, max_points_per_voxel):
         super().__init__()
         cfg = model_cfg
-        if cfg.get("NAME") not in (*DETECTORS, None):
-            raise _not_ported(f"detector {cfg.get('NAME')!r}")
+        name = cfg.get("NAME")
+        if name not in (*DETECTORS, None):
+            raise _not_ported(f"detector {name!r}", name)
         for key, names in _PORTED.items():
             if key in _OPTIONAL and key not in cfg:
                 continue
-            if cfg.get(key, {}).get("NAME") not in names:
-                raise _not_ported(f"{key} {cfg.get(key, {}).get('NAME')!r}")
+            got = cfg.get(key, {}).get("NAME", "PointHeadSimple"
+                                       if key == "POINT_HEAD" else None)
+            if got not in names:
+                raise _not_ported(f"{key} {got!r}", got)
+            if key in _TWO_STAGE_KEYS and name not in TWO_STAGE:
+                raise _not_ported(f"{key} of detector {name!r}", name)
         for key in _NOT_PORTED:
             if key in cfg:
                 raise _not_ported(key)
@@ -109,6 +172,13 @@ class DetectorModule(nn.Module):
         if "MAP_TO_BEV" in cfg:
             self.map_to_bev = MAP_TO_BEV_REGISTRY[cfg["MAP_TO_BEV"]["NAME"]](
                 cfg["MAP_TO_BEV"], self.grid_size)
+            if isinstance(self.backbone_3d, _SparseStack) \
+                    and cfg["MAP_TO_BEV"]["NAME"] == "HeightCompression":
+                # the width the backbone gives (C x nz): the reference's
+                # flax layers infer it and read no NUM_BEV_FEATURES
+                bb = self.backbone_3d
+                self.map_to_bev.num_bev_features = \
+                    bb.out_channels * bb.level_shapes[-1][0]
         if "BACKBONE_2D" in cfg:
             bb2 = cfg["BACKBONE_2D"]
             if self.map_to_bev is not None:
@@ -123,12 +193,56 @@ class DetectorModule(nn.Module):
                    else self.backbone_3d).num_bev_features
         head = cfg["DENSE_HEAD"]
         kw = {}
-        if head["NAME"] == "CenterHead" and head.get(
-                "PREDICT_BOXES_WHEN_TRAINING"):
+        if head["NAME"] == "CenterHead" and (head.get(
+                "PREDICT_BOXES_WHEN_TRAINING") or "ROI_HEAD" in cfg):
             kw["predict_boxes_when_training"] = True
         self.dense_head = DENSE_HEAD_REGISTRY[head["NAME"]](
             head, head_in, num_class, class_names, self.point_cloud_range,
             self.voxel_size, self.grid_size, **kw)
+        self._two_stage(cfg, num_class, num_point_features)
+
+    def _two_stage(self, cfg, num_class, num_point_features):
+        """The PFE, point head and ROI head of a two-stage yaml (and
+        PV-RCNN++'s proposal stage), sized from the modules before them."""
+        self.pfe = self.point_head = self.roi_head = None
+        self.roi_proposal = None
+        levels = getattr(self.backbone_3d, "level_channels", {})
+        if "PFE" in cfg:
+            self.pfe = PFE_REGISTRY[cfg["PFE"]["NAME"]](
+                cfg["PFE"], self.voxel_size, self.point_cloud_range,
+                num_rawpoint_features=min(int(num_point_features), 4),
+                num_bev_features=self.map_to_bev.num_bev_features
+                if self.map_to_bev is not None else 0,
+                level_channels=levels)
+        if "POINT_HEAD" in cfg:
+            ph = cfg["POINT_HEAD"]
+            self.point_head = PointHeadSimple(
+                ph, self.pfe.num_point_features_before_fusion if bool(
+                    ph.get("USE_POINT_FEATURES_BEFORE_FUSION", True))
+                else self.pfe.num_point_features)
+        if "ROI_HEAD" not in cfg:
+            return
+        roi = cfg["ROI_HEAD"]
+        # the first stage's boxes feed the proposal layer in training too,
+        # with their gradient (the ROI losses reach the first stage
+        # through the ROIs, as in the JAX package)
+        self.dense_head.predict_boxes_when_training = True
+        self.dense_head.boxes_need_grad = True
+        n_cls = 1 if roi.get("CLASS_AGNOSTIC", True) else int(num_class)
+        kw = {}
+        if roi["NAME"] == "VoxelRCNNHead":
+            kw["level_channels"] = levels
+        elif roi["NAME"] == "PVRCNNHead":
+            kw["input_channels"] = self.pfe.num_point_features
+        else:
+            kw["input_channels"] = self.backbone_2d.num_bev_features
+        self.roi_head = ROI_HEAD_REGISTRY[roi["NAME"]](
+            roi, self.point_cloud_range, self.voxel_size, n_cls, **kw)
+        if roi.get("PROPOSAL_BEFORE_PFE"):
+            self.roi_proposal = RoIProposalStage(
+                roi, self.point_cloud_range, self.voxel_size, n_cls)
+        self.roi_loss = rcnn_iou_loss if roi["NAME"] == "SECONDHead" \
+            else pvrcnn_rcnn_loss
 
     def _voxelize(self, batch):
         args = (batch["points"], batch["points_mask"], self.point_cloud_range,
@@ -155,7 +269,36 @@ class DetectorModule(nn.Module):
                         self.backbone_2d):
                 if mod is not None:
                     batch = mod(batch)
-            return self.dense_head(batch, generator)
+            batch = self.dense_head(batch, generator)
+            if self.roi_proposal is not None:
+                batch = self.roi_proposal(batch, generator)
+            for mod in (self.pfe, self.point_head):
+                if mod is not None:
+                    batch = mod(batch)
+            if self.roi_head is not None:
+                batch = self.roi_head(batch, generator)
+            return batch
+
+    def compute_loss(self, out):
+        """The dense head's loss, plus the ROI head's and the point head's
+        for a two-stage detector (TwoStageTools): (loss, tb)."""
+        loss, tb = self.dense_head.compute_loss(out)
+        if self.roi_head is None:
+            return loss, tb
+        loss2, tb2 = self.roi_loss(out, self.roi_head.model_cfg[
+            "LOSS_CONFIG"])
+        tb = dict(tb)
+        tb.update(tb2)
+        loss = loss + loss2
+        if self.point_head is not None:
+            pc = self.point_head.model_cfg
+            lp, tbp = point_head_loss(
+                out, pc["LOSS_CONFIG"], extra_width=tuple(pc.get(
+                    "TARGET_CONFIG", {}).get("GT_EXTRA_WIDTH",
+                                             (0.2, 0.2, 0.2))))
+            loss = loss + lp
+            tb.update(tbp)
+        return loss, tb
 
     def loss(self, batch, generator=None):
         """Training forward + head loss: (loss, tb). The module must be in
@@ -165,33 +308,43 @@ class DetectorModule(nn.Module):
         if not self.training:
             raise RuntimeError("loss() needs the module in training mode")
         out = self(batch, generator)
-        loss, tb = self.dense_head.compute_loss(out)
+        loss, tb = self.compute_loss(out)
         if "sparse_window_overflow" in out:
             tb["sparse_window_overflow"] = out["sparse_window_overflow"]
         return loss, tb
 
     @torch.no_grad()
     def post_process(self, out_batch, max_det: int = 256):
-        """Detections of the head's outputs: TransFusion decodes its
-        queries (max_det slots), the CenterPoint and VoxelNeXt heads their
-        heatmaps, the
-        anchor heads' boxes go through rotated NMS (NMS_POST_MAXSIZE
-        slots)."""
+        """Detections of the head's outputs: a two-stage detector's
+        second-stage scores on its boxes and the ROIs' labels, TransFusion
+        its queries (max_det slots), the CenterPoint and VoxelNeXt heads
+        their heatmaps; the two-stage and the anchor heads' boxes go
+        through rotated NMS (NMS_POST_MAXSIZE slots)."""
+        if "rcnn_iou" in out_batch:    # before the RPN's own outputs
+            return post_process_two_stage(
+                out_batch["batch_cls_preds"], out_batch["batch_box_preds"],
+                out_batch["batch_roi_labels"], out_batch.get("roi_valid"),
+                *self._nms_args())
         if "transfusion_preds" in out_batch:
             return self.dense_head.get_bboxes(out_batch["transfusion_preds"],
                                               max_det=max_det)
         if "center_preds" in out_batch or "center_clip_preds" in out_batch \
                 or "voxelnext_preds" in out_batch:
             return self.dense_head.get_bboxes(out_batch)
-        pc = self.post_cfg
-        nms_cfg = pc["NMS_CONFIG"]
         return post_process(
             out_batch["batch_cls_preds"], out_batch["batch_box_preds"],
-            float(nms_cfg["NMS_THRESH"]),
-            score_thresh=float(pc.get("SCORE_THRESH", 0.1)),
-            nms_pre=int(nms_cfg.get("NMS_PRE_MAXSIZE", 1024)),
-            nms_post=int(nms_cfg.get("NMS_POST_MAXSIZE", 256)),
+            *self._nms_args(),
             normalized=bool(out_batch.get("cls_preds_normalized", False)))
+
+    def _nms_args(self):
+        """POST_PROCESSING's NMS_THRESH, SCORE_THRESH, NMS_PRE_MAXSIZE and
+        NMS_POST_MAXSIZE, as the post-processing functions take them."""
+        pc = self.post_cfg
+        nms_cfg = pc["NMS_CONFIG"]
+        return (float(nms_cfg["NMS_THRESH"]),
+                float(pc.get("SCORE_THRESH", 0.1)),
+                int(nms_cfg.get("NMS_PRE_MAXSIZE", 1024)),
+                int(nms_cfg.get("NMS_POST_MAXSIZE", 256)))
 
 
 def build_detector(model_cfg, num_class, dataset, device=None):

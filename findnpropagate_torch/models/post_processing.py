@@ -1,6 +1,7 @@
-"""Fixed-size final detections, the generic post-processing and the recall
-record — port of `Detections`, `post_process` and `recall_record` of
-findnpropagate_tpu/models/post_processing.py:22-105."""
+"""Fixed-size final detections, the generic and the two-stage
+post-processing and the recall record — port of `Detections`,
+`post_process`, `recall_record` and `post_process_two_stage` of
+findnpropagate_tpu/models/post_processing.py:22-137."""
 
 from __future__ import annotations
 
@@ -51,6 +52,21 @@ def post_process(batch_cls_preds, batch_box_preds, nms_thresh,
     return nms_detections(batch_box_preds, scores, labels,
                           scores >= score_thresh, nms_thresh, nms_pre,
                           nms_post)
+
+
+def post_process_two_stage(rcnn_scores, rois, roi_labels, roi_valid,
+                           nms_thresh, score_thresh: float = 0.1,
+                           nms_pre: int = 1024, nms_post: int = 256):
+    """The two-stage path: the second stage's sigmoid scores on the boxes
+    it gives (SECONDHead: the ROIs themselves), the labels of the ROIs,
+    and per sample rotated NMS of the boxes scored >= score_thresh.
+    rcnn_scores (B, M, 1) logits, rois (B, M, 7+), roi_labels (B, M)
+    1-indexed, roi_valid (B, M) or None."""
+    scores = torch.sigmoid(rcnn_scores[..., 0])
+    if roi_valid is not None:
+        scores = torch.where(roi_valid, scores, torch.zeros_like(scores))
+    return nms_detections(rois, scores, roi_labels, scores >= score_thresh,
+                          nms_thresh, nms_pre, nms_post)
 
 
 def top_k_lower_index_first(x, k: int):

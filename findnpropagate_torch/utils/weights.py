@@ -35,7 +35,14 @@ the VoxelNeXt / PillarNet backbones' ``blocks{s}_...``, ``w_out``,
 BaseBEVBackboneV1's ``block{i}_conv{k}`` / ``deblock{i}``, VoxelNeXtHead's
 ``group{g}`` / ``{name}_conv{i}`` / ``{name}_bn{i}`` / ``{name}_out``, and
 TransFusionHeadAM's, whose four scalar parameters are leaves of the head
-itself (named by its FLAX_LEAVES; its anchor vectors are buffers).
+itself (named by its FLAX_LEAVES; its anchor vectors are buffers); and the
+two-stage modules' Linear + MaskedBatchNorm stacks: the VSA's ``sa_raw`` /
+``sa_x_conv{i}`` set abstractions (``g{i}_fc{j}``, ``g{i}_bn{j}``),
+``vp_x_conv{i}`` VectorPools (``mix``, ``mix_bn``) and
+``vsa_point_feature_fusion`` / ``fusion_bn``, PointHeadSimple's
+``cls_fc{i}`` / ``cls_bn{i}`` / ``cls_out``, and the ROI heads'
+``roi_grid_pool`` / ``pool_x_conv{i}``, ``{shared,cls,reg,iou}_fc{i}`` /
+``_bn{i}`` and ``cls_out`` / ``reg_out`` / ``iou_out``.
 
 `to_jax_tree(model, what)` is the inverse map: the port's parameters,
 their gradients or its BN statistics as a nested dict of numpy arrays under
