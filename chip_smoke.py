@@ -20,7 +20,9 @@ Phases (any failure exits non-zero and prints no result line):
      of one (2D (1, 3, 3) kernels, submanifold and (1, 2, 2)-strided) and
      of five (5x5x5 stride 2, 32->64 and 64->128), K2 / K3 / K4 at 128->256
      and 256->256, K3 also transposed, the channel slices' launches
-     printed) against their plain versions, K1 on each
+     printed; UNetV2's (3, 1, 1) stride-(2, 1, 1) conv_out, a single tap
+     group at K1 / K2 too, and a 128->64 merge conv) against their plain
+     versions, K1 on each
      of them and on its own corners (tap windows with tap overflow,
      windows too large to stage, no sentinel); then a batch-1 forward of
      the main path records the arguments of every call of K1
@@ -323,38 +325,62 @@ Phases (any failure exits non-zero and prints no result line):
      K2 at the 3x3x3 strided convs, K3 at the rest); every K1-K4 call
      of the batch-4 forwards and the timed steps held against its plain
      version (K1 bit-equal, K2-K4 within their tolerances), timed once;
-     then train.py (1 epoch) and test.py on the KITTI PillarNet yaml with
-     only DATA_PATH set (a checkpoint, finite losses and AP keys). Printed
-     with the card's name and power limit: ms/scan, the decode's share,
-     ms/step, peak memory, the CLIs' wall seconds;
+     train.py and test.py on the KITTI PillarNet yaml run in phase 18.
+     Printed with the card's name and power limit: ms/scan, the decode's
+     share, ms/step, peak memory;
  17. the voxel two-stage detectors (TS_RUNS): SECONDNetIoU, VoxelRCNN,
      PVRCNN and PVRCNNPlusPlus on their 11 yamls at full width,
      init_random_(seed 0) — kitti second_iou / voxel_rcnn_car / pv_rcnn on
      phase 15's KITTI tree, the seven Waymo yamls on phase 14's Waymo tree
      (the 2-frame yaml through its SEQUENCE_CONFIG), once and custom
      pv_rcnn on phase 14's ONCE and Custom trees. Each yaml as written (a
-     batch-4 forward, no K1-K4 launch, overflow 0, finite detections, then
-     one timed forward), then with SUBM_IMPL posgather, blocks of 512 and the main path's windows (twice
-     them for the 2-frame stack): forwards + post_process at batch 1 and
-     4 (K1 and K2 launched, no K3 / K4, overflow 0, finite detections;
-     ms/scan, the decode's share, peak memory), every
-     K1 / K2 call of the batch-4 forward held against its plain version
-     (K1 bit-equal; every K1 call of phases 16 and 17 also beside
-     torch.searchsorted, its library call). On second_iou,
-     voxel_rcnn_car, KITTI pv_rcnn and Waymo pv_rcnn_plusplus a warm-up
-     and a timed training step at batch 4 in posgather mode with the
-     yaml's optimizer (every K1-K4 launched, each call of the timed step
-     against plain; finite loss and gradient norm, overflow 0, parameters
-     changed), then one training-mode forward: the ROI sampler's fg / bg
-     counts, the proposal layer's ms with the TRAIN (up to 9000
-     candidates) and TEST NMS_CONFIG, and the keypoint sampling's ms
-     (FPS, or sector FPS). Then train.py (1 epoch) and test.py on
-     kitti_models/voxel_rcnn_car.yaml with only DATA_PATH set (a
-     checkpoint, finite losses, every KITTI AP key finite). Cut to fit
-     its time: one timed forward per batch size after the launch-gated
-     one, one timed training step after the warm-up, training only on the
-     four representatives;
- 18. a `kernels` JSON line (phases 13-17 add, per yaml, each kernel's
+     gated batch-4 forward, no K1-K4 launch, overflow 0, finite
+     detections), then with SUBM_IMPL posgather, blocks of 512 and the
+     main path's windows (twice them for the 2-frame stack): gated
+     forwards + post_process at batch 1 and 4 (K1 and K2 launched, no K3 /
+     K4, overflow 0, finite detections, peak memory), every K1 / K2 call
+     of the batch-4 forward held against its plain version (K1 bit-equal;
+     every K1 call of phases 16 and 17 also beside torch.searchsorted, its
+     library call). On second_iou, voxel_rcnn_car, KITTI pv_rcnn and Waymo
+     pv_rcnn_plusplus a warm-up and a timed training step at batch 4 in
+     posgather mode with the yaml's optimizer (every K1-K4 launched, each
+     call of the timed step against plain; finite loss and gradient norm,
+     overflow 0, parameters changed). On the two representatives,
+     voxel_rcnn_car and Waymo pv_rcnn_plusplus, each gated forward is
+     followed by one timed forward (ms/scan, the decode's share), and one
+     training-mode forward gives the ROI sampler's fg / bg counts, the
+     proposal layer's ms with the TRAIN (up to 9000 candidates) and TEST
+     NMS_CONFIG, and the keypoint sampling's ms (FPS, or sector FPS), each
+     one call after the forward that ran it. Cut to fit its time (PR 17,
+     for phase 18): the timed forwards and those probes on the two
+     representatives only (PR 16 timed all 11 and probed the four
+     trained); train.py / test.py on voxel_rcnn_car.yaml run in phase 18;
+ 18. Part-A2 and PointRCNN (PA_RUNS): kitti PartA2 / PartA2_free /
+     pointrcnn / pointrcnn_iou on phase 15's KITTI tree, waymo PartA2 and
+     once pointrcnn on phase 14's trees, at full width, init_random_(seed
+     0). Each yaml as written (UNetV2 in the XLA windowed mode, or
+     PointNet2MSG: a gated batch-4 forward + post_process, no K1-K4
+     launch, overflow 0, finite detections, then one timed forward; KITTI
+     pointrcnn at batch 1 too); the three UNetV2 yamls in posgather mode
+     (blocks of 512, the main path's windows): forwards at batch 1 and 4,
+     each calling K1 4 times, K2 4 (conv_out at one tap group) and K3 21
+     (PA_POSGATHER_CALLS), overflow 0, every call of the batch-4 forward
+     held against its plain version (K1 bit-equal). A warm-up and a timed
+     training step at batch 4 with the yaml's optimizer: KITTI PartA2 in
+     pallas mode (K3 and K4 only, each call of the timed step against
+     plain), KITTI pointrcnn as written (no kernel); finite loss and
+     gradient norm, overflow 0, parameters changed; then one
+     training-mode forward of each: the ROI sampler's fg / bg, the
+     proposal layer's ms with the TRAIN and TEST NMS_CONFIG (9000
+     candidates), the ROI-aware (avg, max) or ROI point pooling's ms and
+     PointNet2MSG's FPS ms. Then train.py (1 epoch) and test.py with only
+     DATA_PATH set on phase 15's KITTI tree for kitti_models/pillarnet.yaml
+     (phase 16's), voxel_rcnn_car.yaml (phase 17's) and pointrcnn.yaml (the
+     first point-based data path, through sample_points), the three chains
+     side by side (a checkpoint, finite losses, every KITTI AP key
+     finite). Printed with the card's name and power limit: ms/scan, the
+     decode's share, ms/step, peak memory, the CLIs' wall seconds;
+ 19. a `kernels` JSON line (phases 13-18 add, per yaml, each kernel's
      calls of one batch-4 forward or of one training step, summed), then
      the result line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -759,6 +785,12 @@ WIDE_CORNERS = [
      (1, 1, 1), 4000, 4096, 2, 128, 256, 6144),
     ("3x3x3 subm, 256->256", (9, 40, 40), (3, 3, 3), None, None, 3000,
      4096, 2, 256, 256, 4096),
+    # UNetV2's conv_out: a (3, 1, 1) kernel, one tap group, stride (2, 1,
+    # 1) with no padding; its merge convs over concatenated channels
+    ("(3,1,1) stride (2,1,1), G=1", (5, 48, 48), (3, 1, 1), (2, 1, 1),
+     (0, 0, 0), 4000, 4096, 2, 64, 128, 4096),
+    ("3x3x3 subm, 128->64 (merge)", (9, 40, 40), (3, 3, 3), None, None,
+     3000, 4096, 2, 128, 64, 4096),
 ]
 
 
@@ -767,10 +799,11 @@ def wide_corners(torch, tp, ws, so, block):
     counts that the VoxelNeXt / PillarNet paths add (numpy seed 2): groups
     of one tap on a 2D level, (1, 3, 3) kernels, submanifold and stride
     (1, 2, 2); groups of five of a 5x5x5 stride-2 conv; 128 -> 256 and
-    256 -> 256 (K2 where the kernel is 3x3x3, K3 also in the transposed
+    256 -> 256 (K2 where the kernel is 3 deep, K3 also in the transposed
     direction, whose transposed 5x5x5 and 256 -> 128 convs need Cin
-    slices). Each against its plain version; the launches per call
-    printed (channel slices)."""
+    slices); and UNetV2's: its (3, 1, 1) conv_out, a single tap group at
+    K1 / K2 as well, and a 128 -> 64 merge conv. Each against its plain
+    version; the launches per call printed (channel slices)."""
     from findnpropagate_torch.ops.posgather import (
         flip_transpose_weights, tap_groups)
 
@@ -5345,6 +5378,33 @@ def train_test_clis(cfg_mod, work, data, yaml, label):
     return out
 
 
+def kitti_clis(cfg_mod, smi, work, jobs):
+    """train.py (DS_CLI_EPOCHS epoch) and test.py on phase 15's KITTI tree
+    for each yaml of `jobs` ({label: yaml}) as written with only DATA_PATH
+    set, the chains side by side in the directory `work`: a checkpoint,
+    finite losses and every KITTI AP key finite. Returns {label:
+    train_test_clis' report}."""
+    if not (work / "tools").exists():
+        (work / "tools").symlink_to(ROOT / "tools")     # before the chains
+
+    def chain(label):
+        return label, train_test_clis(cfg_mod, work, KITTI_TREE,
+                                      jobs[label], label.replace(" ", "_"))
+    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
+        clis = dict(pool.map(chain, list(jobs)))
+    for label, cli in clis.items():
+        res = cli["result"]
+        if not ("mAP_3d_moderate_R40" in res and all(
+                math.isfinite(v) for v in res.values())):
+            raise AssertionError(f"{label} test.py: result {res}")
+        log(f"{label} CLIs ({smi}; {len(jobs)} yamls' chains side by side):"
+            f" train.py {cli['train_s']:.1f} s (losses "
+            f"{cli['train_losses']}, {cli['checkpoints']}), test.py "
+            f"{cli['test_s']:.1f} s, mAP_3d_moderate_R40 "
+            f"{res['mAP_3d_moderate_R40']}, {len(res)} keys all finite")
+    return clis
+
+
 def waymo_phase(torch, mods, smi, args, TD, device="cuda"):
     """Phase 14's Waymo part: the raw tree (write_waymo_tree in spawned
     processes), create_infos waymo --gt_database as a subprocess, the
@@ -5553,6 +5613,7 @@ def datasets_phase(torch, mods, smi, args, device="cuda"):
 # ---------------------------------------------------------------- phase 15
 
 ANCHOR_WORK = "build/anchor"
+KITTI_TREE = ROOT / ANCHOR_WORK / "kitti" / "data"    # read by phases 16-18
 ANCHOR_KITTI = {"pointpillar": "tools/cfgs/kitti_models/pointpillar.yaml",
                 "second": "tools/cfgs/kitti_models/second.yaml"}
 ANCHOR_LYFT = "tools/cfgs/lyft_models/cbgs_second_multihead.yaml"
@@ -5891,24 +5952,10 @@ def kitti_phase(torch, mods, smi, dev):
         f"{ps['warm_up']['ms']:.1f} ms, step {ps['ms_per_step']:.1f} ms, "
         f"launches {ps['warm_up']['launches']}, losses "
         f"{[round(v, 3) for v in ps['losses']]}")
-
-    def chain(name):
-        return name, train_test_clis(cfg_mod, work, root, ANCHOR_KITTI[name],
-                                     f"kitti_{name}")
-    (work / "tools").symlink_to(ROOT / "tools")     # before both chains
-    with concurrent.futures.ThreadPoolExecutor(len(ANCHOR_KITTI)) as pool:
-        clis = dict(pool.map(chain, list(ANCHOR_KITTI)))
-    for name, cli in clis.items():
-        res = cli["result"]
-        if not ("mAP_3d_moderate_R40" in res and all(
-                math.isfinite(v) for v in res.values())):
-            raise AssertionError(f"kitti {name} test.py: result {res}")
-        rep[name]["cli"] = cli
-        log(f"kitti {name} CLIs ({smi}; the two yamls' chains side by "
-            f"side): train.py {cli['train_s']:.1f} s (losses "
-            f"{cli['train_losses']}, {cli['checkpoints']}), test.py "
-            f"{cli['test_s']:.1f} s, mAP_3d_moderate_R40 "
-            f"{res['mAP_3d_moderate_R40']}, {len(res)} keys all finite")
+    clis = kitti_clis(cfg_mod, smi, work, {
+        f"kitti {name}": ANCHOR_KITTI[name] for name in ANCHOR_KITTI})
+    for name in ANCHOR_KITTI:
+        rep[name]["cli"] = clis[f"kitti {name}"]
     return rep, rows, entries
 
 
@@ -6059,7 +6106,6 @@ def anchor_phase(torch, mods, smi, dev="cuda"):
 
 # ---- phase 16: VoxelNeXt, VoxelNeXt2D, PillarNet, TransFusionHeadAM
 
-VN_WORK = "build/voxelnext"
 # label: (yaml, data tree, batches of the kernels' mode, a training step,
 # a posgather-mode forward). Trees: phase 12's nuScenes, phase 14's Waymo,
 # phase 15's KITTI; "ring": bench.py's lidar_ring scenes in the yaml's
@@ -6094,7 +6140,7 @@ VN_BATCH = 4                  # the as-written forward and the steps
 VN_BLOCK = 512                # the kernels' modes: blocks of 512 ids
 VN_TREES = {"nuscenes": ROOT / PAPER_WORK / "nuscenes",
             "waymo": ROOT / WAYMO_WORK / "data",
-            "kitti": ROOT / ANCHOR_WORK / "kitti" / "data"}
+            "kitti": KITTI_TREE}
 
 
 def vn_cfg(cfg_mod, label, impl=None):
@@ -6238,11 +6284,12 @@ def vn_entries(rows, path, launches):
 
 
 def vn_forwards(torch, mods, cfg, data, label, batches, need, dev,
-                reps=ANCHOR_REPS, warm=2):
+                reps=ANCHOR_REPS, warm=2, calls_want=None):
     """Eval forwards + post_process at each batch size with the launch
-    gate (`need`: the kernels the mode launches), the batch-4 forward's
+    gate (`need`: the kernels the mode launches; `calls_want`: each
+    kernel's calls a forward, pa_calls_gate), the batch-4 forward's
     calls recorded and held against plain; `reps` timed forwards after
-    `warm` more. Returns (report, rows, entries)."""
+    `warm` more (none with reps 0). Returns (report, rows, entries)."""
     cfg_mod, models_mod, synth, tp, ws, lap, weights, *_ = mods
     ds, batch, host_ms = data(cfg, False, max(batches))
     det = models_mod.build_network(copy.deepcopy(cfg.MODEL),
@@ -6257,16 +6304,19 @@ def vn_forwards(torch, mods, cfg, data, label, batches, need, dev,
             out, dets, got = cp_forward(torch, det, bt, tp, ws, None,
                                         f"{label} forward batch {b}")
         vn_gate(f"{label} forward batch {b}", got, need)
+        if calls_want is not None:
+            pa_calls_gate(f"{label} forward batch {b}", calls, calls_want)
         rep[b] = {"launches": got,
                   "overflow": int(out.get("sparse_window_overflow", 0)),
                   "detections_per_scan": [int(c) for c in dets.count]}
         # the gated forward's outputs go before the timed ones are made
         del out, dets
-        med, dec, share, times = forward_decode_ms(torch, det, bt, reps,
-                                                   warm)
-        rep[b].update(ms_per_scan=med / b, times_ms=times, decode_ms=dec,
-                      decode_share=share, peak_mem_gb=torch.cuda
-                      .max_memory_allocated() / 2 ** 30)
+        if reps:
+            med, dec, share, times = forward_decode_ms(torch, det, bt, reps,
+                                                       warm)
+            rep[b].update(ms_per_scan=med / b, times_ms=times, decode_ms=dec,
+                          decode_share=share)
+        rep[b]["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
         if b == max(batches) and need:
             rows = hold_calls(torch, tp, ws, *calls, f"{label} forward")
             entries = vn_entries(rows, f"{label} forward batch {b}", got)
@@ -6362,66 +6412,55 @@ def vn_run(torch, mods, smi, label, dev):
 
 
 def voxelnext_phase(torch, mods, smi, dev="cuda"):
-    """Phase 16: VN_RUNS in turn, then train.py / test.py on the KITTI
-    PillarNet yaml as written. Returns (report, rows, entries)."""
+    """Phase 16: VN_RUNS in turn (the KITTI PillarNet yaml's train.py /
+    test.py run in phase 18, kitti_clis). Returns (report, rows,
+    entries)."""
     t0 = time.perf_counter()
     rep, rows, entries = {"device": smi}, [], []
     for label in VN_RUNS:
         rep[label], rw, e = vn_run(torch, mods, smi, label, dev)
         rows, entries = rows + rw, entries + e
-    work = ROOT / VN_WORK
-    shutil.rmtree(work, ignore_errors=True)
-    work.mkdir(parents=True)
-    cli = train_test_clis(mods[0], work, VN_TREES["kitti"],
-                          VN_RUNS["kitti pillarnet"][0], "kitti_pillarnet")
-    res = cli["result"]
-    if not ("mAP_3d_moderate_R40" in res and all(
-            math.isfinite(v) for v in res.values())):
-        raise AssertionError(f"kitti pillarnet test.py: result {res}")
-    rep["kitti pillarnet"]["cli"] = cli
-    log(f"kitti pillarnet CLIs ({smi}): train.py {cli['train_s']:.1f} s "
-        f"(losses {cli['train_losses']}, {cli['checkpoints']}), test.py "
-        f"{cli['test_s']:.1f} s, mAP_3d_moderate_R40 "
-        f"{res['mAP_3d_moderate_R40']}, {len(res)} keys all finite")
     rep["phase_s"] = time.perf_counter() - t0
     log(f"phase 16 ({smi}): {rep['phase_s']:.1f} s, {len(rows)} kernel "
         "calls held against plain")
     return rep, rows, entries
 
 
-
 # ---- phase 17: the voxel two-stage detectors
 
-TS_WORK = "build/two_stage"
-# label: (yaml, tree, a training step). Trees: phase 15's KITTI, phase
-# 14's Waymo, ONCE and Custom
+# label: (yaml, tree, a training step, a representative: timed forwards
+# and ts_probe; the others' forwards are gated only). Trees: phase 15's
+# KITTI, phase 14's Waymo, ONCE and Custom
 TS_RUNS = {
     "kitti second_iou": ("tools/cfgs/kitti_models/second_iou.yaml", "kitti",
-                         True),
+                         True, False),
     "kitti voxel_rcnn_car": ("tools/cfgs/kitti_models/voxel_rcnn_car.yaml",
-                             "kitti", True),
-    "kitti pv_rcnn": ("tools/cfgs/kitti_models/pv_rcnn.yaml", "kitti", True),
-    "waymo pv_rcnn": ("tools/cfgs/waymo_models/pv_rcnn.yaml", "waymo",
+                             "kitti", True, True),
+    "kitti pv_rcnn": ("tools/cfgs/kitti_models/pv_rcnn.yaml", "kitti", True,
                       False),
+    "waymo pv_rcnn": ("tools/cfgs/waymo_models/pv_rcnn.yaml", "waymo",
+                      False, False),
     "waymo pv_rcnn_plusplus": (
-        "tools/cfgs/waymo_models/pv_rcnn_plusplus.yaml", "waymo", True),
+        "tools/cfgs/waymo_models/pv_rcnn_plusplus.yaml", "waymo", True,
+        True),
     "waymo pv_rcnn_plusplus_resnet": (
         "tools/cfgs/waymo_models/pv_rcnn_plusplus_resnet.yaml", "waymo",
-        False),
+        False, False),
     "waymo pv_rcnn_plusplus_resnet_2frames": (
         "tools/cfgs/waymo_models/pv_rcnn_plusplus_resnet_2frames.yaml",
-        "waymo", False),
+        "waymo", False, False),
     "waymo pv_rcnn_with_centerhead_rpn": (
         "tools/cfgs/waymo_models/pv_rcnn_with_centerhead_rpn.yaml", "waymo",
-        False),
+        False, False),
     "waymo voxel_rcnn_with_centerhead_dyn_voxel": (
         "tools/cfgs/waymo_models/voxel_rcnn_with_centerhead_dyn_voxel.yaml",
-        "waymo", False),
-    "once pv_rcnn": ("tools/cfgs/once_models/pv_rcnn.yaml", "once", False),
+        "waymo", False, False),
+    "once pv_rcnn": ("tools/cfgs/once_models/pv_rcnn.yaml", "once", False,
+                     False),
     "custom pv_rcnn": ("tools/cfgs/custom_models/pv_rcnn.yaml", "custom",
-                       False),
+                       False, False),
 }
-TS_TREES = {"kitti": ROOT / ANCHOR_WORK / "kitti" / "data",
+TS_TREES = {"kitti": KITTI_TREE,
             "waymo": ROOT / WAYMO_WORK / "data",
             "once": ROOT / ONCE_WORK / "data",
             "custom": ROOT / MISC_WORK / "custom"}
@@ -6453,12 +6492,13 @@ def ts_cfg(cfg_mod, label, posgather=False):
     return cfg
 
 
-def ts_probe(torch, mods, cfg, data, label, dev):
+def ts_probe(torch, mods, cfg, data, label, dev, extra=None):
     """One training-mode forward (no gradient) of a representative: the
     ROI sampler's fg / bg / interval counts, and on the first stage's
     outputs of that forward the proposal layer's ms (TRAIN and TEST
     NMS_CONFIG, both through the greedy NMS on the host) and, with a PFE,
-    its keypoint sampling's ms (FPS, or PV-RCNN++'s sector FPS)."""
+    its keypoint sampling's ms (FPS, or PV-RCNN++'s sector FPS); `extra`
+    (torch, det, out, batch) -> more timings on that forward's tensors."""
     from findnpropagate_torch.models.roi_heads.roi_head_template import (
         proposal_layer,
     )
@@ -6477,8 +6517,9 @@ def ts_probe(torch, mods, cfg, data, label, dev):
     if det.pfe is not None:
         hooks.append(det.pfe.register_forward_pre_hook(
             lambda m, a: cap.setdefault("pfe", dict(a[0]))))
+    batch = on_card(torch, tbatch, dev)
     with torch.no_grad():
-        out = det(on_card(torch, tbatch, dev))
+        out = det(batch)
     for h in hooks:
         h.remove()
     t = out["rcnn_targets"]
@@ -6488,12 +6529,13 @@ def ts_probe(torch, mods, cfg, data, label, dev):
            "interval": [int(v) for v in ((labels > 0) & (labels < 1)).sum(1)],
            "candidates": int(cap["roi"]["batch_box_preds"].shape[1])}
     nms = det.roi_head.model_cfg["NMS_CONFIG"]
+    # one call each, no warm-up: the forward ran the same operations
     with torch.no_grad():
         for mode in ("TRAIN", "TEST"):
             rep[f"proposal_{mode.lower()}_ms"] = timing.ms(
                 lambda: proposal_layer(cap["roi"]["batch_cls_preds"],
                                        cap["roi"]["batch_box_preds"],
-                                       nms[mode]), 1)
+                                       nms[mode]), 1, warm=0)
             rep[f"proposal_{mode.lower()}_pre"] = min(
                 int(nms[mode]["NMS_PRE_MAXSIZE"]), rep["candidates"])
         if det.pfe is not None:
@@ -6501,64 +6543,62 @@ def ts_probe(torch, mods, cfg, data, label, dev):
             rep["sampling"] = str(det.pfe.model_cfg.get("SAMPLE_METHOD",
                                                         "FPS"))
             rep["fps_ms"] = timing.ms(lambda: det.pfe.keypoints(cap["pfe"]),
-                                      1)
-    del det, out, cap
+                                      1, warm=0)
+        if extra is not None:
+            rep.update(extra(torch, det, out, batch))
+    del det, out, cap, batch
     torch.cuda.empty_cache()
     return rep
 
 
-def ts_run(torch, mods, smi, label, dev):
-    """One run of TS_RUNS: the yaml as written (a batch-4 forward, no K1-K4
-    launch, overflow 0), its posgather forwards at batch 1 and 4 (K1 and K2
-    only, overflow 0, the batch-4 calls held against plain), and for a
-    representative a warm-up and a timed training step at batch 4 (every
-    K1-K4 launched, the timed step's calls held against plain) and
-    ts_probe. Returns (report, rows, entries)."""
-    from findnpropagate_torch import datasets as TD
+def timed_text(r):
+    """A forward report's ms/scan and decode share, where it was timed."""
+    if "ms_per_scan" not in r:
+        return "not timed"
+    return (f"{r['ms_per_scan']:.2f} ms/scan, decode "
+            f"{100 * r['decode_share']:.1f} %")
 
-    cfg_mod = mods[0]
-    yaml, tree, train = TS_RUNS[label]
-    data = cycled_data(TD, TS_TREES[tree])
-    rep = {"yaml": yaml, "device": smi}
-    rep["as_written"], _, _ = vn_forwards(
-        torch, mods, ts_cfg(cfg_mod, label), data, f"{label} as written",
-        (TS_BATCH,), (), dev, reps=1, warm=0)
-    pcfg = ts_cfg(cfg_mod, label, posgather=True)
-    rep["posgather"], rows, entries = vn_forwards(
-        torch, mods, pcfg, data, f"{label} posgather", (1, TS_BATCH),
-        TS_EVAL, dev, reps=1, warm=0)
-    if train:
-        rep["step"], rw, e = vn_step(torch, mods, pcfg, data, label,
-                                     TS_TRAIN, dev)
-        rows, entries = rows + rw, entries + e
-        rep["probe"] = ts_probe(torch, mods, pcfg, data, label, dev)
-    aw = rep["as_written"][TS_BATCH]
-    parts = [f"{label} ({smi}): {yaml}; as written batch {TS_BATCH} "
-             f"{aw['ms_per_scan']:.2f} ms/scan, overflow {aw['overflow']}, "
-             f"decode {100 * aw['decode_share']:.1f} %, peak "
-             f"{aw['peak_mem_gb']:.2f} GiB"]
-    for b, r in rep["posgather"].items():
-        if b == "loader_ms":
-            continue
-        parts.append(
-            f"posgather batch {b} {r['ms_per_scan']:.2f} ms/scan, decode "
-            f"{100 * r['decode_share']:.1f} %, launches {r['launches']}, "
-            f"overflow {r['overflow']}, detections "
-            f"{r['detections_per_scan']}, peak {r['peak_mem_gb']:.2f} GiB")
-    if train:
-        st, pr = rep["step"], rep["probe"]
+
+def ts_log(label, smi, rep, rows):
+    """Logs a run of TS_RUNS or PA_RUNS: its forwards, its training step
+    with the probe's counts and timings, and the worst of its calls held
+    against plain."""
+    parts = [f"{label} ({smi}): {rep['yaml']}"]
+    for key in ("as_written", "posgather"):
+        for b, r in rep.get(key, {}).items():
+            if b == "loader_ms":
+                continue
+            parts.append(
+                f"{key.replace('_', ' ')} batch {b} {timed_text(r)}, "
+                f"launches {r['launches']}, overflow {r['overflow']}, "
+                f"detections {r['detections_per_scan']}, peak "
+                f"{r['peak_mem_gb']:.2f} GiB")
+    if "step" in rep:
+        st = rep["step"]
         parts.append(
             f"step batch {st['batch']} {st['ms_per_step']:.1f} ms (warm-up "
             f"{st['warm_up']['ms']:.1f}), launches "
             f"{st['steps'][0]['launches']}, losses "
             f"{[round(v, 3) for v in st['losses']]}, peak "
-            f"{st['peak_mem_gb']:.2f} GiB; ROI sampler fg {pr['fg']} bg "
-            f"{pr['bg']} interval {pr['interval']}; proposal layer over "
-            f"{pr['candidates']} boxes: TRAIN (pre {pr['proposal_train_pre']})"
-            f" {pr['proposal_train_ms']:.1f} ms, TEST (pre "
-            f"{pr['proposal_test_pre']}) {pr['proposal_test_ms']:.1f} ms"
-            + (f"; {pr['sampling']} of {pr['keypoints']} keypoints "
-               f"{pr['fps_ms']:.1f} ms" if "fps_ms" in pr else ""))
+            f"{st['peak_mem_gb']:.2f} GiB")
+    if "probe" in rep:
+        pr = rep["probe"]
+        text = (f"ROI sampler fg {pr['fg']} bg {pr['bg']} interval "
+                f"{pr['interval']}; proposal layer over {pr['candidates']} "
+                f"boxes: TRAIN (pre {pr['proposal_train_pre']}) "
+                f"{pr['proposal_train_ms']:.1f} ms, TEST (pre "
+                f"{pr['proposal_test_pre']}) {pr['proposal_test_ms']:.1f} ms")
+        if "fps_ms" in pr:
+            text += (f"; {pr['sampling']} of {pr['keypoints']} points "
+                     f"{pr['fps_ms']:.1f} ms")
+        if "roiaware_avg_ms" in pr:
+            text += (f"; ROI-aware pooling of {pr['rois']} ROIs over "
+                     f"{pr['points']} voxels avg {pr['roiaware_avg_ms']:.1f}"
+                     f" / max {pr['roiaware_max_ms']:.1f} ms")
+        if "roipoint_ms" in pr:
+            text += (f"; ROI point pooling of {pr['rois']} ROIs over "
+                     f"{pr['points']} points {pr['roipoint_ms']:.1f} ms")
+        parts.append(text)
     worst = {}
     for r in rows:
         worst[r["name"]] = max(worst.get(r["name"], 0.0),
@@ -6567,34 +6607,203 @@ def ts_run(torch, mods, smi, label, dev):
     parts.append(f"{len(rows)} recorded calls against plain, worst "
                  f"err / tolerance {worst}")
     log("; ".join(parts))
+
+
+def ts_run(torch, mods, smi, label, dev):
+    """One run of TS_RUNS: the yaml as written (a gated batch-4 forward, no
+    K1-K4 launch, overflow 0), its posgather forwards at batch 1 and 4 (K1
+    and K2 only, overflow 0, the batch-4 calls held against plain), with
+    a training step a warm-up and a timed step at batch 4 (every K1-K4
+    launched, the timed step's calls held against plain), and for a
+    representative each gated forward followed by a timed one and
+    ts_probe. Returns (report, rows, entries)."""
+    from findnpropagate_torch import datasets as TD
+
+    cfg_mod = mods[0]
+    yaml, tree, train, timed = TS_RUNS[label]
+    data = cycled_data(TD, TS_TREES[tree])
+    rep = {"yaml": yaml, "device": smi}
+    reps = 1 if timed else 0
+    rep["as_written"], _, _ = vn_forwards(
+        torch, mods, ts_cfg(cfg_mod, label), data, f"{label} as written",
+        (TS_BATCH,), (), dev, reps=reps, warm=0)
+    pcfg = ts_cfg(cfg_mod, label, posgather=True)
+    rep["posgather"], rows, entries = vn_forwards(
+        torch, mods, pcfg, data, f"{label} posgather", (1, TS_BATCH),
+        TS_EVAL, dev, reps=reps, warm=0)
+    if train:
+        rep["step"], rw, e = vn_step(torch, mods, pcfg, data, label,
+                                     TS_TRAIN, dev)
+        rows, entries = rows + rw, entries + e
+    if timed:
+        rep["probe"] = ts_probe(torch, mods, pcfg, data, label, dev)
+    ts_log(label, smi, rep, rows)
     return rep, rows, entries
 
 
 def two_stage_phase(torch, mods, smi, dev="cuda"):
-    """Phase 17: TS_RUNS in turn, then train.py (1 epoch) and test.py on
-    kitti_models/voxel_rcnn_car.yaml as written with only DATA_PATH set.
+    """Phase 17: TS_RUNS in turn (its CLIs run in phase 18, kitti_clis).
     Returns (report, rows, entries)."""
     t0 = time.perf_counter()
     rep, rows, entries = {"device": smi}, [], []
     for label in TS_RUNS:
         rep[label], rw, e = ts_run(torch, mods, smi, label, dev)
         rows, entries = rows + rw, entries + e
-    work = ROOT / TS_WORK
-    shutil.rmtree(work, ignore_errors=True)
-    work.mkdir(parents=True)
-    cli = train_test_clis(mods[0], work, TS_TREES["kitti"], TS_CLI,
-                          "kitti_voxel_rcnn_car")
-    res = cli["result"]
-    if not ("mAP_3d_moderate_R40" in res and all(
-            math.isfinite(v) for v in res.values())):
-        raise AssertionError(f"kitti voxel_rcnn_car test.py: result {res}")
-    rep["cli"] = cli
-    log(f"kitti voxel_rcnn_car CLIs ({smi}): train.py {cli['train_s']:.1f} s"
-        f" (losses {cli['train_losses']}, {cli['checkpoints']}), test.py "
-        f"{cli['test_s']:.1f} s, mAP_3d_moderate_R40 "
-        f"{res['mAP_3d_moderate_R40']}, {len(res)} keys all finite")
     rep["phase_s"] = time.perf_counter() - t0
     log(f"phase 17 ({smi}): {rep['phase_s']:.1f} s, {len(rows)} kernel "
+        "calls held against plain")
+    return rep, rows, entries
+
+
+# ---- phase 18: Part-A2 and PointRCNN
+
+PA_WORK = "build/parta2"
+# label: (yaml, tree, UNetV2 (posgather forwards), the mode of a training
+# step: "pallas", "as written" or None). Trees: phase 15's KITTI, phase
+# 14's Waymo and ONCE
+PA_RUNS = {
+    "kitti PartA2": ("tools/cfgs/kitti_models/PartA2.yaml", "kitti", True,
+                     "pallas"),
+    "kitti PartA2_free": ("tools/cfgs/kitti_models/PartA2_free.yaml",
+                          "kitti", True, None),
+    "waymo PartA2": ("tools/cfgs/waymo_models/PartA2.yaml", "waymo", True,
+                     None),
+    "kitti pointrcnn": ("tools/cfgs/kitti_models/pointrcnn.yaml", "kitti",
+                        False, "as written"),
+    "kitti pointrcnn_iou": ("tools/cfgs/kitti_models/pointrcnn_iou.yaml",
+                            "kitti", False, None),
+    "once pointrcnn": ("tools/cfgs/once_models/pointrcnn.yaml", "once",
+                       False, None),
+}
+PA_CLI = "tools/cfgs/kitti_models/pointrcnn.yaml"
+# UNetV2 in posgather mode at eval, kernel calls a forward: K1 + K2 at the
+# three stage openers and conv_out (a single tap group), K3 at the 21
+# submanifold and merge convs; the inverse convs call none
+PA_POSGATHER_CALLS = {"positions": 4, "posgather_conv": 4,
+                      "windowed_conv": 21, "windowed_dw": 0}
+PA_TRAIN = ("windowed_conv", "windowed_dw")
+
+
+def pa_cfg(cfg_mod, label, impl=None):
+    """The run's yaml as written (BATCH_SIZE_PER_GPU TS_BATCH), or its
+    UNetV2 in SUBM_IMPL `impl` with blocks of TS_BLOCK (the kernels' modes)
+    and every level's windows the main path's."""
+    cfg = cfg_mod.cfg_from_yaml_file(str(ROOT / PA_RUNS[label][0]))
+    cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU = TS_BATCH
+    if impl is not None:
+        main = cfg_mod.cfg_from_yaml_file(
+            str(ROOT / CFG_FILE)).MODEL.BACKBONE_3D
+        bb = cfg.MODEL.BACKBONE_3D
+        bb.SUBM_IMPL, bb.WINDOWED_BLOCK = impl, TS_BLOCK
+        for key in CP_WIDEN:
+            bb[key] = [int(v) for v in main[key]]
+    return cfg
+
+
+def pa_calls_gate(label, calls, want):
+    """The recorded kernel calls of one forward, counted by kernel."""
+    got = dict(zip(("positions", "posgather_conv", "windowed_conv",
+                    "windowed_dw"), (len(c) for c in calls)))
+    if got != want:
+        raise AssertionError(f"{label}: kernel calls {got}, want {want}")
+    return got
+
+
+def pa_pool_ms(torch, det, out, batch):
+    """ts_probe's `extra` for PA_RUNS: on a training-mode forward's tensors
+    the ROI pooling's ms (Part-A2: ROI-aware avg and max pooling;
+    PointRCNN: ROI point pooling) and PointNet2MSG's first FPS's ms."""
+    from findnpropagate_torch.ops import pointnet2, roi_pool
+
+    roi_cfg = det.roi_head.model_cfg
+    rois, pts, valid = out["rois"], out["point_coords"], out["point_valid"]
+    rep = {"rois": int(rois.shape[1]), "points": int(pts.shape[1])}
+    if "ROI_AWARE_POOL" in roi_cfg:
+        ps = (int(roi_cfg["ROI_AWARE_POOL"]["POOL_SIZE"]),) * 3
+        part = torch.cat([out["point_part_offset"],
+                          out["point_cls_scores"][..., None]], dim=-1)
+        rep["roiaware_avg_ms"] = timing.ms(
+            lambda: roi_pool.roiaware_pool3d(rois, pts, part, valid, ps,
+                                             "avg"), 1, warm=0)
+        rep["roiaware_max_ms"] = timing.ms(
+            lambda: roi_pool.roiaware_pool3d(rois, pts,
+                                             out["point_features"], valid,
+                                             ps, "max"), 1, warm=0)
+        return rep
+    n = int(roi_cfg["ROI_POINT_POOL"]["NUM_SAMPLED_POINTS"])
+    feats = torch.cat([out["point_cls_scores"][..., None],
+                       out["point_features"]], dim=-1)
+    rep["roipoint_ms"] = timing.ms(
+        lambda: roi_pool.roipoint_pool3d(rois, pts, feats, valid, n), 1,
+        warm=0)
+    rep["sampling"] = "FPS"
+    rep["keypoints"] = int(det.backbone_3d.model_cfg["SA_CONFIG"]
+                           ["NPOINTS"][0])
+    rep["fps_ms"] = timing.ms(
+        lambda: pointnet2.farthest_point_sample(
+            batch["points"][..., :3].contiguous(), batch["points_mask"],
+            rep["keypoints"]), 1, warm=0)
+    return rep
+
+
+def pa_run(torch, mods, smi, label, dev):
+    """One run of PA_RUNS: the yaml as written (a gated batch-4 forward,
+    no K1-K4 launch, overflow 0, then one timed forward; PointRCNN on
+    KITTI at batch 1 too), for UNetV2 its posgather forwards at batch 1
+    and 4 (the kernel calls of PA_POSGATHER_CALLS each, overflow 0, the
+    batch-4 calls held against plain), and its training step (a warm-up
+    and a timed one at batch 4: Part-A2 in pallas mode, its calls held
+    against plain; PointRCNN as written, no kernel) with ts_probe and
+    pa_pool_ms. Returns (report, rows, entries)."""
+    from findnpropagate_torch import datasets as TD
+
+    cfg_mod = mods[0]
+    yaml, tree, unet, train = PA_RUNS[label]
+    data = cycled_data(TD, TS_TREES[tree])
+    rep = {"yaml": yaml, "device": smi}
+    rows, entries = [], []
+    batches = (1, TS_BATCH) if train == "as written" else (TS_BATCH,)
+    rep["as_written"], _, _ = vn_forwards(
+        torch, mods, pa_cfg(cfg_mod, label), data, f"{label} as written",
+        batches, (), dev, reps=1, warm=0)
+    if unet:
+        pcfg = pa_cfg(cfg_mod, label, "posgather")
+        need = tuple(k for k, v in PA_POSGATHER_CALLS.items() if v)
+        rep["posgather"], rw, e = vn_forwards(
+            torch, mods, pcfg, data, f"{label} posgather", (1, TS_BATCH),
+            need, dev, reps=1, warm=0, calls_want=PA_POSGATHER_CALLS)
+        rows, entries = rows + rw, entries + e
+    if train is not None:
+        tcfg = pa_cfg(cfg_mod, label, "pallas" if train == "pallas"
+                      else None)
+        rep["step"], rw, e = vn_step(
+            torch, mods, tcfg, data, label,
+            PA_TRAIN if train == "pallas" else (), dev)
+        rows, entries = rows + rw, entries + e
+        rep["probe"] = ts_probe(torch, mods, tcfg, data, label, dev,
+                                extra=pa_pool_ms)
+    ts_log(label, smi, rep, rows)
+    return rep, rows, entries
+
+
+def parta2_phase(torch, mods, smi, dev="cuda"):
+    """Phase 18: PA_RUNS in turn, then the KITTI CLI chains of phases 16,
+    17 and 18 side by side (kitti_clis: pillarnet, voxel_rcnn_car and
+    pointrcnn, the first point-based data path, through sample_points).
+    Returns (report, rows, entries)."""
+    t0 = time.perf_counter()
+    rep, rows, entries = {"device": smi}, [], []
+    for label in PA_RUNS:
+        rep[label], rw, e = pa_run(torch, mods, smi, label, dev)
+        rows, entries = rows + rw, entries + e
+    work = ROOT / PA_WORK
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    rep["clis"] = kitti_clis(mods[0], smi, work, {
+        "kitti pillarnet": VN_RUNS["kitti pillarnet"][0],
+        "kitti voxel_rcnn_car": TS_CLI, "kitti pointrcnn": PA_CLI})
+    rep["phase_s"] = time.perf_counter() - t0
+    log(f"phase 18 ({smi}): {rep['phase_s']:.1f} s, {len(rows)} kernel "
         "calls held against plain")
     return rep, rows, entries
 
@@ -6810,12 +7019,16 @@ def main():
     report["voxelnext_kernel_calls"] = vn_rows
 
     # ---- 17. the voxel two-stage detectors (SECONDNetIoU, VoxelRCNN,
-    # PVRCNN, PVRCNNPlusPlus), train.py / test.py on voxel_rcnn_car
+    # PVRCNN, PVRCNNPlusPlus)
     report["two_stage"], ts_rows, ts_entries = two_stage_phase(torch, mods,
                                                                smi)
     report["two_stage_kernel_calls"] = ts_rows
 
-    # ---- 18. result lines
+    # ---- 18. Part-A2 and PointRCNN, train.py / test.py on pointrcnn
+    report["parta2"], pa_rows, pa_entries = parta2_phase(torch, mods, smi)
+    report["parta2_kernel_calls"] = pa_rows
+
+    # ---- 19. result lines
     first_batch = report["main_path"][0]["launches_per_forward"]
     pick = {
         # K1 at L0 (first call); K2 at the L0 16->16 subm conv with the
@@ -6897,10 +7110,10 @@ def main():
             "library_device_ms": r["library_device_ms"],
             "device_ms": r["device_ms"], "call": r["call"],
             "shapes": r["shapes"]})
-    # phases 13-17: per yaml, each kernel's calls of one batch-4 forward
+    # phases 13-18: per yaml, each kernel's calls of one batch-4 forward
     # and of one training step, summed
     kernels += cp_entries + ds_entries + an_entries + vn_entries_ \
-        + ts_entries
+        + ts_entries + pa_entries
     report["kernels"] = kernels
     report["device"] = smi
     if args.out:

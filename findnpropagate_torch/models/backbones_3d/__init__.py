@@ -1,9 +1,11 @@
-"""The ported sparse 3D backbones by their yaml NAME."""
+"""The ported 3D backbones (sparse and point-based) by their yaml NAME."""
 
+from .pointnet2_backbone import PointNet2MSG
 from .spconv_backbone import VoxelBackBone8x, VoxelResBackBone8x
 from .spconv_backbone_2d import PillarBackBone8x, PillarRes18BackBone8x
 from .spconv_backbone_voxelnext import VoxelResBackBone8xVoxelNeXt
 from .spconv_backbone_voxelnext2d import VoxelResBackBone8xVoxelNeXt2D
+from .spconv_unet import UNetV2
 
 BACKBONE_3D_REGISTRY = {
     "VoxelBackBone8x": VoxelBackBone8x,
@@ -12,4 +14,6 @@ BACKBONE_3D_REGISTRY = {
     "VoxelResBackBone8xVoxelNeXt2D": VoxelResBackBone8xVoxelNeXt2D,
     "PillarBackBone8x": PillarBackBone8x,
     "PillarRes18BackBone8x": PillarRes18BackBone8x,
+    "UNetV2": UNetV2,
+    "PointNet2MSG": PointNet2MSG,
 }

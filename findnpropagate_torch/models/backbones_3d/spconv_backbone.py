@@ -146,10 +146,15 @@ class _SparseStack(nn.Module):
 
     residual = True
 
-    def __init__(self, model_cfg, input_channels, grid_size):
+    def __init__(self, model_cfg, input_channels, grid_size, voxel_size=None,
+                 point_cloud_range=None):
         super().__init__()
         cfg = model_cfg
         self.model_cfg = cfg
+        # the grid's geometry (UNetV2 gives its voxel centres as points)
+        self.voxel_size, self.point_cloud_range = (
+            None if g is None else tuple(float(v) for v in g)
+            for g in (voxel_size, point_cloud_range))
         self.windowed = str(cfg.get("SUBM_MODE", "gather")) == "windowed"
         self.impl = str(cfg.get("SUBM_IMPL", "xla")).lower()
         self.downsample = str(cfg.get("DOWNSAMPLE_IMPL", "auto")).lower()

@@ -3,26 +3,32 @@ findnpropagate_tpu/models/detectors/detector3d.py (`DetectorModule`
 :79-280 with `_voxelize` :245-262, `loss` :305-319, `post_process`
 :321-374, the head branches of `build_detector` :400-460).
 
-The topology voxelize -> VFE -> (sparse 3D backbone) -> (map to BEV) ->
-(2D backbone) -> dense head runs over a dict batch, each module taken
+The topology voxelize -> VFE -> (3D backbone) -> (map to BEV) ->
+(2D backbone) -> (dense head) runs over a dict batch, each module taken
 from its registry by the yaml's NAME:
   * VFE: MeanVFE folds into `voxelize_mean`; the pillar and dynamic VFEs
     read the (V, T, C) bucket of `voxelize` (the dynamic ones its coords
-    and the raw points);
+    and the raw points); without a VFE (PointRCNN, whose dataset has no
+    grid) nothing is voxelized;
   * BACKBONE_3D (optional): VoxelResBackBone8x, VoxelBackBone8x,
     VoxelResBackBone8xVoxelNeXt, VoxelResBackBone8xVoxelNeXt2D,
-    PillarRes18BackBone8x, PillarBackBone8x;
+    PillarRes18BackBone8x, PillarBackBone8x, UNetV2 (point features at
+    the voxel centres too), PointNet2MSG (over the raw points);
   * MAP_TO_BEV (optional): HeightCompression, PointPillarScatter;
   * BACKBONE_2D (optional): BaseBEVBackbone, BaseBEVBackboneV1 (whose
     inputs are the sparse backbone's two dense maps);
-  * DENSE_HEAD: TransFusionHead, TransFusionHeadAM, CenterHead,
-    CenterHeadCLIP, AnchorHeadSingle, AnchorHeadMulti, VoxelNeXtHead
-    (which reads the backbone's sparse BEV list: no map to BEV and no 2D
-    backbone).
+  * DENSE_HEAD (none in PointRCNN): TransFusionHead, TransFusionHeadAM,
+    CenterHead, CenterHeadCLIP, AnchorHeadSingle, AnchorHeadMulti,
+    VoxelNeXtHead (which reads the backbone's sparse BEV list: no map to
+    BEV and no 2D backbone).
   * PFE (optional): VoxelSetAbstraction, keypoint features from the raw
     points, the BEV map and the backbone's levels;
-  * POINT_HEAD (optional): PointHeadSimple over the keypoints;
-  * ROI_HEAD (optional): SECONDHead, PVRCNNHead, VoxelRCNNHead, which
+  * POINT_HEAD (optional): PointHeadSimple over the keypoints,
+    PointHeadBox and PointIntraPartOffsetHead over the backbone's points
+    (the first stage of PointRCNN and PartA2_free: their decoded point
+    boxes are the proposals);
+  * ROI_HEAD (optional): SECONDHead, PVRCNNHead, VoxelRCNNHead,
+    PartA2FCHead, PointRCNNHead, which
     refine the first stage's boxes (its head then decodes boxes in
     training too, and with an ROI head those boxes keep their gradient:
     the JAX package differentiates the ROI losses through the ROIs into
@@ -32,15 +38,16 @@ from its registry by the yaml's NAME:
     near them.
 That is TransFusion-LiDAR (and its anchor-matching head), CenterPoint
 (voxel and pillar), PointPillar, SECOND / SECONDNet, VoxelNeXt (3D and
-2D), PillarNet, and the two-stage SECONDNetIoU, VoxelRCNN, PVRCNN and
-PVRCNNPlusPlus (`RoIProposalStage` :38-76, the assembly and module order
-:129-136, :200-243, the two-stage decode :339-355 and the TwoStageTools
-loss :519-575). `post_process` decodes the head's outputs into
-fixed-size Detections: a two-stage detector through
-`post_processing.post_process_two_stage` (the ROI head's scores, the
-ROIs' labels), TransFusion its queries, the CenterPoint and
-VoxelNeXt heads their heatmaps, the anchor heads through the generic
-class-agnostic
+2D), PillarNet, and the two-stage SECONDNetIoU, VoxelRCNN, PVRCNN,
+PVRCNNPlusPlus, PartA2Net and PointRCNN (`RoIProposalStage` :38-76, the
+assembly and module order :129-136, :200-243, the two-stage decode
+:339-355, the point-based dataset :383-386 and the TwoStageTools loss
+:519-575, the point head's loss chosen by its NAME). `post_process`
+decodes the head's outputs into fixed-size Detections: a two-stage
+detector through `post_processing.post_process_two_stage` (the ROI
+head's scores, the ROIs' labels), TransFusion its queries, the
+CenterPoint and VoxelNeXt heads their heatmaps, the anchor heads through
+the generic class-agnostic
 `post_processing.post_process` (POST_PROCESSING.NMS_CONFIG; its
 MULTI_CLASSES_NMS and OUTPUT_RAW_SCORE are not read, as in the
 reference). The forward keeps gradients when the module is in training
@@ -64,7 +71,12 @@ from ..backbones_2d import BACKBONE_2D_REGISTRY, MAP_TO_BEV_REGISTRY
 from ..backbones_3d import BACKBONE_3D_REGISTRY
 from ..backbones_3d.spconv_backbone import _SparseStack
 from ..dense_heads import DENSE_HEAD_REGISTRY
+from ..dense_heads.point_head_box import PointHeadBox, point_head_box_loss
 from ..dense_heads.point_head_simple import PointHeadSimple, point_head_loss
+from ..dense_heads.point_intra_part_head import (
+    PointIntraPartOffsetHead,
+    point_part_head_loss,
+)
 from ..pfe import PFE_REGISTRY
 from ..post_processing import post_process, post_process_two_stage
 from ..roi_heads import ROI_HEAD_REGISTRY
@@ -76,24 +88,30 @@ from ..vfe import VFE_REGISTRY
 
 DETECTORS = ("TransFusion", "CenterPoint", "PointPillar", "SECOND",
              "SECONDNet", "VoxelNeXt", "PillarNet", "SECONDNetIoU",
-             "VoxelRCNN", "PVRCNN", "PVRCNNPlusPlus")
-TWO_STAGE = ("SECONDNetIoU", "VoxelRCNN", "PVRCNN", "PVRCNNPlusPlus")
+             "VoxelRCNN", "PVRCNN", "PVRCNNPlusPlus", "PartA2Net",
+             "PointRCNN")
+TWO_STAGE = ("SECONDNetIoU", "VoxelRCNN", "PVRCNN", "PVRCNNPlusPlus",
+             "PartA2Net", "PointRCNN")
+POINT_HEADS = {"PointHeadSimple": PointHeadSimple,
+               "PointHeadBox": PointHeadBox,
+               "PointIntraPartOffsetHead": PointIntraPartOffsetHead}
 _PORTED = {"VFE": ("MeanVFE", *VFE_REGISTRY),
            "BACKBONE_3D": tuple(BACKBONE_3D_REGISTRY),
            "MAP_TO_BEV": tuple(MAP_TO_BEV_REGISTRY),
            "BACKBONE_2D": tuple(BACKBONE_2D_REGISTRY),
            "DENSE_HEAD": tuple(DENSE_HEAD_REGISTRY),
            "PFE": tuple(PFE_REGISTRY),
-           "POINT_HEAD": ("PointHeadSimple",),
+           "POINT_HEAD": tuple(POINT_HEADS),
            "ROI_HEAD": tuple(ROI_HEAD_REGISTRY)}
 _OPTIONAL = ("BACKBONE_3D", "MAP_TO_BEV", "BACKBONE_2D", "PFE",
              "POINT_HEAD", "ROI_HEAD")
+# the 3D backbones that read the raw points (no VFE before them)
+POINT_BACKBONES = ("PointNet2MSG",)
 _TWO_STAGE_KEYS = ("PFE", "POINT_HEAD", "ROI_HEAD")
 _NOT_PORTED = ("IMAGE_BACKBONE", "NECK", "VTRANSFORM", "FUSER")
 # the items of ROADMAP.md queue 1 that port the names still refused
-_ITEMS = {**ROI_HEADS_NOT_PORTED, "PartA2Net": "15.5", "PointRCNN": "15.5",
-          "PointHeadBox": "15.5", "PointIntraPartOffsetHead": "15.5",
-          "VoxelBackBone8xFocal": "15.6", "CaDDN": "15.7",
+_ITEMS = {**ROI_HEADS_NOT_PORTED, "VoxelBackBone8xFocal": "15.6",
+          "CaDDN": "15.7",
           "BevFusion": "15.7", "ImageVFE": "15.7", "MPPNet": "15.8",
           "MPPNetE2E": "15.8"}
 
@@ -102,6 +120,41 @@ def _not_ported(what, name=None):
     item = _ITEMS.get(name, "15")
     return NotImplementedError(f"{what} is not ported yet (ROADMAP.md queue "
                                f"1 item {item})")
+
+
+def _point_based(cfg, key):
+    """Whether a point-based yaml may leave out `key`: the VFE where the 3D
+    backbone reads the raw points (PointRCNN), the dense head where the
+    point head's boxes are the proposals (PointRCNN, PartA2_free)."""
+    if key == "VFE":
+        return cfg.get("BACKBONE_3D", {}).get("NAME") in POINT_BACKBONES
+    if key == "DENSE_HEAD":
+        head = cfg.get("POINT_HEAD", {})
+        return head.get("NAME") == "PointHeadBox" or (
+            head.get("NAME") == "PointIntraPartOffsetHead"
+            and "REG_FC" in head)
+    return False
+
+
+def check_ported(model_cfg):
+    """Raises NotImplementedError, naming its ROADMAP.md item, where the
+    yaml's MODEL names a detector or module the port does not have."""
+    cfg = model_cfg
+    name = cfg.get("NAME")
+    if name not in (*DETECTORS, None):
+        raise _not_ported(f"detector {name!r}", name)
+    for key, names in _PORTED.items():
+        if key not in cfg and (key in _OPTIONAL or _point_based(cfg, key)):
+            continue
+        got = cfg.get(key, {}).get("NAME", "PointHeadSimple"
+                                   if key == "POINT_HEAD" else None)
+        if got not in names:
+            raise _not_ported(f"{key} {got!r}", got)
+        if key in _TWO_STAGE_KEYS and name not in TWO_STAGE:
+            raise _not_ported(f"{key} of detector {name!r}", name)
+    for key in _NOT_PORTED:
+        if key in cfg:
+            raise _not_ported(key)
 
 
 class RoIProposalStage(RoIHeadTemplate):
@@ -134,31 +187,20 @@ class DetectorModule(nn.Module):
                  max_voxels, max_points_per_voxel):
         super().__init__()
         cfg = model_cfg
-        name = cfg.get("NAME")
-        if name not in (*DETECTORS, None):
-            raise _not_ported(f"detector {name!r}", name)
-        for key, names in _PORTED.items():
-            if key in _OPTIONAL and key not in cfg:
-                continue
-            got = cfg.get(key, {}).get("NAME", "PointHeadSimple"
-                                       if key == "POINT_HEAD" else None)
-            if got not in names:
-                raise _not_ported(f"{key} {got!r}", got)
-            if key in _TWO_STAGE_KEYS and name not in TWO_STAGE:
-                raise _not_ported(f"{key} of detector {name!r}", name)
-        for key in _NOT_PORTED:
-            if key in cfg:
-                raise _not_ported(key)
+        check_ported(cfg)
         self.grid_size = tuple(int(g) for g in grid_size)
         self.voxel_size = tuple(float(v) for v in voxel_size)
         self.point_cloud_range = tuple(float(v) for v in point_cloud_range)
         self.max_voxels = int(max_voxels)
         self.max_points_per_voxel = int(max_points_per_voxel)
         self.post_cfg = cfg.get("POST_PROCESSING", {})
-        self.mean_vfe = cfg["VFE"]["NAME"] == "MeanVFE"
+        # without a VFE (point-based) nothing is voxelized and the 3D
+        # backbone reads the raw points
+        self.voxelized = "VFE" in cfg
+        self.mean_vfe = cfg.get("VFE", {}).get("NAME") == "MeanVFE"
         in_ch = int(num_point_features)
         self.vfe = None
-        if not self.mean_vfe:
+        if self.voxelized and not self.mean_vfe:
             self.vfe = VFE_REGISTRY[cfg["VFE"]["NAME"]](
                 cfg["VFE"], num_point_features, self.voxel_size,
                 self.point_cloud_range, self.grid_size)
@@ -166,8 +208,9 @@ class DetectorModule(nn.Module):
         self.backbone_3d = None
         if "BACKBONE_3D" in cfg:
             self.backbone_3d = BACKBONE_3D_REGISTRY[
-                cfg["BACKBONE_3D"]["NAME"]](cfg["BACKBONE_3D"], in_ch,
-                                            self.grid_size)
+                cfg["BACKBONE_3D"]["NAME"]](
+                cfg["BACKBONE_3D"], in_ch, self.grid_size, self.voxel_size,
+                self.point_cloud_range)
         self.map_to_bev = self.backbone_2d = None
         if "MAP_TO_BEV" in cfg:
             self.map_to_bev = MAP_TO_BEV_REGISTRY[cfg["MAP_TO_BEV"]["NAME"]](
@@ -188,17 +231,20 @@ class DetectorModule(nn.Module):
             else:
                 bb2_in = int(bb2.get("INPUT_CHANNELS", 64))
             self.backbone_2d = BACKBONE_2D_REGISTRY[bb2["NAME"]](bb2, bb2_in)
-        # fully sparse heads (VoxelNeXt) read the 3D backbone's output
-        head_in = (self.backbone_2d if self.backbone_2d is not None
-                   else self.backbone_3d).num_bev_features
-        head = cfg["DENSE_HEAD"]
-        kw = {}
-        if head["NAME"] == "CenterHead" and (head.get(
-                "PREDICT_BOXES_WHEN_TRAINING") or "ROI_HEAD" in cfg):
-            kw["predict_boxes_when_training"] = True
-        self.dense_head = DENSE_HEAD_REGISTRY[head["NAME"]](
-            head, head_in, num_class, class_names, self.point_cloud_range,
-            self.voxel_size, self.grid_size, **kw)
+        self.dense_head = None
+        if "DENSE_HEAD" in cfg:
+            # fully sparse heads (VoxelNeXt) read the 3D backbone's output
+            head_in = (self.backbone_2d if self.backbone_2d is not None
+                       else self.backbone_3d).num_bev_features
+            head = cfg["DENSE_HEAD"]
+            kw = {}
+            if head["NAME"] == "CenterHead" and (head.get(
+                    "PREDICT_BOXES_WHEN_TRAINING") or "ROI_HEAD" in cfg):
+                kw["predict_boxes_when_training"] = True
+            self.dense_head = DENSE_HEAD_REGISTRY[head["NAME"]](
+                head, head_in, num_class, class_names,
+                self.point_cloud_range, self.voxel_size, self.grid_size,
+                **kw)
         self._two_stage(cfg, num_class, num_point_features)
 
     def _two_stage(self, cfg, num_class, num_point_features):
@@ -216,24 +262,37 @@ class DetectorModule(nn.Module):
                 level_channels=levels)
         if "POINT_HEAD" in cfg:
             ph = cfg["POINT_HEAD"]
-            self.point_head = PointHeadSimple(
-                ph, self.pfe.num_point_features_before_fusion if bool(
-                    ph.get("USE_POINT_FEATURES_BEFORE_FUSION", True))
-                else self.pfe.num_point_features)
+            cls = POINT_HEADS[ph.get("NAME", "PointHeadSimple")]
+            if cls is PointHeadSimple:
+                self.point_head = cls(
+                    ph, self.pfe.num_point_features_before_fusion if bool(
+                        ph.get("USE_POINT_FEATURES_BEFORE_FUSION", True))
+                    else self.pfe.num_point_features)
+            else:
+                # the point-wise heads read the 3D backbone's point
+                # features; Part-A2's scores num_class classes, PointRCNN's
+                # one (the fork's binary head)
+                kw = {"num_class": int(num_class)} \
+                    if cls is PointIntraPartOffsetHead else {}
+                self.point_head = cls(
+                    ph, self.backbone_3d.num_point_features, **kw)
         if "ROI_HEAD" not in cfg:
             return
         roi = cfg["ROI_HEAD"]
-        # the first stage's boxes feed the proposal layer in training too,
-        # with their gradient (the ROI losses reach the first stage
-        # through the ROIs, as in the JAX package)
-        self.dense_head.predict_boxes_when_training = True
-        self.dense_head.boxes_need_grad = True
+        if self.dense_head is not None:
+            # the first stage's boxes feed the proposal layer in training
+            # too, with their gradient (the ROI losses reach the first
+            # stage through the ROIs, as in the JAX package)
+            self.dense_head.predict_boxes_when_training = True
+            self.dense_head.boxes_need_grad = True
         n_cls = 1 if roi.get("CLASS_AGNOSTIC", True) else int(num_class)
         kw = {}
         if roi["NAME"] == "VoxelRCNNHead":
             kw["level_channels"] = levels
         elif roi["NAME"] == "PVRCNNHead":
             kw["input_channels"] = self.pfe.num_point_features
+        elif roi["NAME"] in ("PartA2FCHead", "PointRCNNHead"):
+            kw["input_channels"] = self.backbone_3d.num_point_features
         else:
             kw["input_channels"] = self.backbone_2d.num_bev_features
         self.roi_head = ROI_HEAD_REGISTRY[roi["NAME"]](
@@ -263,13 +322,16 @@ class DetectorModule(nn.Module):
         """Gradients are kept in training mode only. generator: the
         torch.Generator of the head's dropout masks (training)."""
         with torch.set_grad_enabled(self.training):
-            with torch.no_grad():
-                batch = self._voxelize(dict(batch))
+            batch = dict(batch)
+            if self.voxelized:
+                with torch.no_grad():
+                    batch = self._voxelize(batch)
             for mod in (self.vfe, self.backbone_3d, self.map_to_bev,
                         self.backbone_2d):
                 if mod is not None:
                     batch = mod(batch)
-            batch = self.dense_head(batch, generator)
+            if self.dense_head is not None:
+                batch = self.dense_head(batch, generator)
             if self.roi_proposal is not None:
                 batch = self.roi_proposal(batch, generator)
             for mod in (self.pfe, self.point_head):
@@ -280,9 +342,11 @@ class DetectorModule(nn.Module):
             return batch
 
     def compute_loss(self, out):
-        """The dense head's loss, plus the ROI head's and the point head's
-        for a two-stage detector (TwoStageTools): (loss, tb)."""
-        loss, tb = self.dense_head.compute_loss(out)
+        """The dense head's loss (none without one: PointRCNN), plus the
+        ROI head's and the point head's, chosen by its NAME, for a
+        two-stage detector (TwoStageTools): (loss, tb)."""
+        loss, tb = self.dense_head.compute_loss(out) \
+            if self.dense_head is not None else (0.0, {})
         if self.roi_head is None:
             return loss, tb
         loss2, tb2 = self.roi_loss(out, self.roi_head.model_cfg[
@@ -292,10 +356,16 @@ class DetectorModule(nn.Module):
         loss = loss + loss2
         if self.point_head is not None:
             pc = self.point_head.model_cfg
-            lp, tbp = point_head_loss(
-                out, pc["LOSS_CONFIG"], extra_width=tuple(pc.get(
-                    "TARGET_CONFIG", {}).get("GT_EXTRA_WIDTH",
-                                             (0.2, 0.2, 0.2))))
+            if isinstance(self.point_head, PointHeadBox):
+                lp, tbp = point_head_box_loss(out, pc)
+            elif isinstance(self.point_head, PointIntraPartOffsetHead):
+                lp, tbp = point_part_head_loss(out, pc,
+                                               self.point_head.num_class)
+            else:
+                lp, tbp = point_head_loss(
+                    out, pc["LOSS_CONFIG"], extra_width=tuple(pc.get(
+                        "TARGET_CONFIG", {}).get("GT_EXTRA_WIDTH",
+                                                 (0.2, 0.2, 0.2))))
             loss = loss + lp
             tb.update(tbp)
         return loss, tb
@@ -354,9 +424,14 @@ def build_detector(model_cfg, num_class, dataset, device=None):
     (CUDA unless named; raises when CUDA is missing and none is named)."""
     from ... import resolve_device
 
+    # a point-based dataset (PointRCNN's) voxelizes nothing: no grid
+    grid_size = dataset.grid_size if dataset.grid_size is not None \
+        else (1, 1, 1)
+    voxel_size = dataset.voxel_size if dataset.voxel_size is not None \
+        else (1.0, 1.0, 1.0)
     det = DetectorModule(
         model_cfg, num_class, tuple(dataset.class_names),
-        dataset.grid_size, dataset.voxel_size, dataset.point_cloud_range,
+        grid_size, voxel_size, dataset.point_cloud_range,
         dataset.num_point_features, dataset.max_voxels,
         dataset.max_points_per_voxel)
     return det.to(resolve_device(device)).eval()

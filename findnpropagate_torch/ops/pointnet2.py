@@ -21,7 +21,8 @@ semantics are the reference's to the index:
     keypoints over 200k raw points never form the 13 GB batch matrix; the
     result equals the unchunked one;
   * three_nn takes the 3 nearest valid known points (lower index first
-    among equal distances, `lax.top_k`'s order).
+    among equal distances, `lax.top_k`'s order), by three argmin passes
+    in chunks of the same bound.
 Squared distances are summed x, y, z in that order in float32, as the
 reference does.
 """
@@ -61,52 +62,53 @@ def farthest_point_sample(points, mask, k: int):
     return torch.stack(out, dim=1)
 
 
-def _ball_query_one(centers, centers_mask, points, points_mask, r2,
-                    nsample, chunk):
-    m = centers.shape[0]
-    slots = torch.arange(1, nsample + 1, dtype=torch.int32,
-                         device=centers.device)
-    idx_parts, cnt_parts = [], []
-    for s in range(0, m, chunk):
-        c = centers[s:s + chunk]
-        within = (_sqdist(c, points) < r2) & points_mask[None, :] \
-            & centers_mask[s:s + chunk, None]
-        rank = torch.cumsum(within.to(torch.int32), dim=1, dtype=torch.int32)
-        del within
-        cnt = rank[:, -1]
-        # the position of the s-th in-radius point: the first where the
-        # running count reaches s (P where there are fewer than s)
-        idx = torch.searchsorted(rank, slots.expand(c.shape[0], nsample)
-                                 .contiguous())
-        del rank
-        idx_parts.append(idx)
-        cnt_parts.append(cnt)
-    idx, cnt = torch.cat(idx_parts), torch.cat(cnt_parts)
-    cnt = torch.clamp(cnt, max=nsample)
-    first = idx[:, :1]
-    slot = torch.arange(nsample, device=idx.device)[None, :]
-    idx = torch.where(slot < cnt[:, None], idx, first)     # back-fill
-    idx = torch.where(cnt[:, None] > 0, idx, torch.zeros_like(idx))
-    return idx, cnt
-
-
 def ball_query(centers, centers_mask, points, points_mask, radius,
                nsample: int, chunk_elems: int = None):
     """centers (B, M, 3) with mask (B, M), points (B, P, 3) with mask
     (B, P) -> (idx (B, M, nsample) int64, cnt (B, M) int32): per center the
     first `nsample` valid points within `radius` in point order,
     back-filled with the first; idx 0 and cnt 0 where the ball is empty.
-    `chunk_elems` (default CHUNK_ELEMS) bounds the centers x points block
-    one step forms."""
+    `chunk_elems` (default CHUNK_ELEMS) bounds the block of distances one
+    step forms: all samples at once where their centers x points fit (the
+    ROI heads' many small sets), else sample by sample in chunks of
+    centers."""
     per = int(chunk_elems or CHUNK_ELEMS)
+    b, m = centers.shape[:2]
     p = max(int(points.shape[1]), 1)
-    chunk = max(1, per // p)
     r2 = float(radius) * float(radius)
-    outs = [_ball_query_one(centers[i], centers_mask[i], points[i],
-                            points_mask[i], r2, int(nsample), chunk)
-            for i in range(centers.shape[0])]
-    return (torch.stack([o[0] for o in outs]),
-            torch.stack([o[1] for o in outs]))
+    nsample = int(nsample)
+    if b * m * p <= per:
+        parts = [(slice(None), slice(None))]
+    else:
+        chunk = max(1, per // p)
+        parts = [(slice(i, i + 1), slice(s, s + chunk)) for i in range(b)
+                 for s in range(0, m, chunk)]
+    slots = torch.arange(1, nsample + 1, dtype=torch.int32,
+                         device=centers.device)
+    idx = torch.empty(b, m, nsample, dtype=torch.int64,
+                      device=centers.device)
+    cnt = torch.empty(b, m, dtype=torch.int32, device=centers.device)
+    for bs, cs in parts:
+        c, pts = centers[bs, cs], points[bs]
+        d = (c[..., :, None, 0] - pts[..., None, :, 0]) ** 2
+        d += (c[..., :, None, 1] - pts[..., None, :, 1]) ** 2
+        d += (c[..., :, None, 2] - pts[..., None, :, 2]) ** 2
+        within = (d < r2) & points_mask[bs][:, None, :] \
+            & centers_mask[bs, cs][..., None]
+        del d
+        rank = torch.cumsum(within.to(torch.int32), dim=-1, dtype=torch.int32)
+        del within
+        cnt[bs, cs] = rank[..., -1]
+        # the position of the s-th in-radius point: the first where the
+        # running count reaches s (P where there are fewer than s)
+        idx[bs, cs] = torch.searchsorted(
+            rank, slots.expand(*rank.shape[:-1], nsample).contiguous())
+        del rank
+    cnt = torch.clamp(cnt, max=nsample)
+    slot = torch.arange(nsample, device=idx.device)
+    idx = torch.where(slot < cnt[..., None], idx, idx[..., :1])  # back-fill
+    idx = torch.where(cnt[..., None] > 0, idx, torch.zeros_like(idx))
+    return idx, cnt
 
 
 def group_points(feats, idx):
@@ -116,14 +118,32 @@ def group_points(feats, idx):
     return torch.gather(feats, 1, flat).reshape(b, m, s, feats.shape[-1])
 
 
-def three_nn(unknown, unknown_mask, known, known_mask):
+def three_nn(unknown, unknown_mask, known, known_mask,
+             chunk_elems: int = None):
     """unknown (B, N, 3), known (B, M, 3) with mask (B, M) -> (dist
     (B, N, 3), idx (B, N, 3) int64) of the 3 nearest valid known points.
-    `unknown_mask` is not read, as in the reference."""
-    d2 = torch.stack([_sqdist(u, k) for u, k in zip(unknown, known)])
-    d2 = torch.where(known_mask[:, None, :], d2, torch.full_like(d2, INF))
-    vals, idx = torch.sort(d2, dim=-1, stable=True)
-    return torch.sqrt(torch.clamp(vals[..., :3], min=0.0)), idx[..., :3]
+    `unknown_mask` is not read, as in the reference. Three argmin passes
+    (each the first of equal minima, the taken one then set to +inf) give
+    a stable sort's first three without sorting; sample by sample in
+    chunks of unknowns of at most `chunk_elems` (default CHUNK_ELEMS)
+    distances."""
+    per = int(chunk_elems or CHUNK_ELEMS)
+    b, n = unknown.shape[:2]
+    chunk = max(1, per // max(int(known.shape[1]), 1))
+    dist = torch.empty(b, n, 3, dtype=unknown.dtype, device=unknown.device)
+    idx = torch.empty(b, n, 3, dtype=torch.int64, device=unknown.device)
+    for i in range(b):
+        for s in range(0, n, chunk):
+            d2 = _sqdist(unknown[i, s:s + chunk], known[i])
+            d2 = torch.where(known_mask[i][None, :], d2,
+                             torch.full_like(d2, INF))
+            for j in range(3):
+                k = torch.argmin(d2, dim=1, keepdim=True)
+                idx[i, s:s + chunk, j] = k[:, 0]
+                dist[i, s:s + chunk, j] = torch.gather(d2, 1, k)[:, 0]
+                d2.scatter_(1, k, float("inf"))
+            del d2
+    return torch.sqrt(torch.clamp(dist, min=0.0)), idx
 
 
 def three_interpolate(feats, idx, dist):

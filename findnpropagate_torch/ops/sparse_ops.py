@@ -20,7 +20,8 @@ sorted by output id — `win_downsample` (sort + dedup, :439),
 `win_downsample_scatter` (candidate mask + rank select, :622), three routes
 to one active set; `coords_to_dense` (:791); `bev_merge` (:727), the
 multi-scale collapse of VoxelNeXt's levels onto one sorted (1, ny, nx)
-list. `windowed_conv` (:300) and
+list; `win_inverse_conv` (:690), UNetV2's transposed convs back onto a
+finer level's list. `windowed_conv` (:300) and
 `subm_conv_windowed` (:385) are the reference's XLA windowed conv
 (``SUBM_IMPL: xla``): a target reads tap k's neighbour only inside its
 block's window of the source list, and the blocks whose neighbour span
@@ -530,6 +531,35 @@ def subm_conv_windowed(ids, feats, weights, deltas, block: int = 256,
     overflow)."""
     return windowed_conv(ids, feats, ids, weights, deltas, block=block,
                          window=window)
+
+
+def win_inverse_conv(coarse_coords, coarse_valid, coarse_feats, fine_ids,
+                     fine_valid, fine_shape, coarse_shape, weights,
+                     kernel_size=(3, 3, 3), stride=(2, 2, 2),
+                     padding=(1, 1, 1), block: int = 256, window: int = 512):
+    """Sparse inverse (transposed) conv back onto the stored fine active
+    set (the reference's :690): out[f] = sum_t coarse_feats[c] @ W_t over
+    the coarse cells c with stride * c + t - padding = f. One windowed_conv:
+    the coarse list mapped into the fine id space by `strided_base_ids`
+    (ascending, sentinels past the fine level's) as the sources, the fine
+    ids as the targets, the forward strided conv's deltas negated. Tap t of
+    `weights` (K, Cin, Cout) is the forward conv's kernel position t, so
+    the reference's weights carry over as they are.
+
+    coarse_coords (B, Vc, 3) sorted by their own ids, fine_ids (B, Vf)
+    ascending with Vf % block == 0. Plain PyTorch in every kernel mode, as
+    the reference calls its XLA windowed conv here. Returns (out (B, Vf,
+    Cout) zero at invalid fine slots, overflow (B,))."""
+    base = strided_base_ids(coarse_coords, coarse_valid, stride, fine_shape,
+                            coarse_shape)
+    deltas = strided_deltas(kernel_size, stride, padding, fine_shape)
+    feats = torch.where(coarse_valid[..., None], coarse_feats,
+                        torch.zeros_like(coarse_feats))
+    out, ovf = windowed_conv(base, feats, fine_ids, weights, -deltas,
+                             block=block, window=window,
+                             sentinel_start=yxz_sentinel_start(fine_shape))
+    return torch.where(fine_valid[..., None], out, torch.zeros_like(out)), \
+        ovf
 
 
 def bev_merge(coords_list, valid_list, feats_list, scales, bev_shape,

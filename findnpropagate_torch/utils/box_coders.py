@@ -78,8 +78,15 @@ class PointResidualCoder:
     mean_size: tuple = ()
 
     def _mean(self, classes, like):
-        mean = torch.as_tensor(self.mean_size, dtype=like.dtype,
-                               device=like.device)[classes.long() - 1]
+        """The mean sizes of 1-indexed classes, indexed as the reference's
+        gather does: class 0 wraps to the last row, a class past the table
+        clamps to it."""
+        table = torch.as_tensor(self.mean_size, dtype=like.dtype,
+                                device=like.device)
+        n = table.shape[0]
+        idx = classes.long() - 1
+        idx = torch.clamp(torch.where(idx < 0, idx + n, idx), 0, n - 1)
+        mean = table[idx]
         return mean[..., 0], mean[..., 1], mean[..., 2]
 
     def encode(self, gt_boxes, points, gt_classes=None):

@@ -1,5 +1,6 @@
 """Core 3D box / point geometry — port of
-findnpropagate_tpu/utils/geometry.py:18-141 (`limit_period` :35 too).
+findnpropagate_tpu/utils/geometry.py:18-141 (`limit_period` :35 and
+`enlarge_box3d` :170 too).
 
 Boxes are (..., 7+C) = [x, y, z, dx, dy, dz, heading, ...] with (x, y, z)
 the box centre in the LiDAR frame and the heading about +z. Leading batch
@@ -112,3 +113,12 @@ def points_in_boxes_index(points, boxes, boxes_mask=None):
         inside = inside & boxes_mask[:, None]
     first = torch.argmax(inside.to(torch.uint8), dim=0).to(torch.int32)
     return torch.where(inside.any(dim=0), first, torch.full_like(first, -1))
+
+
+def enlarge_box3d(boxes3d, extra_width=(0.0, 0.0, 0.0)):
+    """(..., 7+C) boxes with each size grown by twice `extra_width` (the
+    reference's :170)."""
+    ew = torch.as_tensor(extra_width, dtype=boxes3d.dtype,
+                         device=boxes3d.device)
+    return torch.cat([boxes3d[..., 0:3], boxes3d[..., 3:6] + 2 * ew,
+                      boxes3d[..., 6:]], dim=-1)

@@ -7,7 +7,8 @@ after the flax tree, so the flax path of a leaf is the torch module path;
 what differs is the layout, converted here:
 
   * sparse conv kernels (K, Cin, Cout) and MaskedBatchNorm: as they are;
-  * Conv2d: flax HWIO -> OIHW;
+  * Conv2d: flax HWIO -> OIHW; Conv3d: flax (k1, k2, k3, I, O) -> (O, I,
+    k1, k2, k3) (PartA2FCHead's pooled grids, channels-first here);
   * ConvTranspose2d: flax (kh, kw, I, O), spatially flipped against
     torch's (I, O, kh, kw) (the inverse of utils/ckpt_import.t_deconv2d);
   * Dense -> Linear: kernel (in, out) -> weight (out, in);
@@ -42,7 +43,16 @@ two-stage modules' Linear + MaskedBatchNorm stacks: the VSA's ``sa_raw`` /
 ``vsa_point_feature_fusion`` / ``fusion_bn``, PointHeadSimple's
 ``cls_fc{i}`` / ``cls_bn{i}`` / ``cls_out``, and the ROI heads'
 ``roi_grid_pool`` / ``pool_x_conv{i}``, ``{shared,cls,reg,iou}_fc{i}`` /
-``_bn{i}`` and ``cls_out`` / ``reg_out`` / ``iou_out``.
+``_bn{i}`` and ``cls_out`` / ``reg_out`` / ``iou_out``; and Part-A2's and
+PointRCNN's: UNetV2's ``w_input``, ``enc{L}_{i}_0`` / ``_1``,
+``down{L}_0`` / ``_1``, ``w_out`` and its decoder ``dec_t{L}_conv{j}``,
+``dec_m{L}_conv``, ``dec_inv{L}_conv``, ``dec_conv5`` (sparse kernels)
+with their BNs, PointNet2MSG's ``sa{k}/radius{r}/mlp{i}`` and
+``fp{k}/fp/mlp{i}`` (+ ``_bn``), the point heads' ``{cls,part,reg}_fc{i}``
+/ ``_bn{i}`` / ``_out``, PartA2FCHead's ``conv_part`` / ``conv_rpn``
+(``conv{i}`` Conv3d, ``conv{i}_bn``) and PointRCNNHead's ``xyz_up``,
+``merge_down``, ``sa{k}/mlp`` and ``{cls,reg}_fc`` (``fc{i}``,
+``bn{i}``).
 
 `to_jax_tree(model, what)` is the inverse map: the port's parameters,
 their gradients or its BN statistics as a nested dict of numpy arrays under
@@ -123,6 +133,13 @@ def _leaves(model):
             add("params", path + ["kernel"], (kh, kw, i, o),
                 lambda a: a.transpose(3, 2, 0, 1), mod.weight,
                 lambda a: a.transpose(2, 3, 1, 0))
+            if mod.bias is not None:
+                add("params", path + ["bias"], (o,), same, mod.bias)
+        elif isinstance(mod, nn.Conv3d):
+            o, i, k1, k2, k3 = mod.weight.shape
+            add("params", path + ["kernel"], (k1, k2, k3, i, o),
+                lambda a: a.transpose(4, 3, 0, 1, 2), mod.weight,
+                lambda a: a.transpose(2, 3, 4, 1, 0))
             if mod.bias is not None:
                 add("params", path + ["bias"], (o,), same, mod.bias)
         elif isinstance(mod, nn.ConvTranspose2d):

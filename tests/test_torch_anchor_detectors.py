@@ -240,10 +240,8 @@ BUILDS = ("kitti_models/pointpillar", "kitti_models/second",
           "synthetic_models/pointpillar_synth")
 LEAF_CHECKS = ("kitti_models/pointpillar", "kitti_models/second_multihead",
                "nuscenes_models/cbgs_dyn_pp_centerpoint")
-NOT_PORTED = ("kitti_models/PartA2", "waymo_models/PartA2",
-              "kitti_models/voxel_rcnn_car_focal_multimodal",
-              "kitti_models/CaDDN", "nuscenes_models/bevfusion",
-              "kitti_models/PartA2_free")
+NOT_PORTED = ("kitti_models/voxel_rcnn_car_focal_multimodal",
+              "kitti_models/CaDDN", "nuscenes_models/bevfusion")
 
 
 def yaml_dataset(cfg):

@@ -631,7 +631,7 @@ def test_init_random_matches_bench_on_variants(detector_setup, variant):
 def test_unported_names_still_raise():
     cfg = narrow_cfg()
     tds = SyntheticDataset(EDict(DATA), cfg.CLASS_NAMES, training=False)
-    for key, name in (("NAME", "PartA2Net"), ("DENSE_HEAD", "PointHeadBox"),
+    for key, name in (("NAME", "CaDDN"), ("DENSE_HEAD", "PointHeadBox"),
                       ("BACKBONE_3D", "VoxelBackBone8xFocal")):
         m = copy.deepcopy(cfg.MODEL)
         if key == "NAME":

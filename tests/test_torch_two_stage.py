@@ -271,10 +271,7 @@ TWO_STAGE_YAMLS = (
     "waymo_models/pv_rcnn_plusplus_resnet_2frames",
     "waymo_models/pv_rcnn_with_centerhead_rpn",
     "waymo_models/voxel_rcnn_with_centerhead_dyn_voxel")
-LATER = {"kitti_models/PartA2": "15.5", "kitti_models/PartA2_free": "15.5",
-         "kitti_models/pointrcnn": "15.5", "kitti_models/pointrcnn_iou":
-         "15.5", "waymo_models/PartA2": "15.5", "once_models/pointrcnn":
-         "15.5", "kitti_models/voxel_rcnn_car_focal_multimodal": "15.6",
+LATER = {"kitti_models/voxel_rcnn_car_focal_multimodal": "15.6",
          "kitti_models/CaDDN": "15.7", "waymo_models/mppnet_4frames": "15.8",
          "waymo_models/mppnet_e2e_memorybank_inference": "15.8"}
 
@@ -309,9 +306,7 @@ def test_later_two_stage_yamls_raise_with_their_item(yaml):
                     yaml_dataset(cfg), device="cpu")
 
 
-@pytest.mark.parametrize("head,item", [("PartA2FCHead", "15.5"),
-                                       ("PointRCNNHead", "15.5"),
-                                       ("MPPNetHead", "15.8"),
+@pytest.mark.parametrize("head,item", [("MPPNetHead", "15.8"),
                                        ("MPPNetHeadE2E", "15.8")])
 def test_later_roi_heads_raise_with_their_item(head, item):
     cfg = cfg_from_yaml_file("tools/cfgs/kitti_models/voxel_rcnn_car.yaml")
