@@ -380,9 +380,32 @@ Phases (any failure exits non-zero and prints no result line):
      side by side (a checkpoint, finite losses, every KITTI AP key
      finite). Printed with the card's name and power limit: ms/scan, the
      decode's share, ms/step, peak memory, the CLIs' wall seconds;
- 19. a `kernels` JSON line (phases 13-18 add, per yaml, each kernel's
-     calls of one batch-4 forward or of one training step, summed), then
-     the result line
+ 19. data parallelism, the checkpoint import and the demo: train.py
+     --dist under `torchrun --standalone --nproc_per_node 1` on the main
+     yaml over phase 12's nuScenes tree (its two train frames listed four
+     times, no CBGS: two steps at BATCH_SIZE_PER_GPU 4), which must log
+     world size 1 over NCCL and a global batch of 4 and leave exactly one
+     checkpoint, then test.py on that checkpoint (finite NDS / mAP);
+     meanwhile a random main-path model's state written in the
+     reference's names and layouts (spconv v2 kernels, in_proj, kernel-1
+     Conv1d weights) and imported through utils/ckpt_import.py into a
+     fresh model (nothing mismatched or unmatched, every parameter and
+     buffer loaded, the same eval forward bit for bit), and tools/demo.py
+     over DDP_DEMO_FILES .bin files of lidar_ring scenes (finite
+     detections; BEV and 3D PNGs where matplotlib imports, else a line
+     saying why not), and two ranks over gloo on the one card
+     (`chip_smoke.py --ddp-worker`), DDP_BATCH rows each, dropout 0,
+     posgather mode, two steps: after the first, the gradients, BN
+     buffers, parameters and loss against one process on the four rows
+     (DDP_* tolerances; one process on rank 0's rows alone must fail
+     them), the ranks identical; in the second each rank's K1-K4
+     launches (TRAIN_LAUNCHES) and every call held against its plain
+     version, and both steps' ms (beside train.py's process); the
+     query top-k of the compared steps pinned to the one process's
+     (`PinQueries`: an untrained heatmap ties at bf16 noise);
+ 20. a `kernels` JSON line (phases 13-18 add, per yaml, each kernel's
+     calls of one batch-4 forward or of one training step, summed;
+     phase 19 each rank's launches of a step), then the result line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 With --before DIR (a checkout of an earlier commit of this repo, e.g.
@@ -6808,6 +6831,555 @@ def parta2_phase(torch, mods, smi, dev="cuda"):
     return rep, rows, entries
 
 
+# ---------------------------------------------------------------- phase 19
+
+DDP_WORK = "build/ddp"
+DDP_TIMEOUT = 600
+DDP_BATCH = 2               # rows of each rank in the two-rank step
+DDP_TRAIN_INFOS = "nuscenes_infos_10sweeps_train.pkl"
+DDP_DEMO_FILES = 2
+# the two-rank step against the one-process step on the same rows: both
+# run the same kernels on bf16 operands, but the batch statistics are
+# summed in another order, which moves bf16 roundings downstream.
+# Gradients per leaf within DDP_GRAD_TOL of the leaf's largest (at least
+# DDP_GRAD_FLOOR of the model's largest); BN buffers
+# within DDP_BN_ATOL + DDP_BN_RTOL * |value| (a buffer moves by 1 - 0.99 of
+# the batch's statistic, which a per-rank BN gets wrong by percents);
+# parameters within DDP_PARAM_ATOL where the gradient is above the
+# gradient tolerance (Adam's first step is lr * g / (|g| + 1e-8)), within
+# one step (lr) elsewhere; the loss within DDP_LOSS_RTOL. On the card the
+# gradients and parameters may instead stay within DDP_NOISE_FACTOR times
+# what one process on the same rows in another order moves them by (each
+# a largest error over ~300 leaves: their ratio was 1.03-1.34 in three
+# runs, per-process statistics 7-9)
+DDP_GRAD_TOL = 1e-2
+DDP_GRAD_FLOOR = 1e-6
+DDP_BN_ATOL, DDP_BN_RTOL = 1e-5, 1e-4
+DDP_PARAM_ATOL = 2e-6
+DDP_LOSS_RTOL = 1e-4
+DDP_NOISE_FACTOR = 3.0
+
+
+def ddp_model(cfg_mod, models_mod, synth, weights, cfg, data, dev):
+    """The main yaml at full width in posgather mode with dropout 0, its
+    init_random_(0) weights, in training mode, over the synthetic `data`
+    config."""
+    mcfg = copy.deepcopy(cfg.MODEL)
+    mcfg.DENSE_HEAD["DROPOUT"] = 0.0
+    ds = synth.SyntheticDataset(cfg_mod.EDict(data), cfg.CLASS_NAMES,
+                                training=True)
+    det = models_mod.build_network(mcfg, 10, ds, device=dev)
+    weights.init_random_(det, seed=0)
+    return det.train()
+
+
+def ddp_snapshot(torch, det, metrics):
+    return {"state": {k: v.detach().cpu().clone()
+                      for k, v in det.state_dict().items()},
+            "grads": {k: p.grad.detach().cpu().clone()
+                      for k, p in det.named_parameters()
+                      if p.grad is not None},
+            "metrics": {k: float(v) for k, v in metrics.items()}}
+
+
+class PinQueries:
+    """TransFusionHead's top-k of its queries pinned to `indices` (B, K);
+    without them the ones the head picks are kept in `picked`. An
+    untrained heatmap ties at the noise of the kernels' bf16 operands, so
+    a batch of 4 and two of 2 pick different queries among the ties (3.5 %
+    of the parameters' entries then differ after a step); pinned, the two
+    steps differ only by that noise."""
+
+    def __init__(self, indices=None):
+        from findnpropagate_torch.models.dense_heads import transfusion_head
+
+        self.head, self.indices, self.picked = transfusion_head, indices, []
+
+    def __enter__(self):
+        self.orig = orig = self.head.top_k_lower_index_first
+
+        def top_k(x, k):
+            if self.indices is None:
+                vals, idx = orig(x, k)
+                self.picked.append(idx.cpu())
+                return vals, idx
+            idx = self.indices.to(x.device)
+            return x.gather(-1, idx), idx
+        self.head.top_k_lower_index_first = top_k
+        return self
+
+    def __exit__(self, *exc):
+        self.head.top_k_lower_index_first = self.orig
+
+
+def ddp_two_steps(torch, trainer, optimization, tp, ws, det, batch, hold,
+                  queries=None):
+    """Step 1 on the `queries` (PinQueries; its state, gradients, metrics
+    and queries kept), then step 2 timed with the launch counts set to 0
+    just before and read just after, and, with `hold`, its K1-K4 calls
+    recorded."""
+    tx, _ = optimization.build_optimizer(det.parameters(), TRAIN_OPT, 1000)
+    step = trainer.make_train_step(det, tx)
+    with PinQueries(queries) as pin:
+        first = ddp_snapshot(torch, det, step(batch))
+    first["queries"] = pin.picked[0] if queries is None else queries
+    first["unused"] = step.ddp["unused"]
+    recs = contextlib.ExitStack()
+    if hold:
+        k1 = recs.enter_context(record_positions(torch, tp))
+        k2, k3, k4 = (recs.enter_context(Recorder(m, n, torch)).calls
+                      for m, n in ((tp, "gather_conv"), (ws, "conv_kernel"),
+                                   (ws, "dw_kernel")))
+    with recs:
+        tp.reset_launches()
+        ws.reset_launches()
+        dev = batch["points"].device
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = step(batch)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        first["step2_ms"] = 1e3 * (time.perf_counter() - t0)
+        first["launches"] = launches_now(tp, ws)
+        first["step2_loss"] = float(m["loss"])
+    first["calls"] = (k1, k2, k3, k4) if hold else None
+    return first
+
+
+def ddp_worker(rank, port, work):
+    """One rank of the two-rank step on the card over gloo (run by
+    ddp_phase as `chip_smoke.py --ddp-worker RANK PORT DIR`)."""
+    global timing
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    from findnpropagate_torch import config as cfg_mod
+    from findnpropagate_torch import models as models_mod
+    from findnpropagate_torch.datasets import synthetic as synth
+    from findnpropagate_torch.ops import _build
+    from findnpropagate_torch.ops import posgather as tp
+    from findnpropagate_torch.ops import windowed_sparse as ws
+    from findnpropagate_torch.parallel.mesh import init_distributed
+    from findnpropagate_torch.runtime import optimization, trainer
+    from findnpropagate_torch.utils import timing as timing_mod
+    from findnpropagate_torch.utils import weights
+
+    timing = timing_mod
+    work = Path(work)
+    setup = torch.load(work / "setup.pt", weights_only=False)
+    dev = setup["device"]
+    if dev == "cuda":
+        for name in ("posgather", "windowed_sparse"):
+            _build.load(name)
+    assert init_distributed(f"localhost:{port}", 2, rank, device=dev,
+                            backend="gloo") == (rank, 2)
+    cfg = cfg_mod.cfg_from_yaml_file(setup["cfg_file"])
+    det = ddp_model(cfg_mod, models_mod, synth, weights, cfg, setup["data"],
+                    dev)
+    rows = slice(rank * DDP_BATCH, (rank + 1) * DDP_BATCH)
+    batch = {k: v[rows].to(dev) for k, v in setup["batch"].items()}
+    out = ddp_two_steps(torch, trainer, optimization, tp, ws, det, batch,
+                        hold=dev == "cuda", queries=setup["queries"][rows])
+    if out["calls"] is not None:
+        out["held"] = [{k: r[k] for k in ("name", "call", "max_abs_err",
+                                          "ms", "plain_ms")}
+                       for r in hold_calls(torch, tp, ws, *out["calls"],
+                                           f"ddp rank {rank}")]
+    out["calls"] = None
+    torch.save(out, work / f"rank{rank}.pt")
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def ddp_group(key):
+    """The part of the model a state key belongs to: backbone_3d,
+    backbone_2d, the head's dense layers (ahead of the query selection),
+    its decoder or its prediction heads (after it)."""
+    parts = key.split(".")
+    if parts[0] != "dense_head":
+        return parts[0]
+    return "dense_head." + (parts[1] if parts[1] in (
+        "decoder", "prediction_head") else "dense")
+
+
+def ddp_compare(torch, got, want):
+    """The two-rank step's state after its first step against the
+    one-process step's: each error over its tolerance (the DDP_* above),
+    the largest of each kind and of each kind and model part; the share
+    of the parameters' entries within their tolerance."""
+    # a leaf's scale: its largest gradient, but at least DDP_GRAD_FLOOR of
+    # the model's largest (a bias ahead of a batch-statistic BN has a true
+    # gradient of 0 and holds f32 noise)
+    floor = DDP_GRAD_FLOOR * max(float(g.abs().max())
+                                 for g in want["grads"].values())
+    scales = {k: max(float(g.abs().max()), floor)
+              for k, g in want["grads"].items()}
+    lw = want["metrics"]["loss"]
+    errs = {"loss": abs(got["metrics"]["loss"] - lw)
+            / (DDP_LOSS_RTOL * abs(lw))}
+    parts, worst = {}, {}
+    within, entries = 0, 0
+
+    def note(kind, key, e):
+        g = f"{kind} {ddp_group(key)}"
+        parts[g] = max(parts.get(g, 0.0), e)
+        if e > errs.get(kind, -1.0):
+            errs[kind], worst[kind] = e, key
+
+    for k, g in want["grads"].items():
+        note("grad", k, float((got["grads"][k] - g).abs().max())
+             / (DDP_GRAD_TOL * scales[k]))
+    for k, v in want["state"].items():
+        a = got["state"][k]
+        if not v.is_floating_point():
+            note("int", k, float(not torch.equal(a, v)) * 2)
+        elif k in want["grads"]:
+            g = want["grads"][k].abs()
+            tol = torch.where(g > DDP_GRAD_TOL * scales[k],
+                              DDP_PARAM_ATOL, TRAIN_OPT["LR"] * 1.05)
+            r = (a - v).abs() / tol
+            within += int((r <= 1).sum())
+            entries += r.numel()
+            note("param", k, float(r.max()))
+        else:
+            note("bn", k, float(((a - v).abs() / (
+                DDP_BN_ATOL + DDP_BN_RTOL * v.abs())).max()))
+    errs["param_share_within"] = within / max(entries, 1)
+    return errs, worst, parts
+
+
+def reference_state(torch, det, rules):
+    """The model's state in the reference's names and layouts: each import
+    rule inverted (sparse kernels as spconv v2 (O, kz, ky, kx, I), the
+    query / key / value thirds concatenated into in_proj, the
+    reference's kernel-1 Conv1d weights (O, I, 1))."""
+    state = det.state_dict()
+    grouped = {}
+    for tkey, pkey, tr in rules:
+        if pkey in state:
+            grouped.setdefault(tkey, []).append((pkey, tr.__name__))
+    out = {}
+    for tkey, parts in grouped.items():
+        vals = [state[p] for p, _ in parts]
+        if len(vals) == 3:
+            out[tkey] = torch.cat(vals).clone()
+        elif parts[0][1] == "t_spconv":
+            k, i, o = vals[0].shape
+            kz, ky, kx = (3, 3, 3) if k == 27 else (k, 1, 1)
+            out[tkey] = vals[0].reshape(kz, ky, kx, i, o).permute(
+                4, 0, 1, 2, 3).contiguous()
+        elif parts[0][1] == "t_linear" and any(
+                c in tkey for c in ("class_encoding", "prediction_head",
+                                    "posembed")):
+            out[tkey] = vals[0][..., None].clone()
+        else:
+            out[tkey] = vals[0].clone()
+    return out
+
+
+def import_check(torch, cfg_mod, models_mod, synth, weights, cfg, dev):
+    """(c): a random main-path model's state in the reference's names and
+    layouts, imported into a fresh model: nothing mismatched or unmatched,
+    every parameter and buffer loaded, the same eval forward."""
+    from findnpropagate_torch.utils.ckpt_import import (
+        import_state_dict,
+        transfusion_rules,
+    )
+
+    ds = synth.SyntheticDataset(cfg_mod.EDict(synth.bench_data_cfg(1, cfg)),
+                                cfg.CLASS_NAMES, training=False)
+    source = models_mod.build_network(copy.deepcopy(cfg.MODEL), 10, ds,
+                                      device=dev)
+    weights.init_random_(source, seed=1)
+    gen = torch.Generator(device="cpu").manual_seed(1)
+    with torch.no_grad():
+        for k, t in source.state_dict().items():
+            if k.endswith(("mean", "running_mean")):
+                t.copy_(0.1 * torch.randn(t.shape, generator=gen))
+            elif k.endswith(("var", "running_var")):
+                t.copy_(0.5 + torch.rand(t.shape, generator=gen))
+            elif k.endswith("num_batches_tracked"):
+                t.fill_(7)
+    rules = transfusion_rules(cfg.MODEL)
+    t0 = time.perf_counter()
+    ref = reference_state(torch, source, rules)
+    ref = {k: v.cpu() for k, v in ref.items()}
+    det = models_mod.build_network(copy.deepcopy(cfg.MODEL), 10, ds,
+                                   device=dev)
+    report = import_state_dict(ref, det, rules)
+    import_s = time.perf_counter() - t0
+    loaded = {p for _, p in report["loaded"]}
+    missing = sorted(set(det.state_dict()) - loaded)
+    if report["mismatched"] or report["unmatched_torch"] or missing:
+        raise AssertionError(f"import: mismatched {report['mismatched'][:3]}"
+                             f", unmatched {report['unmatched_torch'][:3]}, "
+                             f"not loaded {missing[:3]}")
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in ds.batch(range(1)).items()}
+    outs = []
+    for m in (source, det):
+        m.eval()
+        with torch.no_grad():
+            out = m(batch)
+            outs.append((out["transfusion_preds"], m.post_process(out)))
+    (p0, d0), (p1, d1) = outs
+    err = max(float((p0[k].float() - p1[k].float()).abs().max())
+              for k in p0 if isinstance(p0[k], torch.Tensor))
+    same = all(torch.equal(a, b) for a, b in zip(d0, d1))
+    if err != 0.0 or not same:
+        raise AssertionError(f"import: forward off by {err}, detections "
+                             f"equal {same}")
+    return {"tensors": len(ref), "loaded": len(report["loaded"]),
+            "state_entries": len(det.state_dict()), "import_s": import_s,
+            "forward_max_abs_err": err, "detections": int(d1.count.sum())}
+
+
+def demo_check(torch, cfg_mod, synth, cfg, cfg_file, work, dev):
+    """(d): DemoDataset and the detection loop of tools/demo.py over
+    DDP_DEMO_FILES .bin files of bench.py's lidar_ring scenes (x, y, z,
+    intensity and a zero ring column), drawn in both modes where
+    matplotlib imports."""
+    import importlib.util
+
+    from findnpropagate_torch.tools import demo
+
+    bins = work / "demo_bins"
+    bins.mkdir(parents=True, exist_ok=True)
+    gen = synth.SyntheticDataset(cfg_mod.EDict(synth.bench_data_cfg(
+        DDP_DEMO_FILES, cfg)), cfg.CLASS_NAMES, training=False)
+    for i in range(DDP_DEMO_FILES):
+        pts = gen.generate_scene(i)["points"]
+        np.concatenate([pts, np.zeros((len(pts), 1), np.float32)], 1) \
+            .astype(np.float32).tofile(bins / f"{i:06d}.bin")
+    drawing = importlib.util.find_spec("matplotlib") is not None
+    out = {"files": DDP_DEMO_FILES, "drawn": drawing}
+    if not drawing:
+        log("demo: drawing not run: matplotlib is not installed on this "
+            "machine (the detections are)")
+    feats = ["--set", "DATA_CONFIG.POINT_FEATURE_ENCODING.used_feature_list",
+             "x,y,z,intensity",
+             "DATA_CONFIG.POINT_FEATURE_ENCODING.src_feature_list",
+             "x,y,z,intensity"]
+    for mode in (("bev", "3d") if drawing else ("none",)):
+        t0 = time.perf_counter()
+        found = demo.main(["--cfg_file", cfg_file, "--data_path", str(bins),
+                           "--out_dir", str(work / f"demo_{mode}"), "--mode",
+                           mode, "--device", dev, *feats])
+        out[f"{mode}_s"] = time.perf_counter() - t0
+        if sorted(found) != [f"{i:06d}" for i in range(DDP_DEMO_FILES)]:
+            raise AssertionError(f"demo: frames {sorted(found)}")
+        for fid, (boxes, scores, labels) in found.items():
+            if not (len(boxes) > 0 and np.isfinite(boxes).all()
+                    and np.isfinite(scores).all()):
+                raise AssertionError(f"demo {fid}: {len(boxes)} boxes")
+        out["detections"] = {k: len(v[0]) for k, v in found.items()}
+        if mode != "none":
+            pngs = sorted((work / f"demo_{mode}").glob("*.png"))
+            if len(pngs) != DDP_DEMO_FILES or any(
+                    p.read_bytes()[:4] != b"\x89PNG" for p in pngs):
+                raise AssertionError(f"demo {mode}: {pngs}")
+    return out
+
+
+def dist_cli(cfg_file, cfg, paper_root, work, env, dev):
+    """(a): train.py --dist under `torchrun --standalone --nproc_per_node
+    1` for two steps of 4 over the tree's two train frames listed four
+    times (no CBGS resampling), then test.py on its checkpoint; the
+    gates and the wall seconds."""
+    data = ["--set", "DATA_CONFIG.DATA_PATH", str(paper_root),
+            "DATA_CONFIG.BALANCED_RESAMPLING", "False",
+            "DATA_CONFIG.INFO_PATH.train", ",".join([DDP_TRAIN_INFOS] * 4)]
+    dev_args = [] if dev == "cuda" else ["--device", dev]
+    run_dir = work / "output" / cfg.EXP_GROUP_PATH / cfg.TAG / "default"
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", "1", "-m", "findnpropagate_torch.tools.train",
+         "--dist", "--cfg_file", cfg_file, "--epochs", "1", "--seed", "0",
+         *dev_args, *data], cwd=work, env=env, capture_output=True,
+        text=True, timeout=DDP_TIMEOUT)
+    text = proc.stdout + proc.stderr
+    (work / "train_dist.log").write_text(text)
+    if proc.returncode != 0:
+        raise AssertionError(f"train.py --dist: exit {proc.returncode}\n"
+                             f"{text[-3000:]}")
+    out = {"train_dist_s": time.perf_counter() - t0}
+    backend = "nccl" if dev == "cuda" else "gloo"
+    ckpts = sorted(p.name for p in (run_dir / "ckpt").glob("*"))
+    losses = [float(t.split("=")[1]) for line in text.splitlines()
+              if " it " in line for t in line.split()
+              if t.startswith("loss=")]
+    if (f"world size 1 ({backend})" not in text
+            or "global batch 4" not in text
+            or ckpts != ["checkpoint_1.pt"] or " it 0/2 " not in text
+            or not losses or not all(math.isfinite(v) for v in losses)):
+        raise AssertionError(f"train.py --dist: checkpoints {ckpts}, losses "
+                             f"{losses}\n{text[-2000:]}")
+    out["train_dist"] = {"backend": backend, "checkpoints": ckpts,
+                         "losses": losses}
+    out["test_s"], _ = run_cli(
+        "test", ["--cfg_file", cfg_file, "--ckpt",
+                 str(run_dir / "ckpt" / "checkpoint_1.pt"), *dev_args,
+                 *data[:3]], work, "test_dist_ckpt")
+    res = json.loads((run_dir / "eval" / "result.json").read_text())
+    if not (math.isfinite(res["NDS"]) and math.isfinite(res["mAP"])):
+        raise AssertionError(f"test.py on the --dist checkpoint: {res}")
+    out["test_result"] = {k: res[k] for k in ("NDS", "mAP")}
+    return out
+
+
+def ddp_phase(torch, mods, smi, paper_root, dev="cuda", cfg_file=None):
+    """Phase 19: (a) `dist_cli` in a thread of its own, beside (c) the
+    reference-checkpoint import at full width, (d) the demo and (b) the
+    two-rank step over gloo on the one card against the one-process step
+    on the same rows (its times taken beside (a)'s processes)."""
+    cfg_mod, models_mod, synth, tp, ws, lap, weights, optimization, \
+        trainer = mods
+    t_phase = time.perf_counter()
+    cfg_file = cfg_file or str(ROOT / CFG_FILE)
+    cfg = cfg_mod.cfg_from_yaml_file(cfg_file)
+    work = ROOT / DDP_WORK
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    (work / "tools").symlink_to(ROOT / "tools")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = {"device": smi}
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        cli = pool.submit(dist_cli, cfg_file, cfg, paper_root, work, env,
+                          dev)
+        out["import"] = import_check(torch, cfg_mod, models_mod, synth,
+                                     weights, cfg, dev)
+        log(f"reference-checkpoint import at full width ({smi}): "
+            f"{out['import']}")
+        out["demo"] = demo_check(torch, cfg_mod, synth, cfg, cfg_file, work,
+                                 dev)
+        log(f"demo ({smi}): {out['demo']}")
+        out.update(two_rank_check(torch, mods, smi, cfg, cfg_file, work, env,
+                                  dev))
+        out.update(cli.result())
+    log(f"train.py --dist under torchrun ({smi}): {out['train_dist']}, "
+        f"{out['train_dist_s']:.1f} s; test.py on its checkpoint "
+        f"{out['test_s']:.1f} s {out['test_result']}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 19: {out['phase_s']:.1f} s")
+    return out
+
+
+def two_rank_check(torch, mods, smi, cfg, cfg_file, work, env, dev):
+    """(b): one process on four rows (its queries kept), one process on
+    rank 0's two rows alone, then two ranks over gloo on the one card on
+    two rows each, all on the four rows' queries (PinQueries)."""
+    cfg_mod, models_mod, synth, tp, ws, lap, weights, optimization, \
+        trainer = mods
+    out = {}
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    data = synth.bench_data_cfg(2 * DDP_BATCH, cfg)
+    ds = synth.SyntheticDataset(cfg_mod.EDict(data), cfg.CLASS_NAMES,
+                                training=True)
+    batch = {k: torch.from_numpy(v) for k, v in
+             ds.batch(range(2 * DDP_BATCH)).items()}
+    one = ddp_model(cfg_mod, models_mod, synth, weights, cfg, data, dev)
+    full = ddp_two_steps(torch, trainer, optimization, tp, ws, one,
+                         {k: v.to(dev) for k, v in batch.items()}, False)
+    del one
+    # the noise of the comparison: one process on the same rows in another
+    # order (the same step; other sums, other bf16 roundings)
+    order = list(range(DDP_BATCH, 2 * DDP_BATCH)) + list(range(DDP_BATCH))
+    again = ddp_model(cfg_mod, models_mod, synth, weights, cfg, data, dev)
+    other = ddp_two_steps(torch, trainer, optimization, tp, ws, again,
+                          {k: v[order].to(dev) for k, v in batch.items()},
+                          False, full["queries"][order])
+    del again
+    noise = ddp_compare(torch, other, full)[0]
+    # the gates tell per-process statistics apart: one process on rank 0's
+    # rows alone must fail them in its BN buffers
+    half = ddp_model(cfg_mod, models_mod, synth, weights, cfg, data, dev)
+    alone = ddp_two_steps(torch, trainer, optimization, tp, ws, half,
+                          {k: v[:DDP_BATCH].to(dev)
+                           for k, v in batch.items()}, False,
+                          full["queries"][:DDP_BATCH])
+    del half
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    torch.save({"device": dev, "cfg_file": cfg_file, "batch": batch,
+                "data": data, "queries": full["queries"]}, work / "setup.pt")
+    port = str(free_port())
+    t_b = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--ddp-worker",
+         str(r), port, str(work)], env=env,
+        stdout=open(work / f"rank{r}.log", "w"), stderr=subprocess.STDOUT)
+        for r in range(2)]
+    try:
+        codes = [p.wait(timeout=DDP_TIMEOUT) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if codes != [0, 0]:
+        tails = [(work / f"rank{r}.log").read_text()[-2000:]
+                 for r in range(2)]
+        raise AssertionError(f"two-rank step: exits {codes}\n" +
+                             "\n".join(tails))
+    out["two_rank_s"] = time.perf_counter() - t_b
+    ranks = [torch.load(work / f"rank{r}.pt", weights_only=False)
+             for r in range(2)]
+    for k, v in ranks[0]["state"].items():
+        if not torch.equal(v, ranks[1]["state"][k]):
+            raise AssertionError(f"two-rank step: the ranks' {k} differ")
+    errs, worst, parts = ddp_compare(torch, ranks[0], full)
+    alone_errs = ddp_compare(torch, alone, full)[0]
+    # gradients and parameters within their tolerances, or within
+    # DDP_NOISE_FACTOR times the noise of the comparison where the noise
+    # alone exceeds them (the kernels' bf16 operands); the rest within
+    # their tolerances
+    over = {k: v for k, v in errs.items() if k != "param_share_within"
+            and v > max(1.0, DDP_NOISE_FACTOR * noise[k]
+                        if k in ("grad", "param") else 1.0)}
+    if over:
+        raise AssertionError(f"two-rank step against one process: errors "
+                             f"over tolerance {errs} at {worst}; the same "
+                             f"rows in another order: {noise}")
+    if not alone_errs["bn"] > 1:
+        raise AssertionError("two-rank step: rank 0's rows alone pass the "
+                             f"gates, {alone_errs}")
+    for r, res in enumerate(ranks):
+        if dev == "cuda" and res["launches"] != TRAIN_LAUNCHES:
+            raise AssertionError(f"two-rank step rank {r}: launches "
+                                 f"{res['launches']}, want {TRAIN_LAUNCHES}")
+    out["rank0_rows_alone_errors"] = alone_errs
+    out["other_order_errors"] = noise
+    out["two_rank"] = {
+        "rows_per_rank": DDP_BATCH, "errors": errs, "worst": worst,
+        "errors_by_part": parts, "loss": ranks[0]["metrics"]["loss"],
+        "one_process_loss": full["metrics"]["loss"],
+        "unused_parameters": ranks[0]["unused"],
+        "launches_per_rank": [r["launches"] for r in ranks],
+        "ddp_step_ms": [r["step2_ms"] for r in ranks],
+        "one_process_step_ms": full["step2_ms"],
+        "held_calls_per_rank": [len(r.get("held") or []) for r in ranks],
+        "held_max_abs_err": {n: max([h["max_abs_err"] for r in ranks
+                                     for h in r.get("held") or []
+                                     if h["name"] == n] or [0.0])
+                             for n in TRAIN_LAUNCHES}}
+    log(f"two ranks over gloo on one card, {DDP_BATCH} rows each, against "
+        f"one process at {2 * DDP_BATCH} ({smi}): {out['two_rank']} "
+        f"(errors over their tolerances); one process on the rows in "
+        f"another order: {noise}; on rank 0's rows alone: {alone_errs}")
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--batches", type=int, nargs="+", default=[1, 8])
@@ -7028,7 +7600,12 @@ def main():
     report["parta2"], pa_rows, pa_entries = parta2_phase(torch, mods, smi)
     report["parta2_kernel_calls"] = pa_rows
 
-    # ---- 19. result lines
+    # ---- 19. train.py --dist under torchrun (NCCL, one rank), the
+    # reference-checkpoint import at full width, the demo, and two ranks
+    # over gloo on the one card against one process
+    report["ddp"] = ddp_phase(torch, mods, smi, ROOT / PAPER_WORK / "nuscenes")
+
+    # ---- 20. result lines
     first_batch = report["main_path"][0]["launches_per_forward"]
     pick = {
         # K1 at L0 (first call); K2 at the L0 16->16 subm conv with the
@@ -7077,6 +7654,9 @@ def main():
                 "launches"][name],
             "launches_open_vocab_extraction_batch": report["open_vocab"][
                 "launches_per_extraction_batch"][name],
+            "launches_ddp_rank_step": [
+                r[name] for r in report["ddp"]["two_rank"][
+                    "launches_per_rank"]],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
@@ -7128,6 +7708,8 @@ def main():
 
 if __name__ == "__main__":
     try:
+        if sys.argv[1:2] == ["--ddp-worker"]:
+            sys.exit(ddp_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4]))
         sys.exit(main())
     except Exception:
         traceback.print_exc()

@@ -8,12 +8,17 @@ are PyTorch's: 2D maps are NCHW, conv weights OIHW. BatchNorm uses the
 reference's eps=1e-3 and, in training, stores what flax stores: running
 averages with momentum 0.99 (torch's 0.01) of the batch mean and of the
 *biased* batch variance (torch.nn.BatchNorm stores the unbiased one).
+Inside a data-parallel training step (parallel/mesh.py::global_batch) the
+statistics are those of the global batch, as the reference's one program
+computes them, so the running averages agree on every process.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+
+from ..parallel.mesh import all_sum
 
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.99      # flax convention: new = m * old + (1 - m) * batch
@@ -29,8 +34,11 @@ class _FlaxBatchNorm:
             return super().forward(x)
         axes = [0] + list(range(2, x.ndim))
         shape = [1, -1] + [1] * (x.ndim - 2)
-        mean = x.mean(axes)
-        var = torch.clamp((x * x).mean(axes) - mean * mean, min=0.0)
+        # the (global) batch's moments: sums of x and x^2 and the count
+        s1, s2, n = all_sum(x.sum(axes), (x * x).sum(axes),
+                            x.new_tensor(float(x.numel() // x.shape[1])))
+        mean = s1 / n
+        var = torch.clamp(s2 / n - mean * mean, min=0.0)
         with torch.no_grad():
             self.running_mean.mul_(BN_MOMENTUM).add_(
                 mean, alpha=1 - BN_MOMENTUM)
@@ -79,9 +87,11 @@ class MaskedBatchNorm(nn.Module):
         if self.training:
             axes = [d for d in range(x.ndim) if d != cdim]
             mf = m.to(x.dtype)
-            n = torch.clamp(valid.sum().to(x.dtype), min=1.0)
-            mean = (x * mf).sum(axes) / n
-            var = (((x - mean.view(shape)) ** 2) * mf).sum(axes) / n
+            # two passes over the valid cells of the global batch
+            total, n = all_sum((x * mf).sum(axes), valid.sum().to(x.dtype))
+            n = torch.clamp(n, min=1.0)
+            mean = total / n
+            var = all_sum((((x - mean.view(shape)) ** 2) * mf).sum(axes)) / n
             with torch.no_grad():
                 self.mean.mul_(BN_MOMENTUM).add_(mean, alpha=1 - BN_MOMENTUM)
                 self.var.mul_(BN_MOMENTUM).add_(var, alpha=1 - BN_MOMENTUM)

@@ -32,6 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...parallel.mesh import global_rows
 from ...utils import losses as L
 from ...utils.box_coders import ResidualCoder
 from ...utils.geometry import limit_period
@@ -132,7 +133,7 @@ class AnchorHeadTools(nn.Module):
         box_preds = out_batch["box_preds"]
         labels = targets["box_cls_labels"]
         reg_targets = targets["box_reg_targets"]
-        batch_size = cls_preds.shape[0]
+        batch_size = global_rows(cls_preds.shape[0])
 
         positives = labels > 0
         cls_weights = (labels >= 0).to(torch.float32)

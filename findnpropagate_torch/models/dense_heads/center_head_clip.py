@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...parallel.mesh import all_sum
 from ..blocks import BatchNorm2d
 from .center_head import CenterHead, _gather_rows, _nms_detections
 from .transfusion_head import SeparateHead
@@ -95,7 +96,7 @@ class CenterHeadCLIP(CenterHead):
         ce = -torch.gather(F.log_softmax(logits, dim=-1), -1,
                            labels[..., None])[..., 0]
         m = masks.to(torch.float32)
-        emb_loss = (ce * m).sum() / torch.clamp(m.sum(), min=1.0) \
+        emb_loss = (ce * m).sum() / torch.clamp(all_sum(m.sum()), min=1.0) \
             * float(lw.get("emb_weight", 1.0))
         total = hm_loss + loc_loss + emb_loss
         return total, {"hm_loss": hm_loss.detach(),

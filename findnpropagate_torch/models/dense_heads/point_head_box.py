@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...parallel.mesh import all_sum
 from ...utils import losses as L
 from ...utils.box_coders import PointResidualCoder
 from ...utils.geometry import enlarge_box3d, points_in_boxes_mask
@@ -174,7 +175,8 @@ def _box_head_loss(out_batch, cfg, labels, box_targets, onehot):
     lw = cfg["LOSS_CONFIG"]["LOSS_WEIGHTS"]
     pos = (labels > 0) & valid
     neg = (labels == 0) & valid
-    pos_norm = pos.float().sum()
+    pos_num = pos.float().sum()
+    pos_norm = all_sum(pos_num)          # over the global batch
     cls_w = (neg.float() + pos.float()) / torch.clamp(pos_norm, min=1.0)
     cls_loss = L.sigmoid_focal_loss(cls_preds, onehot, cls_w).sum() \
         * float(lw["point_cls_weight"])
@@ -187,7 +189,7 @@ def _box_head_loss(out_batch, cfg, labels, box_targets, onehot):
         * float(lw["point_box_weight"])
     return cls_loss + reg_loss, {"point_loss_cls": cls_loss,
                                  "point_loss_box": reg_loss,
-                                 "point_pos_num": pos_norm}
+                                 "point_pos_num": pos_num}
 
 
 def _extra_width(cfg):

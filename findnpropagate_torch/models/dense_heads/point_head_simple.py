@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ...parallel.mesh import all_sum
 from ...utils import losses as L
 from ...utils.geometry import points_in_boxes_mask
 from ..blocks import MaskedBatchNorm
@@ -60,7 +61,7 @@ def point_head_loss(out_batch, loss_cfg, extra_width=(0.2, 0.2, 0.2)):
             & (gt[..., 7] > 0)[..., None]                 # (B, G, K)
     targets = inside.any(dim=1).to(logits.dtype)
     w = valid.to(logits.dtype)
-    w = w / torch.clamp((targets * w).sum(), min=1.0)
+    w = w / torch.clamp(all_sum((targets * w).sum()), min=1.0)
     per = L.sigmoid_focal_loss(logits.reshape(-1, 1), targets.reshape(-1, 1),
                                w.reshape(-1))
     loss = per.sum() * float(loss_cfg["LOSS_WEIGHTS"].get(

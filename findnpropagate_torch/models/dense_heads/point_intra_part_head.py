@@ -20,6 +20,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ...parallel.mesh import all_sum
 from ...utils import losses as L
 from ...utils.geometry import rotate_points_along_z
 from .point_head_box import FCStacks, _take, decode_proposals, make_coder
@@ -83,7 +84,8 @@ def point_part_head_loss(out_batch, model_cfg, num_class):
     lw = model_cfg["LOSS_CONFIG"]["LOSS_WEIGHTS"]
     pos = (labels > 0) & valid
     neg = (labels == 0) & valid
-    pos_norm = pos.float().sum()
+    pos_num = pos.float().sum()
+    pos_norm = all_sum(pos_num)          # over the global batch
     cls_w = (neg.float() + pos.float()) / torch.clamp(pos_norm, min=1.0)
     onehot = F.one_hot(torch.clamp(labels, 0, num_class),
                        num_class + 1)[..., 1:].float()
@@ -95,4 +97,4 @@ def point_part_head_loss(out_batch, model_cfg, num_class):
         * float(lw["point_part_weight"])
     return cls_loss + part_loss, {"point_loss_cls": cls_loss,
                                   "point_loss_part": part_loss,
-                                  "point_pos_num": pos_norm}
+                                  "point_pos_num": pos_num}

@@ -28,6 +28,7 @@ from torch import nn
 
 from ...ops.lap import solve_lap
 from ...ops.rotated_iou import boxes_overlap_bev
+from ...parallel.mesh import all_sum
 from ...utils import losses as L
 from ..blocks import BN_EPS, BatchNorm1d, BatchNorm2d
 from ..model_utils.centernet import draw_heatmap, gaussian_radius
@@ -376,12 +377,15 @@ class TransFusionHead(nn.Module):
 
         hm_pred = L.clip_sigmoid(res["dense_heatmap"])
         hm_tgt = targets["heatmap"]
+        # both normalisers count over the (global) batch
+        hm_peaks, num_pos = all_sum((hm_tgt == 1.0).sum().float(),
+                                    targets["num_pos"])
         loss_hm = L.gaussian_focal_loss(hm_pred, hm_tgt).sum() / torch.clamp(
-            (hm_tgt == 1.0).sum().float(), min=1.0)
+            hm_peaks, min=1.0)
 
         labels = targets["labels"].reshape(-1)
         label_weights = targets["label_weights"].reshape(-1)
-        num_pos = torch.clamp(targets["num_pos"], min=1)
+        num_pos = torch.clamp(num_pos, min=1)
 
         if self.unknown_labels and "unknown_cls_weight" in lw_cfg:
             unk = targets["unknown_mask"].reshape(-1)
@@ -418,20 +422,27 @@ class TransFusionHead(nn.Module):
         ious_flat = targets["ious"].reshape(-1)
         zero = torch.zeros(()).to(ious_flat)
         with torch.no_grad():
+            # tb entries are this process's share of the global batch's
+            # value (runtime/trainer.py sums them): local sums over the
+            # global counts
+            per_class = [matched & (labels == ci)
+                         for ci in range(len(self.class_names or ()))]
+            counts = all_sum(torch.stack(
+                [matched.sum()] + [cm.sum() for cm in per_class]))
             tb = {
                 "loss_heatmap": loss_hm * float(lw_cfg["hm_weight"]),
                 "loss_cls": loss_cls * float(lw_cfg["cls_weight"]),
                 "loss_bbox": loss_bbox * float(lw_cfg["bbox_weight"]),
                 "matched_ious": torch.where(matched, ious_flat, zero).sum()
-                / torch.clamp(matched.sum(), min=1),
+                / torch.clamp(counts[0], min=1),
                 "loss_trans": total.detach(),
             }
             if self.class_names:
                 probs = torch.sigmoid(cls_score)
                 for ci, name in enumerate(self.class_names):
-                    cm = matched & (labels == ci)
+                    cm = per_class[ci]
                     n = cm.sum()
-                    nc = torch.clamp(n, min=1)
+                    nc = torch.clamp(counts[ci + 1], min=1)
                     tb[f"{name}_matches"] = n
                     tb[f"{name}_iou_mean"] = torch.where(
                         cm, ious_flat, zero).sum() / nc

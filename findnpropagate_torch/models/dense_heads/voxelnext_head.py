@@ -44,6 +44,7 @@ from ...ops.sparse_ops import (
     yxz_offset_deltas,
     yxz_sentinel_start,
 )
+from ...parallel.mesh import all_sum
 from ...utils import losses as L
 from ..backbones_3d.spconv_backbone import SparseConvParam
 from ..blocks import MaskedBatchNorm
@@ -324,7 +325,7 @@ class VoxelNeXtHead(nn.Module):
                                                   gt_raw) - 1.0
                 iou_p = torch.gather(preds["iou"][..., 0], 1, inds.long())
                 m = masks.float()
-                n_fg = torch.clamp(m.sum(), min=1e-4)
+                n_fg = torch.clamp(all_sum(m.sum()), min=1e-4)
                 iou_total = iou_total + ((iou_p - iou_t).abs() * m).sum() \
                     / n_fg
                 diou = bev_aligned_diou(pred_boxes, gt_raw)

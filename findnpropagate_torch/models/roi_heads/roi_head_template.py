@@ -30,6 +30,7 @@ from torch import nn
 
 from ...ops.nms import _top_k, nms_bev
 from ...ops.rotated_iou import boxes_iou3d
+from ...parallel.mesh import all_sum, global_rows
 from ...utils.box_coders import ResidualCoder
 from ...utils.geometry import rotate_points_along_z
 from ...utils.losses import corner_loss_lidar, smooth_l1
@@ -223,14 +224,15 @@ def rcnn_reg_loss(rcnn_reg, rois, gt_ct, gt_src, reg_valid, loss_cfg,
 
 
 def rcnn_cls_loss(rcnn_cls, cls_labels, loss_cfg):
-    """Binary cross entropy over every labelled ROI of the batch."""
+    """Binary cross entropy over every labelled ROI of the (global)
+    batch."""
     logits = rcnn_cls.reshape(-1)
     labels = cls_labels.reshape(-1)
     valid = (labels >= 0).to(logits.dtype)
     p = torch.sigmoid(logits)
     bce = -(labels * torch.log(torch.clamp(p, min=1e-7))
             + (1 - labels) * torch.log(torch.clamp(1 - p, min=1e-7)))
-    loss = (bce * valid).sum() / torch.clamp(valid.sum(), min=1.0) \
+    loss = (bce * valid).sum() / torch.clamp(all_sum(valid.sum()), min=1.0) \
         * float(loss_cfg["LOSS_WEIGHTS"]["rcnn_cls_weight"])
     return loss, {"rcnn_loss_cls": loss}
 
@@ -253,8 +255,9 @@ def two_stage_rcnn_loss(out_batch, loss_cfg):
                                 t["reg_valid_mask"], loss_cfg,
                                 ResidualCoder())
     tb = dict(tb)
-    tb.update({k: v.mean() for k, v in tb_reg.items()})
-    total = cls_loss + reg.mean()
+    rows = global_rows(reg.shape[0])     # the mean over the global batch
+    tb.update({k: v.sum() / rows for k, v in tb_reg.items()})
+    total = cls_loss + reg.sum() / rows
     tb["rcnn_loss"] = total
     return total, tb
 

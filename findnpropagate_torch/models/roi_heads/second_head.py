@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ...parallel.mesh import all_sum
 from ..pfe.voxel_set_abstraction import bev_bilinear
 from .roi_head_template import RoIHeadTemplate
 
@@ -96,6 +97,6 @@ def rcnn_iou_loss(out_batch, loss_cfg):
     else:   # smoothL1
         d = (rcnn_iou - labels).abs()
         per = torch.where(d < 1.0, 0.5 * d * d, d - 0.5)
-    loss = (per * valid).sum() / torch.clamp(valid.sum(), min=1.0) \
+    loss = (per * valid).sum() / torch.clamp(all_sum(valid.sum()), min=1.0) \
         * float(loss_cfg["LOSS_WEIGHTS"].get("rcnn_iou_weight", 1.0))
     return loss, {"rcnn_loss_iou": loss}

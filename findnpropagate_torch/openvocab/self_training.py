@@ -15,8 +15,11 @@ MaskCLIP; openvocab/box_classification.py) and returns the callable
 `extract_pseudo_labels` and `train_model_st` take as `relabeler`.
 
 The state lives in the detector module and the Optimizer, as in
-runtime/trainer.py; the reference's mesh arguments are not ported
-(ROADMAP.md queue 1 item 16).
+runtime/trainer.py. Self-training runs in one process: the reference's
+`mesh` argument (its training and extraction over a data mesh) is not
+ported, since extraction on several processes needs a design of its own
+(ROADMAP.md queue 1 item 16, `train_st` under DDP); `tools/train.py
+--dist` trains over several processes.
 """
 
 from __future__ import annotations

@@ -41,6 +41,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..parallel.mesh import all_sum
+
 INT32_MAX = 2 ** 31 - 1
 
 
@@ -263,12 +265,14 @@ def sparse_to_dense(grid: SparseGrid, features):
 
 def masked_batch_stats(features, valid):
     """Mean and biased variance over the valid rows: features (..., C),
-    valid (...) -> ((C,), (C,))."""
+    valid (...) -> ((C,), (C,)); over the global batch inside a
+    data-parallel training step (parallel/mesh.py::all_sum)."""
     m = valid[..., None].to(features.dtype)
     axes = tuple(range(features.ndim - 1))
-    n = torch.clamp(m.sum(), min=1.0)
-    mean = (features * m).sum(axes) / n
-    var = (((features - mean) ** 2) * m).sum(axes) / n
+    total, n = all_sum((features * m).sum(axes), m.sum())
+    n = torch.clamp(n, min=1.0)
+    mean = total / n
+    var = all_sum((((features - mean) ** 2) * m).sum(axes)) / n
     return mean, var
 
 

@@ -7,12 +7,25 @@ the state lives where PyTorch keeps it — the parameters and BN buffers in
 the detector module, the moments and the update count in the `Optimizer`
 (runtime/optimization.py) — and a step is eager: forward in training mode,
 Hungarian targets, loss, backward, clip, update. Checkpoints go through
-`torch.save` as {step, model, optimizer}. The reference's mesh arguments
-(data-parallel sharding) are not ported yet.
+`torch.save` as {step, model, optimizer}.
+
+The reference's mesh argument (one program over the batch sharded on a
+data mesh) becomes DDP: when a process group of more than one process is
+up (parallel/mesh.py::init_distributed), the step runs the detector under
+DistributedDataParallel inside `mesh.global_batch()`, where the BN
+statistics and the loss normalisers that count over the batch are summed
+across the processes, so each process's loss is its share of the global
+batch's loss. DDP averages the gradients, so the local loss is scaled by
+the world size before the backward, and the logged metrics are the sums
+of the shares. Microbatches of gradient accumulation run under `no_sync`
+but the last. Process 0 alone writes checkpoints, in the one-process
+format; every process ends an epoch at a barrier.
 """
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import json
 import os
 import time
@@ -20,6 +33,9 @@ import warnings
 from pathlib import Path
 
 import torch
+import torch.distributed as dist
+
+from ..parallel import mesh
 
 
 def _split(batch, accum_steps):
@@ -36,40 +52,93 @@ def _split(batch, accum_steps):
     return out
 
 
+class _Loss(torch.nn.Module):
+    """The detector's training loss as a module's forward, for DDP (which
+    syncs the gradients of what its forward ran)."""
+
+    def __init__(self, detector):
+        super().__init__()
+        self.detector = detector
+
+    def forward(self, batch, generator):
+        return self.detector.loss(batch, generator)
+
+
+def _ddp(detector, find_unused):
+    dev = next(detector.parameters()).device
+    return torch.nn.parallel.DistributedDataParallel(
+        _Loss(detector), device_ids=[dev] if dev.type == "cuda" else None,
+        broadcast_buffers=False, find_unused_parameters=find_unused)
+
+
 def make_train_step(detector, tx, seed: int = 17, accum_steps: int = 1):
     """Returns train_step(batch) -> metrics (dict of 0-d tensors: the
     loss's tb entries, ``loss`` and ``grad_norm`` before clipping). The
     step updates `detector` and `tx` in place.
 
     `seed` drives the dropout masks: one torch.Generator on the detector's
-    device, re-seeded from (seed, update count, microbatch) each time.
-    accum_steps > 1: gradient accumulation — the batch is split into
+    device, re-seeded from (seed, update count, microbatch, rank) each
+    time. accum_steps > 1: gradient accumulation — the batch is split into
     `accum_steps` microbatches run one after the other; gradients and tb
     entries are averaged, the BN statistics chain through the microbatches,
     and the optimizer sees one update of the whole batch, while peak
-    activations stay at microbatch size."""
+    activations stay at microbatch size.
+
+    With a process group of W > 1 processes up, `batch` is this process's
+    rows and the step is the one-process step over the W processes' rows
+    concatenated rank-major (at accum_steps 1; with accumulation each
+    global microbatch is every process's microbatch of that index, where
+    the reference cuts the concatenated batch into contiguous parts). The
+    first step lets DDP look for parameters that take no gradient
+    (``train_step.ddp["unused"]`` names them); when it finds none, later
+    steps run without the search."""
     dev = next(detector.parameters()).device
     gen = torch.Generator(device=dev)
+    rank, world = mesh.rank_and_world()
+    ddp = {"module": _ddp(detector, True) if world > 1 else None,
+           "searching": world > 1, "unused": []}
 
     def train_step(batch):
         detector.train()
         tx.zero_grad()
         micro = [batch] if accum_steps <= 1 else _split(batch, accum_steps)
         inv = 1.0 / len(micro)
+        wrapped = ddp["module"]
         total, tb_sum = None, {}
         for idx, mb in enumerate(micro):
-            gen.manual_seed((seed * 1_000_003 + tx.count) * 4099 + idx)
-            loss, tb = detector.loss(mb, gen)
-            (loss * inv).backward()
+            gen.manual_seed((seed * 1_000_003 + tx.count) * 4099 + idx
+                            + (rank << 48))
+            sync = (contextlib.nullcontext() if wrapped is None
+                    or idx == len(micro) - 1 else wrapped.no_sync())
+            with sync, mesh.global_batch():
+                loss, tb = (wrapped or detector.loss)(mb, gen)
+                (loss * (inv * world)).backward()
             total = loss.detach() if total is None else total + loss.detach()
             for k, v in tb.items():
                 v = v.detach().float()
                 tb_sum[k] = v if k not in tb_sum else tb_sum[k] + v
         metrics = {k: v * inv for k, v in tb_sum.items()}
         metrics["loss"] = total * inv
+        if world > 1:
+            # every entry is this process's share of the global value
+            keys = sorted(metrics)
+            flat = torch.stack([metrics[k].reshape(()) for k in keys])
+            dist.all_reduce(flat)
+            metrics = dict(zip(keys, flat.unbind()))
+        if ddp["searching"]:
+            ddp["searching"] = False
+            ddp["unused"] = [n for n, p in detector.named_parameters()
+                             if p.requires_grad and p.grad is None]
+            flag = torch.tensor(float(len(ddp["unused"])), device=dev)
+            dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+            if not flag.item():
+                ddp["module"] = wrapped = None
+                gc.collect()        # the first wrapper's autograd hooks go
+                ddp["module"] = _ddp(detector, False)
         metrics["grad_norm"] = tx.step()
         return metrics
 
+    train_step.ddp = ddp
     return train_step
 
 
@@ -188,11 +257,19 @@ def train_epochs(detector, loader, tx, epochs, logger=None, ckpt_dir=None,
     skips the first iterations of start_epoch. Every log interval the
     metrics are read (the step's one blocking read), a nonzero
     ``sparse_window_overflow`` raises a RuntimeWarning, and ``data_time`` /
-    ``step_time`` per step are added. Returns the logged history."""
+    ``step_time`` per step are added. Returns the logged history.
+
+    Under a process group (see make_train_step) `loader` yields this
+    process's rows, the metrics are the global batch's, process 0 alone
+    saves, and every process waits for the others at the end of an epoch."""
     train_step = make_train_step(detector, tx, seed=seed,
                                  accum_steps=accum_steps)
     dev = next(detector.parameters()).device
-    emit = logger.info if logger else print
+    rank, world = mesh.rank_and_world()
+    emit = (logger.info if logger else print) if rank == 0 \
+        else (lambda *a: None)
+    if rank:
+        ckpt_dir = writer = None
     history = []
     global_it = start_epoch * len(loader) + start_it
     last_timed_save = time.time()
@@ -213,6 +290,12 @@ def train_epochs(detector, loader, tx, epochs, logger=None, ckpt_dir=None,
             batch = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()
                      if k not in ("frame_id", "batch_size")}
             metrics = train_step(batch)
+            if world > 1 and global_it == start_epoch * len(loader) \
+                    + start_it:
+                emit("DDP over %d processes; parameters without a gradient "
+                     "(find_unused_parameters %s): %s" % (
+                         world, "on" if train_step.ddp["unused"] else "off",
+                         train_step.ddp["unused"] or "none"))
             global_it += 1
             if (ckpt_save_time_interval is not None and ckpt_dir is not None
                     and time.time() - last_timed_save
@@ -252,6 +335,8 @@ def train_epochs(detector, loader, tx, epochs, logger=None, ckpt_dir=None,
         emit(f"epoch {epoch} done in {time.time() - t0:.1f}s")
         if ckpt_dir is not None and (epoch + 1) % ckpt_save_interval == 0:
             save_checkpoint(ckpt_dir, detector, tx, step=epoch + 1)
+        if world > 1:
+            dist.barrier()
     if writer is not None:
         writer.flush()
     return history

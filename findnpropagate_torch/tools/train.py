@@ -12,8 +12,21 @@ remaining epochs (OPTIMIZATION's GRAD_ACCUM_STEPS and
 CKPT_SAVE_TIME_INTERVAL apply). Logs, tensorboard scalars and checkpoints
 go to output/<EXP_GROUP_PATH>/<TAG>/<extra_tag>/ under the working
 directory. Runs on CUDA unless `--device` names another device; raises
-when CUDA is missing and none is named. `--dist` (data-parallel training
-over several processes) is not ported and raises.
+when CUDA is missing and none is named.
+
+`--dist`: data-parallel training, one process per GPU, under torchrun or
+SLURM (findnpropagate_torch/tools/scripts/{dist_train,slurm_train}.sh):
+
+    torchrun --nproc_per_node 8 -m findnpropagate_torch.tools.train --dist \
+        --cfg_file <yaml>
+
+parallel/mesh.py::init_distributed reads the launcher's environment (NCCL
+on CUDA, each process on the GPU of its LOCAL_RANK; gloo with `--device
+cpu`). Each process loads BATCH_SIZE_PER_GPU rows of its shard of every
+epoch (`shard_id` = rank, `num_shards` = world size); the global batch is
+the world size times that, and the step is the one-process step over it
+(runtime/trainer.py). Process 0 writes the logs, scalars and checkpoints;
+every process resumes from the same checkpoint.
 
 The weights start from `utils/weights.py::init_random_` at `--seed` (the
 port has no counterpart of the reference's flax initialisers); the
@@ -29,10 +42,14 @@ import datetime
 import sys
 from pathlib import Path
 
+import torch
+import torch.distributed as dist
+
 from .. import config as cfg_mod
 from .. import resolve_device
 from ..datasets import build_dataloader
 from ..models import build_network
+from ..parallel.mesh import init_distributed
 from ..runtime.optimization import build_optimizer
 from ..runtime.trainer import (
     latest_checkpoint,
@@ -55,8 +72,9 @@ def parse_config(argv=None):
     parser.add_argument("--workers", type=int, default=0)
     parser.add_argument("--seed", type=int, default=42)
     parser.add_argument("--dist", action="store_true",
-                        help="multi-process data-parallel training (not "
-                        "ported: raises)")
+                        help="multi-process data-parallel training: DDP "
+                        "over the torchrun / SLURM environment "
+                        "(findnpropagate_torch/tools/scripts/)")
     parser.add_argument("--device", type=str, default=None,
                         help="cuda (the default) or cpu")
     parser.add_argument("--set", dest="set_cfgs", default=None,
@@ -82,11 +100,12 @@ def resume_point(args, ckpt_dir):
 
 def main(argv=None):
     args, cfg = parse_config(argv)
-    if args.dist:
-        raise NotImplementedError(
-            "--dist: data-parallel training over several processes (DDP) is "
-            "not ported yet (ROADMAP.md queue 1 item 16)")
     device = resolve_device(args.device)
+    rank, world = (0, 1)
+    if args.dist:
+        rank, world = init_distributed(device=device.type)
+        if device.type == "cuda":
+            device = torch.device("cuda", torch.cuda.current_device())
     batch_size = args.batch_size or cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU
     epochs = args.epochs or cfg.OPTIMIZATION.NUM_EPOCHS
 
@@ -95,13 +114,20 @@ def main(argv=None):
     ckpt_dir = output_dir / "ckpt"
     output_dir.mkdir(parents=True, exist_ok=True)
     logger = create_logger(
-        output_dir / f"log_train_{datetime.datetime.now():%Y%m%d-%H%M%S}.txt")
+        output_dir / f"log_train_{datetime.datetime.now():%Y%m%d-%H%M%S}.txt"
+        if rank == 0 else None, rank=rank)
     logger.info(f"device: {device}")
+    if args.dist:
+        logger.info(f"world size {world} "
+                    f"({dist.get_backend() if dist.is_initialized() else 'no group'})"
+                    f", batch {batch_size} per process, global batch "
+                    f"{batch_size * world}")
     cfg_mod.log_config_to_file(cfg, logger=logger)
 
     dataset, loader, _ = build_dataloader(
         cfg.DATA_CONFIG, cfg.CLASS_NAMES, batch_size=batch_size,
-        training=True, seed=args.seed, logger=logger)
+        training=True, seed=args.seed, logger=logger, shard_id=rank,
+        num_shards=world)
     detector = build_network(cfg.MODEL, num_class=len(cfg.CLASS_NAMES),
                              dataset=dataset, device=device)
     init_random_(detector, seed=args.seed)
@@ -114,7 +140,8 @@ def main(argv=None):
                     f"{start_it})")
         restore_checkpoint(resume, detector, tx)
 
-    writer = BatchingSummaryWriter(output_dir / "tensorboard", logger=logger)
+    writer = BatchingSummaryWriter(output_dir / "tensorboard",
+                                   logger=logger) if rank == 0 else None
     hooks = []
     if "HOOK" in cfg and "DisableAugmentationHook" in cfg.HOOK:
         hooks.append(disable_augmentation_hook(
@@ -126,8 +153,11 @@ def main(argv=None):
         accum_steps=int(cfg.OPTIMIZATION.get("GRAD_ACCUM_STEPS", 1)),
         ckpt_save_time_interval=float(
             cfg.OPTIMIZATION.get("CKPT_SAVE_TIME_INTERVAL", 300.0)))
-    writer.close()
+    if writer is not None:
+        writer.close()
     logger.info("training done")
+    if dist.is_initialized():
+        dist.destroy_process_group()
     return 0
 
 

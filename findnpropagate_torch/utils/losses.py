@@ -8,6 +8,8 @@ import math
 
 import torch
 
+from ..parallel.mesh import all_sum
+
 
 def sigmoid_cross_entropy_with_logits(logits, targets):
     """max(x,0) - x*z + log1p(exp(-|x|))."""
@@ -83,7 +85,9 @@ def gaussian_focal_loss(pred, target, alpha: float = 2.0, gamma: float = 4.0):
 
 def focal_loss_centernet(pred, target, mask=None):
     """Normalised CornerNet focal loss over a heatmap of probabilities;
-    returns a scalar: -(pos + neg) / #positives, or -neg without any."""
+    returns a scalar: -(pos + neg) / #positives, or -neg without any. The
+    positives are counted over the global batch (parallel/mesh.py), so
+    inside a data-parallel step this is the process's share of the loss."""
     eps = 1e-12
     pos_inds = (target == 1.0).to(pred.dtype)
     neg_inds = (target < 1.0).to(pred.dtype)
@@ -95,7 +99,7 @@ def focal_loss_centernet(pred, target, mask=None):
     pos_loss = torch.log(pred + eps) * torch.pow(1 - pred, 2) * pos_inds
     neg_loss = torch.log(1 - pred + eps) * torch.pow(pred, 2) \
         * neg_weights * neg_inds
-    num_pos = pos_inds.sum()
+    num_pos = all_sum(pos_inds.sum())      # over the global batch
     pos_sum, neg_sum = pos_loss.sum(), neg_loss.sum()
     return torch.where(num_pos > 0,
                        -(pos_sum + neg_sum) / torch.clamp(num_pos, min=1.0),
@@ -103,9 +107,9 @@ def focal_loss_centernet(pred, target, mask=None):
 
 
 def reg_loss_centernet(regr, gt_regr, mask):
-    """Masked L1, per code dimension, normalised by #positives. regr
-    (B, M, D); mask (B, M). Returns (D,)."""
-    num = mask.to(regr.dtype).sum()
+    """Masked L1, per code dimension, normalised by #positives (of the
+    global batch). regr (B, M, D); mask (B, M). Returns (D,)."""
+    num = all_sum(mask.to(regr.dtype).sum())    # over the global batch
     m = mask.to(regr.dtype)[..., None] * (~torch.isnan(gt_regr)).to(
         regr.dtype)
     gt = torch.where(torch.isnan(gt_regr), torch.zeros_like(gt_regr), gt_regr)

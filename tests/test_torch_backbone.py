@@ -32,6 +32,17 @@ CFG = {"MAX_VOXELS": 1024,
        "CHANNELS": [16, 16, 16, 16, 16], "OUT_CHANNELS": 16}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One torch thread for this module's tests: tier-1 runs six workers
+    on the machine's cores, where a pool per worker spends more time
+    handing off the port's small operations than it gains."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def make_batch(rng, b, n=300, v_cap=400, c=4):
     nx, ny, nz = GRID
     coords = np.full((b, v_cap, 3), -1, np.int32)

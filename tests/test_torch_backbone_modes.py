@@ -65,6 +65,17 @@ REFERENCE = {"gather": "gather", "xla": "xla", "posgather": "gather",
              "pallas": "gather"}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One torch thread for this module's tests: tier-1 runs six workers
+    on the machine's cores, where a pool per worker spends more time
+    handing off the port's small operations than it gains."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def jax_backbone(cfg):
     return VoxelResBackBone8x(model_cfg=cfg, input_channels=4,
                               grid_size=GRID)

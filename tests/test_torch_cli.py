@@ -53,6 +53,17 @@ KNOWN = ["car", "truck", "pedestrian"]
 STEP = 1 / 64
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One torch thread for this module's tests: tier-1 runs six workers
+    on the machine's cores, where a pool per worker spends more time
+    handing off the port's small operations than it gains."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def narrow_yaml(root, path):
     """The CenterPoint yaml narrowed, with the tree's DATA_CONFIG: 3
     sweeps, no CBGS (6 train frames: two steps of 3), no shuffling, the
@@ -122,11 +133,31 @@ def test_train_cli_writes_a_checkpoint_of_two_steps(trained):
     assert "sparse_window_overflow=0.0000" in log
 
 
-def test_train_cli_dist_is_refused(trained):
-    _, cfg_path, _ = trained
-    with pytest.raises(NotImplementedError, match="item 16"):
-        train_cli.main(["--cfg_file", str(cfg_path), "--dist",
-                        "--device", "cpu"])
+def test_train_cli_dist_is_refused(trained, monkeypatch):
+    """`--dist` under a launcher's world size of 1 (gloo on the CPU)
+    starts a group of one, logs it, and trains exactly as without it."""
+    import socket
+
+    work, cfg_path, run = trained
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    for k, v in (("MASTER_ADDR", "localhost"), ("MASTER_PORT", str(port)),
+                 ("WORLD_SIZE", "1"), ("RANK", "0"), ("LOCAL_RANK", "0")):
+        monkeypatch.setenv(k, v)
+    monkeypatch.chdir(work)
+    assert train_cli.main(["--cfg_file", str(cfg_path), "--epochs", "1",
+                           "--seed", "3", "--device", "cpu", "--dist",
+                           "--extra_tag", "dist"]) == 0
+    assert not torch.distributed.is_initialized()
+    dist_run = run.parent / "dist"
+    log = next(dist_run.glob("log_train_*.txt")).read_text()
+    assert "world size 1 (gloo), batch 3 per process, global batch 3" in log
+    got = torch.load(dist_run / "ckpt" / "checkpoint_1.pt", weights_only=True)
+    want = torch.load(run / "ckpt" / "checkpoint_1.pt", weights_only=True)
+    assert got["optimizer"]["count"] == want["optimizer"]["count"] == 2
+    for k, v in want["model"].items():
+        assert torch.equal(got["model"][k], v), k
 
 
 def rounded_post_process(post_process, round_fn):

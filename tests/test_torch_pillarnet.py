@@ -44,6 +44,17 @@ CLASSES = ["Car", "Pedestrian"]
 B = 2
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One torch thread for this module's tests: tier-1 runs six workers
+    on the machine's cores, where a pool per worker spends more time
+    handing off the port's small operations than it gains."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def batch_of(data):
     ds, _, _ = build_dataloader(copy.deepcopy(data), CLASSES, batch_size=B,
                                 training=True, prefetch=0)

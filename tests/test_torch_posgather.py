@@ -31,6 +31,17 @@ SUBM_CASES = {
 }
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One torch thread for this module's tests: tier-1 runs six workers
+    on the machine's cores, where a pool per worker spends more time
+    handing off the port's small operations than it gains."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def make_case(seed, density, v_cap, shape, c_in=5):
     rng = np.random.RandomState(seed)
     nz, ny, nx = shape

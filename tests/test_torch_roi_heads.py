@@ -83,6 +83,17 @@ IOU_TOL = 3e-4
 IOU_KEYS = ("gt_iou_of_rois", "rcnn_cls_labels")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One torch thread for this module's tests: tier-1 runs six workers
+    on the machine's cores, where a pool per worker spends more time
+    handing off the port's small operations than it gains."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def t(x):
     return torch.from_numpy(np.array(x))
 

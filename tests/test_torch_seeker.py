@@ -48,6 +48,17 @@ from test_seeker_parity import corners_np, seeker_oracle
 SMALL = dict(num_mags=2, num_sizes=2, num_rotations=2, ry_max=1.5)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One torch thread for this module's tests: tier-1 runs six workers
+    on the machine's cores, where a pool per worker spends more time
+    handing off the port's small operations than it gains."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def tt(a):
     return torch.from_numpy(np.asarray(a))
 

@@ -54,6 +54,17 @@ HEAD_KEYS = ("center", "height", "dim", "rot", "vel", "heatmap",
              "query_heatmap_score")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One torch thread for this module's tests: tier-1 runs six workers
+    on the machine's cores, where a pool per worker spends more time
+    handing off the port's small operations than it gains."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def narrow_cfg():
     cfg = cfg_from_yaml_file("tools/cfgs/nuscenes_models/transfusion_lidar.yaml")
     m = cfg.MODEL

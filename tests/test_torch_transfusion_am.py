@@ -40,6 +40,17 @@ B = 2
 FWD = dict(rtol=1e-4, atol=1e-4)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One torch thread for this module's tests: tier-1 runs six workers
+    on the machine's cores, where a pool per worker spends more time
+    handing off the port's small operations than it gains."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("anchors,bins", [(ANCHORS, 8),
                                           (JAM.DEFAULT_ANCHORS, 20)])
 def test_hard_bin_vectors_match_jax(anchors, bins):

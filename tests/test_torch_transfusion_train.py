@@ -56,6 +56,17 @@ OPT = {"OPTIMIZER": "adam", "LR": 1e-4, "WEIGHT_DECAY": 0.0,
        "GRAD_NORM_CLIP": 10.0}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One torch thread for this module's tests: tier-1 runs six workers
+    on the machine's cores, where a pool per worker spends more time
+    handing off the port's small operations than it gains."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def train_data():
     data = copy.deepcopy(DATA)
     data["SYNTHETIC"]["NUM_OBJECTS"] = 12     # fewer than the 20 proposals

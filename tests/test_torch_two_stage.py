@@ -89,6 +89,17 @@ OUT_KEYS = ("rois", "roi_labels", "roi_valid", "batch_cls_preds",
             "sparse_window_overflow", "sparse_active_counts")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One torch thread for this module's tests: tier-1 runs six workers
+    on the machine's cores, where a pool per worker spends more time
+    handing off the port's small operations than it gains."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def jax_round_stage1(next_fun, args, kwargs, context):
     """The JAX dense head's batch_cls_preds rounded to 1/16."""
     out = next_fun(*args, **kwargs)

@@ -65,6 +65,17 @@ SMALL = dict(top=(16, 512), side=(8, 128), raw_points=20000, n_objects=8,
              pcr=(-20.0, -20.0, -2.0, 20.0, 20.0, 4.0))
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One torch thread for this module's tests: tier-1 runs six workers
+    on the machine's cores, where a pool per worker spends more time
+    handing off the port's small operations than it gains."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def write_small_tree(root, splits=None):
     chip_smoke.write_waymo_tree(
         root, splits or {"train": (2, 4), "val": (1, 2)}, **SMALL)
