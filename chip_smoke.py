@@ -21,8 +21,9 @@ Phases (any failure exits non-zero and prints no result line):
      of five (5x5x5 stride 2, 32->64 and 64->128), K2 / K3 / K4 at 128->256
      and 256->256, K3 also transposed, the channel slices' launches
      printed; UNetV2's (3, 1, 1) stride-(2, 1, 1) conv_out, a single tap
-     group at K1 / K2 too, and a 128->64 merge conv) against their plain
-     versions, K1 on each
+     group at K1 / K2 too, and a 128->64 merge conv; the focal backbone's
+     importance convs 35 and 67 -> 27, K3 at Cin 48 and 80 and K4 at 64
+     and 128 -> 32) against their plain versions, K1 on each
      of them and on its own corners (tap windows with tap overflow,
      windows too large to stage, no sentinel); then a batch-1 forward of
      the main path records the arguments of every call of K1
@@ -239,7 +240,8 @@ Phases (any failure exits non-zero and prints no result line):
      newest checkpoint (finite NDS and mAP, the recall telemetry), and
      test.py on tools/cfgs/nuscenes_models/transfusion_lidar_st.yaml with
      phase 12's self-trained checkpoint and CLASS_NAMES set to the full
-     ten (the known / unknown recall and AP_B, AP_N, AR_N). Printed with
+     ten (the known / unknown recall and AP_B, AP_N, AR_N), beside the
+     other two. Printed with
      the card's name and power limit: ms/scan at batch 1 and 4, ms/step,
      peak memory, the CLIs' wall times and, with --profile, the head's
      share of a batch-4 forward's device time (<file>.cp_<yaml>.txt);
@@ -268,9 +270,10 @@ Phases (any failure exits non-zero and prints no result line):
      its plain version (K1 bit-equal); the 4-frame stack's points and time
      channel. train.py (1 epoch) and test.py on centerpoint.yaml as
      subprocesses with only DATA_PATH set (a checkpoint, finite losses,
-     every LEVEL_1 / LEVEL_2 AP and APH key finite); a raw ONCE tree
-     (ImageSets, per-sequence JSON, lidar_roof bins of 132k-141k points; 8
-     train and 4 val frames), `create_infos once`, train.py and test.py on
+     every LEVEL_1 / LEVEL_2 AP and APH key finite); beside those CLIs and
+     the misc datasets below, a raw ONCE tree (ImageSets, per-sequence
+     JSON, lidar_roof bins of 132k-141k points; 8 train and 4 val frames),
+     `create_infos once`, train.py and test.py on
      tools/cfgs/once_models/centerpoint.yaml (its AP keys finite); Lyft
      (its raw tables through `create_infos lyft`), Custom, Argo2 and
      Pandaset (info pickles written directly): one batch each through
@@ -295,8 +298,9 @@ Phases (any failure exits non-zero and prints no result line):
      posgather and the main path's windows (every K1-K4 launched, each
      call against its plain version, K1 bit-equal); train.py (1 epoch) and
      test.py on both yamls as subprocesses with only DATA_PATH set, the two
-     chains side by side (a checkpoint, finite losses, every KITTI AP key
-     finite). tools/cfgs/lyft_models/cbgs_second_multihead.yaml through
+     chains side by side and beside the runs below (a checkpoint, finite
+     losses, every KITTI AP key finite).
+     tools/cfgs/lyft_models/cbgs_second_multihead.yaml through
      LyftDataset on phase 14's tree: a batch-4 forward as written (its
      overflow and actives per level beside LEVEL_CAPACITIES printed), with
      every level's windows at least the main path's a gated batch-4
@@ -375,11 +379,14 @@ Phases (any failure exits non-zero and prints no result line):
      candidates), the ROI-aware (avg, max) or ROI point pooling's ms and
      PointNet2MSG's FPS ms. Then train.py (1 epoch) and test.py with only
      DATA_PATH set on phase 15's KITTI tree for kitti_models/pillarnet.yaml
-     (phase 16's), voxel_rcnn_car.yaml (phase 17's) and pointrcnn.yaml (the
-     first point-based data path, through sample_points), the three chains
-     side by side (a checkpoint, finite losses, every KITTI AP key
-     finite). Printed with the card's name and power limit: ms/scan, the
-     decode's share, ms/step, peak memory, the CLIs' wall seconds;
+     (phase 16's), voxel_rcnn_car.yaml (phase 17's), pointrcnn.yaml (the
+     first point-based data path, through sample_points) and phase 20's
+     voxel_rcnn_car_focal_multimodal.yaml (as written: XLA windowed, no
+     images, so USE_IMG's planes are zero), the four chains side by side
+     and beside the runs above (a checkpoint, finite losses, every KITTI
+     AP key finite). Printed with the card's name and power limit:
+     ms/scan, the decode's share, ms/step, peak memory, the CLIs' wall
+     seconds;
  19. data parallelism, the checkpoint import and the demo: train.py
      --dist under `torchrun --standalone --nproc_per_node 1` on the main
      yaml over phase 12's nuScenes tree (its two train frames listed four
@@ -403,9 +410,37 @@ Phases (any failure exits non-zero and prints no result line):
      version, and both steps' ms (beside train.py's process); the
      query top-k of the compared steps pinned to the one process's
      (`PinQueries`: an untrained heatmap ties at bf16 noise);
- 20. a `kernels` JSON line (phases 13-18 add, per yaml, each kernel's
-     calls of one batch-4 forward or of one training step, summed;
-     phase 19 each rank's launches of a step), then the result line
+ 20. the focal backbone and the image stack: nuscenes_models/
+     bevfusion.yaml at full width (Swin-T, LSS FPN, DepthLSS over
+     bev_pool, ConvFuser) with transfusion_lidar.yaml's posgather
+     backbone on bench.py's 200k-point scenes with 6 random 256 x 704
+     images: forwards at batch 1 and 4 (6 K1 and 16 K2, overflow 0,
+     finite detections; ms/scan, peak memory, and of one batch-4 forward
+     the camera branch's modules and bev_pool timed by CUDA events, with
+     their shares), a warm-up and a timed step at the yaml's batch of 3
+     (adam: the yaml's adam_cosineanneal is unknown to both packages; 3
+     K1, 25 K2, 6 K3, 16 K4); kitti_models/voxel_rcnn_car_focal_
+     multimodal.yaml on phase 15's tree, as written (XLA windowed: a
+     batch-4 forward, no kernel, the actives before and after each
+     dilation) and in pallas mode (blocks of 512, the main path's
+     windows) on batches carrying KITTI images (random planes, phase 15's
+     calibration): a batch-4 forward (18 K3: the importance convs at Cin
+     19 / 35 / 67 -> 27) and a warm-up and a timed step (35 K3, 21 K4, a
+     finite loss_box_of_pts > 0), every dilation of the forward bit for
+     bit on the CPU;
+     kitti_models/CaDDN.yaml as written on single-camera 375 x 1242 scenes
+     over its range (forwards at batch 1 and 4, a step at its batch of 4
+     with a finite depth_loss > 0, no kernel); every K1-K4 call of the
+     gated forwards and steps held against its plain version; then each
+     model narrowed on one scene on
+     the card and the CPU (float32, TF32 off, the backbones XLA windowed):
+     BEVFusion's camera, fused and 2D BEV maps, the focal levels (ids
+     equal unless an importance lies within 1e-5 of THRESHOLD or its TOPK
+     cut) and CaDDN's volume, BEV map and logits within 1e-4;
+ 21. a `kernels` JSON line (phases 13-18 and 20 add, per yaml, each
+     kernel's calls of one batch-4 forward or of one training step,
+     summed; phase 19 each rank's launches of a step), then the result
+     line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 With --before DIR (a checkout of an earlier commit of this repo, e.g.
@@ -814,6 +849,14 @@ WIDE_CORNERS = [
      (0, 0, 0), 4000, 4096, 2, 64, 128, 4096),
     ("3x3x3 subm, 128->64 (merge)", (9, 40, 40), (3, 3, 3), None, None,
      3000, 4096, 2, 128, 64, 4096),
+    # the focal backbone's importance convs with USE_IMG: 32 + 3 and 64 + 3
+    # channels to 27 (K3 at Cin 48 and 80, the latter's weights streamed,
+    # -> Cout 32; K4 at 64 and 128 -> 32); no K2 (their Cin is not a
+    # multiple of 16, and no cache routes them there)
+    ("3x3x3 subm, 35->27 (focal importance)", (9, 40, 40), (3, 3, 3), None,
+     None, 3000, 4096, 2, 35, 27, 4096),
+    ("3x3x3 subm, 67->27 (focal importance)", (9, 40, 40), (3, 3, 3), None,
+     None, 3000, 4096, 2, 67, 27, 4096),
 ]
 
 
@@ -824,9 +867,10 @@ def wide_corners(torch, tp, ws, so, block):
     (1, 2, 2); groups of five of a 5x5x5 stride-2 conv; 128 -> 256 and
     256 -> 256 (K2 where the kernel is 3 deep, K3 also in the transposed
     direction, whose transposed 5x5x5 and 256 -> 128 convs need Cin
-    slices); and UNetV2's: its (3, 1, 1) conv_out, a single tap group at
-    K1 / K2 as well, and a 128 -> 64 merge conv. Each against its plain
-    version; the launches per call printed (channel slices)."""
+    slices); UNetV2's: its (3, 1, 1) conv_out, a single tap group at
+    K1 / K2 as well, and a 128 -> 64 merge conv; the focal backbone's
+    importance convs, 35 and 67 -> 27 (K3 and K4 only). Each against its
+    plain version; the launches per call printed (channel slices)."""
     from findnpropagate_torch.ops.posgather import (
         flip_transpose_weights, tap_groups)
 
@@ -875,7 +919,7 @@ def wide_corners(torch, tp, ws, so, block):
                           window=window))
         row.update(k3t_err=kt.err, k3t_tol=kt.tol,
                    k3t_launches=ws.LAUNCHES["windowed_conv"])
-        if kernel[0] == 3:
+        if kernel[0] == 3 and cin % 16 == 0:
             lp = check_level(torch, tp, (ids, tgt, deltas),
                              dict(block=block, window=window,
                                   sentinel_start=sent), f"corner {name}")[0]
@@ -4800,6 +4844,19 @@ def cp_cli_phase(torch, smi, paper_root):
     run_dir = work / "output" / cfg.EXP_GROUP_PATH / cfg.TAG / "default"
     data = ["--set", "DATA_CONFIG.DATA_PATH", str(paper_root)]
     out = {"device": smi}
+    # the self-trained checkpoint phase 12 left under its working dir, its
+    # test.py beside the train.py -> test.py chain
+    st_work = ROOT / PAPER_WORK
+    st_cfg = cfg_mod.cfg_from_yaml_file(str(ROOT / ST_CFG))
+    st_run = st_work / "output" / st_cfg.EXP_GROUP_PATH / st_cfg.TAG \
+        / "default"
+    out["st_checkpoint"] = str(sorted(
+        (st_run / "ckpt").glob("checkpoint_*.pt"))[-1].relative_to(ROOT))
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    st_test = pool.submit(run_cli, "test", [
+        "--cfg_file", str(ROOT / ST_CFG), "--set", "DATA_CONFIG.DATA_PATH",
+        str(paper_root), "CLASS_NAMES", ST_FULL_NAMES], st_work,
+        "st_test_cli")
     out["train_s"], log_text = run_cli(
         "train", ["--cfg_file", cfg_file, "--epochs", str(CP_CLI_EPOCHS),
                   "--seed", "0", *data], work, "train_cli")
@@ -4828,16 +4885,8 @@ def cp_cli_phase(torch, smi, paper_root):
         raise AssertionError(f"test.py: result {res}")
     out["test_result"] = {k: v for k, v in res.items()
                           if k in ("NDS", "mAP") or k.startswith("recall")}
-    # the self-trained checkpoint phase 12 left under its working dir
-    st_work = ROOT / PAPER_WORK
-    st_cfg = cfg_mod.cfg_from_yaml_file(str(ROOT / ST_CFG))
-    st_run = st_work / "output" / st_cfg.EXP_GROUP_PATH / st_cfg.TAG \
-        / "default"
-    out["st_checkpoint"] = str(sorted(
-        (st_run / "ckpt").glob("checkpoint_*.pt"))[-1].relative_to(ROOT))
-    out["st_test_s"], _ = run_cli(
-        "test", ["--cfg_file", str(ROOT / ST_CFG), "--set", "DATA_CONFIG.DATA_PATH", str(paper_root),
-                 "CLASS_NAMES", ST_FULL_NAMES], st_work, "st_test_cli")
+    out["st_test_s"], _ = st_test.result()
+    pool.shutdown()
     res = json.loads((st_run / "eval" / "result.json").read_text())
     keys = ("AP_B", "AP_N", "AR_N", "NDS", "mAP", "recall_known_0.3",
             "recall_unknown_0.3")
@@ -5430,9 +5479,9 @@ def kitti_clis(cfg_mod, smi, work, jobs):
 
 def waymo_phase(torch, mods, smi, args, TD, device="cuda"):
     """Phase 14's Waymo part: the raw tree (write_waymo_tree in spawned
-    processes), create_infos waymo --gt_database as a subprocess, the
-    three Waymo CenterPoint yamls through WaymoDataset on it, and train.py
-    / test.py on centerpoint.yaml. Returns (report, rows, entries)."""
+    processes), create_infos waymo --gt_database as a subprocess and the
+    three Waymo CenterPoint yamls through WaymoDataset on it (its CLIs:
+    waymo_clis). Returns (report, rows, entries)."""
     cfg_mod = mods[0]
     work = ROOT / WAYMO_WORK
     shutil.rmtree(work, ignore_errors=True)
@@ -5519,20 +5568,27 @@ def waymo_phase(torch, mods, smi, args, TD, device="cuda"):
     log(f"waymo 4frames: stacked points {stats[False]}, points per time "
         f"lag (s) {rep['4frames']['time_channel']}")
 
-    cli = train_test_clis(cfg_mod, work, data_root,
+    return rep, rows, entries
+
+
+def waymo_clis(cfg_mod, smi):
+    """train.py (1 epoch) and test.py on phase 14's Waymo tree with
+    centerpoint.yaml as written (train_test_clis), every AP / APH key
+    finite."""
+    work = ROOT / WAYMO_WORK
+    cli = train_test_clis(cfg_mod, work, work / "data",
                           WAYMO_CFGS["centerpoint"], "waymo")
     keys = [f"OBJECT_TYPE_TYPE_{c.upper()}_LEVEL_{lvl}/{m}"
             for c in WAYMO_CLASSES for lvl in (1, 2) for m in ("AP", "APH")]
     if not all(k in cli["result"] and math.isfinite(cli["result"][k])
                for k in keys):
         raise AssertionError(f"waymo test.py: result {cli['result']}")
-    rep["cli"] = cli
     log(f"waymo CLIs ({smi}): train.py {cli['train_s']:.1f} s (losses "
         f"{cli['train_losses']}, {cli['checkpoints']}, logged overflow "
         f"{cli['train_logged_overflow']}), test.py {cli['test_s']:.1f} s "
         f"(overflow warnings {cli['test_overflow_warnings']}) "
         f"{cli['result']}")
-    return rep, rows, entries
+    return cli
 
 
 def once_phase(torch, mods, smi):
@@ -5617,16 +5673,21 @@ def misc_phase(torch, smi, cfg_mod, TD, device="cuda"):
 
 
 def datasets_phase(torch, mods, smi, args, device="cuda"):
-    """Phase 14: Waymo, ONCE and the misc datasets. Returns (report, rows,
-    kernels entries)."""
+    """Phase 14: Waymo, then its CLIs and the misc datasets with ONCE
+    beside them. Returns (report, rows, kernels entries)."""
     from findnpropagate_torch import datasets as TD
 
     t0 = time.perf_counter()
     report = {"device": smi}
     report["waymo"], rows, entries = waymo_phase(torch, mods, smi, args, TD,
                                                  device)
-    report["once"] = once_phase(torch, mods, smi)
-    report["misc"] = misc_phase(torch, smi, mods[0], TD, device)
+    # ONCE is host and subprocess work only (its tree, create_infos, its
+    # CLIs): side by side with Waymo's CLIs and the misc datasets
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        once = pool.submit(once_phase, torch, mods, smi)
+        report["waymo"]["cli"] = waymo_clis(mods[0], smi)
+        report["misc"] = misc_phase(torch, smi, mods[0], TD, device)
+        report["once"] = once.result()
     report["phase_s"] = time.perf_counter() - t0
     log(f"datasets phase: {report['phase_s']:.1f} s")
     return report, rows, entries
@@ -5650,7 +5711,7 @@ ANCHOR_NUS = {
         "tools/cfgs/nuscenes_models/cbgs_dyn_pp_centerpoint.yaml", True)}
 ANCHOR_WAYMO = "tools/cfgs/waymo_models/pointpillar_1x.yaml"
 ANCHOR_BATCHES = (1, 4)
-ANCHOR_REPS = 3                  # timed forwards after 2 warm-ups
+ANCHOR_REPS = 2                  # timed forwards after the warm-ups
 ANCHOR_TRAIN_STEPS = 2           # timed KITTI steps after a warm-up step
 KITTI_CLASSES = ("Car", "Pedestrian", "Cyclist")
 KITTI_SPLITS = {"train": 8, "val": 4}
@@ -5934,12 +5995,10 @@ def kitti_run(torch, mods, smi, name, root, dev):
 def kitti_phase(torch, mods, smi, dev):
     """Phase 15's KITTI part: the tree (write_kitti_tree), its infos and gt
     database (create_infos kitti --gt_database), pointpillar.yaml and
-    second.yaml in process (kitti_run), then train.py (1 epoch) and test.py
-    on both as subprocesses, the two chains side by side. Returns (report,
-    rows, entries)."""
+    second.yaml in process (kitti_run; their CLIs: anchor_phase). Returns
+    (report, rows, entries)."""
     from findnpropagate_torch.tools import create_infos
 
-    cfg_mod = mods[0]
     work = ROOT / ANCHOR_WORK / "kitti"
     shutil.rmtree(work, ignore_errors=True)
     root = work / "data"
@@ -5975,10 +6034,6 @@ def kitti_phase(torch, mods, smi, dev):
         f"{ps['warm_up']['ms']:.1f} ms, step {ps['ms_per_step']:.1f} ms, "
         f"launches {ps['warm_up']['launches']}, losses "
         f"{[round(v, 3) for v in ps['losses']]}")
-    clis = kitti_clis(cfg_mod, smi, work, {
-        f"kitti {name}": ANCHOR_KITTI[name] for name in ANCHOR_KITTI})
-    for name in ANCHOR_KITTI:
-        rep[name]["cli"] = clis[f"kitti {name}"]
     return rep, rows, entries
 
 
@@ -6108,20 +6163,29 @@ def plain_yaml_run(torch, mods, smi, yaml, root, dev, train, label):
 def anchor_phase(torch, mods, smi, dev="cuda"):
     """Phase 15: the anchor heads and pillar VFEs on the yamls as written
     (KITTI tree of its own; Lyft and Waymo on phase 14's trees, nuScenes
-    on phase 12's). Returns (report, rows, kernels entries)."""
+    on phase 12's), the KITTI yamls' train.py / test.py chains side by side
+    beside the runs after kitti_phase. Returns (report, rows, kernels
+    entries)."""
     t0 = time.perf_counter()
     rep = {"device": smi}
     rep["kitti"], rows, entries = kitti_phase(torch, mods, smi, dev)
-    rep["lyft"], rw, e = lyft_phase(torch, mods, smi, dev,
-                                    ROOT / MISC_WORK / "lyft" / "trainval")
-    rows, entries = rows + rw, entries + e
-    for name, (yaml, train) in ANCHOR_NUS.items():
-        rep[name] = plain_yaml_run(torch, mods, smi, yaml,
-                                   ROOT / PAPER_WORK / "nuscenes", dev, train,
-                                   f"nuscenes {name}")
-    rep["waymo_pointpillar_1x"] = plain_yaml_run(
-        torch, mods, smi, ANCHOR_WAYMO, ROOT / WAYMO_WORK / "data", dev,
-        True, "waymo pointpillar_1x")
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        clis = pool.submit(kitti_clis, mods[0], smi,
+                           ROOT / ANCHOR_WORK / "kitti", {
+                               f"kitti {name}": ANCHOR_KITTI[name]
+                               for name in ANCHOR_KITTI})
+        rep["lyft"], rw, e = lyft_phase(
+            torch, mods, smi, dev, ROOT / MISC_WORK / "lyft" / "trainval")
+        rows, entries = rows + rw, entries + e
+        for name, (yaml, train) in ANCHOR_NUS.items():
+            rep[name] = plain_yaml_run(torch, mods, smi, yaml,
+                                       ROOT / PAPER_WORK / "nuscenes", dev,
+                                       train, f"nuscenes {name}")
+        rep["waymo_pointpillar_1x"] = plain_yaml_run(
+            torch, mods, smi, ANCHOR_WAYMO, ROOT / WAYMO_WORK / "data", dev,
+            True, "waymo pointpillar_1x")
+        for name, cli in clis.result().items():
+            rep["kitti"][name.split()[1]]["cli"] = cli
     rep["phase_s"] = time.perf_counter() - t0
     log(f"anchor phase: {rep['phase_s']:.1f} s")
     return rep, rows, entries
@@ -6307,12 +6371,14 @@ def vn_entries(rows, path, launches):
 
 
 def vn_forwards(torch, mods, cfg, data, label, batches, need, dev,
-                reps=ANCHOR_REPS, warm=2, calls_want=None):
+                reps=ANCHOR_REPS, warm=1, calls_want=None, probe=None):
     """Eval forwards + post_process at each batch size with the launch
     gate (`need`: the kernels the mode launches; `calls_want`: each
     kernel's calls a forward, pa_calls_gate), the batch-4 forward's
     calls recorded and held against plain; `reps` timed forwards after
-    `warm` more (none with reps 0). Returns (report, rows, entries)."""
+    `warm` more (none with reps 0); `probe` (torch, det, batch) -> more
+    measurements on the largest batch, after its timed forwards. Returns
+    (report, rows, entries)."""
     cfg_mod, models_mod, synth, tp, ws, lap, weights, *_ = mods
     ds, batch, host_ms = data(cfg, False, max(batches))
     det = models_mod.build_network(copy.deepcopy(cfg.MODEL),
@@ -6332,6 +6398,9 @@ def vn_forwards(torch, mods, cfg, data, label, batches, need, dev,
         rep[b] = {"launches": got,
                   "overflow": int(out.get("sparse_window_overflow", 0)),
                   "detections_per_scan": [int(c) for c in dets.count]}
+        if "focal_active_counts" in out:
+            # the focal backbone's actives before / after each dilation
+            rep[b]["focal_actives"] = out["focal_active_counts"].tolist()
         # the gated forward's outputs go before the timed ones are made
         del out, dets
         if reps:
@@ -6340,6 +6409,8 @@ def vn_forwards(torch, mods, cfg, data, label, batches, need, dev,
             rep[b].update(ms_per_scan=med / b, times_ms=times, decode_ms=dec,
                           decode_share=share)
         rep[b]["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        if b == max(batches) and probe is not None:
+            rep[b].update(probe(torch, det, bt))
         if b == max(batches) and need:
             rows = hold_calls(torch, tp, ws, *calls, f"{label} forward")
             entries = vn_entries(rows, f"{label} forward batch {b}", got)
@@ -6583,27 +6654,40 @@ def timed_text(r):
 
 
 def ts_log(label, smi, rep, rows):
-    """Logs a run of TS_RUNS or PA_RUNS: its forwards, its training step
-    with the probe's counts and timings, and the worst of its calls held
-    against plain."""
+    """Logs a run of TS_RUNS, PA_RUNS or phase 20: its forwards (with the
+    focal backbone's actives and BEVFusion's camera branch where
+    measured), its training step with the probe's counts and timings,
+    and the worst of its calls held against plain, with the calls'
+    widths."""
     parts = [f"{label} ({smi}): {rep['yaml']}"]
-    for key in ("as_written", "posgather"):
+    for key in ("as_written", "posgather", "pallas", "forwards"):
         for b, r in rep.get(key, {}).items():
             if b == "loader_ms":
                 continue
-            parts.append(
-                f"{key.replace('_', ' ')} batch {b} {timed_text(r)}, "
-                f"launches {r['launches']}, overflow {r['overflow']}, "
-                f"detections {r['detections_per_scan']}, peak "
-                f"{r['peak_mem_gb']:.2f} GiB")
+            text = (f"{key.replace('_', ' ')} batch {b} {timed_text(r)}, "
+                    f"launches {r['launches']}, overflow {r['overflow']}, "
+                    f"detections {r['detections_per_scan']}, peak "
+                    f"{r['peak_mem_gb']:.2f} GiB")
+            if "focal_actives" in r:
+                text += (", actives before / after dilation "
+                         f"{r['focal_actives']}")
+            if "camera_ms" in r:
+                text += (", camera branch ms " + json.dumps(
+                    {k: round(v, 2) for k, v in r["camera_ms"].items()})
+                    + " share " + json.dumps(
+                    {k: round(v, 4) for k, v in r["camera_share"].items()}))
+            parts.append(text)
     if "step" in rep:
         st = rep["step"]
+        terms = {k: round(st["steps"][0][k], 4) for k in (
+            "loss_box_of_pts", "depth_loss") if k in st["steps"][0]}
         parts.append(
             f"step batch {st['batch']} {st['ms_per_step']:.1f} ms (warm-up "
             f"{st['warm_up']['ms']:.1f}), launches "
             f"{st['steps'][0]['launches']}, losses "
-            f"{[round(v, 3) for v in st['losses']]}, peak "
-            f"{st['peak_mem_gb']:.2f} GiB")
+            f"{[round(v, 3) for v in st['losses']]}"
+            + (f" {terms}" if terms else "")
+            + f", peak {st['peak_mem_gb']:.2f} GiB")
     if "probe" in rep:
         pr = rep["probe"]
         text = (f"ROI sampler fg {pr['fg']} bg {pr['bg']} interval "
@@ -6622,13 +6706,19 @@ def ts_log(label, smi, rep, rows):
             text += (f"; ROI point pooling of {pr['rois']} ROIs over "
                      f"{pr['points']} points {pr['roipoint_ms']:.1f} ms")
         parts.append(text)
+    if "dilations_held" in rep:
+        parts.append(f"{rep['dilations_held']} dilations equal on the CPU")
+    widths = {}
+    for r in rows:
+        key = f"{r['name']} {r.get('cin')}->{r.get('cout')}"
+        widths[key] = widths.get(key, 0) + 1
     worst = {}
     for r in rows:
         worst[r["name"]] = max(worst.get(r["name"], 0.0),
                                r["max_abs_err"] / max(r.get("tolerance", 1),
                                                       1e-30))
-    parts.append(f"{len(rows)} recorded calls against plain, worst "
-                 f"err / tolerance {worst}")
+    parts.append(f"{len(rows)} recorded calls against plain {widths}, "
+                 f"worst err / tolerance {worst}")
     log("; ".join(parts))
 
 
@@ -6810,21 +6900,25 @@ def pa_run(torch, mods, smi, label, dev):
 
 
 def parta2_phase(torch, mods, smi, dev="cuda"):
-    """Phase 18: PA_RUNS in turn, then the KITTI CLI chains of phases 16,
-    17 and 18 side by side (kitti_clis: pillarnet, voxel_rcnn_car and
-    pointrcnn, the first point-based data path, through sample_points).
-    Returns (report, rows, entries)."""
+    """Phase 18: PA_RUNS in turn, with the KITTI CLI chains of phases 16,
+    17, 18 and 20 side by side beside them (kitti_clis: pillarnet,
+    voxel_rcnn_car, pointrcnn, the first point-based data path, through
+    sample_points, and the focal yaml). Returns (report, rows,
+    entries)."""
     t0 = time.perf_counter()
     rep, rows, entries = {"device": smi}, [], []
-    for label in PA_RUNS:
-        rep[label], rw, e = pa_run(torch, mods, smi, label, dev)
-        rows, entries = rows + rw, entries + e
     work = ROOT / PA_WORK
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
-    rep["clis"] = kitti_clis(mods[0], smi, work, {
-        "kitti pillarnet": VN_RUNS["kitti pillarnet"][0],
-        "kitti voxel_rcnn_car": TS_CLI, "kitti pointrcnn": PA_CLI})
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        clis = pool.submit(kitti_clis, mods[0], smi, work, {
+            "kitti pillarnet": VN_RUNS["kitti pillarnet"][0],
+            "kitti voxel_rcnn_car": TS_CLI, "kitti pointrcnn": PA_CLI,
+            "kitti voxel_rcnn_car_focal": FOCAL_CFG})
+        for label in PA_RUNS:
+            rep[label], rw, e = pa_run(torch, mods, smi, label, dev)
+            rows, entries = rows + rw, entries + e
+        rep["clis"] = clis.result()
     rep["phase_s"] = time.perf_counter() - t0
     log(f"phase 18 ({smi}): {rep['phase_s']:.1f} s, {len(rows)} kernel "
         "calls held against plain")
@@ -7380,6 +7474,414 @@ def two_rank_check(torch, mods, smi, cfg, cfg_file, work, env, dev):
     return out
 
 
+# ---- phase 20: the focal backbone and the image stack
+
+BEV_CFG = "tools/cfgs/nuscenes_models/bevfusion.yaml"
+FOCAL_CFG = "tools/cfgs/kitti_models/voxel_rcnn_car_focal_multimodal.yaml"
+CADDN_CFG = "tools/cfgs/kitti_models/CaDDN.yaml"
+BEV_CAMERA = {"NUM": 6, "IMAGE_SIZE": [256, 704]}
+CADDN_CAMERA = {"NUM": 1, "IMAGE_SIZE": [375, 1242]}
+IM_BATCHES = (1, 4)
+FOCAL_BLOCK = 512             # the kernels' modes: blocks of 512 ids
+# card against CPU at narrow width: float32 on both sides, TF32 off
+IM_REF_RTOL = 1e-4
+# a focal importance this close to THRESHOLD or its sample's TOPK cut may
+# fall on either side on the card and the CPU (float32 noise): exempt
+FOCAL_TIE = 1e-5
+# the frustum's cells are a floor of the geometry: the synthetic rig's
+# cameras sit on cell edges, so the narrow check moves them by millimetres
+RIG_SHIFT = (0.0137, -0.0071, 0.0033)
+BEV_TRAIN = ("positions", "posgather_conv", "windowed_conv", "windowed_dw")
+
+
+def im_data(cfg_mod, synth, camera):
+    """data(cfg, training, n) of bench.py's 200k-point lidar_ring scenes in
+    the yaml's range and voxel size, with SYNTHETIC.CAMERA `camera`
+    (random images, the ring of cameras' matrices, camera 0's KITTI-style
+    transforms)."""
+    def data(cfg, training, n, **kw):
+        t0 = time.perf_counter()
+        kw.setdefault("voxel", cp_voxel(cfg))
+        dcfg = synth.bench_data_cfg(n, cfg, **kw)
+        dcfg["SYNTHETIC"]["CAMERA"] = dict(camera)
+        ds = synth.SyntheticDataset(cfg_mod.EDict(dcfg), cfg.CLASS_NAMES,
+                                    training=training)
+        batch = ds.batch(range(n))
+        return ds, batch, (time.perf_counter() - t0) * 1e3
+    return data
+
+
+def kitti_images(data):
+    """`data` with each batch carrying KITTI images (random planes at the
+    KITTI_IMAGE size) and phase 15's calibration as trans_lidar_to_cam /
+    trans_cam_to_img (R0 the identity), which the focal backbone's USE_IMG
+    branch samples; no dataset of the port emits images for KITTI."""
+    def with_images(cfg, training, n):
+        ds, batch, ms = data(cfg, training, n)
+        w, h = KITTI_IMAGE
+        l2c = np.eye(4, dtype=np.float32)
+        l2c[:3] = np.array(KITTI_V2C, np.float32)
+        rng = np.random.RandomState(20)
+        batch = dict(batch, images=rng.uniform(0, 1, (n, h, w, 3)).astype(
+            np.float32),
+            trans_lidar_to_cam=np.repeat(l2c[None], n, 0),
+            trans_cam_to_img=np.repeat(np.array(KITTI_P2, np.float32)[None],
+                                       n, 0))
+        return ds, batch, ms
+    return with_images
+
+
+def bev_cfg(cfg_mod, train=False):
+    """bevfusion.yaml at full width with transfusion_lidar.yaml's
+    BACKBONE_3D (SUBM_IMPL posgather, blocks of 1024, its windows and
+    capacities). Training: the yaml's adam_cosineanneal is unknown to both
+    packages' build_optimizer, so adam (AdamW at its WEIGHT_DECAY) with
+    the yaml's LR and clip at its batch of 3."""
+    cfg = cfg_mod.cfg_from_yaml_file(str(ROOT / BEV_CFG))
+    main = cfg_mod.cfg_from_yaml_file(str(ROOT / CFG_FILE)).MODEL.BACKBONE_3D
+    cfg.MODEL.BACKBONE_3D = copy.deepcopy(main)
+    if train:
+        cfg.OPTIMIZATION.OPTIMIZER = "adam"
+    return cfg
+
+
+def bev_branch_ms(torch, det, batch):
+    """vn_forwards' probe: one forward with CUDA events around the camera
+    branch's modules (Swin, FPN, DepthLSS, ConvFuser) and around bev_pool
+    inside DepthLSS: their ms and shares of the whole forward."""
+    from findnpropagate_torch.models.view_transforms import depth_lss
+
+    evs = []
+
+    def timed(name, fn):
+        def run(*a, **kw):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = fn(*a, **kw)
+            e1.record()
+            evs.append((name, e0, e1))
+            return out
+        return run
+
+    parts = {"swin": det.image_backbone, "fpn": det.neck,
+             "depth_lss": det.vtransform, "fuser": det.fuser}
+    for name, mod in parts.items():
+        mod.forward = timed(name, mod.forward)
+    pool = depth_lss.bev_pool
+    depth_lss.bev_pool = timed("bev_pool", pool)
+    try:
+        with torch.no_grad():
+            timed("forward", det)(batch)
+        torch.cuda.synchronize()
+    finally:
+        for mod in parts.values():
+            del mod.forward
+        depth_lss.bev_pool = pool
+    ms = {name: e0.elapsed_time(e1) for name, e0, e1 in evs}
+    return {"camera_ms": {k: v for k, v in ms.items() if k != "forward"},
+            "camera_share": {k: v / ms["forward"] for k, v in ms.items()
+                             if k != "forward"},
+            "probe_forward_ms": ms["forward"]}
+
+
+def bev_run(torch, mods, smi, dev):
+    """BEVFusion: forwards at IM_BATCHES (K1 and K2 only, overflow 0, the
+    camera branch's share of the batch-4 forward), a warm-up and a timed
+    training step at the yaml's batch of 3 (K1-K4), every call of the
+    batch-4 forward and the timed step held against plain. Returns
+    (report, rows, entries)."""
+    cfg_mod, _, synth, *_ = mods
+    data = im_data(cfg_mod, synth, BEV_CAMERA)
+    rep = {"yaml": BEV_CFG, "device": smi}
+    rep["forwards"], rows, entries = vn_forwards(
+        torch, mods, bev_cfg(cfg_mod), data, "bevfusion", IM_BATCHES,
+        ("positions", "posgather_conv"), dev, reps=1, warm=1,
+        probe=bev_branch_ms)
+    rep["step"], rw, e = vn_step(torch, mods, bev_cfg(cfg_mod, train=True),
+                                 data, "bevfusion", BEV_TRAIN, dev)
+    return rep, rows + rw, entries + e
+
+
+def focal_cfg(cfg_mod, impl=None):
+    """The focal yaml as written (BATCH_SIZE_PER_GPU TS_BATCH), or in
+    SUBM_IMPL `impl` with blocks of FOCAL_BLOCK and every level's windows
+    at least the main path's."""
+    cfg = cfg_mod.cfg_from_yaml_file(str(ROOT / FOCAL_CFG))
+    cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU = TS_BATCH
+    if impl is not None:
+        bb = cfg.MODEL.BACKBONE_3D
+        bb.SUBM_IMPL, bb.WINDOWED_BLOCK = impl, FOCAL_BLOCK
+        bb.setdefault("WINDOWED_WINDOW", 1024)
+        bb.setdefault("WINDOWED_STRIDED_WINDOW", 4 * int(bb.WINDOWED_WINDOW))
+        cp_widen(cfg_mod, cfg, 3, 1)
+    return cfg
+
+
+def hold_dilations(torch, calls, label):
+    """Each recorded focal_dilate call again on the CPU: every output bit
+    for bit (the stable sorts of int ids and the gathers are exact)."""
+    from findnpropagate_torch.ops.sparse_ops import focal_dilate
+
+    for i, (args, kw) in enumerate(calls):
+        got = focal_dilate(*args, **kw)
+        cpu = focal_dilate(*(a.cpu() if hasattr(a, "cpu") else a
+                             for a in args), **kw)
+        for name, g, c in zip(("ids", "coords", "valid", "feats"), got, cpu):
+            if not torch.equal(g.detach().cpu(), c.detach()):
+                raise AssertionError(f"{label} focal_dilate call {i}: "
+                                     f"{name} differs on the card")
+    return len(calls)
+
+
+def focal_run(torch, mods, smi, dev):
+    """The focal yaml on phase 15's KITTI tree: as written (XLA windowed
+    mode, no kernel: a gated batch-4 forward, its overflow and the actives
+    before and after each dilation), then in pallas mode (blocks of 512,
+    the main path's windows) on batches that carry images: a batch-4
+    forward (K3 only; the importance convs at Cin 19 / 35 / 67 -> 27) and
+    a warm-up and a timed training step (K3 and K4), every call held
+    against plain and every dilation of the forward bit for bit against
+    the CPU. Its train.py / test.py run in phase 18 (kitti_clis). Returns
+    (report, rows, entries)."""
+    from findnpropagate_torch import datasets as TD
+    from findnpropagate_torch.models.backbones_3d import (
+        spconv_backbone_focal as fb,
+    )
+
+    cfg_mod = mods[0]
+    data = cycled_data(TD, KITTI_TREE)
+    imgs = kitti_images(data)
+    rep = {"yaml": FOCAL_CFG, "device": smi}
+    rep["as_written"], _, _ = vn_forwards(
+        torch, mods, focal_cfg(cfg_mod), data, "focal as written",
+        (TS_BATCH,), (), dev, reps=1, warm=0)
+    kcfg = focal_cfg(cfg_mod, "pallas")
+    with Recorder(fb, "focal_dilate", torch) as dil:
+        rep["pallas"], rows, entries = vn_forwards(
+            torch, mods, kcfg, imgs, "focal pallas", (TS_BATCH,),
+            ("windowed_conv",), dev, reps=1, warm=0)
+    rep["dilations_held"] = hold_dilations(torch, dil.calls, "focal pallas")
+    del dil
+    rep["step"], rw, e = vn_step(torch, mods, kcfg, imgs, "focal pallas",
+                                 PA_TRAIN, dev)
+    loss_term("focal pallas step", rep["step"], "loss_box_of_pts")
+    rows, entries = rows + rw, entries + e
+    rep["importance_calls"] = [
+        {k: r[k] for k in ("name", "cin", "cout", "max_abs_err", "tolerance",
+                           "ms", "plain_ms", "bound_ms")}
+        for r in rows if 27 in (r.get("cin"), r.get("cout"))]
+    return rep, rows, entries
+
+
+def caddn_run(torch, mods, smi, dev):
+    """CaDDN as written on single-camera 375 x 1242 synthetic scenes over
+    its range: forwards at IM_BATCHES and a warm-up and a timed training
+    step at its batch of 4 (no kernel launched; finite detections, loss
+    and gradient norm, parameters changed). Returns a report."""
+    cfg_mod, _, synth, *_ = mods
+    data = im_data(cfg_mod, synth, CADDN_CAMERA)
+    cfg = cfg_mod.cfg_from_yaml_file(str(ROOT / CADDN_CFG))
+    rep = {"yaml": CADDN_CFG, "device": smi}
+    rep["forwards"], _, _ = vn_forwards(torch, mods, cfg, data, "caddn",
+                                        IM_BATCHES, (), dev, reps=1, warm=1)
+    rep["step"], _, _ = vn_step(torch, mods, cfg, data, "caddn", (), dev)
+    loss_term("caddn step", rep["step"], "depth_loss")
+    return rep
+
+
+def loss_term(label, step, key):
+    """A training step's loss term `key` (the focal importance loss,
+    CaDDN's depth loss) must be finite and positive."""
+    val = step["steps"][0].get(key)
+    if val is None or not (math.isfinite(val) and val > 0):
+        raise AssertionError(f"{label}: {key} {val}")
+
+
+def rel_err(torch, a, b):
+    return float((a.detach().cpu().float() - b.detach().float()).norm()
+                 / b.detach().float().norm().clamp_min(1e-12))
+
+
+def hold_pairs(label, pairs):
+    """{key: rel err} of card / CPU tensor pairs, each within IM_REF_RTOL."""
+    errs = {}
+    for key, err in pairs.items():
+        errs[key] = err
+        if not err <= IM_REF_RTOL:
+            raise AssertionError(f"{label} card vs CPU: {key} rel err {err}")
+    return errs
+
+
+def narrow_runs(torch, models_mod, weights, cfg, ds, batch, card):
+    """The same narrow model (init_random_ seed 1) and batch on the card
+    and the CPU, float32 with TF32 off, eval: (card out, CPU out)."""
+    outs = {}
+    with tf32_off(torch):
+        for dev in (card, "cpu"):
+            det = models_mod.build_network(copy.deepcopy(cfg.MODEL),
+                                           len(cfg.CLASS_NAMES), ds,
+                                           device=dev)
+            weights.init_random_(det, seed=1)
+            with torch.no_grad():
+                outs[dev] = det({k: torch.from_numpy(v).to(dev)
+                                 for k, v in batch.items()})
+    return outs[card], outs["cpu"]
+
+
+def focal_ties(torch, det, batch, thr):
+    """On the CPU: the smallest distance of a valid voxel's importance from
+    THRESHOLD (its neighbours') and from its sample's TOPK cut (its own)
+    over the focal convs of one forward."""
+    from findnpropagate_torch.ops.sparse_ops import yxz_sentinel_start
+
+    bb, gaps = det.backbone_3d, []
+    orig = bb._importance_conv
+
+    def wrapped(ids, feats, wmod, shape, ovf_acc):
+        out = orig(ids, feats, wmod, shape, ovf_acc)
+        imp = torch.sigmoid(out)
+        valid = ids < yxz_sentinel_start(shape)
+        gaps.append(float((imp[..., :-1][valid] - thr).abs().min()))
+        for i in range(imp.shape[0]):
+            v = imp[i, :, -1][valid[i]]
+            k = max(int(len(v) * thr), 1)
+            d = (v - torch.sort(v, descending=True).values[k - 1]).abs()
+            if bool((d > 0).any()):
+                gaps.append(float(d[d > 0].min()))
+        return out
+
+    bb._importance_conv = wrapped
+    try:
+        with torch.no_grad():
+            det(batch)
+    finally:
+        del bb._importance_conv
+    return min(gaps)
+
+
+def image_reference(torch, mods, card="cuda"):
+    """Each model narrowed, on one scene, on the card and the CPU (float32,
+    TF32 off; the sparse backbones in the XLA windowed mode, their kernels
+    held per call in the full-width runs): BEVFusion's camera BEV, fused
+    BEV and 2D features; the focal backbone's levels (ids exact, features
+    and the BEV map within IM_REF_RTOL, unless an importance lies within
+    FOCAL_TIE of THRESHOLD or its TOPK cut: printed with its margin);
+    CaDDN's voxel volume, BEV map and box logits."""
+    from findnpropagate_torch import datasets as TD
+
+    cfg_mod, models_mod, synth, tp, ws, lap, weights, *_ = mods
+    rep = {}
+    # BEVFusion: +-12.8 m, 16-channel backbone, narrow camera branch
+    cfg = cfg_mod.cfg_from_yaml_file(str(ROOT / BEV_CFG))
+    m = cfg.MODEL
+    m.BACKBONE_3D.update({
+        "SUBM_IMPL": "xla", "MAX_VOXELS": 4096, "WINDOWED_BLOCK": 512,
+        "WINDOWED_WINDOW": 2048, "LEVEL_CAPACITIES": [4096] * 3 + [2048] * 2,
+        "CHANNELS": [16, 16, 16, 16, 16], "OUT_CHANNELS": 16,
+        "DENSE_FROM_LEVEL": 2})
+    m.IMAGE_BACKBONE.update({"EMBED_DIMS": 16, "DEPTHS": [2, 2, 2],
+                             "NUM_HEADS": [2, 2, 4], "OUT_INDICES": [1, 2]})
+    m.NECK.update({"IN_CHANNELS": [32, 64], "OUT_CHANNELS": 32})
+    m.VTRANSFORM.update({"IMAGE_SIZE": [64, 176], "IN_CHANNEL": 32,
+                         "OUT_CHANNEL": 16, "FEATURE_SIZE": [8, 22],
+                         "XBOUND": [-12.8, 12.8, 0.4],
+                         "YBOUND": [-12.8, 12.8, 0.4],
+                         "DBOUND": [1.0, 20.0, 1.0]})
+    m.FUSER.update({"OUT_CHANNEL": 32})
+    m.BACKBONE_2D.update({"LAYER_NUMS": [1, 1], "NUM_FILTERS": [16, 32],
+                          "NUM_UPSAMPLE_FILTERS": [16, 16]})
+    m.DENSE_HEAD.update({"NUM_PROPOSALS": 20, "HIDDEN_CHANNEL": 16,
+                         "FFN_CHANNEL": 32})
+    data = im_data(cfg_mod, synth, {"NUM": 6, "IMAGE_SIZE": [64, 176]})
+    ds, batch, _ = data(cfg, False, 1, pcr=[-12.8, -12.8, -5.0, 12.8, 12.8,
+                                            3.0], voxel=[0.1, 0.1, 0.2],
+                        max_voxels=4096, max_points=40000)
+    batch["camera2lidar"][..., :3, 3] += np.float32(RIG_SHIFT)
+    g, c = narrow_runs(torch, models_mod, weights, cfg, ds, batch, card)
+    rep["bevfusion"] = hold_pairs("bevfusion", {
+        k: rel_err(torch, g[k], c[k]) for k in (
+            "spatial_features_img", "spatial_features",
+            "spatial_features_2d")})
+    # the focal yaml: +-12.8 m in front of the car, 16 channels, with
+    # KITTI images (USE_IMG)
+    cfg = cfg_mod.cfg_from_yaml_file(str(ROOT / FOCAL_CFG))
+    cfg.DATA_CONFIG.POINT_CLOUD_RANGE = [0.0, -12.8, -3.0, 25.6, 12.8, 1.0]
+    m = cfg.MODEL
+    m.BACKBONE_3D.update({"MAX_VOXELS": 3072, "WINDOWED_BLOCK": 512,
+                          "WINDOWED_WINDOW": 2048,
+                          "CHANNELS": [16, 16, 16, 32, 32],
+                          "OUT_CHANNELS": 32})
+    m.MAP_TO_BEV.NUM_BEV_FEATURES = 64
+    m.BACKBONE_2D.update({"LAYER_NUMS": [1, 1], "NUM_FILTERS": [16, 32],
+                          "NUM_UPSAMPLE_FILTERS": [16, 16]})
+    kd = kitti_images(lambda cf, tr, n: im_data(cfg_mod, synth, {
+        "NUM": 1, "IMAGE_SIZE": [8, 8]})(cf, tr, n, max_voxels=3072,
+                                          max_points=40000))
+    ds, batch, _ = kd(cfg, False, 1)
+    g, c = narrow_runs(torch, models_mod, weights, cfg, ds, batch, card)
+    same_ids = all(torch.equal(g["multi_scale_3d_features"][k][1][0].cpu(),
+                               c["multi_scale_3d_features"][k][1][0])
+                   for k in c["multi_scale_3d_features"])
+    det = models_mod.build_network(copy.deepcopy(cfg.MODEL), 1, ds,
+                                   device="cpu")
+    weights.init_random_(det, seed=1)
+    margin = focal_ties(torch, det, {k: torch.from_numpy(v)
+                                     for k, v in batch.items()},
+                        det.backbone_3d.threshold)
+    rep["focal"] = {"margin": margin, "same_ids": same_ids,
+                    "actives": c["focal_active_counts"].tolist()}
+    if same_ids:
+        pairs = {k: rel_err(torch, g["multi_scale_3d_features"][k][1][3],
+                            c["multi_scale_3d_features"][k][1][3])
+                 for k in c["multi_scale_3d_features"]}
+        pairs["spatial_features_2d"] = rel_err(
+            torch, g["spatial_features_2d"], c["spatial_features_2d"])
+        rep["focal"]["errs"] = hold_pairs("focal", pairs)
+    elif margin > FOCAL_TIE:
+        raise AssertionError(f"focal card vs CPU: the dilated sets differ "
+                             f"with no importance within {FOCAL_TIE} of a "
+                             f"cut (margin {margin})")
+    # CaDDN: 20.48 x 20.48 m in front, 16 channels, 96 x 320 images
+    cfg = cfg_mod.cfg_from_yaml_file(str(ROOT / CADDN_CFG))
+    cfg.DATA_CONFIG.POINT_CLOUD_RANGE = [2.0, -10.24, -3.0, 22.48, 10.24, 1.0]
+    m = cfg.MODEL
+    m.VFE.FFN.CHANNELS = 16
+    m.VFE.DISC_CFG.update({"num_bins": 20, "depth_max": 22.48})
+    m.MAP_TO_BEV.NUM_BEV_FEATURES = 32
+    m.BACKBONE_2D.update({"LAYER_NUMS": [1, 1, 1], "NUM_FILTERS": [16, 32,
+                                                                   32],
+                          "NUM_UPSAMPLE_FILTERS": [16, 16, 16]})
+    data = im_data(cfg_mod, synth, {"NUM": 1, "IMAGE_SIZE": [96, 320]})
+    ds, batch, _ = data(cfg, False, 1, max_points=40000)
+    g, c = narrow_runs(torch, models_mod, weights, cfg, ds, batch, card)
+    rep["caddn"] = hold_pairs("caddn", {
+        k: rel_err(torch, g[k], c[k]) for k in (
+            "voxel_features_dense", "spatial_features", "batch_cls_preds")})
+    return rep
+
+
+def image_phase(torch, mods, smi, dev="cuda"):
+    """Phase 20: BEVFusion, the focal yaml and CaDDN at full width, then
+    their narrow card-against-CPU checks. Returns (report, rows,
+    entries)."""
+    t0 = time.perf_counter()
+    rep = {"device": smi}
+    rep["bevfusion"], rows, entries = bev_run(torch, mods, smi, dev)
+    ts_log("bevfusion", smi, rep["bevfusion"], rows)
+    rep["focal"], rw, e = focal_run(torch, mods, smi, dev)
+    ts_log("focal", smi, rep["focal"], rw)
+    rows, entries = rows + rw, entries + e
+    rep["caddn"] = caddn_run(torch, mods, smi, dev)
+    ts_log("caddn", smi, rep["caddn"], [])
+    rep["card_vs_cpu"] = image_reference(torch, mods, dev)
+    log(f"phase 20 card vs CPU (narrow, float32): {rep['card_vs_cpu']}")
+    rep["phase_s"] = time.perf_counter() - t0
+    log(f"phase 20 ({smi}): {rep['phase_s']:.1f} s, {len(rows)} kernel "
+        "calls held against plain")
+    return rep, rows, entries
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--batches", type=int, nargs="+", default=[1, 8])
@@ -7605,7 +8107,12 @@ def main():
     # over gloo on the one card against one process
     report["ddp"] = ddp_phase(torch, mods, smi, ROOT / PAPER_WORK / "nuscenes")
 
-    # ---- 20. result lines
+    # ---- 20. the focal backbone and the image stack: BEVFusion, the focal
+    # yaml (its train.py / test.py ran in phase 18), CaDDN
+    report["image"], im_rows, im_entries = image_phase(torch, mods, smi)
+    report["image_kernel_calls"] = im_rows
+
+    # ---- 21. result lines
     first_batch = report["main_path"][0]["launches_per_forward"]
     pick = {
         # K1 at L0 (first call); K2 at the L0 16->16 subm conv with the
@@ -7690,10 +8197,10 @@ def main():
             "library_device_ms": r["library_device_ms"],
             "device_ms": r["device_ms"], "call": r["call"],
             "shapes": r["shapes"]})
-    # phases 13-18: per yaml, each kernel's calls of one batch-4 forward
-    # and of one training step, summed
+    # phases 13-18 and 20: per yaml, each kernel's calls of one batch-4
+    # forward and of one training step, summed
     kernels += cp_entries + ds_entries + an_entries + vn_entries_ \
-        + ts_entries + pa_entries
+        + ts_entries + pa_entries + im_entries
     report["kernels"] = kernels
     report["device"] = smi
     if args.out:

@@ -1,6 +1,7 @@
 """Sparse -> dense BEV projections — port of
 findnpropagate_tpu/models/backbones_2d/map_to_bev.py
-(`PointPillarScatter` :21-52, `HeightCompression` :55-73).
+(`PointPillarScatter` :21-52, `HeightCompression` :55-73,
+`Conv2DCollapse` :75-96).
 
 PointPillarScatter writes each kept pillar's features into its (y, x)
 cell of a zero canvas, one batched scatter with a dummy row for the
@@ -12,7 +13,10 @@ BaseBEVBackbone reads (the reference's are NHWC).
 
 from __future__ import annotations
 
+import torch
 from torch import nn
+
+from ..blocks import BatchNorm2d
 
 
 class PointPillarScatter(nn.Module):
@@ -51,4 +55,28 @@ class HeightCompression(nn.Module):
             b, nz * c, ny, nx)
         batch["spatial_features_stride"] = batch.get(
             "encoded_spconv_tensor_stride", 8)
+        return batch
+
+
+class Conv2DCollapse(nn.Module):
+    """CaDDN's z-collapse (:75-96): the dense camera volume
+    ``voxel_features_dense`` (B, C, nz, ny, nx) folds z into channels as
+    z * C + c (the reference's (z, c) order), then a 1x1 conv without
+    bias, BN (flax's, eps 1e-5) and ReLU to NUM_BEV_FEATURES. Its input
+    width is the VFE's C times the grid's nz."""
+
+    def __init__(self, model_cfg, grid_size, in_channels):
+        super().__init__()
+        self.num_bev_features = int(model_cfg["NUM_BEV_FEATURES"])
+        self.Conv_0 = nn.Conv2d(int(in_channels) * int(grid_size[2]),
+                                self.num_bev_features, 1, bias=False)
+        self.BatchNorm_0 = BatchNorm2d(self.num_bev_features, eps=1e-5)
+
+    def forward(self, batch):
+        dense = batch["voxel_features_dense"]
+        b, c, nz, ny, nx = dense.shape
+        x = dense.permute(0, 2, 1, 3, 4).reshape(b, nz * c, ny, nx)
+        batch["spatial_features"] = torch.relu(self.BatchNorm_0(
+            self.Conv_0(x)))
+        batch["spatial_features_stride"] = 1
         return batch

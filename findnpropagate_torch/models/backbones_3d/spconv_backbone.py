@@ -142,9 +142,12 @@ class SparseConvParam(nn.Module):
 
 
 class _SparseStack(nn.Module):
-    """What both backbone variants share; `residual` picks the stages."""
+    """What both backbone variants share; `residual` picks the stages,
+    `block_counts` their blocks (the focal backbone's first stage has
+    one)."""
 
     residual = True
+    block_counts = (2, 2, 2, 2)
 
     def __init__(self, model_cfg, input_channels, grid_size, voxel_size=None,
                  point_cloud_range=None):
@@ -218,7 +221,9 @@ class _SparseStack(nn.Module):
         for s, (cin, cout, down) in enumerate(
                 [(c1, c1, False), (c1, c2, True), (c2, c3, True),
                  (c3, c4, True)], start=1):
-            self._make_stage(s, cin, cout, down, use_bias=use_bias)
+            self._make_stage(s, cin, cout, down,
+                             num_blocks=self.block_counts[s - 1],
+                             use_bias=use_bias)
         self.w_out = SparseConvParam(c4, self.out_channels, kernel=(3, 1, 1))
         self.bn_out = MaskedBatchNorm(self.out_channels)
 

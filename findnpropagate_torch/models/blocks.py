@@ -128,16 +128,17 @@ def _conv_in(conv, x):
                                       conv.stride, conv.padding)
 
 
-def same_pad(x, kernel: int, stride: int):
-    """x (..., H, W) padded as flax's ``padding="SAME"`` pads a conv of
-    that kernel and stride: out = ceil(n / stride) and the total padding
-    split with its smaller half before, so a stride-2 3x3 conv over an even
-    size pads the bottom and right edges only."""
+def same_pad(x, kernel: int, stride: int, value: float = 0.0):
+    """x (..., H, W) padded as flax's ``padding="SAME"`` pads a conv (or,
+    with ``value=-inf``, a max pool) of that kernel and stride: out =
+    ceil(n / stride) and the total padding split with its smaller half
+    before, so a stride-2 3x3 conv over an even size pads the bottom and
+    right edges only."""
     pads = []
     for n in (x.shape[-1], x.shape[-2]):
         total = max((-(-n // stride) - 1) * stride + kernel - n, 0)
         pads += [total // 2, total - total // 2]
-    return torch.nn.functional.pad(x, pads)
+    return torch.nn.functional.pad(x, pads, value=value)
 
 
 class ConvBNReLU(nn.Module):

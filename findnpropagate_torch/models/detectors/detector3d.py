@@ -9,12 +9,19 @@ from its registry by the yaml's NAME:
   * VFE: MeanVFE folds into `voxelize_mean`; the pillar and dynamic VFEs
     read the (V, T, C) bucket of `voxelize` (the dynamic ones its coords
     and the raw points); without a VFE (PointRCNN, whose dataset has no
-    grid) nothing is voxelized;
+    grid) nothing is voxelized, nor for CaDDN's ImageVFE, which lifts the
+    camera image into the grid's dense volume (:272-275);
   * BACKBONE_3D (optional): VoxelResBackBone8x, VoxelBackBone8x,
+    VoxelBackBone8xFocal (its ``loss_box_of_pts`` added to the loss),
     VoxelResBackBone8xVoxelNeXt, VoxelResBackBone8xVoxelNeXt2D,
     PillarRes18BackBone8x, PillarBackBone8x, UNetV2 (point features at
     the voxel centres too), PointNet2MSG (over the raw points);
-  * MAP_TO_BEV (optional): HeightCompression, PointPillarScatter;
+  * MAP_TO_BEV (optional): HeightCompression, PointPillarScatter,
+    Conv2DCollapse (CaDDN's);
+  * the camera branch of BEVFusion (optional, :138-162): IMAGE_BACKBONE
+    (SwinTransformer, ResNet18, CLIPResNet), NECK (GeneralizedLSSFPN),
+    VTRANSFORM (DepthLSSTransform) and FUSER (ConvFuser, whose output
+    the 2D backbone reads);
   * BACKBONE_2D (optional): BaseBEVBackbone, BaseBEVBackboneV1 (whose
     inputs are the sparse backbone's two dense maps);
   * DENSE_HEAD (none in PointRCNN): TransFusionHead, TransFusionHeadAM,
@@ -38,11 +45,13 @@ from its registry by the yaml's NAME:
     near them.
 That is TransFusion-LiDAR (and its anchor-matching head), CenterPoint
 (voxel and pillar), PointPillar, SECOND / SECONDNet, VoxelNeXt (3D and
-2D), PillarNet, and the two-stage SECONDNetIoU, VoxelRCNN, PVRCNN,
-PVRCNNPlusPlus, PartA2Net and PointRCNN (`RoIProposalStage` :38-76, the
+2D), PillarNet, CaDDN, BEVFusion, and the two-stage SECONDNetIoU,
+VoxelRCNN (also over the focal backbone), PVRCNN, PVRCNNPlusPlus,
+PartA2Net and PointRCNN (`RoIProposalStage` :38-76, the
 assembly and module order :129-136, :200-243, the two-stage decode
 :339-355, the point-based dataset :383-386 and the TwoStageTools loss
-:519-575, the point head's loss chosen by its NAME). `post_process`
+:519-575, the point head's loss chosen by its NAME; CaddnTools
+:461-482 and FocalTools :484-504). `post_process`
 decodes the head's outputs into fixed-size Detections: a two-stage
 detector through `post_processing.post_process_two_stage` (the ROI
 head's scores, the ROIs' labels), TransFusion its queries, the
@@ -68,7 +77,9 @@ from torch import nn
 
 from ...ops.voxelize import voxelize, voxelize_mean
 from ..backbones_2d import BACKBONE_2D_REGISTRY, MAP_TO_BEV_REGISTRY
+from ..backbones_2d.fuser import FUSER_REGISTRY
 from ..backbones_3d import BACKBONE_3D_REGISTRY
+from ..backbones_image import IMAGE_BACKBONE_REGISTRY, NECK_REGISTRY
 from ..backbones_3d.spconv_backbone import _SparseStack
 from ..dense_heads import DENSE_HEAD_REGISTRY
 from ..dense_heads.point_head_box import PointHeadBox, point_head_box_loss
@@ -85,11 +96,13 @@ from ..roi_heads.pvrcnn_head import pvrcnn_rcnn_loss
 from ..roi_heads.roi_head_template import RoIHeadTemplate
 from ..roi_heads.second_head import rcnn_iou_loss
 from ..vfe import VFE_REGISTRY
+from ..vfe.image_vfe import ImageVFE, ddn_loss
+from ..view_transforms import VTRANSFORM_REGISTRY
 
 DETECTORS = ("TransFusion", "CenterPoint", "PointPillar", "SECOND",
              "SECONDNet", "VoxelNeXt", "PillarNet", "SECONDNetIoU",
              "VoxelRCNN", "PVRCNN", "PVRCNNPlusPlus", "PartA2Net",
-             "PointRCNN")
+             "PointRCNN", "CaDDN", "BevFusion")
 TWO_STAGE = ("SECONDNetIoU", "VoxelRCNN", "PVRCNN", "PVRCNNPlusPlus",
              "PartA2Net", "PointRCNN")
 POINT_HEADS = {"PointHeadSimple": PointHeadSimple,
@@ -102,18 +115,19 @@ _PORTED = {"VFE": ("MeanVFE", *VFE_REGISTRY),
            "DENSE_HEAD": tuple(DENSE_HEAD_REGISTRY),
            "PFE": tuple(PFE_REGISTRY),
            "POINT_HEAD": tuple(POINT_HEADS),
-           "ROI_HEAD": tuple(ROI_HEAD_REGISTRY)}
+           "ROI_HEAD": tuple(ROI_HEAD_REGISTRY),
+           "IMAGE_BACKBONE": tuple(IMAGE_BACKBONE_REGISTRY),
+           "NECK": tuple(NECK_REGISTRY),
+           "VTRANSFORM": tuple(VTRANSFORM_REGISTRY),
+           "FUSER": tuple(FUSER_REGISTRY)}
 _OPTIONAL = ("BACKBONE_3D", "MAP_TO_BEV", "BACKBONE_2D", "PFE",
-             "POINT_HEAD", "ROI_HEAD")
+             "POINT_HEAD", "ROI_HEAD", "IMAGE_BACKBONE", "NECK",
+             "VTRANSFORM", "FUSER")
 # the 3D backbones that read the raw points (no VFE before them)
 POINT_BACKBONES = ("PointNet2MSG",)
 _TWO_STAGE_KEYS = ("PFE", "POINT_HEAD", "ROI_HEAD")
-_NOT_PORTED = ("IMAGE_BACKBONE", "NECK", "VTRANSFORM", "FUSER")
 # the items of ROADMAP.md queue 1 that port the names still refused
-_ITEMS = {**ROI_HEADS_NOT_PORTED, "VoxelBackBone8xFocal": "15.6",
-          "CaDDN": "15.7",
-          "BevFusion": "15.7", "ImageVFE": "15.7", "MPPNet": "15.8",
-          "MPPNetE2E": "15.8"}
+_ITEMS = {**ROI_HEADS_NOT_PORTED, "MPPNet": "15.8", "MPPNetE2E": "15.8"}
 
 
 def _not_ported(what, name=None):
@@ -152,9 +166,6 @@ def check_ported(model_cfg):
             raise _not_ported(f"{key} {got!r}", got)
         if key in _TWO_STAGE_KEYS and name not in TWO_STAGE:
             raise _not_ported(f"{key} of detector {name!r}", name)
-    for key in _NOT_PORTED:
-        if key in cfg:
-            raise _not_ported(key)
 
 
 class RoIProposalStage(RoIHeadTemplate):
@@ -195,13 +206,14 @@ class DetectorModule(nn.Module):
         self.max_points_per_voxel = int(max_points_per_voxel)
         self.post_cfg = cfg.get("POST_PROCESSING", {})
         # without a VFE (point-based) nothing is voxelized and the 3D
-        # backbone reads the raw points
-        self.voxelized = "VFE" in cfg
-        self.mean_vfe = cfg.get("VFE", {}).get("NAME") == "MeanVFE"
+        # backbone reads the raw points; CaDDN's ImageVFE reads the camera
+        vfe_name = cfg.get("VFE", {}).get("NAME")
+        self.voxelized = "VFE" in cfg and vfe_name != "ImageVFE"
+        self.mean_vfe = vfe_name == "MeanVFE"
         in_ch = int(num_point_features)
         self.vfe = None
-        if self.voxelized and not self.mean_vfe:
-            self.vfe = VFE_REGISTRY[cfg["VFE"]["NAME"]](
+        if "VFE" in cfg and not self.mean_vfe:
+            self.vfe = VFE_REGISTRY[vfe_name](
                 cfg["VFE"], num_point_features, self.voxel_size,
                 self.point_cloud_range, self.grid_size)
             in_ch = self.vfe.output_dim
@@ -213,8 +225,10 @@ class DetectorModule(nn.Module):
                 self.point_cloud_range)
         self.map_to_bev = self.backbone_2d = None
         if "MAP_TO_BEV" in cfg:
+            kw = {"in_channels": in_ch} \
+                if cfg["MAP_TO_BEV"]["NAME"] == "Conv2DCollapse" else {}
             self.map_to_bev = MAP_TO_BEV_REGISTRY[cfg["MAP_TO_BEV"]["NAME"]](
-                cfg["MAP_TO_BEV"], self.grid_size)
+                cfg["MAP_TO_BEV"], self.grid_size, **kw)
             if isinstance(self.backbone_3d, _SparseStack) \
                     and cfg["MAP_TO_BEV"]["NAME"] == "HeightCompression":
                 # the width the backbone gives (C x nz): the reference's
@@ -222,9 +236,12 @@ class DetectorModule(nn.Module):
                 bb = self.backbone_3d
                 self.map_to_bev.num_bev_features = \
                     bb.out_channels * bb.level_shapes[-1][0]
+        self._camera_branch(cfg)
         if "BACKBONE_2D" in cfg:
             bb2 = cfg["BACKBONE_2D"]
-            if self.map_to_bev is not None:
+            if self.fuser is not None:
+                bb2_in = self.fuser.num_bev_features
+            elif self.map_to_bev is not None:
                 bb2_in = self.map_to_bev.num_bev_features
             elif bb2["NAME"] == "BaseBEVBackboneV1":
                 bb2_in = self.backbone_3d.multi_scale_channels
@@ -246,6 +263,35 @@ class DetectorModule(nn.Module):
                 self.point_cloud_range, self.voxel_size, self.grid_size,
                 **kw)
         self._two_stage(cfg, num_class, num_point_features)
+
+    def _camera_branch(self, cfg):
+        """BEVFusion's camera branch (:138-162): the image backbone, its
+        neck, the view transform and the fuser, each sized from the
+        modules before it (the reference's flax layers infer the widths
+        the yaml's IN_CHANNELS / IN_CHANNEL state)."""
+        self.image_backbone = self.neck = self.vtransform = None
+        self.fuser = None
+        if "IMAGE_BACKBONE" in cfg:
+            name = cfg["IMAGE_BACKBONE"]["NAME"]
+            # Swin's windows follow its maps: the view transform's images
+            kw = {"image_size": cfg["VTRANSFORM"]["IMAGE_SIZE"]} \
+                if name == "SwinTransformer" and "VTRANSFORM" in cfg else {}
+            self.image_backbone = IMAGE_BACKBONE_REGISTRY[name](
+                cfg["IMAGE_BACKBONE"], **kw)
+        if "NECK" in cfg:
+            self.neck = NECK_REGISTRY[cfg["NECK"]["NAME"]](
+                cfg["NECK"], in_channels=getattr(self.image_backbone,
+                                                 "out_channels", None))
+        if "VTRANSFORM" in cfg:
+            self.vtransform = VTRANSFORM_REGISTRY[
+                cfg["VTRANSFORM"]["NAME"]](cfg["VTRANSFORM"])
+        if "FUSER" in cfg:
+            cin = None
+            if self.map_to_bev is not None and self.vtransform is not None:
+                cin = self.map_to_bev.num_bev_features \
+                    + self.vtransform.out_channels
+            self.fuser = FUSER_REGISTRY[cfg["FUSER"]["NAME"]](
+                cfg["FUSER"], in_channels=cin)
 
     def _two_stage(self, cfg, num_class, num_point_features):
         """The PFE, point head and ROI head of a two-stage yaml (and
@@ -327,7 +373,8 @@ class DetectorModule(nn.Module):
                 with torch.no_grad():
                     batch = self._voxelize(batch)
             for mod in (self.vfe, self.backbone_3d, self.map_to_bev,
-                        self.backbone_2d):
+                        self.image_backbone, self.neck, self.vtransform,
+                        self.fuser, self.backbone_2d):
                 if mod is not None:
                     batch = mod(batch)
             if self.dense_head is not None:
@@ -342,11 +389,21 @@ class DetectorModule(nn.Module):
             return batch
 
     def compute_loss(self, out):
-        """The dense head's loss (none without one: PointRCNN), plus the
-        ROI head's and the point head's, chosen by its NAME, for a
-        two-stage detector (TwoStageTools): (loss, tb)."""
+        """The dense head's loss (none without one: PointRCNN), CaDDN's
+        depth loss and the focal backbone's ``loss_box_of_pts`` where there
+        are, plus the ROI head's and the point head's, chosen by its NAME,
+        for a two-stage detector (TwoStageTools): (loss, tb)."""
         loss, tb = self.dense_head.compute_loss(out) \
             if self.dense_head is not None else (0.0, {})
+        if isinstance(self.vfe, ImageVFE):
+            # CaDDN (CaddnTools): the depth-distribution loss
+            loss_d, tb_d = ddn_loss(out, self.vfe.model_cfg)
+            tb = {**tb, **tb_d}
+            loss = loss + loss_d
+        if "loss_box_of_pts" in out and self.dense_head is not None:
+            # Focals Conv (FocalTools): the importance supervision
+            tb = {**tb, "loss_box_of_pts": out["loss_box_of_pts"]}
+            loss = loss + out["loss_box_of_pts"]
         if self.roi_head is None:
             return loss, tb
         loss2, tb2 = self.roi_loss(out, self.roi_head.model_cfg[

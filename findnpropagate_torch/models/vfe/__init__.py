@@ -6,6 +6,7 @@ from .dynamic_vfe import (
     DynamicPillarVFE,
     DynamicPillarVFESimple2D,
 )
+from .image_vfe import ImageVFE
 from .pillar_vfe import PillarVFE
 
 VFE_REGISTRY = {
@@ -15,4 +16,5 @@ VFE_REGISTRY = {
     "DynPillarVFE": DynamicPillarVFE,
     "DynamicPillarVFE": DynamicPillarVFE,
     "DynamicPillarVFESimple2D": DynamicPillarVFESimple2D,
+    "ImageVFE": ImageVFE,
 }

@@ -21,7 +21,8 @@ sorted by output id — `win_downsample` (sort + dedup, :439),
 to one active set; `coords_to_dense` (:791); `bev_merge` (:727), the
 multi-scale collapse of VoxelNeXt's levels onto one sorted (1, ny, nx)
 list; `win_inverse_conv` (:690), UNetV2's transposed convs back onto a
-finer level's list. `windowed_conv` (:300) and
+finer level's list; `focal_dilate` (:805), the focal backbone's
+active-set dilation by a stable sort of ids. `windowed_conv` (:300) and
 `subm_conv_windowed` (:385) are the reference's XLA windowed conv
 (``SUBM_IMPL: xla``): a target reads tap k's neighbour only inside its
 block's window of the source list, and the blocks whose neighbour span
@@ -666,3 +667,60 @@ def coords_to_dense(coords, valid, feats, shape):
                                    torch.zeros_like(feats))
     return dense[:, :n].reshape(b, nz, ny, nx, ch).permute(
         0, 4, 1, 2, 3).contiguous()
+
+
+def focal_dilate(ids, feats, cand_mask, shape, max_out: int):
+    """Focal sparse conv's active-set dilation (:805): every selected
+    (voxel, offset) pair adds a zero-feature cell at that offset; the
+    candidates merge with the actives by a stable sort of their ids (an
+    original keeps its features where a candidate collides with it), the
+    duplicates go, and the `max_out` smallest ids stay.
+
+    ids (B, V) sorted guard-banded yxz ids (ascending sentinels for the
+    invalid slots); feats (B, V, C); cand_mask (B, V, 26) bool over the
+    non-centre 3x3x3 offsets in `kernel_offsets` order. Returns (ids',
+    coords', valid', feats') sorted, (B, max_out), the invalid slots at
+    ``sentinel + slot``; the features keep their gradient."""
+    nz, ny, nx = (int(s) for s in shape)
+    stride_x, stride_y = yxz_strides(shape)
+    sentinel = yxz_sentinel_start(shape)
+    b, v, c = feats.shape
+    dev = ids.device
+    offs = kernel_offsets((3, 3, 3))
+    offs = offs[~np.all(offs == 0, axis=1)]                # (26, 3) zyx
+    deltas = torch.as_tensor(offs[:, 1] * stride_y + offs[:, 2] * stride_x
+                             + offs[:, 0], dtype=torch.int64, device=dev)
+    ids = ids.long()
+    cand = ids[..., None] + deltas                          # (B, V, 26)
+    cy = cand // stride_y
+    rem = cand % stride_y
+    cx = rem // stride_x - 1
+    cz = rem % stride_x - 1
+    ok = (cand_mask & (ids < sentinel)[..., None] & (cy >= 0) & (cy < ny)
+          & (cx >= 0) & (cx < nx) & (cz >= 0) & (cz < nz))
+    big = INT32_MAX
+    cand = torch.where(ok, cand, torch.full_like(cand, big)).reshape(b, -1)
+    all_ids = torch.cat([torch.where(ids < sentinel, ids,
+                                     torch.full_like(ids, big)), cand], 1)
+    feats_ext = torch.cat([feats, feats.new_zeros(b, cand.shape[1], c)], 1)
+    ids_s, perm = torch.sort(all_ids, dim=1, stable=True)
+    later = ids_s[:, 1:]
+    newseg = torch.cat([ids_s[:, :1] < big,
+                        (later != ids_s[:, :-1]) & (later < big)], dim=1)
+    uniq = torch.where(newseg, ids_s, torch.full_like(ids_s, big))
+    out_ids, order = torch.sort(uniq, dim=1, stable=True)
+    out_ids, order = out_ids[:, :max_out], order[:, :max_out]
+    out_valid = out_ids < big
+    src = torch.gather(perm, 1, order)
+    out_feats = torch.gather(feats_ext, 1, src[..., None].expand(-1, -1, c))
+    out_feats = torch.where(out_valid[..., None], out_feats,
+                            torch.zeros_like(out_feats))
+    oy = out_ids // stride_y
+    rem = out_ids % stride_y
+    out_coords = torch.stack([rem % stride_x - 1, oy, rem // stride_x - 1],
+                             dim=-1)
+    out_coords = torch.where(out_valid[..., None], out_coords,
+                             torch.full_like(out_coords, -1)).to(torch.int32)
+    slot = torch.arange(out_ids.shape[1], device=dev)
+    out_ids = torch.where(out_valid, out_ids, sentinel + slot)
+    return out_ids.to(torch.int32), out_coords, out_valid, out_feats

@@ -642,13 +642,13 @@ def test_init_random_matches_bench_on_variants(detector_setup, variant):
 def test_unported_names_still_raise():
     cfg = narrow_cfg()
     tds = SyntheticDataset(EDict(DATA), cfg.CLASS_NAMES, training=False)
-    for key, name in (("NAME", "CaDDN"), ("DENSE_HEAD", "PointHeadBox"),
-                      ("BACKBONE_3D", "VoxelBackBone8xFocal")):
+    for key, name in (("NAME", "MPPNet"), ("DENSE_HEAD", "PointHeadBox"),
+                      ("ROI_HEAD", "MPPNetHead")):
         m = copy.deepcopy(cfg.MODEL)
         if key == "NAME":
             m.NAME = name
         else:
-            m[key].NAME = name
+            m[key] = {**m.get(key, {}), "NAME": name}
         with pytest.raises(NotImplementedError, match="item 15"):
             torch_build(m, num_class=10, dataset=tds, device="cpu")
 

@@ -282,8 +282,8 @@ TWO_STAGE_YAMLS = (
     "waymo_models/pv_rcnn_plusplus_resnet_2frames",
     "waymo_models/pv_rcnn_with_centerhead_rpn",
     "waymo_models/voxel_rcnn_with_centerhead_dyn_voxel")
-LATER = {"kitti_models/voxel_rcnn_car_focal_multimodal": "15.6",
-         "kitti_models/CaDDN": "15.7", "waymo_models/mppnet_4frames": "15.8",
+LATER = {"waymo_models/mppnet_16frames": "15.8",
+         "waymo_models/mppnet_4frames": "15.8",
          "waymo_models/mppnet_e2e_memorybank_inference": "15.8"}
 
 

@@ -681,6 +681,7 @@ class _EmuLib:
 
     def __init__(self):
         self.calls = []
+        self.plans = []
 
     @staticmethod
     def _deltas(mids, taps):
@@ -691,6 +692,7 @@ class _EmuLib:
                          epi, relu, sent, stages, resident, stage_window,
                          taps, acc, stream):
         self.calls.append(("conv", cin, cout, epi, acc, taps, g_n))
+        self.plans.append((stages, resident, stage_window))
         wf = unpack_mma(w).float().reshape(g_n, taps, cin, cout)
         wf = wf.permute(1, 0, 2, 3).reshape(taps * g_n * cin, cout)
         res = ws.windowed_conv_plain(src, feats.float(), tgt, lo,
@@ -781,4 +783,61 @@ def test_cuda_branch_slices_and_groups_match_plain(monkeypatch, kind, cin,
     np.testing.assert_allclose(dw.numpy(), ref.numpy(), rtol=1e-5, atol=1e-5)
     assert ws.LAUNCHES["windowed_dw"] == len(
         [x for x in fake.calls if x[0] == "dw"])
+    ws.reset_launches()
+
+
+@pytest.mark.parametrize("cin,cin_k3,resident,cin_k4", [
+    (16, 16, True, 16), (19, 32, True, 32), (32, 32, True, 32),
+    (35, 48, True, 64), (64, 64, True, 64), (67, 80, False, 128)])
+def test_focal_importance_conv_widths(monkeypatch, cin, cin_k3, resident,
+                                      cin_k4):
+    """The focal backbone's importance conv (VoxelBackBone8xFocal: 16, 32
+    and 64 channels, 3 more with USE_IMG, to 27) through the CUDA branches
+    of the K3 and K4 wrappers against the emulating library: K3 forward
+    in one launch at Cin padded to a multiple of 16 and Cout 27 padded to
+    32 (the weights resident but at Cin 80), its transposed conv (27 ->
+    Cin) at Cin 32, K4 at Cin padded to a power of two and Cout 32, all
+    equal to the plain versions at the same bf16 operands (1e-5 of the
+    output's scale)."""
+    fake = _EmuLib()
+    monkeypatch.setattr(ws, "_check_device", lambda *a: True)
+    monkeypatch.setattr(ws, "_lib", lambda: fake)
+    monkeypatch.setattr(ws, "_stream", lambda: None)
+    monkeypatch.setattr(ws, "_ptr", lambda x: x)
+    c = make_case(8, 1200, shape=(9, 40, 40), c_in=cin, c_out=27)
+    window = 2048
+    src, feats, tgt, deltas, lo, window = _prepared(c, window)
+    w_flat = torch.from_numpy(c["w"]).reshape(27 * cin, 27)
+    ws.reset_launches()
+    got = ws.conv_kernel(src, feats, tgt, lo, deltas, w_flat, BLOCK, window,
+                         compute_dtype=torch.bfloat16)
+    want = ws.windowed_conv_plain(src, feats, tgt, lo, deltas, w_flat, BLOCK,
+                                  window, compute_dtype=torch.bfloat16)
+    assert fake.calls == [("conv", cin_k3, 32, 0, 0, 3, 9)]
+    assert fake.plans[0][1] == resident
+    assert ws.conv_plan(cin_k3, 32, window) == fake.plans[0]
+    scale = max(float(want.abs().max()), 1e-3)
+    assert float((got - want).abs().max()) <= 1e-5 * scale
+    g = np.random.RandomState(9).standard_normal(
+        (c["tgt"].shape[0], 27)).astype(np.float32)
+    tc = transposed(c, g)
+    tsrc, tfeats, ttgt, tdeltas, tlo, twin = _prepared(tc, window)
+    tw = torch.from_numpy(tc["w"]).reshape(27 * 27, cin)
+    got = ws.conv_kernel(tsrc, tfeats, ttgt, tlo, tdeltas, tw, BLOCK, twin,
+                         compute_dtype=torch.bfloat16)
+    want = ws.windowed_conv_plain(tsrc, tfeats, ttgt, tlo, tdeltas, tw,
+                                  BLOCK, twin, compute_dtype=torch.bfloat16)
+    cout_p = max(8, 1 << (cin - 1).bit_length())
+    assert fake.calls[1] == ("conv", 32, cout_p, 0, 0, 3, 9)
+    assert float((got - want).abs().max()) <= 1e-5 * max(
+        float(want.abs().max()), 1e-3)
+    gt = torch.from_numpy(g)[None]
+    dw = ws.dw_kernel(src, feats, tgt, gt, lo, deltas, BLOCK, window,
+                      compute_dtype=torch.bfloat16)
+    ref = ws.windowed_dw_plain(src, feats, tgt, gt, lo, deltas, BLOCK,
+                               window, compute_dtype=torch.bfloat16)
+    assert fake.calls[2] == ("dw", cin_k4, 32, 3, 9)
+    assert ws.dw_slices(cin_k4, 32) == (cin_k4, 32)
+    np.testing.assert_allclose(dw.numpy(), ref.numpy(), rtol=1e-5, atol=1e-5)
+    assert ws.LAUNCHES == {"windowed_conv": 2, "windowed_dw": 1}
     ws.reset_launches()
