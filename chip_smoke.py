@@ -437,10 +437,36 @@ Phases (any failure exits non-zero and prints no result line):
      BEVFusion's camera, fused and 2D BEV maps, the focal levels (ids
      equal unless an importance lies within 1e-5 of THRESHOLD or its TOPK
      cut) and CaDDN's volume, BEV map and logits within 1e-4;
- 21. a `kernels` JSON line (phases 13-18 and 20 add, per yaml, each
+ 21. MPPNet, the frustum heads and the dense-z conv: first-stage boxes
+     for phase 14's Waymo tree (its ground truths jittered with a seed,
+     in the result.pkl format ROI_BOXES_PATH names, which neither
+     package's test.py writes); waymo_models/mppnet_4frames.yaml at full
+     width through WaymoDataset (USE_PREDBOX, 4 stacked sweeps): forwards
+     + post_process at batch 1 and 2 (no kernel launched; finite 9-wide
+     boxes, labels in {1, 2, 3}, detections in every scan; ms/scan, peak
+     memory, the crop's and the grouped transformer's ms by CUDA events)
+     and a warm-up and a timed step at its batch of 2 (adam_onecycle,
+     finite loss and gradient norm), its train.py (every 5th training
+     frame) and test.py chain beside the rest; mppnet_16frames.yaml the
+     same at batch 1 and a step at 2; mppnet_e2e_memorybank_inference.yaml
+     at full width on three consecutive val frames: the CenterHead first
+     stage (VoxelResBackBone8x in posgather: K1 and K2 launched, every
+     call of the first frame held against its plain version), its boxes
+     pushed into a memory bank, MPPNetHeadE2E over the bank on the
+     frame's own sweep and post_process (the same gates, finite
+     features), and again over a second bank of the frames' written
+     boxes (every frame's crops hold points, the bank holds features
+     afterwards); the narrow MPPNet detector and
+     post_process_mppnet, both frustum heads, zdense_subm and
+     zdense_downsample on the card against the CPU within 1e-4 (masks and
+     detections equal); zdense_subm at the main path's L0 (one lidar_ring
+     scene's voxels, 16 -> 16) against gather-mode subm_conv within 1e-4,
+     and in bfloat16 beside K3 (profile_zdense.compare: equal within
+     bf16 rounding, K3's overflow 0, both timed);
+ 22. a `kernels` JSON line (phases 13-18 and 20 add, per yaml, each
      kernel's calls of one batch-4 forward or of one training step,
-     summed; phase 19 each rank's launches of a step), then the result
-     line
+     summed; phase 19 each rank's launches of a step; phase 21 the E2E
+     first stage's calls of one frame), then the result line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 With --before DIR (a checkout of an earlier commit of this repo, e.g.
@@ -466,6 +492,7 @@ import contextlib
 import cProfile
 import copy
 import dataclasses
+import functools
 import inspect
 import io
 import json
@@ -5413,18 +5440,19 @@ def tree_data(TD, root, stats):
     return data
 
 
-def train_test_clis(cfg_mod, work, data, yaml, label):
+def train_test_clis(cfg_mod, work, data, yaml, label, extra=()):
     """train.py (DS_CLI_EPOCHS epoch) and test.py on its checkpoint, the
-    yaml as written with only DATA_CONFIG.DATA_PATH set, as subprocesses in
-    `work`: their wall seconds, the logged losses and overflow, the
-    checkpoints and the evaluation's result; raises unless both exit 0,
-    the losses are finite and a checkpoint is written."""
+    yaml as written with only DATA_CONFIG.DATA_PATH set (and the `extra`
+    --set pairs), as subprocesses in `work`: their wall seconds, the logged
+    losses and overflow, the checkpoints and the evaluation's result;
+    raises unless both exit 0, the losses are finite and a checkpoint is
+    written."""
     if not (work / "tools").exists():
         (work / "tools").symlink_to(ROOT / "tools")
     cfg_file = str(ROOT / yaml)
     cfg = cfg_mod.cfg_from_yaml_file(cfg_file)
     run_dir = work / "output" / cfg.EXP_GROUP_PATH / cfg.TAG / "default"
-    setting = ["--set", "DATA_CONFIG.DATA_PATH", str(data)]
+    setting = ["--set", "DATA_CONFIG.DATA_PATH", str(data), *extra]
     out = {}
     out["train_s"], log_text = run_cli(
         "train", ["--cfg_file", cfg_file, "--epochs", str(DS_CLI_EPOCHS),
@@ -7545,6 +7573,19 @@ def bev_cfg(cfg_mod, train=False):
     return cfg
 
 
+def event_timed(torch, evs, name, fn):
+    """fn wrapped to record (name, start, end) CUDA events into evs."""
+    def run(*a, **kw):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = fn(*a, **kw)
+        e1.record()
+        evs.append((name, e0, e1))
+        return out
+    return run
+
+
 def bev_branch_ms(torch, det, batch):
     """vn_forwards' probe: one forward with CUDA events around the camera
     branch's modules (Swin, FPN, DepthLSS, ConvFuser) and around bev_pool
@@ -7552,18 +7593,7 @@ def bev_branch_ms(torch, det, batch):
     from findnpropagate_torch.models.view_transforms import depth_lss
 
     evs = []
-
-    def timed(name, fn):
-        def run(*a, **kw):
-            e0 = torch.cuda.Event(enable_timing=True)
-            e1 = torch.cuda.Event(enable_timing=True)
-            e0.record()
-            out = fn(*a, **kw)
-            e1.record()
-            evs.append((name, e0, e1))
-            return out
-        return run
-
+    timed = functools.partial(event_timed, torch, evs)
     parts = {"swin": det.image_backbone, "fpn": det.neck,
              "depth_lss": det.vtransform, "fuser": det.fuser}
     for name, mod in parts.items():
@@ -7882,6 +7912,611 @@ def image_phase(torch, mods, smi, dev="cuda"):
     return rep, rows, entries
 
 
+# ---- phase 21: MPPNet, the frustum heads and the dense-z conv
+
+MPP_WORK = "build/mppnet"
+MPP_CFGS = {"4frames": "tools/cfgs/waymo_models/mppnet_4frames.yaml",
+            "16frames": "tools/cfgs/waymo_models/mppnet_16frames.yaml"}
+MPP_E2E_CFG = "tools/cfgs/waymo_models/mppnet_e2e_memorybank_inference.yaml"
+# the yamls' ROI_BOXES_PATH, relative to the working directory
+MPP_ROIS = Path("output") / "waymo_centerpoint"
+MPP_BATCHES = {"4frames": (1, 2), "16frames": (1,)}
+MPP_REPS = 2                  # timed forwards after a warm-up
+MPP_E2E_FRAMES = 3
+MPP_CLI_INTERVAL = 5          # train.py reads every 5th training frame
+MPP_CLASSES = (1, 2, 3)
+MPP_REF_RTOL = 1e-4           # card against CPU, float32, TF32 off
+# the narrow MPPNet head of the card-against-CPU check
+MPP_NARROW = {"TRANS_INPUT": 32, "MLPS": [[16, 16], [16, 16]],
+              "NSAMPLE": [8, 8], "GRID_SIZE": 2, "num_lidar_points": 16,
+              "num_proxy_points": 8, "hidden_dim": 32, "dim_feedforward": 64,
+              "mixer_hidden": 8, "ROI_PER_IMAGE": 8, "NMS_POST_MAXSIZE": 16}
+FRUSTUM_CFG = {
+    "NUM_CLASSES": 10, "HIDDEN_CHANNEL": 32, "NUM_HEADING_BIN": 12,
+    "TARGET_ASSIGNER_CONFIG": {"HUNGARIAN_ASSIGNER": {
+        "cls_cost": {"gamma": 2.0, "alpha": 0.25, "weight": 0.15},
+        "reg_cost": {"weight": 0.25}, "iou_cost": {"weight": 0.25}}},
+    "LOSS_CONFIG": {"LOSS_CLS": {"use_sigmoid": True, "gamma": 2.0,
+                                 "alpha": 0.25},
+                    "LOSS_WEIGHTS": {"cls_weight": 1.0, "bbox_weight": 0.25,
+                                     "code_weights": [1.0] * 8}},
+    "POST_PROCESSING": {"SCORE_THRESH": 0.0, "POST_CENTER_RANGE": [
+        -61.2, -61.2, -10.0, 61.2, 61.2, 10.0]}}
+
+
+def write_pred_boxes(data_root, out_dir, seed=0):
+    """The first stage's boxes that ROI_BOXES_PATH names, which neither
+    package's test.py writes: per frame of each split, every ground truth
+    of a known class jittered (centre, size and heading N(0, 0.2^2), the
+    velocity N(0, 0.1^2)) with a score in [0.3, 0.95), in the format
+    WaymoDataset.load_pred_boxes_to_dict reads (frame_id, boxes_lidar
+    (N, 9), score, name), to out_dir/{train,val}/result.pkl. Returns the
+    boxes written per split."""
+    rng = np.random.RandomState(seed)
+    counts = {}
+    for split in ("train", "val"):
+        preds = []
+        seqs = (data_root / "ImageSets" / f"{split}.txt").read_text().split()
+        for f in seqs:
+            seq = f[:-len(".tfrecord")]
+            with open(data_root / "waymo_processed_data" / seq
+                      / f"{seq}.pkl", "rb") as fh:
+                infos = pickle.load(fh)
+            for info in infos:
+                annos = info["annos"]
+                keep = np.isin(annos["name"], WAYMO_CLASSES)
+                gt = np.asarray(annos["gt_boxes_lidar"], np.float32)[keep]
+                boxes = gt.copy()
+                boxes[:, :7] += rng.normal(0, 0.2, (len(gt), 7))
+                boxes[:, 3:6] = np.abs(boxes[:, 3:6])
+                boxes[:, 7:9] += rng.normal(0, 0.1, (len(gt), 2))
+                preds.append({"frame_id": info["frame_id"],
+                              "boxes_lidar": boxes.astype(np.float32),
+                              "score": rng.uniform(0.3, 0.95, len(gt)),
+                              "name": np.asarray(annos["name"])[keep]})
+        (out_dir / split).mkdir(parents=True, exist_ok=True)
+        with open(out_dir / split / "result.pkl", "wb") as fh:
+            pickle.dump(preds, fh)
+        counts[split] = sum(len(p["score"]) for p in preds)
+    return counts
+
+
+def mpp_cfg(cfg_mod, name, rois_dir):
+    """An MPPNet yaml as written, its ROI_BOXES_PATH at rois_dir."""
+    cfg = cfg_mod.cfg_from_yaml_file(str(ROOT / MPP_CFGS[name]))
+    cfg.DATA_CONFIG.ROI_BOXES_PATH = {
+        "train": str(rois_dir / "train" / "result.pkl"),
+        "test": str(rois_dir / "val" / "result.pkl")}
+    return cfg
+
+
+def mpp_gate(torch, label, dets):
+    """Finite detections, 9-wide boxes (the velocity kept), labels of the
+    filled slots in {1, 2, 3}, at least one a scan."""
+    lab = [int(v) for b in range(dets.labels.shape[0])
+           for v in dets.labels[b, :int(dets.count[b])]]
+    if not (bool(torch.isfinite(dets.boxes).all())
+            and bool(torch.isfinite(dets.scores).all())
+            and dets.boxes.shape[-1] == 9 and int(dets.count.min()) > 0
+            and set(lab) <= set(MPP_CLASSES)):
+        raise AssertionError(f"{label}: boxes {tuple(dets.boxes.shape)}, "
+                             f"counts {dets.count.tolist()}, labels "
+                             f"{sorted(set(lab))}")
+
+
+def mpp_probe(torch, det, batch):
+    """One forward with CUDA events around every crop (crop_points_to_rois)
+    and around the grouped transformer: their ms and shares."""
+    from findnpropagate_torch.models.roi_heads import mppnet_head as mh
+
+    evs = []
+    timed = functools.partial(event_timed, torch, evs)
+    crop = mh.crop_points_to_rois
+    mh.crop_points_to_rois = timed("crop", crop)
+    tr = det.roi_head.transformer
+    tr.forward = timed("transformer", tr.forward)
+    try:
+        with torch.no_grad():
+            timed("forward", det)(batch)
+        torch.cuda.synchronize()
+    finally:
+        mh.crop_points_to_rois = crop
+        del tr.forward
+    ms = {}
+    for name, e0, e1 in evs:
+        ms[name] = ms.get(name, 0.0) + e0.elapsed_time(e1)
+    return {"crop_ms": ms["crop"], "transformer_ms": ms["transformer"],
+            "probe_forward_ms": ms["forward"],
+            "crop_share": ms["crop"] / ms["forward"],
+            "transformer_share": ms["transformer"] / ms["forward"]}
+
+
+def mpp_run(torch, mods, smi, name, data, rois_dir, dev):
+    """An MPPNet yaml at full width on the Waymo tree: eval forwards +
+    post_process at MPP_BATCHES (no kernel launched, mpp_gate, ms/scan,
+    peak memory; the crop's and the transformer's ms at the largest), then
+    a warm-up training step at the yaml's batch with its optimizer and
+    clip. Returns a report."""
+    cfg_mod, models_mod, _, tp, ws, _, weights, *_ = mods
+    cfg = mpp_cfg(cfg_mod, name, rois_dir)
+    batches = MPP_BATCHES[name]
+    ds, batch, host_ms = data(cfg, False, max(batches))
+    det = models_mod.build_network(copy.deepcopy(cfg.MODEL),
+                                   len(cfg.CLASS_NAMES), ds, device=dev)
+    weights.init_random_(det, seed=0)
+    rep = {"yaml": MPP_CFGS[name], "device": smi, "loader_ms": host_ms,
+           "points_per_scan": [int(m.sum()) for m in batch["points_mask"]],
+           "rois_per_scan": [int((np.abs(r[0, :, :6]).sum(-1) > 0).sum())
+                             for r in batch["roi_boxes"]],
+           "frames": int(batch["roi_boxes"].shape[1])}
+    for b in batches:
+        bt = on_card(torch, {k: v[:b] for k, v in batch.items()}, dev)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        tp.reset_launches()
+        ws.reset_launches()
+        dets = det.post_process(det(bt))
+        torch.cuda.synchronize()
+        got = launches_now(tp, ws)
+        cp_launch_gate(f"mppnet {name} batch {b}", got, NO_LAUNCHES)
+        mpp_gate(torch, f"mppnet {name} batch {b}", dets)
+        med, dec, share, times = forward_decode_ms(torch, det, bt, MPP_REPS,
+                                                   warm=1)
+        rep[b] = {"ms_per_scan": med / b, "times_ms": times, "decode_ms": dec,
+                  "decode_share": share,
+                  "detections_per_scan": [int(c) for c in dets.count],
+                  "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
+        if b == max(batches):
+            rep[b].update(mpp_probe(torch, det, bt))
+        del bt, dets
+    del det
+    torch.cuda.empty_cache()
+    rep["step"], _ = anchor_train(torch, mods, cfg, data, f"mppnet {name}",
+                                  1, dev, want=NO_LAUNCHES)
+    return rep
+
+
+def pred_rois11(preds, frame_id, r):
+    """A frame's boxes of write_pred_boxes' result.pkl (`preds`, its
+    list) as the bank's (r, 11) rows: box (9), score, 1-indexed label;
+    zero rows after them."""
+    det = next(d for d in preds if d["frame_id"] == frame_id)
+    n = min(r, len(det["score"]))
+    out = np.zeros((r, 11), np.float32)
+    out[:n, :9] = det["boxes_lidar"][:n]
+    out[:n, 9] = det["score"][:n]
+    out[:n, 10] = [WAYMO_CLASSES.index(c) + 1 for c in det["name"][:n]]
+    return out
+
+
+def mpp_e2e_run(torch, mods, smi, root, rois_dir, dev):
+    """The E2E yaml: its CenterHead first stage at full Waymo width
+    (VoxelResBackBone8x in posgather: K1 and K2) on MPP_E2E_FRAMES
+    consecutive val frames; each frame's boxes pushed into a memory bank
+    and MPPNetHeadE2E run over it on the frame's own sweep, then
+    post_process (the reference reads the bank from the batch; its
+    detector raises without it). The untrained first stage's boxes need
+    hold no point (their largest dims and their crops' points are
+    logged), so a second bank takes the frames' write_pred_boxes boxes,
+    as tests/test_mppnet_e2e.py drives the head with boxes of its own:
+    there every frame's crops must hold points and the bank features.
+    Every K1 / K2 call of the first frame's forward is held against its
+    plain version. Returns (report, rows, entries)."""
+    from findnpropagate_torch import datasets as TD
+    from findnpropagate_torch.models.roi_heads import mppnet_head as mh
+
+    cfg_mod, models_mod, _, tp, ws, _, weights, *_ = mods
+    cfg = cfg_mod.cfg_from_yaml_file(str(ROOT / MPP_E2E_CFG))
+    cfg.DATA_CONFIG.DATA_PATH = str(root)
+    ds, _, _ = TD.build_dataloader(cfg.DATA_CONFIG, list(cfg.CLASS_NAMES),
+                                   batch_size=1, training=False, seed=0,
+                                   prefetch=0)
+    det = models_mod.build_network(copy.deepcopy(cfg.MODEL),
+                                   len(cfg.CLASS_NAMES), ds, device=dev)
+    weights.init_random_(det, seed=0)
+    roi = cfg.MODEL.ROI_HEAD
+    nf = int(roi.Transformer.num_frames)
+    g_pts = int(roi.Transformer.num_proxy_points)
+    k_pts = int(roi.Transformer.num_lidar_points)
+    with open(rois_dir / "val" / "result.pkl", "rb") as f:
+        preds = pickle.load(f)
+    head, det.roi_head = det.roi_head, None
+    banks = {"first_stage": None, "pred_boxes": None}
+    rep = {"yaml": MPP_E2E_CFG, "device": smi, "frames": []}
+    rows = entries = None
+
+    def run_head(name, rois11, pose, bt, t):
+        memory = mh.init_mppnet_memory(
+            rois11, pose, nf, g_pts, int(roi.TRANS_INPUT)) \
+            if banks[name] is None else mh.mppnet_e2e_push_rois(
+                banks[name], rois11, pose)
+        mask = bt["points_mask"] & (bt["points"][..., -1] == 0)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        res = head({"points": bt["points"], "points_mask": mask,
+                    "memory_rois": memory["rois"], "poses": memory["poses"],
+                    "memory_feature": memory["feature"],
+                    "sample_idx": torch.full((1,), t, dtype=torch.int32,
+                                             device=dev)})
+        dets = det.post_process(res)
+        ev[1].record()
+        torch.cuda.synchronize()
+        mpp_gate(torch, f"mppnet e2e {name} frame {t}", dets)
+        feat = res["geometry_feature_memory"]
+        _, inside = mh.crop_points_to_rois(bt["points"], mask,
+                                           rois11[..., :7], k_pts)
+        banks[name] = mh.mppnet_e2e_push_feature(memory, feat)
+        if not bool(torch.isfinite(feat).all()):
+            raise AssertionError(f"mppnet e2e {name} frame {t}: features "
+                                 "not finite")
+        return {"head_ms": ev[0].elapsed_time(ev[1]),
+                "rois": int((rois11[0, :, 3:6].abs().sum(-1) > 0).sum()),
+                "crop_points": int(inside.sum()),
+                "feature_abs_sum": float(feat.abs().sum()),
+                "detections": int(dets.count[0])}
+
+    try:
+        for t in range(MPP_E2E_FRAMES):
+            bt = on_card(torch, {k: v for k, v in ds.collate_batch(
+                [ds[t]]).items() if isinstance(v, np.ndarray)}, dev)
+            pose = torch.tensor(np.asarray(ds.infos[t]["pose"]),
+                                dtype=torch.float32, device=dev)[None]
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            with record_kernels(torch, tp, ws) as calls:
+                tp.reset_launches()
+                ws.reset_launches()
+                ev[0].record()
+                out = det(bt)
+                first = det.dense_head.get_bboxes(out)
+                ev[1].record()
+                torch.cuda.synchronize()
+                got = launches_now(tp, ws)
+            vn_gate(f"mppnet e2e first stage frame {t}", got,
+                    ("positions", "posgather_conv"))
+            # the first stage's detections, its empty slots zero
+            kept = torch.arange(first.boxes.shape[1], device=dev) \
+                < first.count[:, None]
+            rois11 = torch.cat([first.boxes[..., :9],
+                                first.scores[..., None],
+                                first.labels[..., None].float()], dim=-1)
+            rois11 = torch.where(kept[..., None], rois11,
+                                 torch.zeros_like(rois11))
+            fr = {"first_stage_ms": ev[0].elapsed_time(ev[1]),
+                  "launches": got,
+                  "overflow": int(out.get("sparse_window_overflow", 0)),
+                  "first_stage_boxes": int(first.count[0]),
+                  "first_stage_box_dims_max": float(
+                      first.boxes[0, :, 3:6].abs().max()),
+                  "bank_frames_used": min(t, nf - 1)}
+            fr["first_stage"] = run_head("first_stage", rois11, pose, bt, t)
+            fr["pred_boxes"] = run_head("pred_boxes", torch.from_numpy(
+                pred_rois11(preds, ds.infos[t]["frame_id"],
+                            rois11.shape[1]))[None].to(dev), pose, bt, t)
+            rep["frames"].append(fr)
+            if t == 0:
+                rows = hold_calls(torch, tp, ws, *calls,
+                                  "mppnet e2e first stage")
+                entries = vn_entries(rows, "mppnet e2e first stage, one "
+                                     "Waymo frame", got)
+            del calls, out
+        bank = banks["pred_boxes"]["feature"]
+        if not (float(bank[:, 0].abs().sum()) > 0
+                and all(f["pred_boxes"]["crop_points"] > 0
+                        for f in rep["frames"])):
+            raise AssertionError(f"mppnet e2e: the bank's features "
+                                 f"{rep['frames']}")
+    finally:
+        det.roi_head = head
+    del det, head, banks
+    torch.cuda.empty_cache()
+    return rep, rows, entries
+
+
+def mpp_narrow_cfg(cfg_mod):
+    """The 4-frame yaml's MODEL with a narrow ROI head (MPP_NARROW)."""
+    cfg = cfg_mod.cfg_from_yaml_file(str(ROOT / MPP_CFGS["4frames"]))
+    m, n = cfg.MODEL, MPP_NARROW
+    r = m.ROI_HEAD
+    r.TRANS_INPUT = n["TRANS_INPUT"]
+    r.ROI_GRID_POOL.update(MLPS=n["MLPS"], NSAMPLE=n["NSAMPLE"],
+                           GRID_SIZE=n["GRID_SIZE"])
+    r.Transformer.update(
+        num_lidar_points=n["num_lidar_points"],
+        num_proxy_points=n["num_proxy_points"], hidden_dim=n["hidden_dim"],
+        dim_feedforward=n["dim_feedforward"])
+    r.Transformer.use_mlp_mixer.hidden_dim = n["mixer_hidden"]
+    r.TARGET_CONFIG.ROI_PER_IMAGE = n["ROI_PER_IMAGE"]
+    m.POST_PROCESSING.NMS_CONFIG.NMS_POST_MAXSIZE = n["NMS_POST_MAXSIZE"]
+    return cfg
+
+
+def mpp_narrow_batch(rng, b=2, f=4, r=12, n=800, m=4):
+    """tests/test_mppnet_e2e.py's synthetic MPPNet batch: jittered
+    proposals of m ground truths a frame, points around each."""
+    gt = np.zeros((b, m, 8), np.float32)
+    gt[..., :2] = rng.uniform(-20, 20, (b, m, 2))
+    gt[..., 2] = 0.2
+    gt[..., 3:6] = rng.uniform(2, 4, (b, m, 3))
+    gt[..., 6] = rng.uniform(-np.pi, np.pi, (b, m))
+    gt[..., 7] = rng.randint(1, 4, (b, m))
+    props = np.zeros((b, f, r, 9), np.float32)
+    props[..., :7] = gt[:, None, np.arange(r) % m, :7] + rng.normal(
+        0, 0.2, (b, f, r, 7))
+    props[..., 7:9] = rng.normal(0, 0.1, (b, f, r, 2))
+    labels = np.broadcast_to(gt[:, None, np.arange(r) % m, 7],
+                             (b, f, r)).astype(np.int32)
+    pts = rng.uniform(-25, 25, (b, n, 6)).astype(np.float32)
+    pts[..., 5] = rng.randint(0, f, (b, n)) * 0.1
+    for mi in range(m):
+        pts[:, mi * 40:mi * 40 + 40, :3] = gt[:, mi, None, :3] \
+            + rng.normal(0, 0.5, (b, 40, 3))
+    return {"points": pts, "points_mask": np.ones((b, n), bool),
+            "roi_boxes": props, "roi_scores": np.full((b, f, r), 0.7,
+                                                      np.float32),
+            "roi_labels": labels, "gt_boxes": gt}
+
+
+def mpp_reference(torch, mods, card="cuda"):
+    """Narrow modules on the card against the CPU, float32, TF32 off, the
+    same weights and inputs: the MPPNet detector's eval forward and
+    post_process_mppnet (also with the vehicles' NMS on), both frustum
+    heads, zdense_subm and zdense_downsample. Returns the relative
+    errors; raises above MPP_REF_RTOL or where detections differ."""
+    from findnpropagate_torch.models.dense_heads import frustum_heads as fh
+    from findnpropagate_torch.models.post_processing import (
+        post_process_mppnet,
+    )
+    from findnpropagate_torch.ops import zdense as zd
+
+    cfg_mod, models_mod, _, _, _, _, weights, *_ = mods
+    errs = {}
+    with tf32_off(torch):
+        cfg = mpp_narrow_cfg(cfg_mod)
+        ds = types.SimpleNamespace(
+            class_names=list(cfg.CLASS_NAMES), grid_size=None,
+            voxel_size=None, point_cloud_range=[-50, -50, -3, 50, 50, 3],
+            num_point_features=6, max_voxels=1, max_points_per_voxel=1)
+        batch = mpp_narrow_batch(np.random.RandomState(0))
+        outs, dets = {}, {}
+        for dev in ("cpu", card):
+            det = models_mod.build_network(copy.deepcopy(cfg.MODEL), 3, ds,
+                                           device=dev)
+            weights.init_random_(det, seed=0)
+            outs[dev] = det(on_card(torch, batch, dev))
+            # post-processing on the CPU forward's outputs on both: the
+            # untrained logits and the one stage-1 score tie the blended
+            # scores at float32 noise, so each device's own forward may
+            # keep the other box of an overlapping pair
+            out = {k: v.to(dev) for k, v in outs["cpu"].items()
+                   if k in ("batch_cls_preds", "batch_box_preds",
+                            "batch_roi_labels", "roi_valid")}
+            out["mppnet_preds"] = {}
+            dets[dev] = [det.post_process(out)] + [post_process_mppnet(
+                out["batch_cls_preds"][..., 0], out["batch_box_preds"],
+                out["batch_roi_labels"], out["roi_valid"], 0.7,
+                nms_post=16, not_apply_nms_for_vel=False)]
+        for k in ("batch_box_preds", "batch_cls_preds"):
+            errs[f"mppnet {k}"] = rel_err(torch, outs[card][k], outs["cpu"][k])
+        for i, (dc, dg) in enumerate(zip(dets["cpu"], dets[card])):
+            # the same detections, in either order
+            if not torch.equal(dc.count, dg.count.cpu()):
+                raise AssertionError(f"mppnet post_process {i}: card counts "
+                                     f"{dg.count.tolist()}, CPU "
+                                     f"{dc.count.tolist()}")
+            for bi, n in enumerate(dc.count.tolist()):
+                got = [dg.boxes[bi, :n].cpu(), dg.labels[bi, :n].cpu()]
+                want = [dc.boxes[bi, :n], dc.labels[bi, :n]]
+                for pair in (got, want):
+                    order = np.lexsort((pair[0][:, 0].numpy(),
+                                        pair[1].numpy()))
+                    pair[:] = [pair[0][order], pair[1][order]]
+                if not torch.equal(got[1], want[1]):
+                    raise AssertionError(f"mppnet post_process {i} sample "
+                                         f"{bi}: labels {got[1].tolist()} "
+                                         f"on the card, {want[1].tolist()}")
+                errs[f"mppnet post_process {i}"] = max(
+                    errs.get(f"mppnet post_process {i}", 0.0),
+                    rel_err(torch, got[0], want[0]))
+        rng = np.random.RandomState(1)
+        b, p, n = 2, 6, 32
+        q = {"query_pts": rng.normal(0, 1, (b, p, n, 3)).astype(np.float32),
+             "query_pt_valid": rng.uniform(size=(b, p, n)) > 0.2,
+             "query_pos": rng.uniform(-20, 20, (b, p, 3)).astype(np.float32),
+             "query_labels": rng.randint(0, 10, (b, p)),
+             "query_scores": rng.uniform(0.2, 0.9, (b, p)).astype(np.float32),
+             "query_valid": np.arange(p)[None].repeat(b, 0) < 4}
+        for name in ("FrustumViTHead", "FrustumPointNetHead"):
+            res = {}
+            for dev in ("cpu", card):
+                torch.manual_seed(0)
+                h = getattr(fh, name)(FRUSTUM_CFG, None, 10).to(dev).eval()
+                weights.init_random_(h, seed=0)
+                with torch.no_grad():
+                    res[dev] = h(on_card(torch, q, dev))["transfusion_preds"]
+            qv = torch.from_numpy(q["query_valid"])
+            errs[name] = max(rel_err(torch, res[card][k].cpu()[qv],
+                                 res["cpu"][k][qv])
+                             for k in ("center", "height", "dim", "rot",
+                                       "heatmap"))
+        nz, shape = 8, (8, 24, 24)
+        lin = rng.choice(nz * 24 * 24, 300, replace=False)
+        coords = np.stack([lin % nz, (lin // nz) % 24, lin // (nz * 24)],
+                          1).astype(np.int32)
+        feats = rng.standard_normal((300, 16)).astype(np.float32)
+        w = rng.standard_normal((27, 16, 24)).astype(np.float32) * 0.2
+        zo = {}
+        for dev in ("cpu", card):
+            t = lambda x: torch.from_numpy(x).to(dev)     # noqa: E731
+            pil = zd.pillarize(t(coords), t(np.ones(300, bool)), t(feats),
+                               shape, 256, nz)
+            sub = zd.zdense_subm(pil[0], pil[3], pil[4], pil[2], t(w), shape,
+                                 nz, 16, zc=4)
+            down = zd.zdense_downsample(pil[0], pil[1], pil[3], pil[4],
+                                        pil[2], t(w), shape, (4, 12, 12), nz,
+                                        4, 16, 128, zc=2)
+            zo[dev] = (sub, down)
+        errs["zdense_subm"] = rel_err(torch, zo[card][0], zo["cpu"][0])
+        errs["zdense_downsample"] = rel_err(torch, zo[card][1][3],
+                                        zo["cpu"][1][3])
+        if not torch.equal(zo[card][1][4].cpu(), zo["cpu"][1][4]):
+            raise AssertionError("zdense_downsample: output masks differ")
+    bad = {k: v for k, v in errs.items() if not v <= MPP_REF_RTOL}
+    if bad:
+        raise AssertionError(f"phase 21 card vs CPU above {MPP_REF_RTOL}: "
+                             f"{bad}")
+    return errs
+
+
+def zd_run(torch, mods, smi, dev):
+    """The dense-z conv at the main path's L0: the L0 voxels of one
+    bench.py lidar_ring scene (voxelize_mean at transfusion_lidar.yaml's
+    grid), 16 -> 16 channels; zdense_subm in float32 held against the
+    port's gather-mode subm_conv, then profile_zdense.compare in bfloat16
+    beside K3 with the yaml's L0 block and window. Returns a report with
+    zdense's bound (its bytes and the products of the scene's real
+    neighbour pairs)."""
+    from findnpropagate_torch.ops import sparse_ops as so
+    from findnpropagate_torch.ops import zdense as zd
+    from findnpropagate_torch.ops.voxelize import voxelize_mean
+    from findnpropagate_torch.tools import profile_zdense
+
+    cfg_mod, models_mod, synth, *_ = mods
+    cfg = cfg_mod.cfg_from_yaml_file(str(ROOT / CFG_FILE))
+    ds = synth.SyntheticDataset(cfg_mod.EDict(synth.bench_data_cfg(1, cfg)),
+                                cfg.CLASS_NAMES, training=False)
+    b = on_card(torch, ds.batch(range(1)), dev)
+    vox = voxelize_mean(b["points"], b["points_mask"], ds.point_cloud_range,
+                        ds.voxel_size, ds.grid_size, ds.max_voxels,
+                        ds.max_points_per_voxel)
+    keep = vox.voxel_mask[0]
+    coords = vox.coords[0][keep].int()
+    valid = torch.ones(coords.shape[0], dtype=torch.bool, device=dev)
+    bb = cfg.MODEL.BACKBONE_3D
+    g = ds.grid_size
+    shape = (int(g[2]) + 1, int(g[1]), int(g[0]))
+    rng = np.random.RandomState(3)
+    c = 16
+    feats = torch.from_numpy(rng.standard_normal(
+        (coords.shape[0], c)).astype(np.float32)).to(dev)
+    w = torch.from_numpy(rng.standard_normal((27, c, c)).astype(
+        np.float32) * 0.1).to(dev)
+    nz = shape[0]
+    pillars = int(torch.unique(coords[:, 1].long() * shape[2]
+                               + coords[:, 2]).numel())
+    cap = -(-pillars // 1024) * 1024
+    with tf32_off(torch):
+        pil = zd.pillarize(coords, valid, feats, shape, cap, nz)
+        out = zd.zdense_subm(pil[0], pil[3], pil[4], pil[2], w, shape, nz, c)
+        grid = so.build_grid(coords[None], valid[None], shape)
+        ref = so.subm_conv(grid, feats[None], w)[0]
+        cl = coords.long()
+        row = torch.searchsorted(pil[0].long(), cl[:, 1] * (shape[2] + 2)
+                                 + cl[:, 2] + 1)
+        got = out.reshape(cap, nz, c)[row, cl[:, 0]]
+        err = rel_err(torch, got, ref.cpu())
+        # the real neighbour pairs (target, tap) of the scene
+        offs = torch.from_numpy(so.kernel_offsets((3, 3, 3))).to(dev)
+        slots = so._lookup(grid, (cl[None, :, None, :] + offs))
+        hits = int((slots < coords.shape[0]).sum())
+    if not err <= MPP_REF_RTOL:
+        raise AssertionError(f"zdense_subm at L0 vs subm_conv: {err}")
+    cmp = profile_zdense.compare(
+        coords, valid, feats, w, shape, cap, zc=8,
+        block=int(bb.WINDOWED_BLOCK), window=int(bb.WINDOWED_WINDOW[0]),
+        reps=3)
+    if not cmp["ok"]:
+        raise AssertionError(f"zdense vs K3 at L0: {cmp}")
+    # bound: the bf16 pillar slab read once, the f32 output written once,
+    # the weights; the bf16 products of the real pairs only
+    nbytes = cap * nz * c * 2 + cap * nz * c * 4 + 27 * c * c * 2
+    bound_ms, bound_by = bound_entry(nbytes / HBM_BYTES_PER_S,
+                                     2 * c * c * hits / BF16_FLOPS)
+    rep = {"device": smi, "voxels": int(coords.shape[0]),
+           "pillars": pillars, "pillar_cap": cap, "shape": list(shape),
+           "neighbour_pairs": hits, "exact_rel_err_vs_subm_conv": err,
+           **cmp, "zdense_bound_ms": bound_ms, "zdense_bound_by": bound_by}
+    log(f"zdense at L0 ({smi}): {rep['voxels']} voxels in {pillars} pillars "
+        f"of {shape}, {hits} neighbour pairs; float32 rel err vs subm_conv "
+        f"{err:.3g}; bf16: zdense_subm {cmp['zdense_ms']:.3f} ms, K3 "
+        f"{cmp['k3_ms']:.3f} ms, pillarize {cmp['pillarize_ms']:.3f} ms, "
+        f"max |zdense - K3| {cmp['max_abs_err']:.3g}, K3 overflow "
+        f"{cmp['k3_overflow']}; zdense bound {bound_ms:.4f} ms "
+        f"({bound_by})")
+    return rep
+
+
+def mppnet_phase(torch, mods, smi, dev="cuda"):
+    """Phase 21: on phase 14's Waymo tree with the first-stage boxes
+    write_pred_boxes makes, the 4-frame yaml (forwards at batch 1 and 2, a
+    training step; its train.py / test.py chain beside the rest) and the
+    16-frame yaml (a forward at batch 1, a training step), the E2E yaml
+    (first stage with K1 / K2 held against plain, the head over three
+    frames of the bank), the narrow card-against-CPU checks, and zdense at
+    the main path's L0 beside K3. Returns (report, rows, entries)."""
+    from findnpropagate_torch import datasets as TD
+
+    t0 = time.perf_counter()
+    cfg_mod = mods[0]
+    work = ROOT / MPP_WORK
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    root = ROOT / WAYMO_WORK / "data"
+    rois_dir = work / MPP_ROIS
+    rep = {"device": smi, "pred_boxes": write_pred_boxes(root, rois_dir)}
+    data = cycled_data(TD, root)
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        cli = pool.submit(train_test_clis, cfg_mod, work, root,
+                          MPP_CFGS["4frames"], "mppnet_4frames",
+                          ("DATA_CONFIG.SAMPLED_INTERVAL.train",
+                           str(MPP_CLI_INTERVAL)))
+        for name in MPP_CFGS:
+            rep[name] = mpp_run(torch, mods, smi, name, data, rois_dir, dev)
+            r, st = rep[name], rep[name]["step"]
+            log(f"mppnet {name} ({smi}): {r['yaml']} at full width, "
+                f"{r['frames']} frames, points a scan {r['points_per_scan']}"
+                f", ROIs {r['rois_per_scan']}; "
+                + "; ".join(f"batch {b} {r[b]['ms_per_scan']:.2f} ms/scan "
+                            f"(peak {r[b]['peak_mem_gb']:.2f} GiB, "
+                            f"detections {r[b]['detections_per_scan']})"
+                            for b in MPP_BATCHES[name])
+                + f"; crop {r[max(MPP_BATCHES[name])]['crop_ms']:.2f} ms, "
+                f"transformer "
+                f"{r[max(MPP_BATCHES[name])]['transformer_ms']:.2f} ms of a "
+                f"batch-{max(MPP_BATCHES[name])} forward; training batch "
+                f"{st['batch']} {st['ms_per_step']:.1f} ms/step (warm-up "
+                f"{st['warm_up']['ms']:.1f}), losses "
+                f"{[round(v, 3) for v in st['losses']]}, peak "
+                f"{st['peak_mem_gb']:.2f} GiB")
+        rep["e2e"], rows, entries = mpp_e2e_run(torch, mods, smi, root,
+                                                rois_dir, dev)
+        log(f"mppnet e2e ({smi}): " + "; ".join(
+            f"frame {i} first stage {f['first_stage_ms']:.1f} ms (launches "
+            f"{f['launches']}, overflow {f['overflow']}, "
+            f"{f['first_stage_boxes']} boxes, dims at most "
+            f"{f['first_stage_box_dims_max']:.3g} m), then over "
+            f"{f['bank_frames_used']} bank frames: "
+            + ", ".join(f"{k} {f[k]['rois']} ROIs, head "
+                        f"{f[k]['head_ms']:.1f} ms, {f[k]['crop_points']} "
+                        f"crop points, {f[k]['detections']} detections"
+                        for k in ("first_stage", "pred_boxes"))
+            for i, f in enumerate(rep["e2e"]["frames"]))
+            + f"; {len(rows)} first-stage kernel calls held against plain")
+        rep["card_vs_cpu"] = mpp_reference(torch, mods, dev)
+        log(f"phase 21 card vs CPU (narrow, float32): {rep['card_vs_cpu']}")
+        rep["zdense"] = zd_run(torch, mods, smi, dev)
+        rep["cli"] = cli.result()
+    c = rep["cli"]
+    if not all(math.isfinite(v) for v in c["result"].values()):
+        raise AssertionError(f"mppnet test.py: result {c['result']}")
+    log(f"mppnet 4frames CLIs ({smi}): train.py {c['train_s']:.1f} s "
+        f"(every {MPP_CLI_INTERVAL}th training frame, losses "
+        f"{c['train_losses']}, {c['checkpoints']}), test.py "
+        f"{c['test_s']:.1f} s, {len(c['result'])} result keys all finite")
+    rep["phase_s"] = time.perf_counter() - t0
+    log(f"phase 21 ({smi}): {rep['phase_s']:.1f} s")
+    return rep, rows, entries
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--batches", type=int, nargs="+", default=[1, 8])
@@ -8112,7 +8747,12 @@ def main():
     report["image"], im_rows, im_entries = image_phase(torch, mods, smi)
     report["image_kernel_calls"] = im_rows
 
-    # ---- 21. result lines
+    # ---- 21. MPPNet (the 4- and 16-frame yamls, the E2E memory bank),
+    # the frustum heads and the dense-z conv
+    report["mppnet"], mp_rows, mp_entries = mppnet_phase(torch, mods, smi)
+    report["mppnet_kernel_calls"] = mp_rows
+
+    # ---- 22. result lines
     first_batch = report["main_path"][0]["launches_per_forward"]
     pick = {
         # K1 at L0 (first call); K2 at the L0 16->16 subm conv with the
@@ -8198,9 +8838,10 @@ def main():
             "device_ms": r["device_ms"], "call": r["call"],
             "shapes": r["shapes"]})
     # phases 13-18 and 20: per yaml, each kernel's calls of one batch-4
-    # forward and of one training step, summed
+    # forward and of one training step, summed; phase 21: the E2E first
+    # stage's calls of one frame
     kernels += cp_entries + ds_entries + an_entries + vn_entries_ \
-        + ts_entries + pa_entries + im_entries
+        + ts_entries + pa_entries + im_entries + mp_entries
     report["kernels"] = kernels
     report["device"] = smi
     if args.out:

@@ -4,6 +4,7 @@ from .anchor_head import AnchorHeadSingle
 from .anchor_head_multi import AnchorHeadMulti
 from .center_head import CenterHead
 from .center_head_clip import CenterHeadCLIP
+from .frustum_heads import FrustumPointNetHead, FrustumViTHead
 from .transfusion_head import TransFusionHead
 from .transfusion_head_am import TransFusionHeadAM
 from .voxelnext_head import VoxelNeXtHead
@@ -16,4 +17,6 @@ DENSE_HEAD_REGISTRY = {
     "TransFusionHead": TransFusionHead,
     "TransFusionHeadAM": TransFusionHeadAM,
     "VoxelNeXtHead": VoxelNeXtHead,
+    "FrustumViTHead": FrustumViTHead,
+    "FrustumPointNetHead": FrustumPointNetHead,
 }

@@ -35,7 +35,7 @@ from its registry by the yaml's NAME:
     (the first stage of PointRCNN and PartA2_free: their decoded point
     boxes are the proposals);
   * ROI_HEAD (optional): SECONDHead, PVRCNNHead, VoxelRCNNHead,
-    PartA2FCHead, PointRCNNHead, which
+    PartA2FCHead, PointRCNNHead, MPPNetHead, MPPNetHeadE2E, which
     refine the first stage's boxes (its head then decodes boxes in
     training too, and with an ROI head those boxes keep their gradient:
     the JAX package differentiates the ROI losses through the ROIs into
@@ -47,12 +47,19 @@ That is TransFusion-LiDAR (and its anchor-matching head), CenterPoint
 (voxel and pillar), PointPillar, SECOND / SECONDNet, VoxelNeXt (3D and
 2D), PillarNet, CaDDN, BEVFusion, and the two-stage SECONDNetIoU,
 VoxelRCNN (also over the focal backbone), PVRCNN, PVRCNNPlusPlus,
-PartA2Net and PointRCNN (`RoIProposalStage` :38-76, the
+PartA2Net and PointRCNN, and MPPNet, whose ROI head is the whole model
+(its proposals and multi-frame points come from the loader; its loss is
+the head's alone, :506-518), and MPPNetE2E, a CenterPoint first stage
+before the streaming MPPNetHeadE2E, which reads its memory bank from the
+batch (``memory_rois``, ``poses``, ``memory_feature``, ``sample_idx``)
+and raises a KeyError without it, as the reference's does
+(`RoIProposalStage` :38-76, the
 assembly and module order :129-136, :200-243, the two-stage decode
 :339-355, the point-based dataset :383-386 and the TwoStageTools loss
 :519-575, the point head's loss chosen by its NAME; CaddnTools
 :461-482 and FocalTools :484-504). `post_process`
-decodes the head's outputs into fixed-size Detections: a two-stage
+decodes the head's outputs into fixed-size Detections: MPPNet's through
+`post_processing.post_process_mppnet` (:322-339), a two-stage
 detector through `post_processing.post_process_two_stage` (the ROI
 head's scores, the ROIs' labels), TransFusion its queries, the
 CenterPoint and VoxelNeXt heads their heatmaps, the anchor heads through
@@ -66,8 +73,9 @@ two-stage detector adds the ROI head's and the point head's) and its
 `tb` dictionary, with the sparse backbone's ``sparse_window_overflow``
 where there is one. The ROI sampling's uniform draws come from the
 generator, or from ``batch["roi_draws"]`` (B, NMS_POST_MAXSIZE) where the
-caller gives them. Other detectors and modules raise NotImplementedError
-naming their ROADMAP.md item (queue 1 item 15).
+caller gives them (MPPNet's from ``batch["mppnet_draws"]``). Other
+detectors and modules, and an MPPNet detector without its own ROI head,
+raise NotImplementedError naming ROADMAP.md queue 1 item 15.
 """
 
 from __future__ import annotations
@@ -90,8 +98,9 @@ from ..dense_heads.point_intra_part_head import (
 )
 from ..pfe import PFE_REGISTRY
 from ..post_processing import post_process, post_process_two_stage
+from ..post_processing import post_process_mppnet
 from ..roi_heads import ROI_HEAD_REGISTRY
-from ..roi_heads import NOT_PORTED as ROI_HEADS_NOT_PORTED
+from ..roi_heads.mppnet_head import mppnet_loss
 from ..roi_heads.pvrcnn_head import pvrcnn_rcnn_loss
 from ..roi_heads.roi_head_template import RoIHeadTemplate
 from ..roi_heads.second_head import rcnn_iou_loss
@@ -102,7 +111,7 @@ from ..view_transforms import VTRANSFORM_REGISTRY
 DETECTORS = ("TransFusion", "CenterPoint", "PointPillar", "SECOND",
              "SECONDNet", "VoxelNeXt", "PillarNet", "SECONDNetIoU",
              "VoxelRCNN", "PVRCNN", "PVRCNNPlusPlus", "PartA2Net",
-             "PointRCNN", "CaDDN", "BevFusion")
+             "PointRCNN", "CaDDN", "BevFusion", "MPPNet", "MPPNetE2E")
 TWO_STAGE = ("SECONDNetIoU", "VoxelRCNN", "PVRCNN", "PVRCNNPlusPlus",
              "PartA2Net", "PointRCNN")
 POINT_HEADS = {"PointHeadSimple": PointHeadSimple,
@@ -126,20 +135,22 @@ _OPTIONAL = ("BACKBONE_3D", "MAP_TO_BEV", "BACKBONE_2D", "PFE",
 # the 3D backbones that read the raw points (no VFE before them)
 POINT_BACKBONES = ("PointNet2MSG",)
 _TWO_STAGE_KEYS = ("PFE", "POINT_HEAD", "ROI_HEAD")
-# the items of ROADMAP.md queue 1 that port the names still refused
-_ITEMS = {**ROI_HEADS_NOT_PORTED, "MPPNet": "15.8", "MPPNetE2E": "15.8"}
+# the MPPNet detectors and the ROI head each must have
+MPPNET = {"MPPNet": "MPPNetHead", "MPPNetE2E": "MPPNetHeadE2E"}
 
 
-def _not_ported(what, name=None):
-    item = _ITEMS.get(name, "15")
+def _not_ported(what):
     return NotImplementedError(f"{what} is not ported yet (ROADMAP.md queue "
-                               f"1 item {item})")
+                               "1 item 15)")
 
 
 def _point_based(cfg, key):
     """Whether a point-based yaml may leave out `key`: the VFE where the 3D
     backbone reads the raw points (PointRCNN), the dense head where the
     point head's boxes are the proposals (PointRCNN, PartA2_free)."""
+    if cfg.get("NAME") == "MPPNet":
+        # the offline MPPNet is its ROI head alone
+        return key in ("VFE", "DENSE_HEAD")
     if key == "VFE":
         return cfg.get("BACKBONE_3D", {}).get("NAME") in POINT_BACKBONES
     if key == "DENSE_HEAD":
@@ -156,16 +167,21 @@ def check_ported(model_cfg):
     cfg = model_cfg
     name = cfg.get("NAME")
     if name not in (*DETECTORS, None):
-        raise _not_ported(f"detector {name!r}", name)
+        raise _not_ported(f"detector {name!r}")
+    roi = cfg.get("ROI_HEAD", {}).get("NAME")
+    if (name in MPPNET or roi in MPPNET.values()) \
+            and MPPNET.get(name) != roi:
+        raise _not_ported(f"detector {name!r} with ROI_HEAD {roi!r}")
     for key, names in _PORTED.items():
         if key not in cfg and (key in _OPTIONAL or _point_based(cfg, key)):
             continue
         got = cfg.get(key, {}).get("NAME", "PointHeadSimple"
                                    if key == "POINT_HEAD" else None)
         if got not in names:
-            raise _not_ported(f"{key} {got!r}", got)
-        if key in _TWO_STAGE_KEYS and name not in TWO_STAGE:
-            raise _not_ported(f"{key} of detector {name!r}", name)
+            raise _not_ported(f"{key} {got!r}")
+        if key in _TWO_STAGE_KEYS and name not in TWO_STAGE \
+                and not (key == "ROI_HEAD" and name in MPPNET):
+            raise _not_ported(f"{key} of detector {name!r}")
 
 
 class RoIProposalStage(RoIHeadTemplate):
@@ -339,6 +355,8 @@ class DetectorModule(nn.Module):
             kw["input_channels"] = self.pfe.num_point_features
         elif roi["NAME"] in ("PartA2FCHead", "PointRCNNHead"):
             kw["input_channels"] = self.backbone_3d.num_point_features
+        elif roi["NAME"] in MPPNET.values():
+            kw["num_point_features"] = int(num_point_features)
         else:
             kw["input_channels"] = self.backbone_2d.num_bev_features
         self.roi_head = ROI_HEAD_REGISTRY[roi["NAME"]](
@@ -348,6 +366,10 @@ class DetectorModule(nn.Module):
                 roi, self.point_cloud_range, self.voxel_size, n_cls)
         self.roi_loss = rcnn_iou_loss if roi["NAME"] == "SECONDHead" \
             else pvrcnn_rcnn_loss
+        self.roi_loss_cfg = roi["LOSS_CONFIG"]
+        if roi["NAME"] == "MPPNetHead":
+            # the ROI head's whole config: its aux-loss switch too
+            self.roi_loss, self.roi_loss_cfg = mppnet_loss, roi
 
     def _voxelize(self, batch):
         args = (batch["points"], batch["points_mask"], self.point_cloud_range,
@@ -406,8 +428,7 @@ class DetectorModule(nn.Module):
             loss = loss + out["loss_box_of_pts"]
         if self.roi_head is None:
             return loss, tb
-        loss2, tb2 = self.roi_loss(out, self.roi_head.model_cfg[
-            "LOSS_CONFIG"])
+        loss2, tb2 = self.roi_loss(out, self.roi_loss_cfg)
         tb = dict(tb)
         tb.update(tb2)
         loss = loss + loss2
@@ -447,6 +468,14 @@ class DetectorModule(nn.Module):
         its queries (max_det slots), the CenterPoint and VoxelNeXt heads
         their heatmaps; the two-stage and the anchor heads' boxes go
         through rotated NMS (NMS_POST_MAXSIZE slots)."""
+        if "mppnet_preds" in out_batch:     # before the RPN's outputs
+            pc = self.post_cfg
+            return post_process_mppnet(
+                out_batch["batch_cls_preds"][..., 0],
+                out_batch["batch_box_preds"], out_batch["batch_roi_labels"],
+                out_batch.get("roi_valid"), *self._nms_args(),
+                not_apply_nms_for_vel=bool(pc.get("NOT_APPLY_NMS_FOR_VEL",
+                                                  False)))
         if "rcnn_iou" in out_batch:    # before the RPN's own outputs
             return post_process_two_stage(
                 out_batch["batch_cls_preds"], out_batch["batch_box_preds"],

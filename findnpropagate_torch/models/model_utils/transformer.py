@@ -42,7 +42,10 @@ class MultiHeadAttention(nn.Module):
         self.value = nn.Linear(d_model, d_model)
         self.out = nn.Linear(d_model, d_model)
 
-    def forward(self, q, k, v, generator=None):
+    def forward(self, q, k, v, generator=None, mask=None):
+        """mask: bool, broadcast to (B, H, Nq, Nk), False where a query
+        may not attend (its logit the dtype's lowest value, as flax sets
+        it: a query with no key allowed attends evenly)."""
         b, nq, _ = q.shape
         nk = k.shape[1]
         h, dh = self.num_heads, self.head_dim
@@ -50,6 +53,8 @@ class MultiHeadAttention(nn.Module):
         k = self.key(k).view(b, nk, h, dh).transpose(1, 2)
         v = self.value(v).view(b, nk, h, dh).transpose(1, 2)
         logits = (q / math.sqrt(dh)) @ k.transpose(-1, -2)    # (B,H,Nq,Nk)
+        if mask is not None:
+            logits = logits.masked_fill(~mask, torch.finfo(logits.dtype).min)
         attn = torch.softmax(logits.float(), dim=-1).to(v.dtype)
         attn = dropout(attn, self.dropout, self.training, generator)
         x = (attn @ v).transpose(1, 2).reshape(b, nq, h * dh)

@@ -1,7 +1,8 @@
-"""Fixed-size final detections, the generic and the two-stage
+"""Fixed-size final detections, the generic, the two-stage and MPPNet's
 post-processing and the recall record — port of `Detections`,
-`post_process`, `recall_record` and `post_process_two_stage` of
-findnpropagate_tpu/models/post_processing.py:22-137."""
+`post_process`, `recall_record`, `post_process_two_stage` and
+`post_process_mppnet` of findnpropagate_tpu/models/post_processing.py
+:22-190."""
 
 from __future__ import annotations
 
@@ -67,6 +68,54 @@ def post_process_two_stage(rcnn_scores, rois, roi_labels, roi_valid,
         scores = torch.where(roi_valid, scores, torch.zeros_like(scores))
     return nms_detections(rois, scores, roi_labels, scores >= score_thresh,
                           nms_thresh, nms_pre, nms_post)
+
+
+def post_process_mppnet(cls_probs, box_preds, roi_labels, roi_valid,
+                        nms_thresh, score_thresh: float = 0.1,
+                        nms_pre: int = 1024, nms_post: int = 256,
+                        not_apply_nms_for_vel: bool = False):
+    """MPPNet's path: the scores are already blended with the first
+    stage's, the labels are the ROIs', and with NOT_APPLY_NMS_FOR_VEL the
+    vehicles (label 1) above the threshold are kept without NMS while the
+    other classes go through it. cls_probs (B, M); box_preds (B, M, 7+);
+    roi_labels (B, M). The kept boxes fill nms_post slots by descending
+    score.
+
+    As in the reference, ROI 0 stays out of the NMS survivors unless NMS
+    filled all its slots: the reference scatters the survivors' flags with
+    its -1 padding clipped to index 0, and the padding's False, written
+    last, wins."""
+    scores = torch.where(roi_valid, cls_probs, torch.zeros_like(cls_probs)) \
+        if roi_valid is not None else cls_probs
+    above = scores >= score_thresh
+    b, n = scores.shape
+    is_car = roi_labels == 1
+    if not_apply_nms_for_vel:
+        idx, _ = nms_bev(box_preds, torch.where(is_car, torch.zeros_like(
+            scores), scores), nms_thresh, pre_maxsize=nms_pre,
+            post_maxsize=nms_post, valid_mask=above & ~is_car)
+    else:
+        idx, _ = nms_bev(box_preds, scores, nms_thresh, pre_maxsize=nms_pre,
+                         post_maxsize=nms_post, valid_mask=above)
+    real = idx >= 0
+    keep = torch.zeros(b, n + 1, dtype=torch.bool, device=scores.device)
+    keep.scatter_(1, torch.where(real, idx, n).long(), True)
+    keep = keep[:, :n]
+    keep[:, 0] &= real.all(dim=-1)
+    if not_apply_nms_for_vel:
+        keep = keep | (is_car & above)
+    key = torch.where(keep, scores, torch.full_like(scores, -1.0))
+    top_v, top = top_k_lower_index_first(key, min(nms_post, n))
+    good = top_v > 0
+    boxes = torch.gather(box_preds, 1, top[..., None].expand(
+        *top.shape, box_preds.shape[-1]))
+    return Detections(
+        torch.where(good[..., None], boxes, torch.zeros_like(boxes)),
+        torch.where(good, torch.gather(scores, 1, top),
+                    torch.zeros_like(top_v)),
+        torch.where(good, torch.gather(roi_labels, 1, top),
+                    torch.zeros_like(top)).to(torch.int32),
+        good.sum(dim=-1).to(torch.int32))
 
 
 def top_k_lower_index_first(x, k: int):

@@ -1,6 +1,6 @@
-"""The ported ROI heads by their yaml NAME. The heads of later items raise
-NotImplementedError naming their ROADMAP.md item."""
+"""The ported ROI heads by their yaml NAME."""
 
+from .mppnet_head import MPPNetHead, MPPNetHeadE2E
 from .parta2_head import PartA2FCHead
 from .pointrcnn_head import PointRCNNHead
 from .pvrcnn_head import PVRCNNHead
@@ -13,5 +13,6 @@ ROI_HEAD_REGISTRY = {
     "VoxelRCNNHead": VoxelRCNNHead,
     "PartA2FCHead": PartA2FCHead,
     "PointRCNNHead": PointRCNNHead,
+    "MPPNetHead": MPPNetHead,
+    "MPPNetHeadE2E": MPPNetHeadE2E,
 }
-NOT_PORTED = {"MPPNetHead": "15.8", "MPPNetHeadE2E": "15.8"}

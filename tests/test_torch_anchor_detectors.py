@@ -302,16 +302,67 @@ def test_anchor_and_pillar_yamls_build_as_written(yaml):
         assert got == want
 
 
+def mppnet_batch_shapes(model, f):
+    """The shapes of an MPPNet batch for the reference's init: the offline
+    head's proposals of `f` frames and ground truths, or the streaming
+    head's memory bank."""
+    r, n = 128, 2048
+    sds = jax.ShapeDtypeStruct
+    batch = {"points": sds((1, n, f), jnp.float32),
+             "points_mask": sds((1, n), jnp.bool_)}
+    roi = model.ROI_HEAD
+    frames = int(roi.Transformer.num_frames)
+    if roi.NAME == "MPPNetHeadE2E":
+        batch.update(
+            memory_rois=sds((1, frames, r, 11), jnp.float32),
+            poses=sds((1, frames, 4, 4), jnp.float32),
+            memory_feature=sds((1, frames - 1, r, int(
+                roi.Transformer.num_proxy_points), int(roi.TRANS_INPUT)),
+                jnp.float32),
+            sample_idx=sds((1,), jnp.int32))
+    else:
+        batch.update(roi_boxes=sds((1, frames, r, 9), jnp.float32),
+                     roi_scores=sds((1, frames, r), jnp.float32),
+                     roi_labels=sds((1, frames, r), jnp.int32),
+                     gt_boxes=sds((1, 8, 8), jnp.float32))
+    return batch
+
+
 @pytest.mark.parametrize("yaml", NOT_PORTED)
 def test_other_detectors_still_raise(yaml):
+    """The MPPNet yamls (refused before the port had MPPNet) build as
+    written, and the port's parameters and BN statistics have the shapes
+    of the reference's tree initialised on an MPPNet batch."""
     cfg = cfg_from_yaml_file(f"tools/cfgs/{yaml}.yaml")
     if not any(p["NAME"] == "transform_points_to_voxels"
                for p in cfg.DATA_CONFIG.DATA_PROCESSOR):
-        # MPPNet's yamls voxelize nothing: any grid will do, the
-        # detector's NAME is refused first
+        # the offline yamls voxelize nothing: any grid will do
         cfg.DATA_CONFIG.DATA_PROCESSOR.append(
             {"NAME": "transform_points_to_voxels",
              "VOXEL_SIZE": [0.1, 0.1, 0.1]})
-    with pytest.raises(NotImplementedError, match="item 15"):
-        torch_build(copy.deepcopy(cfg.MODEL), len(cfg.CLASS_NAMES),
-                    yaml_dataset(cfg), device="cpu")
+    ds = yaml_dataset(cfg)
+    det = torch_build(copy.deepcopy(cfg.MODEL), len(cfg.CLASS_NAMES), ds,
+                      device="cpu")
+    assert type(det.roi_head).__name__ == cfg.MODEL.ROI_HEAD.NAME
+    jcfg = JEDict(copy.deepcopy(cfg.MODEL))
+    if "BACKBONE_3D" in jcfg:
+        jcfg.BACKBONE_3D["SUBM_IMPL"] = "xla"     # the same parameters
+    jdet = jax_build(jcfg, len(cfg.CLASS_NAMES), ds)
+    if cfg.MODEL.ROI_HEAD.NAME == "MPPNetHeadE2E":
+        # Detector3D.init runs the module in training, where the streaming
+        # head asserts: the reference initialises it at eval
+        def init(b):
+            return jdet.module.init({"params": jax.random.PRNGKey(0)}, b,
+                                    train=False)
+    else:
+        def init(b):
+            return jdet.init(jax.random.PRNGKey(0), b)
+    shapes = jax.eval_shape(init, mppnet_batch_shapes(
+        cfg.MODEL, ds.num_point_features))
+    for coll in ("params", "batch_stats"):
+        got = {k: v.shape for k, v in flat(to_jax_tree(
+            det, "param" if coll == "params" else coll)).items()}
+        want = {tuple(p.key for p in path): leaf.shape for path, leaf in
+                jax.tree_util.tree_flatten_with_path(
+                    shapes.get(coll, {}))[0]}
+        assert got == want

@@ -478,13 +478,15 @@ def test_init_random_matches_bench(detectors):
 YAMLS = ("kitti_models/PartA2", "kitti_models/PartA2_free",
          "kitti_models/pointrcnn", "kitti_models/pointrcnn_iou",
          "waymo_models/PartA2", "once_models/pointrcnn")
-# the model yamls the port still refuses (ROADMAP.md queue 1 item 15.8)
-REFUSED = ("waymo_models/mppnet_16frames", "waymo_models/mppnet_4frames",
-           "waymo_models/mppnet_e2e_memorybank_inference")
+# the model yamls the port refuses: none since MPPNet (item 15.8)
+REFUSED = ()
 # refused before the focal backbone and the image stack (items 15.6, 15.7)
+# and MPPNet (item 15.8)
 PORTED_SINCE = ("kitti_models/CaDDN",
                 "kitti_models/voxel_rcnn_car_focal_multimodal",
-                "nuscenes_models/bevfusion")
+                "nuscenes_models/bevfusion", "waymo_models/mppnet_16frames",
+                "waymo_models/mppnet_4frames",
+                "waymo_models/mppnet_e2e_memorybank_inference")
 
 
 def yaml_dataset(cfg):
@@ -541,6 +543,8 @@ def test_a_voxel_yaml_without_its_vfe_or_dense_head_is_refused(yaml, drop):
 
 
 def test_exactly_three_model_yamls_are_refused():
+    """No model yaml under tools/cfgs/ is refused any more (the three
+    MPPNet yamls were the last, until item 15.8)."""
     refused = []
     for path in sorted(glob.glob("tools/cfgs/*_models/*.yaml")):
         if "seeker" in os.path.basename(path):

@@ -49,6 +49,10 @@ import bench
 import flax
 from findnpropagate_torch.config import cfg_from_yaml_file
 from findnpropagate_torch.models import build_network as torch_build
+from findnpropagate_torch.models.detectors.detector3d import check_ported
+from findnpropagate_torch.models.roi_heads import (
+    ROI_HEAD_REGISTRY as TORCH_ROI_HEADS,
+)
 from findnpropagate_torch.utils.weights import (
     from_jax_variables,
     init_random_,
@@ -303,30 +307,64 @@ def test_two_stage_yamls_build_as_written(yaml):
 
 @pytest.mark.parametrize("yaml", list(LATER))
 def test_later_two_stage_yamls_raise_with_their_item(yaml):
+    """The MPPNet yamls, refused until item 15.8 was ported, build as
+    written: the offline detector is its ROI head alone, the streaming one
+    a CenterPoint first stage before MPPNetHeadE2E; the head's widths are
+    the yaml's."""
     cfg = cfg_from_yaml_file(f"tools/cfgs/{yaml}.yaml")
     if not any(p["NAME"] == "transform_points_to_voxels"
                for p in cfg.DATA_CONFIG.DATA_PROCESSOR):
-        # the point-based yamls voxelize nothing: any grid will do, the
-        # detector's NAME is refused first
+        # the offline yamls voxelize nothing: any grid will do
         cfg.DATA_CONFIG.DATA_PROCESSOR.append(
             {"NAME": "transform_points_to_voxels",
              "VOXEL_SIZE": [0.1, 0.1, 0.1]})
-    with pytest.raises(NotImplementedError,
-                       match=f"item {LATER[yaml].replace('.', '[.]')}"):
-        torch_build(copy.deepcopy(cfg.MODEL), len(cfg.CLASS_NAMES),
-                    yaml_dataset(cfg), device="cpu")
+    det = torch_build(copy.deepcopy(cfg.MODEL), len(cfg.CLASS_NAMES),
+                      yaml_dataset(cfg), device="cpu")
+    roi = cfg.MODEL.ROI_HEAD
+    head = det.roi_head
+    assert type(head).__name__ == roi.NAME
+    e2e = roi.NAME == "MPPNetHeadE2E"
+    assert (det.backbone_3d is not None) == e2e == det.voxelized
+    assert (det.dense_head is not None) == e2e
+    tr = roi.Transformer
+    assert head.num_frames == int(tr.num_frames)
+    assert head.transformer.layers == int(tr.enc_layers)
+    assert head.roi_grid_pool.out_channels == int(roi.TRANS_INPUT)
+    assert head.jointembed.fc0.in_features == \
+        int(tr.num_groups) * int(tr.hidden_dim) + int(roi.TRANS_INPUT)
+    assert hasattr(head.transformer, "fusion_all_group") == (
+        int(tr.num_frames) > int(tr.num_groups))
+    assert not det.training
 
 
 @pytest.mark.parametrize("head,item", [("MPPNetHead", "15.8"),
                                        ("MPPNetHeadE2E", "15.8")])
 def test_later_roi_heads_raise_with_their_item(head, item):
+    """The MPPNet heads, ported by item 15.8, build from their yamls'
+    ROI_HEAD and are refused under another detector's NAME (item 15), as
+    their own detectors refuse another ROI head."""
+    yaml = "mppnet_4frames" if head == "MPPNetHead" \
+        else "mppnet_e2e_memorybank_inference"
+    roi = cfg_from_yaml_file(f"tools/cfgs/waymo_models/{yaml}.yaml") \
+        .MODEL.ROI_HEAD
+    mod = TORCH_ROI_HEADS[head](roi, num_class=1, num_point_features=6)
+    assert type(mod).__name__ == head
+    assert [n for n, _ in mod.named_children()].count("transformer") == 1
+    assert sum(n.startswith("bbox_embed_") for n, _ in
+               mod.named_children()) == int(roi.Transformer.num_groups)
+    assert mod.up_dimension_geometry.fc0.in_features == 27 + 2
     cfg = cfg_from_yaml_file("tools/cfgs/kitti_models/voxel_rcnn_car.yaml")
     m = copy.deepcopy(cfg.MODEL)
     m.ROI_HEAD.NAME = head
     with pytest.raises(NotImplementedError,
-                       match=f"ROI_HEAD '{head}'.*item {item}"):
+                       match=f"ROI_HEAD '{head}'.*item 15"):
         torch_build(m, len(cfg.CLASS_NAMES), yaml_dataset(cfg),
                     device="cpu")
+    mp = copy.deepcopy(cfg_from_yaml_file(
+        f"tools/cfgs/waymo_models/{yaml}.yaml").MODEL)
+    mp.ROI_HEAD.NAME = "VoxelRCNNHead"
+    with pytest.raises(NotImplementedError, match="item 15"):
+        check_ported(mp)
 
 
 def test_two_stage_parts_need_a_two_stage_detector():
