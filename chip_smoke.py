@@ -409,7 +409,23 @@ Phases (any failure exits non-zero and prints no result line):
      launches (TRAIN_LAUNCHES) and every call held against its plain
      version, and both steps' ms (beside train.py's process); the
      query top-k of the compared steps pinned to the one process's
-     (`PinQueries`: an untrained heatmap ties at bf16 noise);
+     (`PinQueries`: an untrained heatmap ties at bf16 noise); beside
+     them (e) train_st.py --dist under `torchrun --standalone
+     --nproc_per_node 1` (NCCL) on the ST yaml at full width with the
+     main yaml's posgather backbone, phase 12's tree and frustum store,
+     two epochs with st_warmup 1 at a global batch of 2 (the extraction's
+     log line, the store stamped 1, one npz a train frame, a checkpoint
+     an epoch), (f) two gloo ranks on the card each running
+     train_model_st on its shard (`chip_smoke.py --st-ddp-worker`) over
+     four scenes against one process at the same global batch, every
+     query top-k pinned to the one process's: the union of the ranks'
+     stores equal to its store (labels and counts exact, boxes and scores
+     within ST_DDP_RTOL), the warm-up step within (b)'s gates, each
+     rank's K1-K4 launches those of the one process and the last step's
+     calls held against their plain versions, and (g)
+     graft_entry.dryrun_multichip(1) (NCCL) and (2) (two gloo processes
+     sharing the card), each a finite loss, and entry() on the card
+     against the CPU (ENTRY_RTOL); each part's seconds;
  20. the focal backbone and the image stack: nuscenes_models/
      bevfusion.yaml at full width (Swin-T, LSS FPN, DepthLSS over
      bev_pool, ConvFuser) with transfusion_lidar.yaml's posgather
@@ -7005,8 +7021,9 @@ def ddp_snapshot(torch, det, metrics):
 
 
 class PinQueries:
-    """TransFusionHead's top-k of its queries pinned to `indices` (B, K);
-    without them the ones the head picks are kept in `picked`. An
+    """TransFusionHead's top-k of its queries pinned to `indices` (B, K),
+    or to a list of them, one a call in turn; without them the ones the
+    head picks are kept in `picked`. An
     untrained heatmap ties at the noise of the kernels' bf16 operands, so
     a batch of 4 and two of 2 pick different queries among the ties (3.5 %
     of the parameters' entries then differ after a step); pinned, the two
@@ -7025,7 +7042,8 @@ class PinQueries:
                 vals, idx = orig(x, k)
                 self.picked.append(idx.cpu())
                 return vals, idx
-            idx = self.indices.to(x.device)
+            idx = (self.indices.pop(0) if isinstance(self.indices, list)
+                   else self.indices).to(x.device)
             return x.gather(-1, idx), idx
         self.head.top_k_lower_index_first = top_k
         return self
@@ -7360,10 +7378,12 @@ def dist_cli(cfg_file, cfg, paper_root, work, env, dev):
 
 
 def ddp_phase(torch, mods, smi, paper_root, dev="cuda", cfg_file=None):
-    """Phase 19: (a) `dist_cli` in a thread of its own, beside (c) the
-    reference-checkpoint import at full width, (d) the demo and (b) the
-    two-rank step over gloo on the one card against the one-process step
-    on the same rows (its times taken beside (a)'s processes)."""
+    """Phase 19: (a) `dist_cli`, (e) `st_dist_cli` and (g)'s `dryruns`
+    in threads of their own, beside (c) the reference-checkpoint import at
+    full width, (d) the demo, (b) the two-rank step over gloo on the one
+    card against the one-process step on the same rows (its times taken
+    beside (a)'s processes), (f) `st_ddp_check`, train_model_st over two
+    gloo ranks against one process, and (g)'s `entry_check`."""
     cfg_mod, models_mod, synth, tp, ws, lap, weights, optimization, \
         trainer = mods
     t_phase = time.perf_counter()
@@ -7375,9 +7395,12 @@ def ddp_phase(torch, mods, smi, paper_root, dev="cuda", cfg_file=None):
     (work / "tools").symlink_to(ROOT / "tools")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     out = {"device": smi}
-    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
         cli = pool.submit(dist_cli, cfg_file, cfg, paper_root, work, env,
                           dev)
+        st_cli = pool.submit(st_dist_cli, cfg_mod, paper_root, work, env,
+                             dev)
+        dry = pool.submit(dryruns, dev)
         out["import"] = import_check(torch, cfg_mod, models_mod, synth,
                                      weights, cfg, dev)
         log(f"reference-checkpoint import at full width ({smi}): "
@@ -7387,10 +7410,23 @@ def ddp_phase(torch, mods, smi, paper_root, dev="cuda", cfg_file=None):
         log(f"demo ({smi}): {out['demo']}")
         out.update(two_rank_check(torch, mods, smi, cfg, cfg_file, work, env,
                                   dev))
+        out["st_ddp"] = st_ddp_check(torch, mods, smi,
+                                     out["other_order_errors"],
+                                     work / "st_ddp", env, dev)
+        out["entry"] = entry_check(torch, smi, dev)
         out.update(cli.result())
+        out.update(st_cli.result())
+        out["dryrun"] = dry.result()
     log(f"train.py --dist under torchrun ({smi}): {out['train_dist']}, "
         f"{out['train_dist_s']:.1f} s; test.py on its checkpoint "
         f"{out['test_s']:.1f} s {out['test_result']}")
+    log(f"phase 19 (e) train_st.py --dist under torchrun ({smi}): "
+        f"{out['train_st_dist']}, {out['train_st_dist_s']:.1f} s (in a "
+        f"thread); (f) train_model_st over two gloo ranks "
+        f"{out['st_ddp']['s']:.1f} s; (g) dryrun_multichip "
+        + ", ".join(f"{k} loss {v['loss']:.4f} {v['backend']} "
+                    f"{v['s']:.1f} s" for k, v in out["dryrun"].items())
+        + f" (in a thread), entry() card vs CPU {out['entry']['s']:.1f} s")
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"phase 19: {out['phase_s']:.1f} s")
     return out
@@ -7499,6 +7535,471 @@ def two_rank_check(torch, mods, smi, cfg, cfg_file, work, env, dev):
         f"one process at {2 * DDP_BATCH} ({smi}): {out['two_rank']} "
         f"(errors over their tolerances); one process on the rows in "
         f"another order: {noise}; on rank 0's rows alone: {alone_errs}")
+    return out
+
+
+# ---- phase 19 (e)-(g): self-training under DDP and the port's entry points
+
+ST_DDP_SCENES = 4           # the one process's global batch: one step an epoch
+ST_DDP_RANKS = 2
+ST_DDP_EPOCHS = 2           # st_warmup 1: a warm-up step, an extraction, a step
+ST_CLI_BATCH = 2            # train_st --dist's global batch: the tree's two
+ST_CLI_EPOCHS = 2           # train frames, one step an epoch
+# the ranks' stores against the one process's: the same eval forward on
+# rows cut in two, after a step whose sums over the batch ran in another
+# order (bf16 operands): phase 12's card-versus-CPU gate under PyTorch's
+# default flags
+ST_DDP_RTOL = GATHER_REF_TF32_RTOL
+# entry() on the card against the CPU: the tiny gather-mode model in
+# float32 with TF32 off (phase 12's narrow gate)
+ENTRY_RTOL = GATHER_REF_RTOL
+
+
+def backbone_sets(cfg_mod):
+    """--set pairs giving the ST yaml, whose gather backbone reaches no
+    kernel, the main yaml's windowed posgather backbone (its mode, levels,
+    windows and bands): every key where the two differ."""
+    want = cfg_mod.cfg_from_yaml_file(str(ROOT / CFG_FILE)).MODEL.BACKBONE_3D
+    have = cfg_mod.cfg_from_yaml_file(str(ROOT / ST_CFG)).MODEL.BACKBONE_3D
+    out = []
+    for k, v in want.items():
+        if have.get(k) != v:
+            out += [f"MODEL.BACKBONE_3D.{k}",
+                    "[" + ",".join(str(x) for x in v) + "]"
+                    if isinstance(v, (list, tuple)) else str(v)]
+    return out
+
+
+def st_dist_cli(cfg_mod, paper_root, work, env, dev="cuda"):
+    """(e): train_st.py --dist under `torchrun --standalone
+    --nproc_per_node 1` (NCCL) on the ST yaml at full width with the main
+    yaml's posgather backbone, phase 12's nuScenes tree (its two train
+    frames, no CBGS resampling) and frustum store, ST_CLI_EPOCHS epochs
+    with st_warmup 1 at a global batch of ST_CLI_BATCH: the extraction's
+    log line, the store stamped 1 by rank 0, one npz a train frame, a
+    checkpoint an epoch; the wall seconds."""
+    cfg = cfg_mod.cfg_from_yaml_file(str(ROOT / ST_CFG))
+    out_dir = work / "st_cli"
+    store = out_dir / "st_labels"
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", "1", "-m", "findnpropagate_torch.tools.train_st",
+         "--dist", "--cfg_file", str(ROOT / ST_CFG), "--epochs",
+         str(ST_CLI_EPOCHS), "--st_warmup", "1", "--seed", "0",
+         "--batch_size", str(ST_CLI_BATCH),
+         *([] if dev == "cuda" else ["--device", dev]), "--pseudo_path",
+         str(paper_root.parent / "frustum"), "--st_path", str(store),
+         "--set", "DATA_CONFIG.DATA_PATH", str(paper_root),
+         "DATA_CONFIG.BALANCED_RESAMPLING", "False",
+         *backbone_sets(cfg_mod)], cwd=work, env=env, capture_output=True,
+        text=True, timeout=DDP_TIMEOUT)
+    text = proc.stdout + proc.stderr
+    (work / "train_st_dist.log").write_text(text)
+    if proc.returncode != 0:
+        raise AssertionError(f"train_st.py --dist: exit {proc.returncode}\n"
+                             f"{text[-3000:]}")
+    wall = time.perf_counter() - t0
+    infos = pickle.loads((paper_root / DDP_TRAIN_INFOS).read_bytes())
+    frames = sorted(Path(i["lidar_path"]).stem for i in infos)
+    npz = sorted(p.stem for p in store.glob("*.npz"))
+    stamp = (store / "epoch.txt").read_text().strip() \
+        if (store / "epoch.txt").exists() else None
+    run_dir = work / "output" / cfg.EXP_GROUP_PATH / cfg.TAG / "default"
+    ckpts = sorted(p.name for p in (run_dir / "ckpt").glob("checkpoint_*"))
+    line = f"extracted pseudo labels for {len(frames)} frames"
+    losses = [float(t.split("=")[1]) for row in text.splitlines()
+              if "st epoch" in row and " it " in row for t in row.split()
+              if t.startswith("loss=")]
+    want_ckpts = [f"checkpoint_{e + 1}.pt" for e in range(ST_CLI_EPOCHS)]
+    backend = "nccl" if dev == "cuda" else "gloo"
+    if (line not in text or f"world size 1 ({backend})" not in text
+            or stamp != "1" or npz != frames or ckpts != want_ckpts
+            or not losses or not all(math.isfinite(v) for v in losses)):
+        raise AssertionError(
+            f"train_st.py --dist: store {npz} (frames {frames}) stamped "
+            f"{stamp}, checkpoints {ckpts}, losses {losses}\n{text[-2000:]}")
+    return {"train_st_dist_s": wall, "train_st_dist": {
+        "backend": backend, "frames": frames, "stamped": int(stamp),
+        "checkpoints": ckpts, "losses": losses}}
+
+
+def st_ddp_config(cfg_mod, synth, work):
+    """(f)'s config and inputs: the ST yaml at full width with the main
+    yaml's posgather backbone, dropout 0, over ST_DDP_SCENES of bench.py's
+    scenes whose training loader reads the frustum store and nothing else
+    (the self-train labels pass each process's score EMA, the copy-paste
+    each process's queues: ROADMAP.md section 3, PR 21), and a frustum
+    store of unknown-class boxes on each scene. Returns the config."""
+    from findnpropagate_torch.openvocab.pseudo_labels import PseudoLabelStore
+
+    cfg = cfg_mod.cfg_from_yaml_file(str(ROOT / ST_CFG))
+    cfg.MODEL.BACKBONE_3D = cfg_mod.cfg_from_yaml_file(
+        str(ROOT / CFG_FILE)).MODEL.BACKBONE_3D
+    cfg.MODEL.DENSE_HEAD.DROPOUT = 0.0
+    data = synth.bench_data_cfg(ST_DDP_SCENES, cfg)
+    plain = synth.SyntheticDataset(cfg_mod.EDict(dict(data)),
+                                   cfg.CLASS_NAMES, training=True)
+    store = PseudoLabelStore(work / "frustum")
+    rng = np.random.RandomState(0)
+    for i in range(ST_DDP_SCENES):
+        d = plain.generate_scene(i)
+        seed_unknown_boxes(store, i, d["points"], d["gt_boxes"], rng)
+    data.update(DATASET="SyntheticDataset", DATA_AUGMENTOR={
+        "DISABLE_AUG_LIST": ["placeholder"],
+        "AUG_CONFIG_LIST": [{"NAME": "load_frustum_pseudos"}]})
+    cfg.DATA_CONFIG = cfg_mod.EDict(data)
+    return cfg
+
+
+def st_ddp_run(torch, mods, cfg, work, tag, rank=0, world=1, pins=None,
+               hold=False):
+    """train_model_st over the scenes at a global batch of ST_DDP_SCENES,
+    this process's shard of `world`: ST_DDP_EPOCHS epochs with st_warmup
+    1 into the store st_<tag>, each query top-k pinned to `pins`
+    (PinQueries) or recorded. Returns the state, gradients and metrics
+    after the first step (ddp_snapshot, `first`), the state and loss after
+    the last, the picked queries, each step's and the extraction's ms, the
+    K1-K4 launches of the run and, with `hold`, the last step's calls."""
+    cfg_mod, models_mod, synth, tp, ws, lap, weights, optimization, \
+        trainer = mods
+    from findnpropagate_torch.datasets import build_dataloader
+    from findnpropagate_torch.openvocab import self_training
+    from findnpropagate_torch.openvocab.pseudo_labels import (
+        PseudoLoader,
+        PseudoProcessor,
+    )
+    from findnpropagate_torch.tools import train_st
+
+    dev = "cuda" if torch.cuda.is_available() else "cpu"
+    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+    known, full = list(cfg.KNOWN_CLASS_NAMES), list(cfg.FULL_CLASS_NAMES)
+    store = work / f"st_{tag}"
+    hooks = self_training.register_pseudo_hooks(PseudoLoader(
+        known, pseudo_path=str(work / "frustum"),
+        self_train_path=str(store), all_class_names=full))
+    processor = PseudoProcessor(known, self_training_folder=str(store),
+                                all_class_names=full)
+    rows = ST_DDP_SCENES // world
+    ds, loader, _ = build_dataloader(
+        cfg.DATA_CONFIG, cfg.CLASS_NAMES, batch_size=rows, training=True,
+        seed=0, hooks=hooks, shard_id=rank, num_shards=world)
+    _, inf = train_st.inference_loader(cfg, rows, hooks, shard_id=rank,
+                                       num_shards=world)
+    det = models_mod.build_network(copy.deepcopy(cfg.MODEL),
+                                   len(cfg.CLASS_NAMES), ds, device=dev)
+    weights.init_random_(det, seed=0)
+    tx, _ = optimization.build_optimizer(det.parameters(), TRAIN_OPT, 1000)
+    out = {"step_ms": [], "extract_ms": []}
+    last = {"on": False}
+    make, extract = trainer.make_train_step, self_training.\
+        extract_pseudo_labels
+
+    def timed_make(detector, *a, **kw):
+        step = make(detector, *a, **kw)
+
+        def timed(batch):
+            last["on"] = hold and len(out["step_ms"]) == ST_DDP_EPOCHS - 1
+            sync()
+            t0 = time.perf_counter()
+            try:
+                metrics = step(batch)
+            finally:
+                sync()
+                out["step_ms"].append(1e3 * (time.perf_counter() - t0))
+                last["on"] = False
+            if len(out["step_ms"]) == 1:
+                out["first"] = ddp_snapshot(torch, detector, metrics)
+            return metrics
+        timed.ddp = step.ddp
+        return timed
+
+    def timed_extract(*a, **kw):
+        sync()
+        t0 = time.perf_counter()
+        n = extract(*a, **kw)
+        sync()
+        out["extract_ms"].append(1e3 * (time.perf_counter() - t0))
+        out["frames"] = n
+        return n
+
+    import importlib
+
+    bb = importlib.import_module(
+        "findnpropagate_torch.models.backbones_3d.spconv_backbone")
+    skip = lambda: not last["on"]                      # noqa: E731
+    k1 = []
+    recs = [Recorder(tp, "compute_positions", torch, skip, k1),
+            Recorder(bb, "compute_positions", torch, skip, k1),
+            Recorder(tp, "gather_conv", torch, skip),
+            Recorder(ws, "conv_kernel", torch, skip),
+            Recorder(ws, "dw_kernel", torch, skip)]
+    tp.reset_launches()
+    ws.reset_launches()
+    with contextlib.ExitStack() as stack:
+        for r in recs if hold else ():
+            stack.enter_context(r)
+        stack.enter_context(Swap(trainer, "make_train_step", timed_make))
+        stack.enter_context(Swap(self_training, "extract_pseudo_labels",
+                                 timed_extract))
+        pin = stack.enter_context(PinQueries(pins))
+        history = self_training.train_model_st(
+            det, loader, inf, tx, ST_DDP_EPOCHS, processor, st_warmup=1,
+            seed=0, log_interval=1)
+    sync()
+    out["launches"] = launches_now(tp, ws)
+    out["state"] = {k: v.detach().cpu() for k, v in det.state_dict().items()}
+    out["loss"] = float(history[-1]["loss"])
+    out["picked"] = pin.picked
+    out["calls"] = (k1, *(r.calls for r in recs[2:])) if hold else None
+    return out
+
+
+def st_ddp_worker(rank, port, work):
+    """One rank of (f) on the card over gloo (run by st_ddp_check as
+    `chip_smoke.py --st-ddp-worker RANK PORT DIR`): it builds, joins the
+    group, waits for the one process's queries and runs st_ddp_run on its
+    shard."""
+    global timing
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    from findnpropagate_torch import config as cfg_mod
+    from findnpropagate_torch import models as models_mod
+    from findnpropagate_torch.datasets import synthetic as synth
+    from findnpropagate_torch.ops import _build, lap
+    from findnpropagate_torch.ops import posgather as tp
+    from findnpropagate_torch.ops import windowed_sparse as ws
+    from findnpropagate_torch.parallel.mesh import init_distributed
+    from findnpropagate_torch.runtime import optimization, trainer
+    from findnpropagate_torch.utils import timing as timing_mod
+    from findnpropagate_torch.utils import weights
+
+    timing = timing_mod
+    work = Path(work)
+    setup = json.loads((work / "setup.json").read_text())
+    dev = setup["device"]
+    if dev == "cuda":
+        for name in ("posgather", "windowed_sparse"):
+            _build.load(name)
+    assert init_distributed(f"localhost:{port}", ST_DDP_RANKS, rank,
+                            device=dev, backend="gloo") == (rank,
+                                                            ST_DDP_RANKS)
+    cfg = cfg_mod.EDict(setup["cfg"])
+    pins = work / "pins.pt"
+    t0 = time.perf_counter()
+    while not pins.exists():
+        if time.perf_counter() - t0 > DDP_TIMEOUT:
+            raise TimeoutError("no queries from the one process")
+        time.sleep(0.2)
+    rows = list(range(rank, ST_DDP_SCENES, ST_DDP_RANKS))
+    picked = [p[rows] for p in torch.load(pins, weights_only=False)]
+    mods = (cfg_mod, models_mod, synth, tp, ws, lap, weights, optimization,
+            trainer)
+    out = st_ddp_run(torch, mods, cfg, work, "ddp", rank, ST_DDP_RANKS,
+                     picked, hold=dev == "cuda")
+    if out["calls"] is not None:
+        out["held"] = [{k: r[k] for k in ("name", "call", "max_abs_err",
+                                          "ms", "plain_ms")}
+                       for r in hold_calls(torch, tp, ws, *out["calls"],
+                                           f"st ddp rank {rank}")]
+    out["calls"] = out["picked"] = None
+    torch.save(out, work / f"rank{rank}.pt")
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def match_frame(a, b):
+    """The largest difference between two frames' stored detections
+    (boxes, scores, labels), each box of `b` matched to the nearest box of
+    `a` with its label, relative to the frame's largest box coordinate and
+    score; inf where the counts or the labels differ."""
+    (ba, sa, la), (bb, sb, lb) = a, b
+    if len(ba) != len(bb) or sorted(la.tolist()) != sorted(lb.tolist()):
+        return float("inf")
+    if not len(ba):
+        return 0.0
+    d = np.abs(bb[:, None, :] - ba[None]).max(axis=-1)
+    d[lb[:, None] != la[None]] = np.inf
+    j = d.argmin(axis=1)
+    if len(set(j.tolist())) != len(j):
+        return float("inf")
+    box = float(np.abs(bb - ba[j]).max()) / max(float(np.abs(ba).max()),
+                                                1e-6)
+    score = float(np.abs(sb - sa[j]).max()) / max(float(np.abs(sa).max()),
+                                                  1e-6)
+    return max(box, score)
+
+
+def st_ddp_check(torch, mods, smi, noise, work, env, dev):
+    """(f): two ranks over gloo on the one card, each running
+    train_model_st on its shard (`chip_smoke.py --st-ddp-worker`), against
+    one process at the same global batch, every query top-k (of each
+    forward and of the extraction's decode) pinned to the one process's:
+    the union of the ranks' stores is the
+    one process's (the same frames, labels and counts, boxes and scores
+    within ST_DDP_RTOL), both stamped once; the warm-up step within the
+    DDP_* tolerances of phase 19 (b) (or DDP_NOISE_FACTOR times (b)'s
+    noise), the last step's losses finite and the ranks' states equal;
+    each rank's K1-K4 launches those of the one process, and the last
+    step's calls held against their plain versions."""
+    from findnpropagate_torch.openvocab.pseudo_labels import PseudoLabelStore
+
+    cfg_mod, models_mod, synth = mods[:3]
+    t_f = time.perf_counter()
+    work.mkdir(parents=True, exist_ok=True)
+    cfg = st_ddp_config(cfg_mod, synth, work)
+    (work / "setup.json").write_text(json.dumps({"device": dev,
+                                                 "cfg": cfg}))
+    port = str(free_port())
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--st-ddp-worker",
+         str(r), port, str(work)], env=env,
+        stdout=open(work / f"rank{r}.log", "w"), stderr=subprocess.STDOUT)
+        for r in range(ST_DDP_RANKS)]
+    try:
+        one = st_ddp_run(torch, mods, cfg, work, "one")
+        # the two steps' query selections, the extraction's and its
+        # decode's top-k
+        if len(one["picked"]) != ST_DDP_EPOCHS + 2:
+            raise AssertionError(f"st ddp: {len(one['picked'])} query "
+                                 "selections in one process")
+        torch.save(one["picked"], work / "pins.tmp")
+        os.replace(work / "pins.tmp", work / "pins.pt")
+        codes = [p.wait(timeout=DDP_TIMEOUT) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if codes != [0] * ST_DDP_RANKS:
+        tails = [(work / f"rank{r}.log").read_text()[-2000:]
+                 for r in range(ST_DDP_RANKS)]
+        raise AssertionError(f"st ddp: exits {codes}\n" + "\n".join(tails))
+    ranks = [torch.load(work / f"rank{r}.pt", weights_only=False)
+             for r in range(ST_DDP_RANKS)]
+    for k, v in ranks[0]["state"].items():
+        if not torch.equal(v, ranks[1]["state"][k]):
+            raise AssertionError(f"st ddp: the ranks' {k} differ")
+    if not all(math.isfinite(r["loss"]) for r in (*ranks, one)):
+        raise AssertionError("st ddp: the last step's loss is not finite")
+    # the warm-up step, as (b) holds its first: a second step starts from
+    # parameters a first step moved by lr where their gradient is noise
+    errs, worst, parts = ddp_compare(torch, ranks[0]["first"], one["first"])
+    over = {k: v for k, v in errs.items() if k != "param_share_within"
+            and v > max(1.0, DDP_NOISE_FACTOR * noise[k]
+                        if k in ("grad", "param") else 1.0)}
+    if over:
+        raise AssertionError(f"st ddp: the first step against one process: "
+                             f"errors over tolerance {errs} at {worst}; "
+                             f"(b)'s noise {noise}")
+    want = PseudoLabelStore(work / "st_one")
+    got = PseudoLabelStore(work / "st_ddp")
+    fids = sorted(p.stem for p in (work / "st_one").glob("*.npz"))
+    if (sorted(p.stem for p in (work / "st_ddp").glob("*.npz")) != fids
+            or fids != [str(i) for i in range(ST_DDP_SCENES)]
+            or want.stamped_epoch() != 1 or got.stamped_epoch() != 1):
+        raise AssertionError(f"st ddp: stores {fids}, stamped "
+                             f"{want.stamped_epoch()} / {got.stamped_epoch()}")
+    store_err = max(match_frame(want.load(f), got.load(f))
+                    for f in fids)
+    boxes = sum(len(want.load(f)[0]) for f in fids)
+    if not (store_err <= ST_DDP_RTOL and boxes > 0):
+        raise AssertionError(f"st ddp: stores differ by {store_err} "
+                             f"({boxes} boxes)")
+    for r, res in enumerate(ranks):
+        if dev == "cuda" and (res["launches"] != one["launches"] or not all(
+                res["launches"][k] for k in TRAIN_LAUNCHES)):
+            raise AssertionError(f"st ddp rank {r}: launches "
+                                 f"{res['launches']}, one process "
+                                 f"{one['launches']}")
+    out = {"rows_per_rank": ST_DDP_SCENES // ST_DDP_RANKS,
+           "errors": errs, "worst": worst, "errors_by_part": parts,
+           "store_rel_err": store_err, "boxes": boxes,
+           "first_loss": ranks[0]["first"]["metrics"]["loss"],
+           "one_process_first_loss": one["first"]["metrics"]["loss"],
+           "last_loss": ranks[0]["loss"], "one_process_last_loss":
+               one["loss"],
+           "launches_per_rank": [r["launches"] for r in ranks],
+           "one_process_launches": one["launches"],
+           "one_process_step_ms": one["step_ms"],
+           "ddp_step_ms": [r["step_ms"] for r in ranks],
+           "one_process_extract_ms_per_frame":
+               one["extract_ms"][0] / ST_DDP_SCENES,
+           "ddp_extract_ms_per_frame": [
+               r["extract_ms"][0] / (ST_DDP_SCENES // ST_DDP_RANKS)
+               for r in ranks],
+           "held_calls_per_rank": [len(r.get("held") or []) for r in ranks],
+           "held_max_abs_err": {n: max([h["max_abs_err"] for r in ranks
+                                        for h in r.get("held") or []
+                                        if h["name"] == n] or [0.0])
+                                for n in TRAIN_LAUNCHES},
+           "s": time.perf_counter() - t_f}
+    log(f"train_model_st over two gloo ranks on one card, "
+        f"{out['rows_per_rank']} rows each, against one process at "
+        f"{ST_DDP_SCENES} ({smi}): {out}")
+    return out
+
+
+def entry_check(torch, smi, dev):
+    """(g), in this process: graft_entry.entry() on the card against the
+    CPU at the tiny shapes (the same init_random_ weights and batch, TF32
+    off), the card's query top-k pinned to the CPU's (PinQueries: the
+    untrained heatmap ties): the head's outputs and the detections within
+    ENTRY_RTOL, the counts equal; `fn` itself on the card, unpinned,
+    finite."""
+    from findnpropagate_torch import graft_entry
+
+    t0 = time.perf_counter()
+    fn, (det, batch) = graft_entry.entry() if dev == "cuda" \
+        else graft_entry.entry(dev)
+    _, (cdet, cbatch) = graft_entry.entry(device="cpu")
+    outs = []
+    with tf32_off(torch), torch.no_grad():
+        for d, b, pins in ((cdet, cbatch, None), (det, batch, "cpu")):
+            with PinQueries(pins if pins is None else list(picked)) as pin:
+                out = d.eval()(b)
+                outs.append((out["transfusion_preds"], d.post_process(out)))
+            picked = pin.picked
+        shapes = [list(x.shape) for x in fn(det, batch)]
+    (cpreds, cdets), (preds, dets) = outs
+    err = max(rel_err(torch, preds[k], cpreds[k]) for k in cpreds
+              if isinstance(cpreds[k], torch.Tensor)
+              and cpreds[k].is_floating_point())
+    counts = [int(c) for c in cdets.count]
+    det_err = max(match_frame(
+        tuple(getattr(cdets, f)[i][:c].numpy() for f in ("boxes", "scores",
+                                                         "labels")),
+        tuple(getattr(dets, f)[i][:c].cpu().numpy() for f in (
+            "boxes", "scores", "labels")))
+        for i, c in enumerate(counts)) \
+        if [int(c) for c in dets.count] == counts else float("inf")
+    if not (err <= ENTRY_RTOL and det_err <= ENTRY_RTOL and sum(counts)):
+        raise AssertionError(f"entry() on the card against the CPU: "
+                             f"outputs {err}, detections {det_err}, counts "
+                             f"{counts}")
+    out = {"rel_err": err, "detections_rel_err": det_err, "counts": counts,
+           "shapes": shapes, "s": time.perf_counter() - t0}
+    log(f"graft_entry.entry() on the card against the CPU ({smi}): {out}")
+    return out
+
+
+def dryruns(dev):
+    """(g): graft_entry.dryrun_multichip(1) (NCCL, one process) and
+    dryrun_multichip(2) (two gloo processes sharing the card): each one
+    finite loss; the seconds of each."""
+    from findnpropagate_torch import graft_entry
+
+    out = {}
+    for n in (1, 2):
+        t0 = time.perf_counter()
+        loss = graft_entry.dryrun_multichip(n) if dev == "cuda" \
+            else graft_entry.dryrun_multichip(n, device=dev)
+        if not math.isfinite(loss):
+            raise AssertionError(f"dryrun_multichip({n}): loss {loss}")
+        out[f"dryrun_{n}"] = {"loss": loss, "s": time.perf_counter() - t0,
+                              "backend": "gloo" if n > 1 or dev != "cuda"
+                              else "nccl"}
     return out
 
 
@@ -8804,6 +9305,9 @@ def main():
             "launches_ddp_rank_step": [
                 r[name] for r in report["ddp"]["two_rank"][
                     "launches_per_rank"]],
+            "launches_st_ddp_rank_run": [
+                r[name] for r in report["ddp"]["st_ddp"][
+                    "launches_per_rank"]],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
@@ -8858,6 +9362,9 @@ if __name__ == "__main__":
     try:
         if sys.argv[1:2] == ["--ddp-worker"]:
             sys.exit(ddp_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4]))
+        if sys.argv[1:2] == ["--st-ddp-worker"]:
+            sys.exit(st_ddp_worker(int(sys.argv[2]), sys.argv[3],
+                                   sys.argv[4]))
         sys.exit(main())
     except Exception:
         traceback.print_exc()

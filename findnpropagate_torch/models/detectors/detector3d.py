@@ -73,9 +73,16 @@ two-stage detector adds the ROI head's and the point head's) and its
 `tb` dictionary, with the sparse backbone's ``sparse_window_overflow``
 where there is one. The ROI sampling's uniform draws come from the
 generator, or from ``batch["roi_draws"]`` (B, NMS_POST_MAXSIZE) where the
-caller gives them (MPPNet's from ``batch["mppnet_draws"]``). Other
-detectors and modules, and an MPPNet detector without its own ROI head,
-raise NotImplementedError naming ROADMAP.md queue 1 item 15.
+caller gives them (MPPNet's from ``batch["mppnet_draws"]``).
+
+As in the reference (`DetectorModule.setup` :92-243), the chain is built
+from the keys present in MODEL and MODEL.NAME is never read: every key is
+optional, a yaml's modules build under any detector name, and a module
+NAME outside its registry raises that registry's KeyError (a POINT_HEAD of
+another NAME is the simple head, :200-221). What the reference's forward
+lacks, the port's lacks too: a voxel backbone without a VFE, or an ROI
+head without the first stage's boxes, raises a KeyError naming the
+missing batch key.
 """
 
 from __future__ import annotations
@@ -108,80 +115,12 @@ from ..vfe import VFE_REGISTRY
 from ..vfe.image_vfe import ImageVFE, ddn_loss
 from ..view_transforms import VTRANSFORM_REGISTRY
 
-DETECTORS = ("TransFusion", "CenterPoint", "PointPillar", "SECOND",
-             "SECONDNet", "VoxelNeXt", "PillarNet", "SECONDNetIoU",
-             "VoxelRCNN", "PVRCNN", "PVRCNNPlusPlus", "PartA2Net",
-             "PointRCNN", "CaDDN", "BevFusion", "MPPNet", "MPPNetE2E")
-TWO_STAGE = ("SECONDNetIoU", "VoxelRCNN", "PVRCNN", "PVRCNNPlusPlus",
-             "PartA2Net", "PointRCNN")
 POINT_HEADS = {"PointHeadSimple": PointHeadSimple,
                "PointHeadBox": PointHeadBox,
                "PointIntraPartOffsetHead": PointIntraPartOffsetHead}
-_PORTED = {"VFE": ("MeanVFE", *VFE_REGISTRY),
-           "BACKBONE_3D": tuple(BACKBONE_3D_REGISTRY),
-           "MAP_TO_BEV": tuple(MAP_TO_BEV_REGISTRY),
-           "BACKBONE_2D": tuple(BACKBONE_2D_REGISTRY),
-           "DENSE_HEAD": tuple(DENSE_HEAD_REGISTRY),
-           "PFE": tuple(PFE_REGISTRY),
-           "POINT_HEAD": tuple(POINT_HEADS),
-           "ROI_HEAD": tuple(ROI_HEAD_REGISTRY),
-           "IMAGE_BACKBONE": tuple(IMAGE_BACKBONE_REGISTRY),
-           "NECK": tuple(NECK_REGISTRY),
-           "VTRANSFORM": tuple(VTRANSFORM_REGISTRY),
-           "FUSER": tuple(FUSER_REGISTRY)}
-_OPTIONAL = ("BACKBONE_3D", "MAP_TO_BEV", "BACKBONE_2D", "PFE",
-             "POINT_HEAD", "ROI_HEAD", "IMAGE_BACKBONE", "NECK",
-             "VTRANSFORM", "FUSER")
-# the 3D backbones that read the raw points (no VFE before them)
-POINT_BACKBONES = ("PointNet2MSG",)
-_TWO_STAGE_KEYS = ("PFE", "POINT_HEAD", "ROI_HEAD")
-# the MPPNet detectors and the ROI head each must have
-MPPNET = {"MPPNet": "MPPNetHead", "MPPNetE2E": "MPPNetHeadE2E"}
-
-
-def _not_ported(what):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md queue "
-                               "1 item 15)")
-
-
-def _point_based(cfg, key):
-    """Whether a point-based yaml may leave out `key`: the VFE where the 3D
-    backbone reads the raw points (PointRCNN), the dense head where the
-    point head's boxes are the proposals (PointRCNN, PartA2_free)."""
-    if cfg.get("NAME") == "MPPNet":
-        # the offline MPPNet is its ROI head alone
-        return key in ("VFE", "DENSE_HEAD")
-    if key == "VFE":
-        return cfg.get("BACKBONE_3D", {}).get("NAME") in POINT_BACKBONES
-    if key == "DENSE_HEAD":
-        head = cfg.get("POINT_HEAD", {})
-        return head.get("NAME") == "PointHeadBox" or (
-            head.get("NAME") == "PointIntraPartOffsetHead"
-            and "REG_FC" in head)
-    return False
-
-
-def check_ported(model_cfg):
-    """Raises NotImplementedError, naming its ROADMAP.md item, where the
-    yaml's MODEL names a detector or module the port does not have."""
-    cfg = model_cfg
-    name = cfg.get("NAME")
-    if name not in (*DETECTORS, None):
-        raise _not_ported(f"detector {name!r}")
-    roi = cfg.get("ROI_HEAD", {}).get("NAME")
-    if (name in MPPNET or roi in MPPNET.values()) \
-            and MPPNET.get(name) != roi:
-        raise _not_ported(f"detector {name!r} with ROI_HEAD {roi!r}")
-    for key, names in _PORTED.items():
-        if key not in cfg and (key in _OPTIONAL or _point_based(cfg, key)):
-            continue
-        got = cfg.get(key, {}).get("NAME", "PointHeadSimple"
-                                   if key == "POINT_HEAD" else None)
-        if got not in names:
-            raise _not_ported(f"{key} {got!r}")
-        if key in _TWO_STAGE_KEYS and name not in TWO_STAGE \
-                and not (key == "ROI_HEAD" and name in MPPNET):
-            raise _not_ported(f"{key} of detector {name!r}")
+# the ROI heads of MPPNet (the offline head, whose loss is the model's) and
+# of MPPNetE2E
+MPPNET_HEADS = ("MPPNetHead", "MPPNetHeadE2E")
 
 
 class RoIProposalStage(RoIHeadTemplate):
@@ -214,7 +153,6 @@ class DetectorModule(nn.Module):
                  max_voxels, max_points_per_voxel):
         super().__init__()
         cfg = model_cfg
-        check_ported(cfg)
         self.grid_size = tuple(int(g) for g in grid_size)
         self.voxel_size = tuple(float(v) for v in voxel_size)
         self.point_cloud_range = tuple(float(v) for v in point_cloud_range)
@@ -324,7 +262,8 @@ class DetectorModule(nn.Module):
                 level_channels=levels)
         if "POINT_HEAD" in cfg:
             ph = cfg["POINT_HEAD"]
-            cls = POINT_HEADS[ph.get("NAME", "PointHeadSimple")]
+            # any other NAME is the simple head, as in the reference
+            cls = POINT_HEADS.get(ph.get("NAME"), PointHeadSimple)
             if cls is PointHeadSimple:
                 self.point_head = cls(
                     ph, self.pfe.num_point_features_before_fusion if bool(
@@ -355,7 +294,7 @@ class DetectorModule(nn.Module):
             kw["input_channels"] = self.pfe.num_point_features
         elif roi["NAME"] in ("PartA2FCHead", "PointRCNNHead"):
             kw["input_channels"] = self.backbone_3d.num_point_features
-        elif roi["NAME"] in MPPNET.values():
+        elif roi["NAME"] in MPPNET_HEADS:
             kw["num_point_features"] = int(num_point_features)
         else:
             kw["input_channels"] = self.backbone_2d.num_bev_features
@@ -414,7 +353,10 @@ class DetectorModule(nn.Module):
         """The dense head's loss (none without one: PointRCNN), CaDDN's
         depth loss and the focal backbone's ``loss_box_of_pts`` where there
         are, plus the ROI head's and the point head's, chosen by its NAME,
-        for a two-stage detector (TwoStageTools): (loss, tb)."""
+        for a two-stage detector (TwoStageTools): (loss, tb). With
+        MPPNetHead the loss is the ROI head's alone (MPPNetTools)."""
+        if self.roi_head is not None and self.roi_loss is mppnet_loss:
+            return self.roi_loss(out, self.roi_loss_cfg)
         loss, tb = self.dense_head.compute_loss(out) \
             if self.dense_head is not None else (0.0, {})
         if isinstance(self.vfe, ImageVFE):

@@ -15,11 +15,31 @@ MaskCLIP; openvocab/box_classification.py) and returns the callable
 `extract_pseudo_labels` and `train_model_st` take as `relabeler`.
 
 The state lives in the detector module and the Optimizer, as in
-runtime/trainer.py. Self-training runs in one process: the reference's
-`mesh` argument (its training and extraction over a data mesh) is not
-ported, since extraction on several processes needs a design of its own
-(ROADMAP.md queue 1 item 16, `train_st` under DDP); `tools/train.py
---dist` trains over several processes.
+runtime/trainer.py. With a process group of W > 1 processes up
+(parallel/mesh.py::init_distributed; `tools/train_st.py --dist`) the
+reference's `mesh` argument becomes DDP, as in `tools/train.py --dist`:
+
+  * training: each process's loader holds its shard, B / W rows of the
+    global batch of B (the reference's train_st loads B in one process and
+    shards it over the mesh), and the step is runtime/trainer.py's DDP step
+    over the global batch;
+  * extraction, which the reference runs in one process: each process
+    runs the eval step over its shard of the augmentation-stripped loader
+    (`order[rank::W]` at B / W rows, the last short batch dropped, so the
+    processes together save the frames one process saves at batch B) and
+    writes its frames' files into the store; the `relabeler` runs in each
+    process for its own frames, on the device it was built for. After a
+    barrier process 0 alone stamps the epoch, and a second barrier ends
+    the extraction before any training loader reads the store. Whether an
+    epoch's labels exist is read by every process after the epoch's first
+    barrier and agreed on, so that no process re-extracts alone after a
+    restart;
+  * the pseudo loaders' state (PseudoSampler's copy-paste queues and
+    seen-count EMA, PseudoLoader's per-class score EMA) lives in each
+    process and sees only that process's rows, where the reference's one
+    process sees all of them (ROADMAP.md section 3, PR 21);
+  * process 0 alone logs and writes checkpoints; every process ends an
+    epoch at a barrier.
 """
 
 from __future__ import annotations
@@ -28,8 +48,10 @@ import time
 from functools import partial
 
 import torch
+import torch.distributed as dist
 
 from .. import resolve_device
+from ..parallel import mesh
 from ..runtime import trainer
 from .pseudo_labels import PseudoLoader, PseudoProcessor
 
@@ -127,9 +149,11 @@ def to_device(batch, device):
 
 
 def extract_pseudo_labels(detector, inference_loader, processor, epoch,
-                          logger=None, relabeler=None, max_batches=None):
+                          logger=None, relabeler=None, max_batches=None,
+                          stamp=True):
     """Run the model over the train split in eval mode and save its
-    detections as pseudo labels; returns the number of frames."""
+    detections as pseudo labels, then (with `stamp`) stamp the store with
+    `epoch`; returns the number of frames."""
     eval_step = trainer.make_eval_step(detector)
     dev = next(detector.parameters()).device
     emit = logger.info if logger else print
@@ -156,9 +180,51 @@ def extract_pseudo_labels(detector, inference_loader, processor, epoch,
             data_dicts.append({"frame_id": frame_ids[i]})
             n += 1
         processor.save_predictions(data_dicts, det_dicts)
-    processor.stamp_epoch(epoch)
+    if stamp:
+        processor.stamp_epoch(epoch)
     emit(f"extracted pseudo labels for {n} frames in {time.time()-t0:.1f}s")
     return n
+
+
+def _agreed(flag, device):
+    """`flag` of this process, true in every process when true in any
+    (identity without a process group)."""
+    if mesh.rank_and_world()[1] == 1:
+        return flag
+    t = torch.tensor([float(flag)], device=device)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return bool(t.item())
+
+
+def extract_epoch(detector, inference_loader, processor, epoch, logger=None,
+                  relabeler=None):
+    """An extraction epoch: unless the store is stamped with `epoch`
+    already, every process extracts its shard of `inference_loader`, and
+    process 0 stamps the store between two barriers. Returns the frames
+    extracted by all processes (0 when the labels existed)."""
+    rank, world = mesh.rank_and_world()
+    dev = next(detector.parameters()).device
+    if world > 1:
+        dist.barrier()
+    # read after the barrier and agreed on: a process that sees no stamp
+    # makes all extract
+    if not _agreed(not pseudo_labels_exist(processor, epoch), dev):
+        return 0
+    n = extract_pseudo_labels(detector, inference_loader, processor, epoch,
+                              logger=logger, relabeler=relabeler,
+                              stamp=world == 1)
+    if world == 1:
+        return n
+    total = torch.tensor([float(n)], device=dev)
+    dist.all_reduce(total)
+    dist.barrier()
+    if rank == 0:
+        processor.stamp_epoch(epoch)
+        (logger.info if logger else print)(
+            f"extracted pseudo labels for {int(total.item())} frames over "
+            f"{world} processes; epoch {epoch} stamped by process 0")
+    dist.barrier()
+    return int(total.item())
 
 
 def train_model_st(detector, train_loader, inference_loader, tx, epochs,
@@ -169,18 +235,22 @@ def train_model_st(detector, train_loader, inference_loader, tx, epochs,
     """The self-training epoch driver. ckpt_save_time_interval (seconds):
     timed ``latest_model`` saves inside the epochs. Returns the logged
     history: per logged step the metrics, its epoch and iteration, and the
-    seconds spent waiting for the batch (``data_time``)."""
+    seconds spent waiting for the batch (``data_time``). Under a process
+    group `train_loader` and `inference_loader` yield this process's
+    shards (module docstring); process 0 logs and saves."""
     train_step = trainer.make_train_step(detector, tx, seed=seed)
     dev = next(detector.parameters()).device
-    emit = logger.info if logger else print
+    rank, world = mesh.rank_and_world()
+    emit = (logger.info if logger else print) if rank == 0 \
+        else (lambda *a: None)
+    if rank:
+        ckpt_dir = None
     history = []
     last_timed_save = time.time()
     for epoch in range(epochs):
         if epoch >= st_warmup and (epoch - st_warmup) % st_interval == 0:
-            if not pseudo_labels_exist(processor, epoch):
-                extract_pseudo_labels(
-                    detector, inference_loader, processor, epoch,
-                    logger=logger, relabeler=relabeler)
+            extract_epoch(detector, inference_loader, processor, epoch,
+                          logger=logger, relabeler=relabeler)
         train_loader.set_epoch(epoch)
         t0 = time.time()
         t_iter = time.time()
@@ -204,4 +274,6 @@ def train_model_st(detector, train_loader, inference_loader, tx, epochs,
         emit(f"st epoch {epoch} done in {time.time()-t0:.1f}s")
         if ckpt_dir is not None:
             trainer.save_checkpoint(ckpt_dir, detector, tx, step=epoch + 1)
+        if world > 1:
+            dist.barrier()
     return history

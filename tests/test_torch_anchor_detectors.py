@@ -5,9 +5,8 @@ outputs and decoded boxes, the detections, and the training loss with its
 tb; the eval step and the loss of a detector without a sparse backbone
 (no overflow to report: 0 from the eval step, no key in tb); and
 `build_network` on the anchor and pillar yamls as written (full width,
-nothing run), with the JAX tree's leaves and shapes, while every detector
-that is not ported raises, naming item 15; and `init_random_` against
-bench.py's `_random_variables` on both trees.
+nothing run), with the JAX tree's leaves and shapes; and `init_random_`
+against bench.py's `_random_variables` on both trees.
 
 PointPillar is tests/test_pointpillar_e2e.py's model (PillarVFE, 32
 channels, two BEV levels, AnchorHeadSingle on two classes); SECOND is

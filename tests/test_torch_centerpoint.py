@@ -640,17 +640,38 @@ def test_init_random_matches_bench_on_variants(detector_setup, variant):
 
 
 def test_unported_names_still_raise():
+    """The JAX package never reads MODEL.NAME, and neither does the port:
+    the narrow CenterPoint named "MPPNet" builds and runs in both, with
+    the modules of its keys. A dense head named PointHeadBox is no dense
+    head in either registry (the registry's KeyError), and an ROI_HEAD of
+    MPPNetHead without its sections fails in both with the KeyError of
+    its missing ``Transformer``."""
+    from test_torch_parta2_pointrcnn import outcomes, same_failure
+
     cfg = narrow_cfg()
     tds = SyntheticDataset(EDict(DATA), cfg.CLASS_NAMES, training=False)
-    for key, name in (("NAME", "MPPNet"), ("DENSE_HEAD", "PointHeadBox"),
-                      ("ROI_HEAD", "MPPNetHead")):
+    plain = torch_build(copy.deepcopy(cfg.MODEL), num_class=10, dataset=tds,
+                        device="cpu")
+    for key, name, want in (("NAME", "MPPNet", None),
+                            ("DENSE_HEAD", "PointHeadBox", "PointHeadBox"),
+                            ("ROI_HEAD", "MPPNetHead", "Transformer")):
         m = copy.deepcopy(cfg.MODEL)
         if key == "NAME":
             m.NAME = name
         else:
             m[key] = {**m.get(key, {}), "NAME": name}
-        with pytest.raises(NotImplementedError, match="item 15"):
-            torch_build(m, num_class=10, dataset=tds, device="cpu")
+        jcfg = copy.deepcopy(m)
+        jcfg.BACKBONE_3D["SUBM_IMPL"] = "xla"
+        jerr = outcomes(jcfg, tds, 10)[0]
+        terr = outcomes(m, tds, 10)[1]
+        if want is None:
+            assert jerr is None and terr is None, (jerr, terr)
+            det = torch_build(m, num_class=10, dataset=tds, device="cpu")
+            assert {k: v.shape for k, v in det.state_dict().items()} == {
+                k: v.shape for k, v in plain.state_dict().items()}
+        else:
+            same_failure(jerr, terr)
+            assert terr.args == (want,)
 
 
 # ---------------------------------------------------------------- the hook

@@ -15,9 +15,10 @@
     forward, the decoded detections, the training loss with its tb, and
     init_random_ against bench.py's recipe;
   * the six yamls of Part-A2 and PointRCNN build through build_network
-    at full width (nothing run), and exactly three model yamls of
-    tools/cfgs/ are still refused, MPPNet's (the seekers' yamls are not
-    models).
+    at full width (nothing run); every model yaml of tools/cfgs/ names
+    only modules of the registries (the seekers' yamls are not models);
+    and a voxel yaml without its VFE or dense head fails in the port
+    where and as it fails in the JAX package (`outcomes`).
 
 The models and data are tests/test_{parta2,pointrcnn}_e2e.py's (Part-A2's
 on tests/test_voxelrcnn_e2e.py's data, at 1024 voxels a scene), whose
@@ -54,7 +55,6 @@ import flax
 from findnpropagate_torch.config import cfg_from_yaml_file
 from findnpropagate_torch.models import build_network as torch_build
 from findnpropagate_torch.models.backbones_3d import pointnet2_backbone as tpn
-from findnpropagate_torch.models.detectors.detector3d import check_ported
 from findnpropagate_torch.models.roi_heads import parta2_head as tpa
 from findnpropagate_torch.models.roi_heads import pointrcnn_head as tpr
 from findnpropagate_torch.models.roi_heads import roi_head_template as tt
@@ -63,9 +63,11 @@ from findnpropagate_torch.utils.weights import (
     init_random_,
     to_jax_tree,
 )
+from findnpropagate_torch.models import detectors as tdetectors
 from findnpropagate_tpu.config import EDict as JEDict
 from findnpropagate_tpu.datasets import build_dataloader
 from findnpropagate_tpu.models import build_network as jax_build
+from findnpropagate_tpu.models import detectors as jdetectors
 from findnpropagate_tpu.models.backbones_3d import pointnet2_backbone as jpn
 from findnpropagate_tpu.models.detectors.detector3d import RoIProposalStage
 from findnpropagate_tpu.models.roi_heads import ROI_HEAD_REGISTRY
@@ -528,31 +530,134 @@ def test_parta2_and_pointrcnn_yamls_build_as_written(yaml):
     assert not det.training
 
 
+def fake_batch(ds, n=300, seed=0):
+    """n points uniform over the dataset's range with its point features,
+    and four 2 m ground truths of class 1 centred on the first of them."""
+    rng = np.random.RandomState(seed)
+    pcr = np.asarray(ds.point_cloud_range, np.float32)
+    xyz = rng.uniform(pcr[:3], pcr[3:], (1, n, 3)).astype(np.float32)
+    pts = np.concatenate([xyz, rng.rand(
+        1, n, ds.num_point_features - 3).astype(np.float32)], -1)
+    gt = np.zeros((1, 4, 8), np.float32)
+    gt[0, :, :3] = xyz[0, :4]
+    gt[0, :, 3:6] = 2.0
+    gt[0, :, 7] = 1
+    return {"points": pts, "points_mask": np.ones((1, n), bool),
+            "gt_boxes": gt}
+
+
+def outcomes(model, ds, num_class, post=False, forward=True):
+    """What each package does with MODEL `model` over the dataset `ds` on
+    fake_batch: the JAX detector's init traced by jax.eval_shape (every
+    module's setup and the eval forward, nothing computed), then with
+    `post` its apply and post_process; the port's build, then (unless not
+    `forward`) its eval forward and, with `post`, post_process. (JAX's
+    exception or None, the port's exception or None)."""
+    batch = fake_batch(ds)
+    jdet = jax_build(JEDict(copy.deepcopy(dict(model))), num_class=num_class,
+                     dataset=ds)
+    rngs = {k: jax.random.PRNGKey(i)
+            for i, k in enumerate(("params", "dropout", "sampling"))}
+
+    def jax_side():
+        b = {k: jnp.asarray(v) for k, v in batch.items()}
+        v = jdet.module.init(rngs, b, train=False)
+        if post:
+            jdet.post_process(jdet.module.apply(v, b, train=False))
+        return v
+
+    def torch_side():
+        det = torch_build(copy.deepcopy(model), num_class, ds, device="cpu")
+        if not forward:
+            return
+        with torch.no_grad():
+            out = det({k: torch.from_numpy(v) for k, v in batch.items()})
+            if post:
+                det.post_process(out)
+
+    got = []
+    for side in (lambda: jax.eval_shape(jax_side), torch_side):
+        try:
+            side()
+            got.append(None)
+        except Exception as e:      # noqa: BLE001 — compared below
+            got.append(e)
+    return tuple(got)
+
+
+def same_failure(jerr, terr):
+    """Both packages raised a KeyError naming the same key."""
+    assert isinstance(jerr, KeyError), repr(jerr)
+    assert isinstance(terr, KeyError), repr(terr)
+    assert jerr.args == terr.args, (jerr, terr)
+
+
 @pytest.mark.parametrize("yaml,drop", [
     ("kitti_models/PartA2", "VFE"), ("kitti_models/PartA2", "DENSE_HEAD"),
     ("kitti_models/pv_rcnn", "VFE"), ("kitti_models/second", "DENSE_HEAD")])
 def test_a_voxel_yaml_without_its_vfe_or_dense_head_is_refused(yaml, drop):
-    """Only a point backbone (PointNet2MSG) goes without a VFE, and only a
-    point head that gives the proposals (PointHeadBox, or the intra-part
-    head with REG_FC) without a dense head."""
-    model = cfg_from_yaml_file(f"tools/cfgs/{yaml}.yaml").MODEL
-    check_ported(model)
+    """Neither package reads MODEL.NAME or requires a VFE or a dense head:
+    both build these yamls without the key, and the forward fails where
+    the reference's does, with its KeyError. Without a VFE nothing is
+    voxelized and the voxel backbones find no ``voxel_features``; Part-A2
+    without its dense head has no proposals for its ROI head
+    (``batch_cls_preds``); SECOND without its dense head runs its forward
+    and has nothing to post-process (``batch_cls_preds``, raised by
+    post_process)."""
+    cfg = cfg_from_yaml_file(f"tools/cfgs/{yaml}.yaml")
+    model = copy.deepcopy(cfg.MODEL)
     del model[drop]
-    with pytest.raises(NotImplementedError, match=drop):
-        check_ported(model)
+    jerr, terr = outcomes(model, yaml_dataset(cfg), len(cfg.CLASS_NAMES),
+                          post=True)
+    same_failure(jerr, terr)
+    assert terr.args == (("voxel_features",) if drop == "VFE"
+                         else ("batch_cls_preds",))
 
 
-def test_exactly_three_model_yamls_are_refused():
-    """No model yaml under tools/cfgs/ is refused any more (the three
-    MPPNet yamls were the last, until item 15.8)."""
+# MODEL's module keys and the registries of each package
+MODULE_KEYS = ("VFE", "BACKBONE_3D", "MAP_TO_BEV", "BACKBONE_2D",
+               "DENSE_HEAD", "PFE", "ROI_HEAD", "IMAGE_BACKBONE", "NECK",
+               "VTRANSFORM", "FUSER")
+
+
+def registries(pkg):
+    """MODEL key -> the module NAMEs a package's registry holds (the port
+    folds MeanVFE into its voxelizer and holds it in no registry)."""
+    from importlib import import_module
+
+    mods = {"VFE": ("vfe", "VFE_REGISTRY"),
+            "BACKBONE_3D": ("backbones_3d", "BACKBONE_3D_REGISTRY"),
+            "MAP_TO_BEV": ("backbones_2d", "MAP_TO_BEV_REGISTRY"),
+            "BACKBONE_2D": ("backbones_2d", "BACKBONE_2D_REGISTRY"),
+            "DENSE_HEAD": ("dense_heads", "DENSE_HEAD_REGISTRY"),
+            "PFE": ("pfe", "PFE_REGISTRY"),
+            "ROI_HEAD": ("roi_heads", "ROI_HEAD_REGISTRY"),
+            "IMAGE_BACKBONE": ("backbones_image", "IMAGE_BACKBONE_REGISTRY"),
+            "NECK": ("backbones_image", "NECK_REGISTRY"),
+            "VTRANSFORM": ("view_transforms", "VTRANSFORM_REGISTRY"),
+            "FUSER": ("backbones_2d.fuser", "FUSER_REGISTRY")}
+    base = pkg.__name__.rsplit(".", 1)[0]
+    out = {k: set(getattr(import_module(f"{base}.{m}"), r))
+           for k, (m, r) in mods.items()}
+    out["VFE"].add("MeanVFE")
+    return out
+
+
+def test_every_model_yaml_names_only_registered_modules():
+    """The port refuses a yaml only where a module NAME is outside its
+    registry (the registry's KeyError, as in the JAX package), and every
+    model yaml under tools/cfgs/ names registered modules only, in both
+    packages' registries, which hold the same names."""
+    port, ref = registries(tdetectors), registries(jdetectors)
+    assert port == ref
     refused = []
     for path in sorted(glob.glob("tools/cfgs/*_models/*.yaml")):
         if "seeker" in os.path.basename(path):
             continue
-        try:
-            check_ported(cfg_from_yaml_file(path).MODEL)
-        except NotImplementedError:
+        model = cfg_from_yaml_file(path).MODEL
+        if any(model[k]["NAME"] not in port[k]
+               for k in MODULE_KEYS if k in model):
             refused.append(path[len("tools/cfgs/"):-len(".yaml")])
     assert tuple(refused) == tuple(sorted(REFUSED))
     for yaml in YAMLS + PORTED_SINCE:
-        check_ported(cfg_from_yaml_file(f"tools/cfgs/{yaml}.yaml").MODEL)
+        assert os.path.exists(f"tools/cfgs/{yaml}.yaml")

@@ -7,7 +7,9 @@ features), the decoded detections, and the training loss with its tb,
 the ROI sampling's draws handed to the port (the JAX heads' sampling key
 pinned, as tests/test_torch_roi_heads.py does). Then every two-stage yaml
 of tools/cfgs/ builds through the port's build_network at full width
-(nothing run), while the yamls of later items still raise naming theirs.
+(nothing run), and a two-stage yaml builds under any detector name, as
+in the JAX package, which never reads MODEL.NAME: PV-RCNN renamed
+"SECONDNet" or a name in no registry gives the JAX package's detections.
 
 The models and data are tests/test_{second_iou,voxelrcnn,pvrcnn,
 pvrcnn_plusplus}_e2e.py's, whose `slow` mark keeps them out of tier-1:
@@ -49,7 +51,6 @@ import bench
 import flax
 from findnpropagate_torch.config import cfg_from_yaml_file
 from findnpropagate_torch.models import build_network as torch_build
-from findnpropagate_torch.models.detectors.detector3d import check_ported
 from findnpropagate_torch.models.roi_heads import (
     ROI_HEAD_REGISTRY as TORCH_ROI_HEADS,
 )
@@ -340,9 +341,20 @@ def test_later_two_stage_yamls_raise_with_their_item(yaml):
 @pytest.mark.parametrize("head,item", [("MPPNetHead", "15.8"),
                                        ("MPPNetHeadE2E", "15.8")])
 def test_later_roi_heads_raise_with_their_item(head, item):
-    """The MPPNet heads, ported by item 15.8, build from their yamls'
-    ROI_HEAD and are refused under another detector's NAME (item 15), as
-    their own detectors refuse another ROI head."""
+    """The MPPNet heads (item 15.8) build from their yamls' ROI_HEAD. Put
+    into another detector's yaml, an MPPNet head fails as in the JAX
+    package, with the KeyError of the ``Transformer`` section that yaml's
+    ROI_HEAD lacks; an MPPNet yaml given another ROI head fails in both
+    packages with a KeyError of a section its ROI_HEAD lacks (the JAX
+    forward reads ``NMS_CONFIG`` first, the port's VoxelRCNNHead its
+    ``ROI_GRID_POOL.FEATURES_SOURCE`` when built). Neither package reads
+    MODEL.NAME."""
+    from test_torch_parta2_pointrcnn import (
+        outcomes,
+        same_failure,
+        yaml_dataset as point_dataset,
+    )
+
     yaml = "mppnet_4frames" if head == "MPPNetHead" \
         else "mppnet_e2e_memorybank_inference"
     roi = cfg_from_yaml_file(f"tools/cfgs/waymo_models/{yaml}.yaml") \
@@ -356,23 +368,110 @@ def test_later_roi_heads_raise_with_their_item(head, item):
     cfg = cfg_from_yaml_file("tools/cfgs/kitti_models/voxel_rcnn_car.yaml")
     m = copy.deepcopy(cfg.MODEL)
     m.ROI_HEAD.NAME = head
-    with pytest.raises(NotImplementedError,
-                       match=f"ROI_HEAD '{head}'.*item 15"):
-        torch_build(m, len(cfg.CLASS_NAMES), yaml_dataset(cfg),
-                    device="cpu")
-    mp = copy.deepcopy(cfg_from_yaml_file(
-        f"tools/cfgs/waymo_models/{yaml}.yaml").MODEL)
+    jerr, terr = outcomes(m, yaml_dataset(cfg), len(cfg.CLASS_NAMES))
+    same_failure(jerr, terr)
+    assert terr.args == ("Transformer",)
+    mcfg = cfg_from_yaml_file(f"tools/cfgs/waymo_models/{yaml}.yaml")
+    mp = copy.deepcopy(mcfg.MODEL)
     mp.ROI_HEAD.NAME = "VoxelRCNNHead"
-    with pytest.raises(NotImplementedError, match="item 15"):
-        check_ported(mp)
+    # the E2E yaml's CenterPoint first stage dropped: its ROI_HEAD is what
+    # is swapped, and the JAX trace of the Waymo first stage takes ~50 s
+    for k in ("VFE", "BACKBONE_3D", "MAP_TO_BEV", "BACKBONE_2D",
+              "DENSE_HEAD"):
+        mp.pop(k, None)
+    jerr, terr = outcomes(mp, point_dataset(mcfg), len(mcfg.CLASS_NAMES))
+    assert isinstance(jerr, KeyError) and jerr.args == ("NMS_CONFIG",)
+    assert isinstance(terr, KeyError) and terr.args == ("FEATURES_SOURCE",)
+    assert "NMS_CONFIG" not in mp.ROI_HEAD
+    assert "FEATURES_SOURCE" not in mp.ROI_HEAD.get("ROI_GRID_POOL", {})
 
 
 def test_two_stage_parts_need_a_two_stage_detector():
-    """A PFE or ROI head under a one-stage detector's NAME is refused, as
-    the reference builds no such topology in the port's registries."""
+    """A PFE, point head and ROI head build under a one-stage detector's
+    NAME, as in the JAX package, whose build never reads MODEL.NAME:
+    kitti_models/pv_rcnn.yaml renamed "SECONDNet" builds in both packages
+    at full width, with every part of PV-RCNN, and the JAX eval forward
+    runs (traced); test_renamed_pvrcnn_matches_jax runs the port's forward
+    and holds its detections at narrow width."""
+    from test_torch_parta2_pointrcnn import outcomes
+
     cfg = cfg_from_yaml_file("tools/cfgs/kitti_models/pv_rcnn.yaml")
     m = copy.deepcopy(cfg.MODEL)
     m.NAME = "SECONDNet"
-    with pytest.raises(NotImplementedError, match="item 15"):
-        torch_build(m, len(cfg.CLASS_NAMES), yaml_dataset(cfg),
-                    device="cpu")
+    assert outcomes(m, yaml_dataset(cfg), len(cfg.CLASS_NAMES),
+                    forward=False) == (None, None)
+    det = torch_build(m, len(cfg.CLASS_NAMES), yaml_dataset(cfg),
+                      device="cpu")
+    assert type(det.pfe).__name__ == cfg.MODEL.PFE.NAME
+    assert type(det.point_head).__name__ == cfg.MODEL.POINT_HEAD.NAME
+    assert type(det.roi_head).__name__ == cfg.MODEL.ROI_HEAD.NAME
+
+
+# the narrow PV-RCNN of tests/test_pvrcnn_e2e.py under a one-stage
+# detector's NAME and under a NAME in no registry
+RENAMED = ("SECONDNet", "NoSuchDetector")
+
+
+def decode_inputs(out):
+    """The second stage's outputs as both post_process take them, its
+    logits rounded to 1/16 (test_detections_match_jax)."""
+    q = {k: np.asarray(out[k]) for k in ("batch_cls_preds",
+                                         "batch_box_preds",
+                                         "batch_roi_labels", "roi_valid")}
+    q["batch_cls_preds"] = np.round(q["batch_cls_preds"] * 16) / 16
+    q["rcnn_iou"] = q["batch_cls_preds"]
+    return q
+
+
+@pytest.mark.parametrize("name", RENAMED)
+def test_renamed_pvrcnn_matches_jax(name):
+    """Fault 3.1 closed: the narrow PV-RCNN renamed builds in both packages
+    (the JAX weights carried across by from_jax_variables) and one eval
+    forward gives the same detections, both first stages' scores rounded
+    as in `detectors`: counts and labels exact, boxes and scores 1e-5
+    (test_detections_match_jax's tolerances), the ROIs 1e-4
+    (test_forward_matches_jax's)."""
+    model = dict(copy.deepcopy(PV_MODEL), NAME=name)
+    ds, _, _ = build_dataloader(JEDict(copy.deepcopy(PV_DATA)),
+                                list(CLASSES), batch_size=B, training=True,
+                                prefetch=0)
+    batch = ds.collate_batch([ds[i] for i in range(B)])
+    batch = {k: v for k, v in batch.items() if isinstance(v, np.ndarray)}
+    jdet = jax_build(JEDict(copy.deepcopy(model)), num_class=len(CLASSES),
+                     dataset=ds)
+    variables = jax.tree.map(np.asarray, bench._random_variables(jdet,
+                                                                 batch))
+
+    def forward(v, b):
+        out = jdet.apply(v, b, train=False)
+        return {k: out[k] for k in ("rois", "batch_cls_preds",
+                                    "batch_box_preds", "batch_roi_labels",
+                                    "roi_valid")}
+
+    with jax.default_matmul_precision("highest"), \
+            flax.linen.intercept_methods(jax_round_stage1):
+        out = jax.tree.map(np.asarray, jax.jit(forward)(
+            variables, {k: jnp.asarray(v) for k, v in batch.items()}))
+    want = jdet.post_process({k: jnp.asarray(v)
+                              for k, v in decode_inputs(out).items()})
+    tdet = torch_build(copy.deepcopy(model), num_class=len(CLASSES),
+                       dataset=ds, device="cpu")
+    from_jax_variables(variables, tdet)
+    tdet.dense_head.register_forward_hook(torch_round_stage1)
+    with torch.no_grad():
+        tout = tdet.eval()({k: torch.from_numpy(v)
+                            for k, v in batch.items()})
+        got = tdet.post_process({
+            k: torch.from_numpy(np.array(v)) for k, v in decode_inputs(
+                {k: v.numpy() for k, v in tout.items()
+                 if isinstance(v, torch.Tensor)}).items()})
+    np.testing.assert_allclose(tout["rois"].numpy(), out["rois"], rtol=1e-4,
+                               atol=1e-4)
+    for f in ("count", "labels"):
+        np.testing.assert_array_equal(getattr(got, f).numpy(),
+                                      np.asarray(getattr(want, f)))
+    for f in ("boxes", "scores"):
+        np.testing.assert_allclose(getattr(got, f).numpy(),
+                                   np.asarray(getattr(want, f)), rtol=1e-5,
+                                   atol=1e-5)
+    assert int(got.count.sum()) > 0
