@@ -99,6 +99,7 @@ from ...ops.sparse_ops import (
     yxz_sentinel_start,
 )
 from ...ops.windowed_sparse import windowed_conv, windowed_conv_diff
+from ...utils import trace
 from ..blocks import MaskedBatchNorm
 
 IMPLS = ("xla", "posgather", "pallas")
@@ -264,6 +265,7 @@ class _SparseStack(nn.Module):
 
     # ---- levels ----------------------------------------------------------
 
+    @trace.spanned("active_set")
     def _win_entry(self, coords, valid, feats, shape):
         block = self._win_cfg()[0]
         ids = yxz_linear_ids(coords, valid, shape)
@@ -388,17 +390,19 @@ class _SparseStack(nn.Module):
                 yxz_offset_deltas(kernel, m), self._win_cfg(lvl_i)[1],
                 yxz_sentinel_start(m), relu, valid, ovf_acc)
             return ("win", (ids, coords, valid, out), m)
-        w = wmod.dense_weight(a.dtype)
-        b = wmod.bias.to(a.dtype) if wmod.bias is not None else None
-        y = F.conv3d(a, w, b, padding=tuple((k - 1) // 2 for k in kernel))
-        return ("dense", _masked_bn_relu(y, m, bnmod, relu), m)
+        with trace.span("dense_conv"):
+            w = wmod.dense_weight(a.dtype)
+            b = wmod.bias.to(a.dtype) if wmod.bias is not None else None
+            y = F.conv3d(a, w, b,
+                         padding=tuple((k - 1) // 2 for k in kernel))
+            return ("dense", _masked_bn_relu(y, m, bnmod, relu), m)
 
     def _down(self, level, wmod, bnmod, out_shape, cap, ovf_acc,
               stride=(2, 2, 2), padding=(1, 1, 1), dense_out=False):
         kind, a, m = level
         kernel = wmod.kernel_size
         if kind == "sparse":
-            with torch.no_grad():
+            with torch.no_grad(), trace.span("active_set"):
                 oc, ov = downsample_active_set(a, out_shape, cap,
                                                kernel_size=kernel,
                                                stride=stride, padding=padding)
@@ -421,7 +425,7 @@ class _SparseStack(nn.Module):
                 # the dense occupancy grid is fastest at small batch and
                 # costs a grid per sample; the sort scales with the actives
                 ds = "dense" if coords.shape[0] <= 2 else "sort"
-            with torch.no_grad():
+            with torch.no_grad(), trace.span("active_set"):
                 oi, oc, ov = DOWNSAMPLE[ds](
                     coords, valid, in_shape, out_shape, cap,
                     kernel_size=kernel, stride=stride, padding=padding)
@@ -439,12 +443,14 @@ class _SparseStack(nn.Module):
             level = ("win", (oi, oc, ov, out), out_shape)
             return self._to_dense(level) \
                 if dense_out else level
-        w = wmod.dense_weight(a.dtype)
-        b = wmod.bias.to(a.dtype) if wmod.bias is not None else None
-        y = F.conv3d(a, w, b, stride=stride, padding=padding)
-        new_mask = F.max_pool3d(m[:, None].float(), kernel, stride,
-                                padding)[:, 0] > 0
-        return ("dense", _masked_bn_relu(y, new_mask, bnmod, True), new_mask)
+        with trace.span("dense_conv"):
+            w = wmod.dense_weight(a.dtype)
+            b = wmod.bias.to(a.dtype) if wmod.bias is not None else None
+            y = F.conv3d(a, w, b, stride=stride, padding=padding)
+            new_mask = F.max_pool3d(m[:, None].float(), kernel, stride,
+                                    padding)[:, 0] > 0
+            return ("dense", _masked_bn_relu(y, new_mask, bnmod, True),
+                    new_mask)
 
     def _blocks(self, stage, level, ovf_acc, ctx_cache):
         n_blocks = self.stage_blocks[stage]
@@ -529,7 +535,7 @@ class _SparseStack(nn.Module):
         if self.windowed:
             level = self._win_entry(coords, valid, feats, s1)
         else:
-            with torch.no_grad():
+            with torch.no_grad(), trace.span("active_set"):
                 grid = build_grid(coords, valid, s1)
             level = ("sparse", grid, feats.float())
         if dense_from <= 0:

@@ -30,6 +30,7 @@ from ...ops.lap import solve_lap
 from ...ops.rotated_iou import boxes_overlap_bev
 from ...parallel.mesh import all_sum
 from ...utils import losses as L
+from ...utils import trace
 from ..blocks import BN_EPS, BatchNorm1d, BatchNorm2d
 from ..model_utils.centernet import draw_heatmap, gaussian_radius
 from ..model_utils.transformer import TransformerDecoderLayer
@@ -241,6 +242,7 @@ class TransFusionHead(nn.Module):
             unk |= (labels0 + 1) == int(u)
         return unk
 
+    @trace.spanned("assign")
     def _assign(self, res, gt_boxes, gt_labels, gt_valid):
         """Hungarian assignment of the batch. res: detached head outputs
         (B, P, ...); gt_boxes (B, M, 7+), gt_labels (B, M) 0-indexed,

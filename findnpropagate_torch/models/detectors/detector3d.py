@@ -71,9 +71,13 @@ mode (`.train()`), where every BN uses and records batch statistics;
 `loss(batch, generator)` runs it so and returns the head's loss (a
 two-stage detector adds the ROI head's and the point head's) and its
 `tb` dictionary, with the sparse backbone's ``sparse_window_overflow``
-where there is one. The ROI sampling's uniform draws come from the
-generator, or from ``batch["roi_draws"]`` (B, NMS_POST_MAXSIZE) where the
-caller gives them (MPPNet's from ``batch["mppnet_draws"]``).
+where there is one. Under a profiler the forward records the spans of
+utils/trace.py: the root `forward` with the batch's scans, `voxelize` and
+each module by its attribute (STAGES, then the heads); `post_process`
+records `decode` and `loss` the loss's own part. The ROI sampling's
+uniform draws come from the generator, or from ``batch["roi_draws"]``
+(B, NMS_POST_MAXSIZE) where the caller gives them (MPPNet's from
+``batch["mppnet_draws"]``).
 
 As in the reference (`DetectorModule.setup` :92-243), the chain is built
 from the keys present in MODEL and MODEL.NAME is never read: every key is
@@ -91,6 +95,7 @@ import torch
 from torch import nn
 
 from ...ops.voxelize import voxelize, voxelize_mean
+from ...utils import trace
 from ..backbones_2d import BACKBONE_2D_REGISTRY, MAP_TO_BEV_REGISTRY
 from ..backbones_2d.fuser import FUSER_REGISTRY
 from ..backbones_3d import BACKBONE_3D_REGISTRY
@@ -121,6 +126,10 @@ POINT_HEADS = {"PointHeadSimple": PointHeadSimple,
 # the ROI heads of MPPNet (the offline head, whose loss is the model's) and
 # of MPPNetE2E
 MPPNET_HEADS = ("MPPNetHead", "MPPNetHeadE2E")
+# the modules of the forward before the dense head, in order, each run in a
+# span of its attribute's name (utils/trace.py)
+STAGES = ("vfe", "backbone_3d", "map_to_bev", "image_backbone", "neck",
+          "vtransform", "fuser", "backbone_2d")
 
 
 class RoIProposalStage(RoIHeadTemplate):
@@ -310,6 +319,7 @@ class DetectorModule(nn.Module):
             # the ROI head's whole config: its aux-loss switch too
             self.roi_loss, self.roi_loss_cfg = mppnet_loss, roi
 
+    @trace.spanned("voxelize")
     def _voxelize(self, batch):
         args = (batch["points"], batch["points_mask"], self.point_cloud_range,
                 self.voxel_size, self.grid_size, self.max_voxels,
@@ -328,26 +338,28 @@ class DetectorModule(nn.Module):
     def forward(self, batch, generator=None):
         """Gradients are kept in training mode only. generator: the
         torch.Generator of the head's dropout masks (training)."""
-        with torch.set_grad_enabled(self.training):
+        with torch.set_grad_enabled(self.training), \
+                trace.span("forward", scans=batch.get("points")):
             batch = dict(batch)
             if self.voxelized:
                 with torch.no_grad():
                     batch = self._voxelize(batch)
-            for mod in (self.vfe, self.backbone_3d, self.map_to_bev,
-                        self.image_backbone, self.neck, self.vtransform,
-                        self.fuser, self.backbone_2d):
-                if mod is not None:
-                    batch = mod(batch)
-            if self.dense_head is not None:
-                batch = self.dense_head(batch, generator)
-            if self.roi_proposal is not None:
-                batch = self.roi_proposal(batch, generator)
-            for mod in (self.pfe, self.point_head):
-                if mod is not None:
-                    batch = mod(batch)
-            if self.roi_head is not None:
-                batch = self.roi_head(batch, generator)
+            for name in STAGES:
+                batch = self._stage(name, batch)
+            batch = self._stage("dense_head", batch, generator)
+            batch = self._stage("roi_proposal", batch, generator)
+            batch = self._stage("pfe", batch)
+            batch = self._stage("point_head", batch)
+            return self._stage("roi_head", batch, generator)
+
+    def _stage(self, name, batch, *args):
+        """The module at attribute `name` on the batch, in a span of that
+        name; the batch as it is without one."""
+        mod = getattr(self, name)
+        if mod is None:
             return batch
+        with trace.span(name):
+            return mod(batch, *args)
 
     def compute_loss(self, out):
         """The dense head's loss (none without one: PointRCNN), CaDDN's
@@ -398,11 +410,13 @@ class DetectorModule(nn.Module):
         if not self.training:
             raise RuntimeError("loss() needs the module in training mode")
         out = self(batch, generator)
-        loss, tb = self.compute_loss(out)
+        with trace.span("loss"):
+            loss, tb = self.compute_loss(out)
         if "sparse_window_overflow" in out:
             tb["sparse_window_overflow"] = out["sparse_window_overflow"]
         return loss, tb
 
+    @trace.spanned("decode")
     @torch.no_grad()
     def post_process(self, out_batch, max_det: int = 256):
         """Detections of the head's outputs: a two-stage detector's

@@ -7,14 +7,18 @@ masked off into a dummy row that is dropped. `index_add` keeps the
 gradient (each point's gradient is its cell's). On CUDA the sums run as
 float32 atomics in no fixed order, so a cell's sum may differ from run to
 run and from the CPU's in its last bits: hold it to 1e-5 of the output's
-scale.
+scale. Under a profiler a call records the span `bev_pool`
+(utils/trace.py).
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..utils import trace
 
+
+@trace.spanned("bev_pool")
 def bev_pool(feats, coords, valid, nx: int, ny: int, nz: int):
     """feats (B, N, C); coords (B, N, 3) int (x, y, z) cells; valid (B, N).
     Returns (B, nz * C, ny, nx): z folded into the channels as z * C + c

@@ -21,7 +21,9 @@ Two kernels carry it (ops/csrc/posgather.cu):
 Each has a plain PyTorch version beside it (`compute_positions_plain`,
 `positions_plain`, `posgather_conv_plain`). A wrapper takes the plain
 version only for a tensor on the CPU; for a CUDA tensor it launches the
-kernel or raises. `LAUNCHES` counts kernel launches per wrapper.
+kernel or raises. `LAUNCHES` counts kernel launches per wrapper; under a
+profiler `compute_positions` and `posgather_conv` record the spans
+`positions` and `posgather_conv` (utils/trace.py).
 
 The prelude keeps the reference's window starts ``lo``, ``base``,
 ``has_real`` and the exact overflow count (a) union-window span > window
@@ -45,6 +47,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..utils import trace
 from . import _build
 
 ALIGN = 512
@@ -517,6 +520,7 @@ def compute_positions_plain(src_ids, tgt_ids, deltas27, block: int,
                           window=window)
 
 
+@trace.spanned("positions")
 def compute_positions(src_ids, tgt_ids, deltas27, block: int, window: int,
                       tap_window=None, sentinel_start=None) -> LevelPositions:
     """src_ids (B, Vs) / tgt_ids (B, Vt) sorted ascending int32,
@@ -569,6 +573,7 @@ def compute_positions(src_ids, tgt_ids, deltas27, block: int, window: int,
                           window=window)
 
 
+@trace.spanned("posgather_conv")
 def posgather_conv(src_ids, src_feats, tgt_ids, weights, lp: LevelPositions,
                    scale=None, shift=None, relu=False, sentinel_start=None):
     """One submanifold or strided conv over precomputed LevelPositions.

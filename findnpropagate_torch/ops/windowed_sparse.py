@@ -28,7 +28,9 @@ each counted; K3 sums the Cin slices of a Cout slice in its output buffer.
 Each has a plain PyTorch version beside it (`windowed_conv_plain`,
 `windowed_dw_plain`). A wrapper takes the plain version only for a tensor
 on the CPU; for a CUDA tensor it launches the kernel or raises. `LAUNCHES`
-counts kernel launches per wrapper.
+counts kernel launches per wrapper; under a profiler every K3 call (the
+forward and transposed convs alike) records the span `windowed_conv` and
+every `windowed_dw` the span `windowed_dw` (utils/trace.py).
 
 The window starts ``lo`` are computed exactly as the reference computes
 them, so a scene whose neighbour span overflows the window drops the same
@@ -54,6 +56,7 @@ import ctypes
 import numpy as np
 import torch
 
+from ..utils import trace
 from . import _build
 from .posgather import (
     CONV_SLICE,
@@ -468,6 +471,7 @@ def _host_centres(deltas, feats):
     return None
 
 
+@trace.spanned("windowed_conv")
 def _conv(src_ids, src_feats, tgt_ids, weights, deltas, block, window,
           compute_dtype=None, **epilogue):
     """K3 on unprepared lists; returns (out, (src_ids, tgt_ids, lo, window)
@@ -600,6 +604,7 @@ def dw_kernel(src_ids, feats, tgt_ids, g, lo, deltas, block: int,
     return dw[:, :cin, :cout]
 
 
+@trace.spanned("windowed_dw")
 def windowed_dw(src_ids, src_feats, tgt_ids, g, deltas, block: int = 512,
                 window: int = 1536, compute_dtype=None):
     """dW[k] = gathered_k(src -> tgt)^T @ g, same contract as the

@@ -7,7 +7,10 @@ the state lives where PyTorch keeps it — the parameters and BN buffers in
 the detector module, the moments and the update count in the `Optimizer`
 (runtime/optimization.py) — and a step is eager: forward in training mode,
 Hungarian targets, loss, backward, clip, update. Checkpoints go through
-`torch.save` as {step, model, optimizer}.
+`torch.save` as {step, model, optimizer}. Under a profiler the step
+records the spans of utils/trace.py: each microbatch's `forward`, `loss`
+(the head's Hungarian matching in `assign`) and `backward`, then the
+step's `optimizer`, each a root in the batch of the forward before it.
 
 The reference's mesh argument (one program over the batch sharded on a
 data mesh) becomes DDP: when a process group of more than one process is
@@ -36,6 +39,7 @@ import torch
 import torch.distributed as dist
 
 from ..parallel import mesh
+from ..utils import trace
 
 
 def _split(batch, accum_steps):
@@ -112,7 +116,8 @@ def make_train_step(detector, tx, seed: int = 17, accum_steps: int = 1):
                     or idx == len(micro) - 1 else wrapped.no_sync())
             with sync, mesh.global_batch():
                 loss, tb = (wrapped or detector.loss)(mb, gen)
-                (loss * (inv * world)).backward()
+                with trace.span("backward"):
+                    (loss * (inv * world)).backward()
             total = loss.detach() if total is None else total + loss.detach()
             for k, v in tb.items():
                 v = v.detach().float()
@@ -135,7 +140,8 @@ def make_train_step(detector, tx, seed: int = 17, accum_steps: int = 1):
                 ddp["module"] = wrapped = None
                 gc.collect()        # the first wrapper's autograd hooks go
                 ddp["module"] = _ddp(detector, False)
-        metrics["grad_norm"] = tx.step()
+        with trace.span("optimizer"):
+            metrics["grad_norm"] = tx.step()
         return metrics
 
     train_step.ddp = ddp
