@@ -7,7 +7,7 @@
 
 Phases (any failure exits non-zero and prints no result line):
   1. device — the card's name and power limit, torch/CUDA versions, and the
-     nvcc build of the kernels from findnpropagate_torch/ops/csrc/ (three
+     nvcc build of the kernels from findnpropagate_torch/ops/csrc/ (four
      sources, one nvcc each, in parallel) into build/kernels/ (with ptxas'
      register / shared-memory report; a register spill in any kernel fails
      the run);
@@ -49,9 +49,13 @@ Phases (any failure exits non-zero and prints no result line):
      tools/cfgs/nuscenes_models/transfusion_lidar.yaml at full width,
      random weights (init_random_, seed 0), 200k-point lidar_ring scenes,
      forward + post_process at each batch size: detections finite,
-     sparse_window_overflow == 0, 6 K1 and 16 K2 launches per forward;
-     ms/scan and scans/s (median of chained runs), actives per level, peak
-     memory;
+     sparse_window_overflow == 0, 6 K1, 16 K2 and 5 dense epilogue
+     launches per forward; ms/scan and scans/s (median of chained runs),
+     actives per level, peak memory; then the dense levels' epilogue
+     (ops/csrc/dense_epilogue.cu, `dense_epilogue_phase`) against its plain
+     version, torch.equal, at stage 4's and conv_out's maps at batch 4 in
+     bf16 and float32, ReLU and identity on and off, and at its corners
+     (ragged and unaligned maps, a 2D map), timed against its bound;
   4. reference — a narrow model on a cropped scene, on the card and on the
      CPU (plain versions, f32): same actives, outputs within bf16 error;
   5. training path — the same yaml at full width in training mode, batch 4
@@ -1350,13 +1354,17 @@ def forward_ms(torch, det, batch, reps):
 
 
 def run_main_path(torch, det, tp, batch, b, reps):
+    from findnpropagate_torch.ops import dense_epilogue as de
+
     tp.reset_launches()
+    de.reset_launches()
     out = det(batch)
     dets = det.post_process(out)
     torch.cuda.synchronize()
-    launches = dict(tp.LAUNCHES)
-    if launches != {"positions": 6, "posgather_conv": 16}:
-        raise AssertionError(f"batch {b}: launches {launches}, want 6/16")
+    launches = {**tp.LAUNCHES, **de.LAUNCHES}
+    if launches != {"positions": 6, "posgather_conv": 16,
+                    "dense_epilogue": 5}:
+        raise AssertionError(f"batch {b}: launches {launches}, want 6/16/5")
     ovf = int(out["sparse_window_overflow"])
     if ovf != 0:
         raise AssertionError(f"batch {b}: sparse_window_overflow {ovf}")
@@ -1375,6 +1383,98 @@ def run_main_path(torch, det, tp, batch, b, reps):
             "active_voxels_per_level": active,
             "detections_per_scan": [int(c) for c in dets.count],
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+DENSE_EPILOGUE_SHAPES = ((4, 128, 5, 180, 180), (4, 128, 2, 180, 180))
+# the vector path's ragged and unaligned corners, and a 2D map
+DENSE_EPILOGUE_CORNERS = ((2, 3, 3, 5, 7), (3, 16, 2, 180, 180),
+                          (2, 64, 188, 188))
+
+
+def dense_epilogue_inputs(torch, shape, dtype, seed):
+    """y (bf16 or float32), a mask of about 60 % true, scale, shift and an
+    identity, on the card."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    b, c, *sp = shape
+    y = (torch.randn(shape, generator=g, device="cuda") * 3).to(dtype)
+    m = torch.rand((b, *sp), generator=g, device="cuda") < 0.6
+    k = torch.rand(c, generator=g, device="cuda") * 2 + 0.1
+    s = torch.randn(c, generator=g, device="cuda")
+    ident = (torch.randn(shape, generator=g, device="cuda") * 2).to(dtype)
+    return y, m, k, s, ident
+
+
+def dense_epilogue_phase(torch, reps=20):
+    """The dense levels' epilogue (ops/csrc/dense_epilogue.cu) against its
+    plain version on the card, `torch.equal` (the sign of a zero aside),
+    at the main path's dense shapes (stage 4 and conv_out at batch 4) in
+    bf16 and float32, ReLU on and off, identity on and off, and at the
+    corners (a ragged spatial size, an unaligned map, a 2D map); each main
+    shape timed (CUDA events over `reps` launches in place) against its
+    bound, bytes / 3.35 TB/s, and the plain version's time."""
+    from findnpropagate_torch.ops import dense_epilogue as de
+
+    rows, seed = [], 0
+    cases = [(shape, dt, relu, ident, 0)
+             for shape in DENSE_EPILOGUE_SHAPES
+             for dt in (torch.bfloat16, torch.float32)
+             for relu in (True, False) for ident in (False, True)]
+    cases += [(shape, dt, True, True, off)
+              for shape in DENSE_EPILOGUE_CORNERS
+              for dt in (torch.bfloat16, torch.float32)
+              for off in (0, 1)]
+    for shape, dt, relu, ident, off in cases:
+        seed += 1
+        y, m, k, s, idt = dense_epilogue_inputs(torch, shape, dt, seed)
+        idt = idt if ident else None
+        want = de.dense_epilogue_plain(y.clone(), m, k, s, relu, idt)
+        # a copy of y `off` elements into its buffer (off 1: not aligned
+        # to 16 bytes, so the kernel runs one element a thread)
+        got = torch.empty(y.numel() + off, dtype=dt,
+                          device="cuda")[off:].view(y.shape).copy_(y)
+        de.reset_launches()
+        got = de.dense_epilogue(got, m, k, s, relu, idt)
+        torch.cuda.synchronize()
+        row = {"shape": list(shape), "dtype": str(dt).split(".")[-1],
+               "relu": relu, "identity": ident, "offset": off,
+               "equal": bool(torch.equal(got, want)),
+               "launches": de.LAUNCHES["dense_epilogue"]}
+        if not row["equal"]:
+            diff = (got.float() - want.float()).abs()
+            row["differ"] = int((diff > 0).sum())
+            raise AssertionError(f"dense epilogue differs: {row}")
+        if row["launches"] != 1:
+            raise AssertionError(f"dense epilogue launches: {row}")
+        del want, got
+        if off == 0 and shape in DENSE_EPILOGUE_SHAPES:
+            nbytes = y.numel() * y.element_size() * (3 if ident else 2) \
+                + m.numel()
+            row["bound_ms"] = nbytes / 3.35e12 * 1e3
+
+            def timed(fn, n):
+                fn()
+                t0 = torch.cuda.Event(enable_timing=True)
+                t1 = torch.cuda.Event(enable_timing=True)
+                t0.record()
+                for _ in range(n):
+                    fn()
+                t1.record()
+                torch.cuda.synchronize()
+                return t0.elapsed_time(t1) / n
+            row["ms"] = timed(
+                lambda: de.dense_epilogue(y, m, k, s, relu, idt), reps)
+            row["plain_ms"] = timed(
+                lambda: de.dense_epilogue_plain(y, m, k, s, relu, idt), 2)
+            row["roofline_pct"] = 100 * row["bound_ms"] / row["ms"]
+            log(f"dense epilogue {shape} {row['dtype']} relu={int(relu)} "
+                f"identity={int(ident)}: equal, {row['ms']:.4f} ms, bound "
+                f"{row['bound_ms']:.4f} ({row['roofline_pct']:.1f} %), "
+                f"plain {row['plain_ms']:.3f}")
+        rows.append(row)
+        del y, m, idt
+    torch.cuda.empty_cache()
+    log(f"dense epilogue: {len(rows)} cases equal to the plain version")
+    return rows
 
 
 def profile_forward(torch, det, batch, path):
@@ -9074,7 +9174,8 @@ def main():
         f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
     t0 = time.perf_counter()
-    sources = ["posgather", "windowed_sparse", "gather_probes"]
+    sources = ["posgather", "windowed_sparse", "gather_probes",
+               "dense_epilogue"]
     _build.build_all(sources)
     for name in sources:
         _build.load(name)
@@ -9146,6 +9247,8 @@ def main():
             f"{res['launches_per_forward']}, active/level "
             f"{res['active_voxels_per_level']}, peak "
             f"{res['peak_mem_gb']:.2f} GiB")
+
+    report["dense_epilogue"] = dense_epilogue_phase(torch)
 
     if args.before is not None:
         b = min(args.batches)

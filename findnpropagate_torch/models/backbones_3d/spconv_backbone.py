@@ -47,8 +47,10 @@ training, bias, padding mask, BN (batch statistics in training) and ReLU
 follow the conv. The strided active sets are built by
 ``DOWNSAMPLE_IMPL``: ``dense`` (occupancy grid), ``sort``, ``scatter``, or
 ``auto`` (dense at batch <= 2, sort above). Dense levels use F.conv3d, as
-the reference left them to XLA; ``DENSE_CHUNK`` runs the dense tail at
-eval over that many batch chunks (windowed mode, DENSE_FROM_LEVEL 2).
+the reference left them to XLA; at eval its mask, BN, the block's residual
+and ReLU are one fused pass in place (ops/dense_epilogue.py).
+``DENSE_CHUNK`` runs the dense tail at eval over that many batch chunks
+(windowed mode, DENSE_FROM_LEVEL 2).
 
 Outputs the four stages' levels as ``multi_scale_3d_features``
 (``x_conv1`` ... ``x_conv4``, each in its mode's form above, its active
@@ -76,6 +78,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...ops import sparse_ops
+from ...ops.dense_epilogue import dense_epilogue
 from ...ops.posgather import (
     compute_positions,
     posgather_conv,
@@ -111,17 +114,22 @@ def conv_out_dim(n, k, s, p):
     return (n + 2 * p - k) // s + 1
 
 
-def _masked_bn_relu(y, mask, bnmod, relu):
-    """A dense conv's tail: zero outside `mask`, masked BN, ReLU. Without
-    autograd (eval) it works in place on the conv's fresh output, so the
-    dense levels of a wide grid (ONCE / Custom PV-RCNN: 752 x 752 x 21
-    cells of 64 channels a sample at stride 4) hold one tensor, not four."""
-    if torch.is_grad_enabled():
-        y = torch.where(mask[:, None], y, torch.zeros_like(y))
-        y = bnmod(y, mask)
+def _dense_bn_act(y, mask, bnmod, relu, identity=None):
+    """A dense conv's tail: zero outside `mask`, masked BN, the residual
+    `identity` if given, ReLU (after the residual), zero outside `mask`
+    again. At eval without autograd it is the fused epilogue
+    (ops/dense_epilogue.py), in place on the conv's fresh output;
+    otherwise PyTorch's operations."""
+    if not (torch.is_grad_enabled() or bnmod.training):
+        scale, shift = bnmod.affine()
+        return dense_epilogue(y, mask, scale, shift, relu, identity)
+    m = mask[:, None]
+    y = bnmod(torch.where(m, y, torch.zeros_like(y)), mask)
+    if identity is None:
         return torch.relu(y) if relu else y
-    y = bnmod(y.masked_fill_(~mask[:, None], 0), mask, inplace=True)
-    return y.relu_() if relu else y
+    y = y + identity
+    y = torch.relu(y) if relu else y
+    return torch.where(m, y, torch.zeros_like(y))
 
 
 class SparseConvParam(nn.Module):
@@ -373,7 +381,10 @@ class _SparseStack(nn.Module):
                 return out
         return self._tail(out, wmod, bnmod, tgt_valid, relu)
 
-    def _subm(self, level, wmod, bnmod, ovf_acc, ctx_cache, relu=True):
+    def _subm(self, level, wmod, bnmod, ovf_acc, ctx_cache, relu=True,
+              identity=None):
+        """One submanifold conv + BN (+ReLU). `identity`: a dense level's
+        residual, added before the ReLU."""
         kind, a, m = level
         kernel = wmod.kernel_size
         if kind == "sparse":
@@ -395,7 +406,7 @@ class _SparseStack(nn.Module):
             b = wmod.bias.to(a.dtype) if wmod.bias is not None else None
             y = F.conv3d(a, w, b,
                          padding=tuple((k - 1) // 2 for k in kernel))
-            return ("dense", _masked_bn_relu(y, m, bnmod, relu), m)
+            return ("dense", _dense_bn_act(y, m, bnmod, relu, identity), m)
 
     def _down(self, level, wmod, bnmod, out_shape, cap, ovf_acc,
               stride=(2, 2, 2), padding=(1, 1, 1), dense_out=False):
@@ -449,7 +460,7 @@ class _SparseStack(nn.Module):
             y = F.conv3d(a, w, b, stride=stride, padding=padding)
             new_mask = F.max_pool3d(m[:, None].float(), kernel, stride,
                                     padding)[:, 0] > 0
-            return ("dense", _masked_bn_relu(y, new_mask, bnmod, True),
+            return ("dense", _dense_bn_act(y, new_mask, bnmod, True),
                     new_mask)
 
     def _blocks(self, stage, level, ovf_acc, ctx_cache):
@@ -469,10 +480,13 @@ class _SparseStack(nn.Module):
                                                     "_conv1"),
                                getattr(self, f"blocks{stage}_res{blk}_bn1"),
                                ovf_acc, ctx_cache)
+            # a dense level's residual and ReLU are the conv's tail
+            dense = kind == "dense"
             level = self._subm(level, getattr(self, f"blocks{stage}_res{blk}"
                                                     "_conv2"),
                                getattr(self, f"blocks{stage}_res{blk}_bn2"),
-                               ovf_acc, ctx_cache, relu=False)
+                               ovf_acc, ctx_cache, relu=dense,
+                               identity=identity if dense else None)
             kind, a, m = level
             if kind == "win":
                 ids, coords, valid, feats = a
@@ -484,14 +498,6 @@ class _SparseStack(nn.Module):
                 out = torch.relu(m + identity)
                 level = ("sparse", a, torch.where(
                     a.valid[..., None], out, torch.zeros_like(out)))
-            else:
-                if torch.is_grad_enabled():
-                    out = torch.relu(a + identity)
-                    out = torch.where(m[:, None], out, torch.zeros_like(out))
-                else:   # a is the block's own fresh output
-                    out = a.add_(identity).relu_().masked_fill_(
-                        ~m[:, None], 0)
-                level = ("dense", out, m)
         return level
 
     def _dense_tail(self, level, ovf_acc, ctx_cache, dense_from):

@@ -60,8 +60,9 @@ class MaskedBatchNorm(nn.Module):
     """BatchNorm over the valid cells only, zero elsewhere, cast back to
     x's dtype (bf16 dense levels stay bf16). Eval: y = x * scale' + shift'
     (`affine`); sparse eval levels fold `affine()` into the conv kernel's
-    epilogue instead. Training: mean and biased variance over the valid
-    cells of the batch, and the running averages updated with them."""
+    epilogue instead, dense eval levels into ops/dense_epilogue.py.
+    Training: mean and biased variance over the valid cells of the batch,
+    and the running averages updated with them."""
 
     def __init__(self, features: int, eps: float = BN_EPS):
         super().__init__()
@@ -76,10 +77,9 @@ class MaskedBatchNorm(nn.Module):
         k = torch.rsqrt(self.var + self.eps) * self.scale
         return k, self.bias - self.mean * k
 
-    def forward(self, x, valid, channels_last=False, inplace=False):
+    def forward(self, x, valid, channels_last=False):
         """x (B, C, *spatial) with valid (B, *spatial) bool, or, with
-        channels_last, x (B, V, C) with valid (B, V). `inplace` (eval, no
-        autograd): a float32 x is overwritten with the result."""
+        channels_last, x (B, V, C) with valid (B, V)."""
         cdim = x.ndim - 1 if channels_last else 1
         shape = [1] * x.ndim
         shape[cdim] = -1
@@ -100,9 +100,6 @@ class MaskedBatchNorm(nn.Module):
                 + self.bias.view(shape)
         else:
             k, s = self.affine()
-            if inplace and x.dtype == torch.float32 and not self.training:
-                return x.mul_(k.view(shape)).add_(s.view(shape)) \
-                    .masked_fill_(~m, 0)
             y = x.float() * k.view(shape) + s.view(shape)
         return torch.where(m, y, torch.zeros_like(y)).to(x.dtype)
 

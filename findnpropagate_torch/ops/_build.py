@@ -6,8 +6,9 @@ Each ``csrc/<name>.cu`` is compiled at first use for ``sm_90a`` into
 (listed in .gitignore); the hash covers the source and every header under
 ``csrc/`` that it includes, so a change to any of them is rebuilt and
 unchanged sources are reused. `build_all` starts one nvcc per source at once and waits for
-all. Nothing here runs at import time: this module imports on machines
-without nvcc or a GPU.
+all; the first `load` of a source of the main path's forward builds all
+of `MAIN_PATH` so. Nothing here runs at import time: this module imports
+on machines without nvcc or a GPU.
 """
 
 from __future__ import annotations
@@ -25,6 +26,10 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+# the sources one forward of the main path loads (K1 / K2, then the dense
+# levels' epilogue)
+MAIN_PATH = ("posgather", "dense_epilogue")
 
 _LIBS: dict = {}
 BUILD_SECONDS: dict = {}   # name -> seconds its nvcc took in this process
@@ -116,7 +121,7 @@ def build_all(names):
 def load(name):
     """The ctypes library for ``csrc/<name>.cu``, built if needed."""
     if name not in _LIBS:
-        build_all([name])
+        build_all(MAIN_PATH if name in MAIN_PATH else [name])
         _LIBS[name] = ctypes.CDLL(str(_target(name)[1]))
     return _LIBS[name]
 

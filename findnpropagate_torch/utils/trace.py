@@ -24,7 +24,8 @@ The spans (callers in brackets):
   point_head, roi_head
                  the detector's stages, named by attribute;
   active_set     building a level's sorted active set (the sparse backbone);
-  dense_conv     a dense level's F.conv3d with its masked BN;
+  dense_conv     a dense level's F.conv3d with its mask, BN, residual and
+                 ReLU (at eval inside it: dense_epilogue, the fused tail);
   positions, posgather_conv, windowed_conv, windowed_dw
                  the K1-K4 wrappers;
   bev_pool       the LSS splat;
